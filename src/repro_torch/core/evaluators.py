@@ -1,0 +1,203 @@
+"""Experiment Unit backend (paper §3.1/§3.4): the analytic *test cluster*.
+
+:class:`AnalyticEvaluator` is the closed-form cost model corrupted with
+multiplicative log-normal noise (σ = 2.5 %, the paper's measured benchmark
+deviation).  Milliseconds per call; used for the 300-sample ranking phase
+and every optimizer comparison.  It returns *step seconds* (lower is
+better).
+
+The noise is host work, like the cost model it corrupts, and reproduces
+the JAX reference's stream: one standard normal per evaluation, drawn by
+``jax.random.normal`` from raw threefry key words built from a blake2s
+digest of (config, salt).  :func:`threefry_bits` and :func:`std_normal`
+rebuild that draw in numpy (threefry2x32 with 20 rounds, the
+bits→uniform→normal transform), so every seeded ``(config, seed)`` probe
+matches the reference to float32 rounding.
+
+Batch protocol: ``evaluate_batch(configs) -> np.ndarray`` scores n configs
+at once with per-row noise keys, reproducing n sequential ``__call__``\\ s.
+The product-cluster ``CompiledEvaluator`` of the reference is not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+from scipy.special import erfinv
+
+from repro_torch.core.costmodel import (SINGLE_POD, CostBreakdown, Hardware,
+                                        MeshShape, V5E, estimate)
+from repro_torch.core.space import Config
+from repro_torch.models.config import ModelConfig, ShapeCell
+
+
+def _trim_history(history: list, cap: Optional[int]):
+    """Ring-buffer semantics on a plain list: keep the newest ``cap``
+    records.  ``cap=None`` keeps everything."""
+    if cap is not None and len(history) > cap:
+        del history[:len(history) - cap]
+
+
+def _stable_seed(cfg: Config, salt) -> int:
+    """Noise is i.i.d. per *evaluation*, not per config.  ``salt`` is the
+    call-indexed int for unseeded evaluations, or the ``"seed:<n>"`` tag
+    for request-seeded ones (the two streams stay disjoint)."""
+    s = json.dumps({k: str(v) for k, v in sorted(cfg.items())}, sort_keys=True)
+    h = hashlib.blake2s(f"{s}|{salt}".encode()).digest()[:8]
+    return int.from_bytes(h, "little") >> 1      # 63-bit
+
+
+def _noise_salt(seed: Optional[int], call_salt: int):
+    """A seeded request draws from the seed-pinned stream; an unseeded one
+    keeps the call-indexed stream."""
+    return call_salt if seed is None else f"seed:{seed}"
+
+
+def _key_data(seed: int) -> np.ndarray:
+    """Raw threefry key words ``[hi, lo]`` for a 63-bit seed."""
+    return np.array([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+
+
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(v: np.ndarray, r: int) -> np.ndarray:
+    return (v << np.uint32(r)) | (v >> np.uint32(32 - r))
+
+
+def threefry_bits(keys: np.ndarray) -> np.ndarray:
+    """uint32 [n] — the 32 random bits ``jax.random.bits`` draws for a
+    scalar from each raw key ``keys[i] = [k0, k1]`` (threefry2x32, 20
+    rounds, counter (0, 0) under partitionable threefry; the two output
+    words are xor-folded)."""
+    keys = np.asarray(keys, np.uint32).reshape(-1, 2)
+    k0, k1 = keys[:, 0], keys[:, 1]
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+    with np.errstate(over="ignore"):
+        x0 = np.zeros_like(k0) + ks[0]
+        x1 = np.zeros_like(k1) + ks[1]
+        for i in range(5):
+            for r in _ROTATIONS[i % 2]:
+                x0 = x0 + x1
+                x1 = _rotl(x1, r) ^ x0
+            x0 = x0 + ks[(i + 1) % 3]
+            x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0 ^ x1
+
+
+_NORMAL_LO = np.nextafter(np.float32(-1.0), np.float32(0.0))
+
+
+def std_normal(keys: np.ndarray) -> np.ndarray:
+    """float32 [n] — ``jax.random.normal(key)`` for each raw key row: the
+    mantissa-fill uniform on [nextafter(-1, 0), 1), then √2·erfinv.
+    erfinv is taken in float64 and rounded, which agrees with XLA's
+    float32 polynomial to ~2e-5."""
+    bits = threefry_bits(keys)
+    one = np.float32(1.0)
+    u = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) \
+        - one
+    span = one - _NORMAL_LO                    # rounds to 2.0 in float32
+    u = np.maximum(_NORMAL_LO, u * span + _NORMAL_LO)
+    z = erfinv(u.astype(np.float64)).astype(np.float32)
+    return np.float32(np.sqrt(2.0)) * z
+
+
+def _lognoise(keys: np.ndarray, sigma: float) -> np.ndarray:
+    """exp(σ·z) in float32 with one independent standard normal per row."""
+    return np.exp(np.float32(sigma) * std_normal(keys))
+
+
+@dataclass
+class AnalyticEvaluator:
+    model_cfg: ModelConfig
+    cell: ShapeCell
+    mesh: MeshShape = SINGLE_POD
+    hw: Hardware = V5E
+    noise_sigma: float = 0.025          # paper: ±2.5 % benchmark deviation
+    seed: int = 0
+    history_cap: Optional[int] = None   # keep-all by default (tests); async
+                                        # runs cap the record ring buffer
+    calls: int = 0
+    history: list = field(default_factory=list)
+
+    def breakdown(self, knobs: Config) -> CostBreakdown:
+        return estimate(self.model_cfg, self.cell, self.mesh, knobs, self.hw)
+
+    def true_step(self, knobs: Config) -> float:
+        """Noise-free objective (tests / regret reporting only)."""
+        return self.breakdown(knobs).step_s
+
+    def _record(self, knobs: Config, bd: CostBreakdown, step: float):
+        self.history.append({"knobs": dict(knobs), "step_s": step,
+                             "true_step_s": bd.step_s,
+                             "feasible": bd.feasible})
+        _trim_history(self.history, self.history_cap)
+
+    # the evaluation-service layer passes per-request seeds through the
+    # batched path when this attribute is set (see service._score_batch)
+    accepts_seeds = True
+
+    def __call__(self, knobs: Config, seed: Optional[int] = None) -> float:
+        bd = self.breakdown(knobs)
+        self.calls += 1
+        noise = 1.0
+        if self.noise_sigma > 0:
+            salt = _noise_salt(seed, self.seed + self.calls)
+            keys = _key_data(_stable_seed(knobs, salt))
+            noise = float(_lognoise(keys[None], self.noise_sigma)[0])
+        step = bd.step_s * noise
+        self._record(knobs, bd, step)
+        return step
+
+    def evaluate_batch_detailed(
+            self, configs: Sequence[Config],
+            seeds: Optional[Sequence[Optional[int]]] = None,
+    ) -> Tuple[np.ndarray, List[CostBreakdown]]:
+        """Score n configs in one shot, returning the per-config cost
+        breakdowns alongside the noisy step times.  Same noise stream as n
+        sequential ``__call__``\\ s; a per-row entry in ``seeds`` pins that
+        row to the seed's noise stream instead."""
+        cfgs = list(configs)
+        if seeds is None:
+            seeds = [None] * len(cfgs)
+        if not cfgs:
+            return np.zeros(0, np.float64), []
+        bds = [self.breakdown(c) for c in cfgs]
+        base = self.calls
+        self.calls += len(cfgs)
+        steps = np.asarray([bd.step_s for bd in bds], np.float64)
+        if self.noise_sigma > 0:
+            keys = np.stack([
+                _key_data(_stable_seed(
+                    c, _noise_salt(s, self.seed + base + i + 1)))
+                for i, (c, s) in enumerate(zip(cfgs, seeds))])
+            steps = steps * _lognoise(keys, self.noise_sigma).astype(
+                np.float64)
+        for c, bd, s in zip(cfgs, bds, steps):
+            self._record(c, bd, float(s))
+        return steps, bds
+
+    def evaluate_batch(self, configs: Sequence[Config]) -> np.ndarray:
+        return self.evaluate_batch_detailed(configs)[0]
+
+
+def evaluate_many(evaluate, configs: Sequence[Config]) -> List[float]:
+    """Batch-or-loop shim, delegated through the evaluation-service layer
+    (:class:`repro_torch.core.service.CallableServiceAdapter`).  A failed
+    evaluation raises instead of returning a failed result."""
+    from repro_torch.core.service import CallableServiceAdapter, EvalRequest
+
+    svc = CallableServiceAdapter(evaluate)
+    results = svc.gather(svc.submit([EvalRequest(c) for c in configs]))
+    failed = [r for r in results if not r.ok]
+    if failed:
+        raise RuntimeError(
+            f"{len(failed)}/{len(results)} evaluations failed; first: "
+            f"{failed[0].error}") from failed[0].exception
+    return [float(r.value) for r in results]

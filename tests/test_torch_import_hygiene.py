@@ -1,0 +1,46 @@
+"""The port imports neither JAX nor the JAX package, in any module."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+names = sorted(m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch."))
+for name in names:
+    importlib.import_module(name)
+import runpy
+runpy.run_path(sys.argv[1], run_name="chip_smoke")   # defines, runs nothing
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "repro") or m.startswith(
+                 ("jax.", "jaxlib.", "repro.")))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE, str(ROOT / "chip_smoke.py")],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    # every module of the slice was imported, and nothing of JAX came along
+    for mod in ("repro_torch.core.tuner", "repro_torch.core.gp",
+                "repro_torch.core.lasso", "repro_torch.core.evaluators",
+                "repro_torch.kernels.gp_gram.ops", "repro_torch.__main__"):
+        assert mod in res["modules"]
+    assert res["bad"] == []
+
+
+def test_port_core_does_not_import_faults():
+    """``core/faults.py`` is not ported; the package init must not need it."""
+    assert not (ROOT / "src" / "repro_torch" / "core" / "faults.py").exists()
+    init = (ROOT / "src" / "repro_torch" / "core" / "__init__.py").read_text()
+    assert "faults import" not in init
