@@ -16,9 +16,31 @@ Phases (any failure exits non-zero before the result line):
    stage alone on the CPU must pick the same top-16 set.
 4. profile: one GP fit + q-EI selection at the main path's shapes under
    ``torch.profiler``: device busy time against wall time.
+5. flash kernel: hold ``kernels/flash_attention`` against its plain-torch
+   version over the reference's ``FLASH_CASES`` (atol 2e-5 in float32,
+   2e-2 in bfloat16), at yi-6b's prefill shape (B=2, S=4096, H=32, Kh=4,
+   D=128, causal, bf16) and at the ``prefill_32k`` shape (B=1, S=32768,
+   the heads of the first and last KV groups), each within relative L2
+   1e-2 (a planted dropped-tile fault, emulated with the plain version,
+   must land above it).  At the prefill shape it is timed beside the
+   plain version and ``scaled_dot_product_attention`` (the yardstick,
+   never called by the port), with its bound.
+6. serving path, prefill: ``Model(yi-6b, full width).prefill`` with
+   ``attention_impl="flash"`` at B=2, S=4096 against the same prefill
+   under ``"reference"`` (and ``"chunked"``, the reference's own
+   flash stand-in): last-token logits within relative L2 0.1 with bf16
+   weights, within atol 1e-3 with float32 weights; exactly 32 flash
+   launches per flash prefill and none otherwise; 16 greedy
+   ``decode_step``s; then the ``prefill_32k`` cell at one card's share
+   (B=1, S=32768; S=16384 when the kernel's measured time projects the
+   32k prefill past 150 s): tokens/s and the flash kernel's share of
+   device time.
+7. serving path, engine: ``python -m repro_torch.launch.serve --arch yi-6b
+   --full --device cuda`` with its default traffic (12 requests).
 
-The line before the last is ``{"kernels": [...]}`` with each kernel's
-launches, error, times and bound; the last line is
+Both kernels are built at the start of phase 2, one ``nvcc`` each, started
+together.  The line before the last is ``{"kernels": [...]}`` with each
+kernel's launches, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -39,8 +61,36 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
 ATOL = 2e-4                    # the reference's gp_gram test tolerance
 
+BF16_FLOPS_PER_S = 989e12      # H100 SXM, dense bf16 tensor cores
+
 GRAM_SOURCE = "src/repro_torch/kernels/gp_gram/csrc/gp_gram.cu"
 GRAM_REPLACES = "src/repro/kernels/gp_gram/kernel.py:45"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:103"
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
+# at the path's shapes (bf16 outputs that average over up to S keys, ~0.03
+# in size) the reference's per-element atol is loose: the kernel is held to
+# a relative L2 error of the whole output, between its measured error and
+# that of a planted fault (one 64-key tile dropped from every row)
+FLASH_REL_L2 = 1e-2
+# the reference's FLASH_CASES: (B, Sq, Sk, H, Kh, D, causal, window, softcap)
+FLASH_CASES = [(2, 256, 256, 4, 2, 64, True, None, None),
+               (1, 128, 384, 8, 8, 128, True, None, 30.0),
+               (2, 200, 200, 4, 1, 64, True, 64, None),
+               (1, 512, 512, 2, 2, 128, False, None, None),
+               (1, 96, 96, 6, 6, 64, True, None, None),
+               (2, 64, 64, 4, 4, 32, True, 16, 10.0)]
+PREFILL = (2, 4096, 32, 4, 128)  # yi-6b prefill: B, S, H, Kh, D
+LONG_S, LONG_S_CUT, LONG_LIMIT_S = 32768, 16384, 150.0
+DECODE_STEPS = 16
+# prefill logits, flash vs reference attention.  bf16 weights: relative
+# L2 error 0.1.  The reference path rounds p to bf16 before PV, the kernel
+# and the chunked path keep it in f32, and 32 bf16 layers amplify that
+# difference (and every bf16 re-rounding it flips) to a few percent of the
+# logits: the reference package's own chunked path lands as far from its
+# reference path as the kernel does (both printed).  float32 weights:
+# atol 1e-3 — the same function in float32, summed in another order.
+LOGIT_REL_L2_BF16, LOGIT_ATOL_F32 = 0.1, 1e-3
 
 # (n, m, d): the reference's GRAM_CASES, its off-ladder case, one knob,
 # the main path's shapes (56 observations padded to 64; 2048 LHS + 256
@@ -83,19 +133,35 @@ def cuda_ms(fn, reps: int = 25, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 20) -> float:
+def profiled_device_us(fn):
+    """(result of ``fn()``, {kernel name: [summed device µs, count]})
+    from ``torch.profiler`` over one call of ``fn`` that ends in a sync;
+    the dict is empty when the profiler recorded no device activity."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            acc = by_name.setdefault(e.name, [0.0, 0])
+            acc[0] += e.device_time
+            acc[1] += 1
+    return out, by_name
+
+
+def device_ms(fn, calls: int = 20):
     """Mean device time per call, in ms: the summed duration of the CUDA
-    kernels ``fn`` launches, from ``torch.profiler`` (host time excluded)."""
+    kernels ``fn`` launches, from ``torch.profiler`` (host time excluded).
+    Fails when the profiler recorded no device time."""
     import torch
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(e.device_time for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    _, by_name = profiled_device_us(lambda: [fn() for _ in range(calls)])
+    busy_us = sum(t for t, _ in by_name.values())
+    check(busy_us > 0, "torch.profiler recorded no device time")
     return busy_us / calls / 1e3
 
 
@@ -110,6 +176,33 @@ def gram_bound(n: int, m: int, d: int, gram: bool):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def build_all() -> None:
+    """Build every kernel of the port from the checkout's sources, one
+    ``nvcc`` each, all started together; print ptxas's reports."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.gp_gram import ops as gram_ops
+
+    def timed(src, build):
+        t0 = time.perf_counter()
+        build(verbose=True)
+        return src, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        futs = [pool.submit(timed, GRAM_SOURCE, gram_ops.build),
+                pool.submit(timed, FLASH_SOURCE, flash_ops.build)]
+        for f in futs:
+            src, dt = f.result()
+            print(f"nvcc build of {src}: {dt:.2f} s", flush=True)
+    print(f"all kernels built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    # load both libraries before any profiler session: a library first
+    # loaded after one has run showed no device time under later sessions
+    gram_ops._LIB.load()
+    flash_ops._LIB.load()
 
 
 def phase_device():
@@ -136,10 +229,7 @@ def phase_kernels(card: str):
 
     print("== phase 2: kernels vs plain torch on the card", flush=True)
     dev = resolve_device("cuda")
-    t0 = time.perf_counter()
-    ops.build(verbose=True)
-    print(f"nvcc build of {GRAM_SOURCE}: "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    build_all()
 
     gen = torch.Generator().manual_seed(0)
     err = {"gram": 0.0, "cross": 0.0}
@@ -351,6 +441,349 @@ def phase_profile(card: str):
     sys.stdout.flush()
 
 
+def rel_l2(a, b) -> float:
+    """|a - b| / |b| over the whole tensor, in float32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def flash_bound(B, Sq, Sk, H, Kh, D, causal, itemsize, flops_per_s):
+    """(bound_ms, bound_by, flops): q, k, v read once and o written once
+    at the HBM rate, against the two products QK^T and PV over the
+    (query, key) pairs the mask leaves visible, at the peak rate for the
+    inputs' type.  The softmax's exp/max/sum (about 1/(2D) of those
+    operations) are not counted."""
+    if causal:       # row i sees keys 0..min(i, Sk-1) (top-left aligned)
+        full = max(Sq - Sk, 0)
+        pairs = min(Sq, Sk) * (min(Sq, Sk) + 1) // 2 + full * Sk
+    else:
+        pairs = Sq * Sk
+    flops = 4 * D * pairs * B * H
+    nbytes = itemsize * (2 * B * Sq * H * D + 2 * B * Sk * Kh * D)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", flops)
+
+
+def phase_flash(card: str):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    print("== phase 5: flash-attention kernel vs plain torch on the card",
+          flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def qkv(B, Sq, Sk, H, Kh, D, dtype):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for shape in ((B, Sq, H, D), (B, Sk, Kh, D), (B, Sk, Kh, D))]
+
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    for B, Sq, Sk, H, Kh, D, causal, window, softcap in FLASH_CASES:
+        for name, dt in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+            q, k, v = qkv(B, Sq, Sk, H, Kh, D, dt)
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            out = ops.flash_attention(q, k, v, **kw)
+            want = ref.reference_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            tag = (f"{name} B={B} Sq={Sq} Sk={Sk} H={H} Kh={Kh} D={D} "
+                   f"causal={causal} window={window} softcap={softcap}")
+            check(out.shape == want.shape and out.dtype == dt,
+                  f"{tag}: {tuple(out.shape)} {out.dtype}")
+            check(bool(torch.isfinite(out).all()), f"{tag}: non-finite")
+            e = float((out.float() - want.float()).abs().max())
+            err[name] = max(err[name], e)
+            check(e <= FLASH_TOL[name], f"{tag}: max |kernel - plain| = {e}")
+            print(f"  {tag}: max_abs_err={e:.3e}", flush=True)
+
+    B, S, H, Kh, D = PREFILL
+    q, k, v = qkv(B, S, S, H, Kh, D, torch.bfloat16)
+
+    def kernel():
+        return ops.flash_attention(q, k, v, causal=True)
+
+    def plain():
+        return ref.reference_attention(q, k, v, causal=True)
+
+    # the yardstick: one PyTorch call over [B, H, S, D] with the K/V heads
+    # repeated outside the timed calls; the port never calls it
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(H // Kh, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(H // Kh, dim=2).transpose(1, 2)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    out, want = kernel(), plain()
+    lib_out = library().transpose(1, 2)
+    # the planted fault: rows past the first tile lose keys 0..63 (the
+    # top-left causal alignment makes the plain version on q, k, v from
+    # key 64 on exactly that)
+    fault = want.clone()
+    fault[:, 64:] = ref.reference_attention(q[:, 64:], k[:, 64:], v[:, 64:],
+                                            causal=True)
+    torch.cuda.synchronize()
+    e = float((out.float() - want.float()).abs().max())
+    rel, rel_lib = rel_l2(out, want), rel_l2(lib_out, want)
+    rel_fault = rel_l2(fault, want)
+    print(f"  prefill shape B={B} S={S}: kernel vs plain max_abs_err={e:.3e}"
+          f" rel_l2={rel:.4e}; sdpa vs plain rel_l2={rel_lib:.4e}; planted "
+          f"fault vs plain rel_l2={rel_fault:.4e}; limit {FLASH_REL_L2}",
+          flush=True)
+    check(e <= FLASH_TOL["bfloat16"],
+          f"prefill shape: max |kernel - plain| = {e}")
+    check(rel <= FLASH_REL_L2, f"prefill shape: kernel vs plain relative "
+          f"L2 {rel} > {FLASH_REL_L2}")
+    check(rel_fault > FLASH_REL_L2, f"prefill shape: the planted fault's "
+          f"relative L2 {rel_fault} is within {FLASH_REL_L2}")
+    del out, want, lib_out, fault
+    # the kernel's device time comes from phase 6's profiled prefill (32
+    # launches among the model's other kernels): profiling back-to-back
+    # launches of this kernel alone kept only some of them
+    k_ms = cuda_ms(kernel, reps=5, inner=4)
+    p_ms = cuda_ms(plain, reps=3, inner=2)
+    l_ms = cuda_ms(library, reps=5, inner=4)
+    b_ms, b_by, flops = flash_bound(B, S, S, H, Kh, D, True, 2,
+                                    BF16_FLOPS_PER_S)
+    print(f"  prefill shape B={B} S={S} H={H} Kh={Kh} D={D} causal bf16 on "
+          f"{card}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+          f"bound_ms={b_ms:.4f} ({b_by}; {flops / 1e9:.1f} GFLOP) "
+          f"achieved={flops / k_ms / 1e9:.2f} TFLOP/s (bound share "
+          f"{b_ms / k_ms:.4f})", flush=True)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    # the prefill_32k shape: the kernel over all heads, held against the
+    # plain version one head at a time (4.3 GB of float32 scores each) on
+    # the first and the last KV group
+    S = LONG_S
+    q, k, v = qkv(1, S, S, H, Kh, D, torch.bfloat16)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = ops.flash_attention(q, k, v, causal=True)
+    end.record()
+    end.synchronize()
+    rep = H // Kh
+    d2 = w2 = 0.0
+    e_long = 0.0
+    for g in (0, Kh - 1):
+        kg, vg = k[:, :, g:g + 1], v[:, :, g:g + 1]
+        for h in range(g * rep, (g + 1) * rep):
+            want = ref.reference_attention(q[:, :, h:h + 1], kg, vg,
+                                           causal=True).float()
+            diff = out[:, :, h:h + 1].float() - want
+            d2 += float(diff.square().sum())
+            w2 += float(want.square().sum())
+            e_long = max(e_long, float(diff.abs().max()))
+            if h == 0:
+                fault = want.clone()
+                fault[:, 64:] = ref.reference_attention(
+                    q[:, 64:, :1], kg[:, 64:], vg[:, 64:], causal=True)
+                rel_fault_long = rel_l2(fault, want)
+            del want, diff
+    rel_long = math.sqrt(d2 / w2)
+    print(f"  prefill_32k shape B=1 S={S} H={H} Kh={Kh} D={D} causal bf16, "
+          f"heads of KV groups 0 and {Kh - 1}: max_abs_err={e_long:.3e} "
+          f"rel_l2={rel_long:.4e}; planted fault (head 0) rel_l2="
+          f"{rel_fault_long:.4e}; one call {start.elapsed_time(end):.3f} ms "
+          f"(CUDA events, first call at this shape)", flush=True)
+    check(e_long <= FLASH_TOL["bfloat16"],
+          f"prefill_32k shape: max |kernel - plain| = {e_long}")
+    check(rel_long <= FLASH_REL_L2, f"prefill_32k shape: kernel vs plain "
+          f"relative L2 {rel_long} > {FLASH_REL_L2}")
+    check(rel_fault_long > FLASH_REL_L2, f"prefill_32k shape: the planted "
+          f"fault's relative L2 {rel_fault_long} is within {FLASH_REL_L2}")
+    del q, k, v, out, fault
+    return {"max_abs_err": e, "rel_l2": rel, "err": err, "ms": k_ms,
+            "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "shape": [B, PREFILL[1], PREFILL[1], H, Kh, D],
+            "max_abs_err_32k": e_long, "rel_l2_32k": rel_long}
+
+
+def profile_report(what: str, wall_s: float, by_name: dict,
+                   flash_calls: int):
+    """Print a profiled run's device busy time, idle share, kernel count
+    and top kernels; fails unless the profile holds exactly the run's
+    ``flash_calls`` flash launches, and returns the flash kernel's device
+    ms per call (None when ``flash_calls`` is 0)."""
+    busy = sum(t for t, _ in by_name.values()) / 1e6
+    flash_s = sum(t for n, (t, _) in by_name.items()
+                  if "flash_fwd_kernel" in n) / 1e6
+    flash_n = sum(k for n, (_, k) in by_name.items()
+                  if "flash_fwd_kernel" in n)
+    print(f"  {what} under torch.profiler: wall={wall_s:.3f}s device "
+          f"busy={busy:.4f}s idle share={1 - busy / wall_s:.4f} device "
+          f"events={sum(k for _, k in by_name.values())}; flash "
+          f"kernel={flash_s:.4f}s (share of device time "
+          f"{flash_s / busy if busy else float('nan'):.4f})", flush=True)
+    for n, (t, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
+        print(f"    {t / 1e3:10.3f}ms {k:6d}x {n[:90]}")
+    check(flash_n == flash_calls, f"{what}: the profile holds {flash_n} "
+          f"flash kernel launches, want {flash_calls}")
+    return flash_s * 1e3 / flash_calls if flash_calls else None
+
+
+def phase_prefill(card: str, flash: dict):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import Model
+    from repro_torch.runconfig import RunConfig
+
+    cfg = get_config("yi-6b")
+    B, S = PREFILL[:2]
+    print(f"== phase 6: Model(yi-6b: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}).prefill at B={B} S={S}, "
+          f"'flash' vs 'reference'; {DECODE_STEPS} greedy decode steps; "
+          "the prefill_32k cell", flush=True)
+    m = Model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = m.init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"random bf16 weights made on the card: {n_params} parameters in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rc_flash = RunConfig(attention_impl="flash")
+    rc_ref = RunConfig(attention_impl="reference")
+
+    def prefill(tokens, rc):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, st = m.prefill(params, {"tokens": tokens},
+                               tokens.shape[1] + 64, rc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = ops.launches
+        want = cfg.n_layers if rc.attention_impl == "flash" else 0
+        check(n == want, f"{rc.attention_impl} prefill at S="
+              f"{tokens.shape[1]}: {n} flash launches, want {want}")
+        check(bool(torch.isfinite(logits).all()),
+              f"{rc.attention_impl} prefill: non-finite logits")
+        return logits, st, wall
+
+    def compare(a, b):
+        d = (a - b).abs()
+        return (float(d.norm() / b.norm()), float(d.max()),
+                float((a.argmax(-1) == b.argmax(-1)).float().mean()))
+
+    tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    _, _, wall_warm = prefill(tokens, rc_flash)   # first use of each shape
+    lf, st, wall = prefill(tokens, rc_flash)
+    launches_4k = ops.launches             # the main path's bf16 prefill
+    lc, _, wall_chunk = prefill(tokens, RunConfig(attention_impl="chunked"))
+    lr, _, wall_ref = prefill(tokens, rc_ref)
+    print(f"prefill B={B} S={S} bf16 on {card}: flash wall={wall:.3f}s "
+          f"({B * S / wall:.1f} tok/s; first call {wall_warm:.3f}s), "
+          f"chunked wall={wall_chunk:.3f}s, reference wall={wall_ref:.3f}s; "
+          f"max|ref logit|={float(lr.abs().max()):.3f}", flush=True)
+    for name, a, b in (("flash vs reference", lf, lr),
+                       ("chunked vs reference", lc, lr),
+                       ("flash vs chunked", lf, lc)):
+        print("  last-token logits %s: rel_l2=%.4e max_abs=%.4e "
+              "argmax_agreement=%s" % ((name,) + compare(a, b)), flush=True)
+    rel = compare(lf, lr)[0]
+    check(rel <= LOGIT_REL_L2_BF16, f"bf16 prefill logits: flash vs "
+          f"reference relative L2 {rel} > {LOGIT_REL_L2_BF16}")
+    del lc
+    (_, _, wall_p), by_name = profiled_device_us(
+        lambda: prefill(tokens, rc_flash))
+    flash_dev_ms = profile_report(f"prefill B={B} S={S}", wall_p, by_name,
+                                  cfg.n_layers)
+
+    before = ops.launches
+    tok = lf[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    t0 = time.perf_counter()
+    for _ in range(DECODE_STEPS):
+        logits, st = m.decode_step(params, tok, st, rc_flash)
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits).all()), "decode: non-finite logits")
+    check(bool((st.pos == S + DECODE_STEPS).all()),
+          f"decode: pos {st.pos.tolist()}")
+    check(ops.launches == before, "decode_step launched the flash kernel")
+    print(f"{DECODE_STEPS} greedy decode steps at B={B} from S={S}: "
+          f"{dt / DECODE_STEPS * 1e3:.3f} ms/step, "
+          f"{B * DECODE_STEPS / dt:.1f} tok/s; last tokens "
+          f"{tok[:, 0].tolist()}", flush=True)
+
+    def one_step():
+        t0 = time.perf_counter()
+        m.decode_step(params, tok, st, rc_flash)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    wall_p, by_name = profiled_device_us(one_step)
+    profile_report(f"one decode step B={B} at pos {S + DECODE_STEPS}",
+                   wall_p, by_name, 0)
+    del lf, lr, st, logits
+
+    # the prefill_32k cell at one card's share: its work is (32768² · 1) /
+    # (4096² · 2) = 32 times the prefill shape's per layer
+    projected = flash["ms"] * (LONG_S ** 2 / (B * S ** 2)) \
+        * cfg.n_layers / 1e3
+    s_long = LONG_S if projected <= LONG_LIMIT_S else LONG_S_CUT
+    print(f"prefill_32k: the kernel's {flash['ms']:.3f} ms at S={S} "
+          f"projects {projected:.1f} s of flash time at S={LONG_S}; "
+          f"running S={s_long}", flush=True)
+    tokens_4k = tokens
+    tokens = torch.randint(1, cfg.vocab_size, (1, s_long), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    _, _, wall_l = prefill(tokens, rc_flash)
+    launches_long = ops.launches
+    print(f"prefill B=1 S={s_long} on {card}: wall={wall_l:.3f}s "
+          f"({s_long / wall_l:.1f} tok/s), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    (_, _, wall_p), by_name = profiled_device_us(
+        lambda: prefill(tokens, rc_flash))
+    profile_report(f"prefill B=1 S={s_long}", wall_p, by_name, cfg.n_layers)
+    del params
+    torch.cuda.empty_cache()
+
+    # the same prefill with float32 weights: the kernel's f32 path against
+    # the reference attention, both in full float32
+    params = m.init(seed=0, dtype=torch.float32)
+    tokens = tokens_4k
+    f32 = dict(kv_cache_dtype="float32")
+    lf, _, wall32 = prefill(tokens, RunConfig(attention_impl="flash", **f32))
+    lr, _, _ = prefill(tokens, RunConfig(attention_impl="reference", **f32))
+    rel, mx, agree = compare(lf, lr)
+    print(f"prefill B={B} S={S} float32 weights: flash wall={wall32:.3f}s; "
+          f"last-token logits flash vs reference: rel_l2={rel:.4e} "
+          f"max_abs={mx:.4e} argmax_agreement={agree}", flush=True)
+    check(mx <= LOGIT_ATOL_F32, f"f32 prefill logits: flash vs reference "
+          f"max |diff| {mx} > {LOGIT_ATOL_F32}")
+    return {"launches": launches_4k, "launches_long": launches_long,
+            "long_s": s_long, "device_ms": flash_dev_ms}
+
+
+def phase_engine(card: str):
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "yi-6b", "--full", "--device", "cuda"]
+    print("== phase 7: python -m repro_torch.launch.serve " + " ".join(argv)
+          + " (default traffic: 12 requests, prompts 4-23 tokens, 4 slots,"
+          " s_max 128, 16 new tokens)", flush=True)
+    res = serve.main(argv)
+    check(res["requests"] == 12 and res["tokens"] == 12 * 16,
+          f"engine served {res['requests']} requests, {res['tokens']} "
+          "tokens")
+    check(all(r.done and len(r.out_tokens) == 16 for r in res["finished"]),
+          "engine: a request did not finish with 16 tokens")
+    print(f"engine on {card}: {res['requests']} requests, {res['tokens']} "
+          f"tokens, {res['tokens'] / res['wall_s']:.2f} tok/s, "
+          f"{res['steps']} engine steps, "
+          f"{res['wall_s'] / res['steps'] * 1e3:.3f} ms per step "
+          "(decode_step + host scheduling)", flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -364,6 +797,12 @@ def main() -> None:
     err, timing = phase_kernels(card)
     launches = phase_main_path(card)
     phase_profile(card)
+    torch.cuda.empty_cache()
+    flash = phase_flash(card)
+    torch.cuda.empty_cache()
+    serving = phase_prefill(card, flash)
+    torch.cuda.empty_cache()
+    phase_engine(card)
 
     kernels = []
     for kind, shape in (("gram", MAIN_GRAM),
@@ -377,6 +816,20 @@ def main() -> None:
             "bound_by": b_by, "library_ms": None,
             "shape": list(shape), **dev_ms,
         })
+    kernels.append({
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+        "launches": serving["launches"],
+        f"launches_{serving['long_s'] // 1024}k": serving["launches_long"],
+        "max_abs_err": flash["max_abs_err"], "rel_l2": flash["rel_l2"],
+        "max_abs_err_32k": flash["max_abs_err_32k"],
+        "rel_l2_32k": flash["rel_l2_32k"], "ms": flash["ms"],
+        "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
+        "shape": flash["shape"],
+        "device_ms": serving["device_ms"],
+        "max_abs_err_cases": flash["err"],
+    })
     print(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface the first time a CUDA tensor reaches a wrapper,
-and loaded with ``ctypes``.  The library lands in ``build/gp_gram/`` at
-the root of the checkout, named by a hash of the source, so an edited
-source is rebuilt and an unchanged one is reused.
+and loaded with ``ctypes`` (``kernels/build.py``).  The library lands in
+``build/gp_gram/`` at the root of the checkout, named by a hash of the
+source, so an edited source is rebuilt and an unchanged one is reused.
 
 A wrapper given CPU tensors returns the plain-torch version (``ref.py``);
 given CUDA tensors it launches the kernel on the current stream or
@@ -14,28 +14,23 @@ raises.  ``gram_launches`` / ``cross_launches`` count kernel launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.build import NvccLibrary
 from repro_torch.kernels.gp_gram.ref import matern52
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gp_gram.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "gp_gram"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+_LIB = NvccLibrary("gp_gram", SOURCE, {
+    "matern52_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p]})
 _MAX_ROWS = 65535 * 32          # grid.y limit times the 32-row tile
 
 gram_launches = 0
 cross_launches = 0
 _lock = threading.Lock()
-_lib = None
 
 
 def reset_launch_counts() -> None:
@@ -44,53 +39,10 @@ def reset_launch_counts() -> None:
         gram_launches = cross_launches = 0
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the gp_gram CUDA kernel is "
-                           "built on a machine with the CUDA toolkit")
-    return path
-
-
 def build(verbose: bool = False) -> Path:
     """Compile the kernel library if this source has not been built yet;
-    returns its path.  ``verbose`` adds ``-Xptxas -v`` and prints the
-    compiler's report (registers, shared memory, spills)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libgp_gram-{digest}.so"
-    if lib.exists() and not verbose:
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", tmp, str(SOURCE)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        if verbose:
-            print(proc.stdout + proc.stderr, end="")
-        os.replace(tmp, lib)       # atomic: concurrent builds never tear
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib
-
-
-def _load():
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.matern52_launch
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
-                + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+    returns its path (``verbose`` prints ptxas's report)."""
+    return _LIB.build(verbose)
 
 
 def _check(xa, xb, lengthscale, signal_var):
@@ -137,7 +89,7 @@ def _matern52(xa, xb, lengthscale, signal_var, kind: str):
     else:
         sv = torch.full((1,), float(signal_var), dtype=torch.float32,
                         device=xa.device)
-    lib = _load()
+    lib = _LIB.load()
     with torch.cuda.device(xa.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.matern52_launch(

@@ -1,0 +1,254 @@
+"""Composable decoder LM over the repeating block pattern (from
+``repro.models.transformer``), forward only.
+
+Parameters keep the reference's layout: each position of the repeating
+pattern stacks its leaves over groups (``[n_groups, ...]``), so a JAX
+parameter tree carries across unchanged (``Model.params_from_numpy``).
+The reference's ``lax.scan`` over groups is a Python loop over layers
+here; the remat policy has no counterpart (nothing is differentiated).
+
+This slice ports ``ATTN`` blocks with a dense MLP or none.  Mamba, mLSTM
+and sLSTM blocks and MoE MLPs raise ``NotImplementedError`` naming their
+ROADMAP item.
+
+Exposes:
+    init                   — random parameters on a ``torch.Generator``
+    forward                — full-sequence logits (train / prefill)
+    init_decode_state      — per-position stacked caches
+    prefill                — fill caches from a prompt, return state
+    decode_step            — one-token step through the whole stack
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.models import attention, mlp
+from repro_torch.models.common import (dense_apply, norm_apply, norm_init,
+                                       reduce_dtype, trunc_normal, tree_map)
+from repro_torch.models.config import (ATTN, MAMBA, MLP_DENSE, MLP_MOE,
+                                       MLP_NONE, MLSTM, SLSTM, LayerSpec,
+                                       ModelConfig)
+from repro_torch.runconfig import RunConfig
+
+_NOT_PORTED = {
+    MAMBA: "mamba blocks (models/ssm.py) are not ported yet: ROADMAP "
+           "queue A, item 14b",
+    MLSTM: "mLSTM blocks (models/xlstm.py, with the mLSTM kernel) are not "
+           "ported yet: ROADMAP queue A, item 14a",
+    SLSTM: "sLSTM blocks (models/xlstm.py) are not ported yet: ROADMAP "
+           "queue A, item 14a",
+    MLP_MOE: "MoE MLPs (models/moe.py) are not ported yet: ROADMAP queue "
+             "A, item 14b",
+}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a block or MLP kind this slice
+    does not port."""
+    for spec in cfg.pattern:
+        for kind in (spec.kind, spec.mlp):
+            if kind in _NOT_PORTED:
+                raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
+        if spec.kind != ATTN or spec.mlp not in (MLP_DENSE, MLP_NONE):
+            raise ValueError(f"{cfg.name}: unknown layer spec {spec}")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _pos_init(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
+              dtype):
+    G, dev = cfg.n_groups, gen.device
+    p: Dict[str, Any] = {
+        "norm1": norm_init(cfg.d_model, cfg.norm, dtype, device=dev,
+                           stack=G),
+        "attn": attention.init(gen, cfg, dtype, stack=G),
+    }
+    if spec.mlp == MLP_DENSE:
+        p["norm2"] = norm_init(cfg.d_model, cfg.norm, dtype, device=dev,
+                               stack=G)
+        p["mlp"] = mlp.init(gen, cfg, dtype=dtype, stack=G)
+    return p
+
+
+def init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16):
+    """Random parameters on ``gen``'s device, in the reference's tree."""
+    check_supported(cfg)
+    params: Dict[str, Any] = {
+        "embed": {"tok": trunc_normal(gen, (cfg.vocab_size, cfg.d_model),
+                                      1.0, dtype)},
+        "final_norm": norm_init(cfg.d_model, cfg.norm, dtype,
+                                device=gen.device),
+        "layers": [_pos_init(gen, spec, cfg, dtype) for spec in cfg.pattern],
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = {"w": trunc_normal(
+            gen, (cfg.d_model, cfg.vocab_size), 1.0, dtype)}
+    return params
+
+
+def _group(stacked, g: int):
+    """One group's slice (views) of a position's stacked leaves."""
+    return tree_map(lambda t: t[g], stacked)
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+def _block_forward(spec: LayerSpec, p, x, positions, cfg: ModelConfig,
+                   rc: RunConfig):
+    """One block (pre-norm residual)."""
+    h = norm_apply(p["norm1"], x, kind=cfg.norm, eps=cfg.norm_eps)
+    h = attention.apply(p["attn"], h, positions, cfg, rc, causal=True,
+                        window=spec.sliding_window)
+    x = x + h
+    if spec.mlp == MLP_DENSE:
+        h = norm_apply(p["norm2"], x, kind=cfg.norm, eps=cfg.norm_eps)
+        x = x + mlp.apply(p["mlp"], h, cfg, rc)
+    return x
+
+
+def backbone(params, x, positions, cfg: ModelConfig, rc: RunConfig):
+    """Embedded activations -> final hidden states.  x [B,S,d].  The
+    carried activation is cast to ``rc.activation_dtype`` at every group
+    boundary, as the reference's scan carry is."""
+    act_dtype = torch.bfloat16 if rc.activation_dtype == "bfloat16" \
+        else torch.float32
+    for g in range(cfg.n_groups):
+        x = x.to(act_dtype)
+        for p_i, spec in enumerate(cfg.pattern):
+            x = _block_forward(spec, _group(params["layers"][p_i], g), x,
+                               positions, cfg, rc)
+        x = x.to(act_dtype)
+    return norm_apply(params["final_norm"], x, kind=cfg.norm,
+                      eps=cfg.norm_eps)
+
+
+def embed(params, tokens, cfg: ModelConfig):
+    x = params["embed"]["tok"][tokens.long()]
+    if cfg.embedding_multiplier:
+        x = x * torch.tensor(cfg.embedding_multiplier, dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def unembed(params, x, cfg: ModelConfig, rc: Optional[RunConfig] = None):
+    """Hidden states -> float32 logits.  Without the bf16 reduce knob the
+    product is taken in float32, as the reference's float32-accumulated
+    einsum returns it (a bf16 product would round the logits to bf16)."""
+    if cfg.tie_embeddings:
+        w = params["embed"]["tok"].T
+    else:
+        w = params["head"]["w"]
+    if rc is not None and reduce_dtype(rc) == torch.bfloat16:
+        return dense_apply({"w": w}, x, preferred=torch.bfloat16).float()
+    return torch.matmul(x.float(), w.float())
+
+
+def _default_positions(B: int, S: int, device):
+    return torch.arange(S, dtype=torch.int32, device=device)[None] \
+        .expand(B, S)
+
+
+def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
+            positions: Optional[torch.Tensor] = None):
+    """tokens [B,S] int -> (logits [B,S,V] f32, aux loss 0)."""
+    B, S = tokens.shape
+    if positions is None:
+        positions = _default_positions(B, S, tokens.device)
+    x = embed(params, tokens, cfg)
+    x = backbone(params, x, positions, cfg, rc)
+    logits = unembed(params, x, cfg, rc)
+    return logits, torch.zeros((), device=logits.device)
+
+
+# ---------------------------------------------------------------------------
+# decode state
+# ---------------------------------------------------------------------------
+
+class DecodeState(NamedTuple):
+    """Per-pattern-position stacked caches + current length."""
+    slots: Tuple[Any, ...]      # one (k, v) per pattern position, each
+                                # [n_groups, B, ...] (layout per rc)
+    pos: torch.Tensor           # [B] int32: tokens consumed per slot
+
+
+def init_decode_state(batch: int, s_max: int, cfg: ModelConfig,
+                      rc: RunConfig, *, device) -> DecodeState:
+    check_supported(cfg)
+    slots = tuple(attention.init_cache(batch, s_max, cfg, rc, device=device,
+                                       stack=cfg.n_groups)
+                  for _ in cfg.pattern)
+    return DecodeState(slots=slots,
+                       pos=torch.zeros((batch,), dtype=torch.int32,
+                                       device=device))
+
+
+# ---------------------------------------------------------------------------
+# decode step (and prefill)
+# ---------------------------------------------------------------------------
+
+def _block_decode(spec: LayerSpec, p, x, ck, cv, pos, cfg: ModelConfig,
+                  rc: RunConfig):
+    h = norm_apply(p["norm1"], x, kind=cfg.norm, eps=cfg.norm_eps)
+    h, _, _ = attention.decode_apply(p["attn"], h, ck, cv, pos, cfg, rc,
+                                     window=spec.sliding_window)
+    x = x + h
+    if spec.mlp == MLP_DENSE:
+        h = norm_apply(p["norm2"], x, kind=cfg.norm, eps=cfg.norm_eps)
+        x = x + mlp.apply(p["mlp"], h, cfg, rc)
+    return x
+
+
+def decode_step(params, token, state: DecodeState, cfg: ModelConfig,
+                rc: RunConfig):
+    """token [B,1] int -> (logits [B,1,V], new state).  The caches are
+    updated in place; the new state shares them and has ``pos + 1``."""
+    x = embed(params, token, cfg)
+    pos = state.pos
+    for g in range(cfg.n_groups):
+        for p_i, spec in enumerate(cfg.pattern):
+            ck, cv = state.slots[p_i]
+            x = _block_decode(spec, _group(params["layers"][p_i], g), x,
+                              ck[g], cv[g], pos, cfg, rc)
+    x = norm_apply(params["final_norm"], x, kind=cfg.norm, eps=cfg.norm_eps)
+    logits = unembed(params, x, cfg)
+    return logits, DecodeState(slots=state.slots, pos=pos + 1)
+
+
+def prefill(params, tokens, s_max: int, cfg: ModelConfig, rc: RunConfig):
+    """Run the prompt through the stack, filling caches.
+
+    Returns (last-token logits [B,1,V], DecodeState at pos=S).
+    Full-sequence attention (``rc.attention_impl``; the flash kernel under
+    ``"flash"``) plus a per-layer cache fill, as in the reference.
+    """
+    B, S = tokens.shape
+    dev = tokens.device
+    positions = _default_positions(B, S, dev)
+    x = embed(params, tokens, cfg)
+    state = init_decode_state(B, s_max, cfg, rc, device=dev)
+    for g in range(cfg.n_groups):
+        for p_i, spec in enumerate(cfg.pattern):
+            p = _group(params["layers"][p_i], g)
+            ck, cv = state.slots[p_i]
+            h = norm_apply(p["norm1"], x, kind=cfg.norm, eps=cfg.norm_eps)
+            k, v = attention.project_kv(p["attn"], h, positions, cfg)
+            attention.fill_cache(ck[g], k, rc)
+            attention.fill_cache(cv[g], v, rc)
+            x = x + attention.apply(p["attn"], h, positions, cfg, rc,
+                                    causal=True, window=spec.sliding_window)
+            if spec.mlp == MLP_DENSE:
+                h = norm_apply(p["norm2"], x, kind=cfg.norm,
+                               eps=cfg.norm_eps)
+                x = x + mlp.apply(p["mlp"], h, cfg, rc)
+    x = norm_apply(params["final_norm"], x, kind=cfg.norm, eps=cfg.norm_eps)
+    logits = unembed(params, x[:, -1:], cfg)
+    return logits, DecodeState(
+        slots=state.slots,
+        pos=torch.full((B,), S, dtype=torch.int32, device=dev))

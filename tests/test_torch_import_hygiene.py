@@ -34,7 +34,16 @@ def test_port_imports_no_jax_and_no_reference():
     # every module of the slice was imported, and nothing of JAX came along
     for mod in ("repro_torch.core.tuner", "repro_torch.core.gp",
                 "repro_torch.core.lasso", "repro_torch.core.evaluators",
-                "repro_torch.kernels.gp_gram.ops", "repro_torch.__main__"):
+                "repro_torch.kernels.gp_gram.ops", "repro_torch.__main__",
+                "repro_torch.kernels.build",
+                "repro_torch.kernels.flash_attention.ops",
+                "repro_torch.kernels.flash_attention.ref",
+                "repro_torch.parallel.sharding", "repro_torch.runconfig",
+                "repro_torch.models.common", "repro_torch.models.rotary",
+                "repro_torch.models.mlp", "repro_torch.models.attention",
+                "repro_torch.models.transformer", "repro_torch.models.model",
+                "repro_torch.serve.kvcache", "repro_torch.serve.engine",
+                "repro_torch.launch.serve"):
         assert mod in res["modules"]
     assert res["bad"] == []
 

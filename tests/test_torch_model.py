@@ -1,0 +1,168 @@
+"""The port's dense decoder (``repro_torch.models``) against the JAX
+reference, on the CPU.
+
+Weights are made by the reference (``Model.init``) and carried across with
+``Model.params_from_numpy``; inputs come from numpy seeds.  Tolerances:
+
+* float32 params, caches and activations: atol/rtol 1e-4 on logits — the
+  same arithmetic, summed in another order by XLA and torch through two
+  layers;
+* bfloat16 params: the reference's own bf16 tolerance for logits
+  (atol 0.15, rtol 0.05, ``tests/test_arch_smoke.py``): bf16 rounds at
+  other places in the two frameworks.
+
+``attention_impl="flash"`` on CPU tensors runs the kernel's plain version
+in the port and the chunked path in the reference (its off-TPU dispatch).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jax_smoke
+from repro.models import transformer as jtf
+from repro.models.model import Model as JModel
+from repro.runconfig import RunConfig as JRunConfig
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import common, transformer
+from repro_torch.models.model import Model
+from repro_torch.runconfig import RunConfig
+
+DENSE = ["yi-6b", "qwen1.5-4b", "mistral-nemo-12b", "codeqwen1.5-7b",
+         "qwen2-vl-72b"]
+F32 = dict(param_dtype="float32", activation_dtype="float32",
+           kv_cache_dtype="float32")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.float32)) \
+        if not isinstance(x, torch.Tensor) else x.float().numpy()
+
+
+def _pair(arch, dtype=jnp.float32, seed=0):
+    """(jax model, jax params, port model, port params) with the same
+    weights."""
+    jm = JModel(jax_smoke(arch))
+    jp = jm.init(jax.random.key(seed), dtype=dtype)
+    tm = Model(get_smoke_config(arch), device="cpu")
+    return jm, jp, tm, tm.params_from_numpy(jax.tree.map(np.asarray, jp))
+
+
+def _tokens(cfg, B, S, seed):
+    return np.random.default_rng(seed).integers(
+        1, cfg.vocab_size, size=(B, S)).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# the model: forward, prefill, decode_step
+# ---------------------------------------------------------------------------
+
+def test_param_tree_matches_reference_layout():
+    for arch in DENSE:
+        jm = JModel(jax_smoke(arch))
+        want = jax.tree.map(lambda s: (tuple(s.shape), str(s.dtype)),
+                            jm.param_shapes(jnp.bfloat16))
+        tp = Model(get_smoke_config(arch), device="cpu").init(0)
+        got = common.tree_map(
+            lambda t: (tuple(t.shape), str(t.dtype).split(".")[-1]), tp)
+        assert got == want, arch
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_forward_matches_reference(arch):
+    jm, jp, tm, tp = _pair(arch)
+    toks = _tokens(jm.cfg, 2, 11, seed=1)
+    pos = None
+    if jm.cfg.mrope_sections is not None:       # distinct (t, h, w) ids
+        pos = np.random.default_rng(2).integers(
+            0, 11, size=(3, 2, 11)).astype(np.int32)
+    want, _ = jtf.forward(jp, jnp.asarray(toks), jm.cfg, JRunConfig(**F32),
+                          positions=None if pos is None else jnp.asarray(pos))
+    got, aux = transformer.forward(tp, torch.from_numpy(toks), tm.cfg,
+                                   RunConfig(**F32),
+                                   positions=None if pos is None
+                                   else torch.from_numpy(pos))
+    assert got.dtype == torch.float32 and float(aux) == 0.0
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("impl", ["flash", "reference"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_then_decode_matches_reference(arch, impl):
+    jm, jp, tm, tp = _pair(arch)
+    kw = dict(F32, attention_impl=impl, flash_block_k=4)
+    jrc, trc = JRunConfig(**kw), RunConfig(**kw)
+    toks = _tokens(jm.cfg, 2, 9, seed=3)
+    want, jst = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, 16, jrc)
+    got, tst = tm.prefill(tp, {"tokens": toks}, 16, trc)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(tst.pos.numpy(), np.asarray(jst.pos))
+    np.testing.assert_allclose(_np(tst.slots[0][0]), _np(jst.slots[0][0]),
+                               atol=1e-5)
+    nxt = _tokens(jm.cfg, 2, 3, seed=4)
+    for t in range(3):
+        want, jst = jm.decode_step(jp, jnp.asarray(nxt[:, t:t + 1]), jst,
+                                   jrc)
+        got, tst = tm.decode_step(tp, nxt[:, t:t + 1], tst, trc)
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-4,
+                                   rtol=1e-4)
+    np.testing.assert_array_equal(tst.pos.numpy(), np.asarray(jst.pos))
+
+
+def test_bf16_prefill_decode_at_reference_tolerance():
+    jm, jp, tm, tp = _pair("yi-6b", dtype=jnp.bfloat16)
+    toks = _tokens(jm.cfg, 2, 8, seed=5)
+    want, jst = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, 16,
+                           JRunConfig(attention_impl="flash"))
+    got, tst = tm.prefill(tp, {"tokens": toks}, 16,
+                          RunConfig(attention_impl="flash"))
+    np.testing.assert_allclose(_np(got), _np(want), atol=0.15, rtol=0.05)
+    want, _ = jm.decode_step(jp, jnp.ones((2, 1), jnp.int32), jst,
+                             JRunConfig())
+    got, _ = tm.decode_step(tp, np.ones((2, 1), np.int32), tst, RunConfig())
+    np.testing.assert_allclose(_np(got), _np(want), atol=0.15, rtol=0.05)
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, (1e-4, 1e-4)),
+                                        (torch.bfloat16, (0.15, 0.05))],
+                         ids=["f32", "bf16"])
+def test_decode_matches_forward(dtype, tol):
+    """Teacher-forced decode == full forward logits (cache correctness),
+    the port's own check, as the reference's test_decode_matches_forward."""
+    cfg = get_smoke_config("yi-6b")
+    m = Model(cfg, device="cpu")
+    params = m.init(0, dtype=dtype)
+    rc = RunConfig(**F32) if dtype == torch.float32 else RunConfig()
+    toks = torch.from_numpy(_tokens(cfg, 1, 8, seed=6))
+    full, _ = transformer.forward(params, toks, cfg, rc)
+    state = m.init_decode_state(1, 16, rc)
+    outs = []
+    for t in range(8):
+        logits, state = m.decode_step(params, toks[:, t:t + 1], state, rc)
+        outs.append(logits[:, 0])
+    dec = torch.stack(outs, dim=1)
+    np.testing.assert_allclose(_np(dec), _np(full), atol=tol[0],
+                               rtol=tol[1])
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "jamba-1.5-large-398b",
+                                  "qwen2-moe-a2.7b", "whisper-tiny"])
+def test_unported_families_raise(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Model(get_smoke_config(arch), device="cpu")
+
+
+def test_cuda_default_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(get_smoke_config("yi-6b"))
