@@ -37,9 +37,25 @@ Phases (any failure exits non-zero before the result line):
    device time.
 7. serving path, engine: ``python -m repro_torch.launch.serve --arch yi-6b
    --full --device cuda`` with its default traffic (12 requests).
+8. mLSTM kernel: hold ``kernels/mlstm_chunk`` against its plain-torch
+   versions over the reference's ``MLSTM_CASES`` (atol 5e-5 in float32),
+   chunk invariance at chunks 32/64/256 (2e-4), and at xlstm-1.3b's layer
+   shape (q/k/v [2,4096,4,1024], bf16) at chunk 256 and 1024 within
+   relative L2 1e-3 (a planted fault, every chunk without its inter-chunk
+   term, must land above it); timed beside the plain version, with its
+   bound.
+9. serving path, xLSTM: ``Model(xlstm-1.3b, full width).prefill`` at B=2,
+   S=4096 with random bf16 weights: exactly 42 mLSTM launches per
+   prefill (also under ``torch.profiler``) and none per ``decode_step``;
+   the sLSTM time loops' share of the wall; 16 greedy ``decode_step``s;
+   peak memory.  Then float32 weights: last-token logits of a 256-token
+   prefill in chunks of 64 against teacher-forced ``decode_step``s (the
+   sequential recurrence), as initialised (recorded: the sLSTM recurrence
+   is chaotic at this width) and with the sLSTM recurrent weights scaled
+   by 0.1 (relative L2 1e-3).
 
-Both kernels are built at the start of phase 2, one ``nvcc`` each, started
-together.  The line before the last is ``{"kernels": [...]}`` with each
+The kernels are built at the start of phase 2, one ``nvcc`` each, all
+started together.  The line before the last is ``{"kernels": [...]}`` with each
 kernel's launches, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -67,6 +83,8 @@ GRAM_SOURCE = "src/repro_torch/kernels/gp_gram/csrc/gp_gram.cu"
 GRAM_REPLACES = "src/repro/kernels/gp_gram/kernel.py:45"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:103"
+MLSTM_SOURCE = "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu"
+MLSTM_REPLACES = "src/repro/kernels/mlstm_chunk/kernel.py:90"
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
 # at the path's shapes (bf16 outputs that average over up to S keys, ~0.03
 # in size) the reference's per-element atol is loose: the kernel is held to
@@ -91,6 +109,29 @@ DECODE_STEPS = 16
 # reference path as the kernel does (both printed).  float32 weights:
 # atol 1e-3 — the same function in float32, summed in another order.
 LOGIT_REL_L2_BF16, LOGIT_ATOL_F32 = 0.1, 1e-3
+
+# the reference's MLSTM_CASES: (B, S, H, P, chunk)
+MLSTM_CASES = [(2, 128, 2, 32, 32), (1, 256, 4, 64, 64), (2, 64, 1, 16, 16),
+               (1, 512, 2, 32, 128), (1, 128, 2, 32, 128)]
+MLSTM_ATOL = 5e-5                # tests/test_kernels.py, float32
+# bf16 inputs: both versions compute in float32 from the same bf16 numbers
+# and round h once; one bf16 step at |h| <= 2 is 7.8e-3
+MLSTM_BF16_TOL = (2e-2, 1e-2)    # atol, rtol
+MLSTM_LAYER = (2, 4096, 4, 1024)  # xlstm-1.3b's mLSTM layer at B=2: B S H P
+MLSTM_CHUNKS = (256, 1024)       # the default and one more of the knob's range
+# at the layer shape the whole output is held to a relative L2 error: the
+# limit sits between the kernel's reading and that of a planted fault
+# (every chunk without its inter-chunk term), both printed below (2.3e-5
+# and 5.6e-2 on an NVIDIA H100 80GB HBM3 at 700 W)
+MLSTM_REL_L2 = 1e-3
+XLSTM_PREFILL = (2, 4096)        # B, S of the bf16 serving prefill
+# float32 check: a prompt in several chunks against teacher-forced decode.
+# As initialised, the sLSTM recurrence amplifies float rounding (x10 every
+# ~4 tokens at this width: ``python -m repro_torch.launch.drift``), so that
+# comparison is recorded only; with the sLSTM recurrent weights scaled by
+# 0.1 it is not chaotic and is held to relative L2 1e-3
+XLSTM_CHECK_S, XLSTM_CHECK_CHUNK = 256, 64
+XLSTM_WREC_SCALE, XLSTM_LOGIT_REL_L2 = 0.1, 1e-3
 
 # (n, m, d): the reference's GRAM_CASES, its off-ladder case, one knob,
 # the main path's shapes (56 observations padded to 64; 2048 LHS + 256
@@ -133,13 +174,16 @@ def cuda_ms(fn, reps: int = 25, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def profiled_device_us(fn):
+def profiled_device_us(fn, cpu: bool = True):
     """(result of ``fn()``, {kernel name: [summed device µs, count]})
     from ``torch.profiler`` over one call of ``fn`` that ends in a sync;
-    the dict is empty when the profiler recorded no device activity."""
+    the dict is empty when the profiler recorded no device activity.
+    ``cpu=False`` records device activity only (fewer events for a run
+    of many small kernels)."""
     import torch
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         out = fn()
         torch.cuda.synchronize()
@@ -184,6 +228,7 @@ def build_all() -> None:
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.gp_gram import ops as gram_ops
+    from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
 
     def timed(src, build):
         t0 = time.perf_counter()
@@ -191,18 +236,20 @@ def build_all() -> None:
         return src, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         futs = [pool.submit(timed, GRAM_SOURCE, gram_ops.build),
-                pool.submit(timed, FLASH_SOURCE, flash_ops.build)]
+                pool.submit(timed, FLASH_SOURCE, flash_ops.build),
+                pool.submit(timed, MLSTM_SOURCE, mlstm_ops.build)]
         for f in futs:
             src, dt = f.result()
             print(f"nvcc build of {src}: {dt:.2f} s", flush=True)
     print(f"all kernels built in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    # load both libraries before any profiler session: a library first
+    # load every library before any profiler session: a library first
     # loaded after one has run showed no device time under later sessions
     gram_ops._LIB.load()
     flash_ops._LIB.load()
+    mlstm_ops._LIB.load()
 
 
 def phase_device():
@@ -602,27 +649,27 @@ def phase_flash(card: str):
             "max_abs_err_32k": e_long, "rel_l2_32k": rel_long}
 
 
-def profile_report(what: str, wall_s: float, by_name: dict,
-                   flash_calls: int):
+def profile_report(what: str, wall_s: float, by_name: dict, calls: int,
+                   kernels=("flash_fwd_kernel",), label: str = "flash"):
     """Print a profiled run's device busy time, idle share, kernel count
     and top kernels; fails unless the profile holds exactly the run's
-    ``flash_calls`` flash launches, and returns the flash kernel's device
-    ms per call (None when ``flash_calls`` is 0)."""
+    ``calls`` launches of ``kernels[0]`` (one per wrapper call), and
+    returns the device ms per call of all ``kernels`` (a wrapper's
+    passes) together (None when ``calls`` is 0)."""
     busy = sum(t for t, _ in by_name.values()) / 1e6
-    flash_s = sum(t for n, (t, _) in by_name.items()
-                  if "flash_fwd_kernel" in n) / 1e6
-    flash_n = sum(k for n, (_, k) in by_name.items()
-                  if "flash_fwd_kernel" in n)
+    ours = lambda n: any(k in n for k in kernels)          # noqa: E731
+    k_s = sum(t for n, (t, _) in by_name.items() if ours(n)) / 1e6
+    k_n = sum(k for n, (_, k) in by_name.items() if kernels[0] in n)
     print(f"  {what} under torch.profiler: wall={wall_s:.3f}s device "
           f"busy={busy:.4f}s idle share={1 - busy / wall_s:.4f} device "
-          f"events={sum(k for _, k in by_name.values())}; flash "
-          f"kernel={flash_s:.4f}s (share of device time "
-          f"{flash_s / busy if busy else float('nan'):.4f})", flush=True)
-    for n, (t, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
+          f"events={sum(k for _, k in by_name.values())}; {label} "
+          f"kernel={k_s:.4f}s (share of device time "
+          f"{k_s / busy if busy else float('nan'):.4f})", flush=True)
+    for n, (t, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
         print(f"    {t / 1e3:10.3f}ms {k:6d}x {n[:90]}")
-    check(flash_n == flash_calls, f"{what}: the profile holds {flash_n} "
-          f"flash kernel launches, want {flash_calls}")
-    return flash_s * 1e3 / flash_calls if flash_calls else None
+    check(k_n == calls, f"{what}: the profile holds {k_n} {label} kernel "
+          f"launches, want {calls}")
+    return k_s * 1e3 / calls if calls else None
 
 
 def phase_prefill(card: str, flash: dict):
@@ -784,6 +831,290 @@ def phase_engine(card: str):
           "(decode_step + host scheduling)", flush=True)
 
 
+def mlstm_bound(B, S, H, P, chunk, itemsize, flops_per_s):
+    """(bound_ms, bound_by, flops): q, k, v read once and h written once
+    (and the two float32 gates read once) at the HBM rate, against the
+    products the function needs at the peak rate for the inputs' type.
+    Per (chunk, head): the causal half of q k^T and of ((q k^T) o W) v,
+    C(C+1)/2 pairs at 2P operations each, and the inter-chunk product
+    q C_prev and the carry update k^T v, 2 C P^2 each.  The gate terms,
+    O(C^2) per chunk, are not counted."""
+    n = B * H * (S // chunk)
+    pairs = chunk * (chunk + 1) // 2
+    flops = n * (2 * 2 * P * pairs + 2 * 2 * chunk * P * P)
+    nbytes = itemsize * 4 * B * S * H * P + 4 * 2 * B * S * H
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", flops)
+
+
+def phase_mlstm(card: str):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.mlstm_chunk import ops, ref
+
+    print("== phase 8: mLSTM kernel vs plain torch on the card", flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def inputs(B, S, H, P, dtype, scale=0.5):
+        """The reference test's distributions, drawn on the card."""
+        def n(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        q, k, v = (n(B, S, H, P) * scale, n(B, S, H, P) * scale / P ** 0.5,
+                   n(B, S, H, P) * scale)
+        logi, logf = n(B, S, H), -F.softplus(-n(B, S, H) * 2.0)
+        return [t.to(dtype) for t in (q, k, v)] + [logi, logf]
+
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    for B, S, H, P, chunk in MLSTM_CASES:
+        for name, dt in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+            args = inputs(B, S, H, P, dt)
+            out = ops.mlstm_chunk(*args, chunk=chunk)
+            plain = ref.mlstm_chunkwise(*args, chunk)
+            oracle = ref.mlstm_sequential(*args)
+            torch.cuda.synchronize()
+            tag = f"{name} B={B} S={S} H={H} P={P} chunk={chunk}"
+            check(out.shape == plain.shape and out.dtype == dt,
+                  f"{tag}: {tuple(out.shape)} {out.dtype}")
+            check(bool(torch.isfinite(out.float()).all()),
+                  f"{tag}: non-finite")
+            e = max(float((out.float() - w.float()).abs().max())
+                    for w in (plain, oracle))
+            err[name] = max(err[name], e)
+            if dt == torch.float32:
+                check(e <= MLSTM_ATOL, f"{tag}: max |kernel - plain| = {e}")
+            else:
+                atol, rtol = MLSTM_BF16_TOL
+                over = float(((out.float() - plain.float()).abs()
+                              - atol - rtol * plain.float().abs()).max())
+                check(over <= 0, f"{tag}: kernel exceeds atol {atol} + "
+                      f"rtol {rtol} by {over}")
+            print(f"  {tag}: max_abs_err={e:.3e} (vs chunkwise and "
+                  "sequential plain versions)", flush=True)
+    args = inputs(1, 256, 2, 32, torch.float32, scale=1.0)
+    outs = [ops.mlstm_chunk(*args, chunk=c) for c in (32, 64, 256)]
+    inv = max(float((o - outs[0]).abs().max()) for o in outs[1:])
+    print(f"  chunk invariance (32/64/256, f32): max |diff| = {inv:.3e}",
+          flush=True)
+    check(inv <= 2e-4, f"chunk invariance: {inv} > 2e-4")
+
+    B, S, H, P = MLSTM_LAYER
+    args = inputs(B, S, H, P, torch.bfloat16)
+    res = {}
+    for chunk in MLSTM_CHUNKS:
+        out = ops.mlstm_chunk(*args, chunk=chunk)
+        want = ref.mlstm_chunkwise(*args, chunk)
+        torch.cuda.synchronize()
+        res[chunk] = (float((out.float() - want.float()).abs().max()),
+                      rel_l2(out, want))
+        if chunk == MLSTM_CHUNKS[0]:
+            # the planted fault: every chunk loses its inter-chunk term
+            # (each chunk run alone, from a zero carry)
+            fault = torch.cat([ref.mlstm_chunkwise(
+                *(t[:, i:i + chunk] for t in args), chunk)
+                for i in range(0, S, chunk)], dim=1)
+            rel_fault = rel_l2(fault, want)
+            del fault
+        print(f"  layer shape B={B} S={S} H={H} P={P} bf16 chunk={chunk}: "
+              f"kernel vs plain max_abs_err={res[chunk][0]:.3e} rel_l2="
+              f"{res[chunk][1]:.4e}; limit {MLSTM_REL_L2}", flush=True)
+        check(bool(torch.isfinite(out.float()).all()),
+              f"layer shape chunk={chunk}: non-finite")
+        check(res[chunk][1] <= MLSTM_REL_L2, f"layer shape chunk={chunk}: "
+              f"relative L2 {res[chunk][1]} > {MLSTM_REL_L2}")
+        del out, want
+    print(f"  planted fault (no inter-chunk term, chunk "
+          f"{MLSTM_CHUNKS[0]}) vs plain rel_l2={rel_fault:.4e}", flush=True)
+    check(rel_fault > MLSTM_REL_L2, f"the planted fault's relative L2 "
+          f"{rel_fault} is within {MLSTM_REL_L2}")
+    chunk = MLSTM_CHUNKS[0]
+    k_ms = cuda_ms(lambda: ops.mlstm_chunk(*args, chunk=chunk), reps=5,
+                   inner=4)
+    p_ms = cuda_ms(lambda: ref.mlstm_chunkwise(*args, chunk), reps=3,
+                   inner=2)
+    b_ms, b_by, flops = mlstm_bound(B, S, H, P, chunk, 2, BF16_FLOPS_PER_S)
+    print(f"  layer shape B={B} S={S} H={H} P={P} chunk={chunk} bf16 on "
+          f"{card}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms="
+          f"none bound_ms={b_ms:.4f} ({b_by}; {flops / 1e9:.1f} GFLOP) "
+          f"achieved={flops / k_ms / 1e9:.2f} TFLOP/s (bound share "
+          f"{b_ms / k_ms:.4f})", flush=True)
+    del args
+    return {"max_abs_err": res[chunk][0], "rel_l2": res[chunk][1],
+            "err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "shape": [B, S, H, P, chunk],
+            f"rel_l2_chunk{MLSTM_CHUNKS[1]}": res[MLSTM_CHUNKS[1]][1],
+            "rel_l2_fault": rel_fault}
+
+
+def phase_xlstm(card: str):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.mlstm_chunk import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.config import MLSTM, SLSTM
+    from repro_torch.models.model import Model
+    from repro_torch.runconfig import RunConfig
+
+    cfg = get_config("xlstm-1.3b")
+    n_mlstm = sum(sp.kind == MLSTM for sp in cfg.pattern) * cfg.n_groups
+    n_slstm = sum(sp.kind == SLSTM for sp in cfg.pattern) * cfg.n_groups
+    B, S = XLSTM_PREFILL
+    print(f"== phase 9: Model(xlstm-1.3b: {cfg.n_layers} layers = "
+          f"{n_mlstm} mLSTM + {n_slstm} sLSTM, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, mlstm_expand {cfg.mlstm_expand}, vocab "
+          f"{cfg.vocab_size}).prefill at B={B} S={S}; {DECODE_STEPS} "
+          "greedy decode steps; float32 prefill vs teacher-forced decode",
+          flush=True)
+    m = Model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = m.init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"random bf16 weights made on the card: {n_params} parameters in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    mlstm_kernels = ("mlstm_chunk_kernel", "mlstm_qk_kernel")
+
+    def prefill(p, tokens, rc):
+        ops.reset_launch_counts()
+        flash_ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, st = m.prefill(p, {"tokens": tokens},
+                               tokens.shape[1] + DECODE_STEPS, rc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(ops.launches == n_mlstm, f"xlstm prefill at S="
+              f"{tokens.shape[1]}: {ops.launches} mLSTM launches, want "
+              f"{n_mlstm}")
+        check(flash_ops.launches == 0, "xlstm prefill launched flash")
+        check(bool(torch.isfinite(logits).all()),
+              "xlstm prefill: non-finite logits")
+        return logits, st, wall
+
+    rc = RunConfig()
+    tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    _, _, wall_warm = prefill(params, tokens, rc)
+    torch.cuda.reset_peak_memory_stats()
+    logits, st, wall = prefill(params, tokens, rc)
+    launches = ops.launches              # the main path's bf16 prefill
+    print(f"prefill B={B} S={S} bf16 chunk={rc.mlstm_chunk} on {card}: "
+          f"wall={wall:.3f}s ({B * S / wall:.1f} tok/s; first call "
+          f"{wall_warm:.3f}s); {launches} mLSTM kernel launches",
+          flush=True)
+
+    # the sLSTM time loops' share of the wall: each loop timed between
+    # device syncs in one more prefill
+    slstm_s = []
+    plain_slstm = transformer._slstm_prefill
+
+    def timed_slstm(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_slstm(*a, **k)
+        torch.cuda.synchronize()
+        slstm_s.append(time.perf_counter() - t0)
+        return out
+
+    transformer._slstm_prefill = timed_slstm
+    try:
+        _, _, wall_t = prefill(params, tokens, rc)
+    finally:
+        transformer._slstm_prefill = plain_slstm
+    check(len(slstm_s) == n_slstm, f"{len(slstm_s)} sLSTM loops timed")
+    print(f"  the {n_slstm} sLSTM time loops ({S} steps each): "
+          f"{sum(slstm_s):.3f}s of a {wall_t:.3f}s prefill (share "
+          f"{sum(slstm_s) / wall_t:.4f}; per loop "
+          f"{min(slstm_s):.3f}-{max(slstm_s):.3f}s)", flush=True)
+
+    t0 = time.perf_counter()
+    (_, _, wall_p), by_name = profiled_device_us(
+        lambda: prefill(params, tokens, rc), cpu=False)
+    t_read = time.perf_counter() - t0 - wall_p
+    dev_ms = profile_report(f"prefill B={B} S={S}", wall_p, by_name,
+                            n_mlstm, kernels=mlstm_kernels, label="mLSTM")
+    pass1_ms = sum(t for n, (t, _) in by_name.items()
+                   if "mlstm_qk_kernel" in n) / 1e3 / n_mlstm
+    print(f"  mLSTM kernel device ms per launch: {dev_ms:.4f} (pass 1, "
+          f"q k^T tiles: {pass1_ms:.4f}); profile read in {t_read:.1f}s",
+          flush=True)
+
+    before = ops.launches
+    tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    t0 = time.perf_counter()
+    for _ in range(DECODE_STEPS):
+        logits, st = m.decode_step(params, tok, st, rc)
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits).all()), "decode: non-finite logits")
+    check(bool((st.pos == S + DECODE_STEPS).all()),
+          f"decode: pos {st.pos.tolist()}")
+    check(ops.launches == before, "decode_step launched the mLSTM kernel")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{DECODE_STEPS} greedy decode steps at B={B} from S={S}: "
+          f"{dt / DECODE_STEPS * 1e3:.3f} ms/step, "
+          f"{B * DECODE_STEPS / dt:.1f} tok/s; last tokens "
+          f"{tok[:, 0].tolist()}; peak device memory {peak:.2f} GiB "
+          "(prefill + decode)", flush=True)
+
+    def one_step():
+        t0 = time.perf_counter()
+        m.decode_step(params, tok, st, rc)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    wall_p, by_name = profiled_device_us(one_step)
+    profile_report(f"one decode step B={B} at pos {S + DECODE_STEPS}",
+                   wall_p, by_name, 0, kernels=mlstm_kernels, label="mLSTM")
+    check(not any(k in n for n in by_name for k in mlstm_kernels),
+          "a decode step ran an mLSTM kernel")
+    del params, st, logits
+    torch.cuda.empty_cache()
+
+    # float32 weights: the prefill (the kernel, several chunks) against
+    # teacher-forced decode (the sequential recurrence, no kernel)
+    params = m.init(seed=0, dtype=torch.float32)
+    rc32 = RunConfig(param_dtype="float32", activation_dtype="float32",
+                     mlstm_chunk=XLSTM_CHECK_CHUNK)
+    toks = torch.randint(1, cfg.vocab_size, (1, XLSTM_CHECK_S),
+                         generator=gen, device="cuda", dtype=torch.int32)
+
+    def prefill_vs_decode():
+        lp, _, _ = prefill(params, toks, rc32)
+        ds = m.init_decode_state(1, XLSTM_CHECK_S + 1, rc32)
+        for t in range(XLSTM_CHECK_S):
+            ld, ds = m.decode_step(params, toks[:, t:t + 1], ds, rc32)
+        d = (lp - ld).float()
+        return (float(d.norm() / ld.float().norm()), float(d.abs().max()),
+                bool(lp.argmax() == ld.argmax()),
+                float(ld.abs().max()))
+
+    t0 = time.perf_counter()
+    rel0, mx0, agree0, mag0 = prefill_vs_decode()
+    print(f"float32 prefill (S={XLSTM_CHECK_S}, chunk {XLSTM_CHECK_CHUNK}) "
+          f"vs teacher-forced decode, weights as initialised: last-token "
+          f"logits rel_l2={rel0:.4e} max_abs={mx0:.4e} (max |logit| "
+          f"{mag0:.3f}) argmax_agreement={agree0}; recorded, no limit "
+          f"(chaotic sLSTM recurrence); {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    for p in params["layers"]:
+        if "slstm" in p:
+            p["slstm"]["w_rec"].mul_(XLSTM_WREC_SCALE)
+    rel1, mx1, agree1, mag1 = prefill_vs_decode()
+    print(f"  with the sLSTM recurrent weights x{XLSTM_WREC_SCALE}: "
+          f"rel_l2={rel1:.4e} max_abs={mx1:.4e} (max |logit| {mag1:.3f}) "
+          f"argmax_agreement={agree1}; limit rel_l2 {XLSTM_LOGIT_REL_L2}",
+          flush=True)
+    check(rel1 <= XLSTM_LOGIT_REL_L2, f"f32 prefill vs teacher-forced "
+          f"decode: relative L2 {rel1} > {XLSTM_LOGIT_REL_L2}")
+    return {"launches": launches, "device_ms": dev_ms}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -803,6 +1134,10 @@ def main() -> None:
     serving = phase_prefill(card, flash)
     torch.cuda.empty_cache()
     phase_engine(card)
+    torch.cuda.empty_cache()
+    mlstm = phase_mlstm(card)
+    torch.cuda.empty_cache()
+    xlstm = phase_xlstm(card)
 
     kernels = []
     for kind, shape in (("gram", MAIN_GRAM),
@@ -829,6 +1164,18 @@ def main() -> None:
         "shape": flash["shape"],
         "device_ms": serving["device_ms"],
         "max_abs_err_cases": flash["err"],
+    })
+    kernels.append({
+        "name": "mlstm_chunk_fwd", "route": "cuda",
+        "source": MLSTM_SOURCE, "replaces": MLSTM_REPLACES,
+        "launches": xlstm["launches"],
+        "max_abs_err": mlstm["max_abs_err"], "rel_l2": mlstm["rel_l2"],
+        "ms": mlstm["ms"], "plain_ms": mlstm["plain_ms"],
+        "bound_ms": mlstm["bound_ms"], "bound_by": mlstm["bound_by"],
+        "library_ms": None, "shape": mlstm["shape"],
+        "device_ms": xlstm["device_ms"],
+        **{k: v for k, v in mlstm.items() if k.startswith("rel_l2_")},
+        "max_abs_err_cases": mlstm["err"],
     })
     print(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -68,8 +68,15 @@ def dense_apply(p, x, *, preferred: Optional[torch.dtype] = None):
     once to bf16 before the float32 bias add.  The reference's
     ``precision`` argument has no counterpart: float32 products on the
     card run in full float32 (TF32 is off, ``device.resolve_device``).
+    Operands of two types (bf16 activations into the xLSTM's float32 gate
+    weights) are promoted to the wider one first, as ``jnp.matmul`` does.
     """
-    y = torch.matmul(x, p["w"])
+    w = p["w"]
+    if w.dtype != x.dtype:
+        wide = torch.promote_types(x.dtype, w.dtype)
+        y = torch.matmul(x.to(wide), w.to(wide))
+    else:
+        y = torch.matmul(x, w)
     if preferred == torch.bfloat16:
         y = y.to(torch.bfloat16)
         if "b" in p:
@@ -148,6 +155,8 @@ def tree_map(fn, tree):
     """Apply ``fn`` to every tensor of a nested dict/list/tuple tree."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):   # NamedTuple
+        return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)

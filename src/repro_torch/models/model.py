@@ -8,9 +8,12 @@ The serving engine and the launchers talk to this facade:
     logits, state     = m.decode_step(params, token, state, rc)
 
 Tensors live on ``m.device``: the card unless the caller asks for the
-CPU, and never a silent fallback.  The encoder-decoder family (whisper)
-and the loss/train path are not ported yet (ROADMAP queue A, items 14b
-and 15).
+CPU, and never a silent fallback.  The decoder-only dense family and the
+xLSTM family (mLSTM / sLSTM blocks; the mLSTM sequence pass in the
+chunkwise CUDA kernel) are ported; their decode states hold attention
+caches or recurrent states, updated in place.  Mamba and MoE blocks, the
+encoder-decoder family (whisper) and the loss/train path are not ported
+yet (ROADMAP queue A, items 14b and 15).
 """
 
 from __future__ import annotations
@@ -56,7 +59,8 @@ class Model:
         """Load a reference parameter tree (``{"embed", "final_norm",
         "layers": [stacked per pattern position], "head"}``, leaves as
         numpy arrays, bf16 included) onto ``self.device``, unchanged in
-        layout and dtype."""
+        layout and dtype (an xLSTM tree keeps its float32 gate and sLSTM
+        bias leaves)."""
         return tree_map(lambda a: _tensor(a).to(self.device), tree)
 
     # ---- serving ----------------------------------------------------------

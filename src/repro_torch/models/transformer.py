@@ -7,8 +7,9 @@ parameter tree carries across unchanged (``Model.params_from_numpy``).
 The reference's ``lax.scan`` over groups is a Python loop over layers
 here; the remat policy has no counterpart (nothing is differentiated).
 
-This slice ports ``ATTN`` blocks with a dense MLP or none.  Mamba, mLSTM
-and sLSTM blocks and MoE MLPs raise ``NotImplementedError`` naming their
+Ported: ``ATTN`` blocks with a dense MLP or none, and the xLSTM family's
+``MLSTM`` and ``SLSTM`` blocks (``models/xlstm.py``; ``mlp="none"``).
+Mamba blocks and MoE MLPs raise ``NotImplementedError`` naming their
 ROADMAP item.
 
 Exposes:
@@ -25,7 +26,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.models import attention, mlp
+from repro_torch.models import attention, mlp, xlstm
 from repro_torch.models.common import (dense_apply, norm_apply, norm_init,
                                        reduce_dtype, trunc_normal, tree_map)
 from repro_torch.models.config import (ATTN, MAMBA, MLP_DENSE, MLP_MOE,
@@ -36,10 +37,6 @@ from repro_torch.runconfig import RunConfig
 _NOT_PORTED = {
     MAMBA: "mamba blocks (models/ssm.py) are not ported yet: ROADMAP "
            "queue A, item 14b",
-    MLSTM: "mLSTM blocks (models/xlstm.py, with the mLSTM kernel) are not "
-           "ported yet: ROADMAP queue A, item 14a",
-    SLSTM: "sLSTM blocks (models/xlstm.py) are not ported yet: ROADMAP "
-           "queue A, item 14a",
     MLP_MOE: "MoE MLPs (models/moe.py) are not ported yet: ROADMAP queue "
              "A, item 14b",
 }
@@ -52,7 +49,8 @@ def check_supported(cfg: ModelConfig) -> None:
         for kind in (spec.kind, spec.mlp):
             if kind in _NOT_PORTED:
                 raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
-        if spec.kind != ATTN or spec.mlp not in (MLP_DENSE, MLP_NONE):
+        if spec.kind not in (ATTN, MLSTM, SLSTM) \
+                or spec.mlp not in (MLP_DENSE, MLP_NONE):
             raise ValueError(f"{cfg.name}: unknown layer spec {spec}")
 
 
@@ -63,11 +61,14 @@ def check_supported(cfg: ModelConfig) -> None:
 def _pos_init(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
               dtype):
     G, dev = cfg.n_groups, gen.device
-    p: Dict[str, Any] = {
-        "norm1": norm_init(cfg.d_model, cfg.norm, dtype, device=dev,
-                           stack=G),
-        "attn": attention.init(gen, cfg, dtype, stack=G),
-    }
+    p: Dict[str, Any] = {"norm1": norm_init(cfg.d_model, cfg.norm, dtype,
+                                            device=dev, stack=G)}
+    if spec.kind == ATTN:
+        p["attn"] = attention.init(gen, cfg, dtype, stack=G)
+    elif spec.kind == MLSTM:
+        p["mlstm"] = xlstm.mlstm_init(gen, cfg, dtype, stack=G)
+    else:
+        p["slstm"] = xlstm.slstm_init(gen, cfg, dtype, stack=G)
     if spec.mlp == MLP_DENSE:
         p["norm2"] = norm_init(cfg.d_model, cfg.norm, dtype, device=dev,
                                stack=G)
@@ -104,8 +105,13 @@ def _block_forward(spec: LayerSpec, p, x, positions, cfg: ModelConfig,
                    rc: RunConfig):
     """One block (pre-norm residual)."""
     h = norm_apply(p["norm1"], x, kind=cfg.norm, eps=cfg.norm_eps)
-    h = attention.apply(p["attn"], h, positions, cfg, rc, causal=True,
-                        window=spec.sliding_window)
+    if spec.kind == ATTN:
+        h = attention.apply(p["attn"], h, positions, cfg, rc, causal=True,
+                            window=spec.sliding_window)
+    elif spec.kind == MLSTM:
+        h = xlstm.mlstm_apply(p["mlstm"], h, cfg, rc)
+    else:
+        h = xlstm.slstm_apply(p["slstm"], h, cfg, rc)
     x = x + h
     if spec.mlp == MLP_DENSE:
         h = norm_apply(p["norm2"], x, kind=cfg.norm, eps=cfg.norm_eps)
@@ -172,18 +178,30 @@ def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
 # ---------------------------------------------------------------------------
 
 class DecodeState(NamedTuple):
-    """Per-pattern-position stacked caches + current length."""
-    slots: Tuple[Any, ...]      # one (k, v) per pattern position, each
-                                # [n_groups, B, ...] (layout per rc)
+    """Per-pattern-position stacked caches / states + current length."""
+    slots: Tuple[Any, ...]      # one entry per pattern position, every
+                                # leaf [n_groups, B, ...]: (k, v) caches
+                                # (layout per rc), an MlstmState or an
+                                # SlstmState
     pos: torch.Tensor           # [B] int32: tokens consumed per slot
+
+
+def _pos_state(spec: LayerSpec, batch: int, s_max: int, cfg: ModelConfig,
+               rc: RunConfig, device):
+    G = cfg.n_groups
+    if spec.kind == ATTN:
+        return attention.init_cache(batch, s_max, cfg, rc, device=device,
+                                    stack=G)
+    if spec.kind == MLSTM:
+        return xlstm.mlstm_init_state(batch, cfg, device=device, stack=G)
+    return xlstm.slstm_init_state(batch, cfg, device=device, stack=G)
 
 
 def init_decode_state(batch: int, s_max: int, cfg: ModelConfig,
                       rc: RunConfig, *, device) -> DecodeState:
     check_supported(cfg)
-    slots = tuple(attention.init_cache(batch, s_max, cfg, rc, device=device,
-                                       stack=cfg.n_groups)
-                  for _ in cfg.pattern)
+    slots = tuple(_pos_state(spec, batch, s_max, cfg, rc, device)
+                  for spec in cfg.pattern)
     return DecodeState(slots=slots,
                        pos=torch.zeros((batch,), dtype=torch.int32,
                                        device=device))
@@ -193,11 +211,18 @@ def init_decode_state(batch: int, s_max: int, cfg: ModelConfig,
 # decode step (and prefill)
 # ---------------------------------------------------------------------------
 
-def _block_decode(spec: LayerSpec, p, x, ck, cv, pos, cfg: ModelConfig,
+def _block_decode(spec: LayerSpec, p, x, slot, pos, cfg: ModelConfig,
                   rc: RunConfig):
+    """One block of one token; ``slot`` (this group's views of the
+    position's cache or state) is updated in place."""
     h = norm_apply(p["norm1"], x, kind=cfg.norm, eps=cfg.norm_eps)
-    h, _, _ = attention.decode_apply(p["attn"], h, ck, cv, pos, cfg, rc,
-                                     window=spec.sliding_window)
+    if spec.kind == ATTN:
+        h, _, _ = attention.decode_apply(p["attn"], h, *slot, pos, cfg, rc,
+                                         window=spec.sliding_window)
+    elif spec.kind == MLSTM:
+        h, _ = xlstm.mlstm_decode_step(p["mlstm"], h, slot, cfg, rc)
+    else:
+        h, _ = xlstm.slstm_decode_step(p["slstm"], h, slot, cfg, rc)
     x = x + h
     if spec.mlp == MLP_DENSE:
         h = norm_apply(p["norm2"], x, kind=cfg.norm, eps=cfg.norm_eps)
@@ -207,26 +232,29 @@ def _block_decode(spec: LayerSpec, p, x, ck, cv, pos, cfg: ModelConfig,
 
 def decode_step(params, token, state: DecodeState, cfg: ModelConfig,
                 rc: RunConfig):
-    """token [B,1] int -> (logits [B,1,V], new state).  The caches are
-    updated in place; the new state shares them and has ``pos + 1``."""
+    """token [B,1] int -> (logits [B,1,V], new state).  The caches and
+    recurrent states are updated in place; the new state shares them and
+    has ``pos + 1``."""
     x = embed(params, token, cfg)
     pos = state.pos
     for g in range(cfg.n_groups):
         for p_i, spec in enumerate(cfg.pattern):
-            ck, cv = state.slots[p_i]
             x = _block_decode(spec, _group(params["layers"][p_i], g), x,
-                              ck[g], cv[g], pos, cfg, rc)
+                              _group(state.slots[p_i], g), pos, cfg, rc)
     x = norm_apply(params["final_norm"], x, kind=cfg.norm, eps=cfg.norm_eps)
     logits = unembed(params, x, cfg)
     return logits, DecodeState(slots=state.slots, pos=pos + 1)
 
 
 def prefill(params, tokens, s_max: int, cfg: ModelConfig, rc: RunConfig):
-    """Run the prompt through the stack, filling caches.
+    """Run the prompt through the stack, filling caches and states.
 
     Returns (last-token logits [B,1,V], DecodeState at pos=S).
     Full-sequence attention (``rc.attention_impl``; the flash kernel under
-    ``"flash"``) plus a per-layer cache fill, as in the reference.
+    ``"flash"``) plus a per-layer cache fill, as in the reference; an mLSTM
+    layer's sequence pass is the chunkwise kernel and its final state
+    comes from one product over S; an sLSTM layer's time loop leaves its
+    final state.  The states are written into the slots in place.
     """
     B, S = tokens.shape
     dev = tokens.device
@@ -236,13 +264,21 @@ def prefill(params, tokens, s_max: int, cfg: ModelConfig, rc: RunConfig):
     for g in range(cfg.n_groups):
         for p_i, spec in enumerate(cfg.pattern):
             p = _group(params["layers"][p_i], g)
-            ck, cv = state.slots[p_i]
+            slot = _group(state.slots[p_i], g)
             h = norm_apply(p["norm1"], x, kind=cfg.norm, eps=cfg.norm_eps)
-            k, v = attention.project_kv(p["attn"], h, positions, cfg)
-            attention.fill_cache(ck[g], k, rc)
-            attention.fill_cache(cv[g], v, rc)
-            x = x + attention.apply(p["attn"], h, positions, cfg, rc,
+            if spec.kind == ATTN:
+                k, v = attention.project_kv(p["attn"], h, positions, cfg)
+                attention.fill_cache(slot[0], k, rc)
+                attention.fill_cache(slot[1], v, rc)
+                y = attention.apply(p["attn"], h, positions, cfg, rc,
                                     causal=True, window=spec.sliding_window)
+            else:
+                prefill_fn = _mlstm_prefill if spec.kind == MLSTM \
+                    else _slstm_prefill
+                y, final = prefill_fn(p[spec.kind], h, cfg, rc)
+                for dst, src in zip(slot, final):
+                    dst.copy_(src)
+            x = x + y
             if spec.mlp == MLP_DENSE:
                 h = norm_apply(p["norm2"], x, kind=cfg.norm,
                                eps=cfg.norm_eps)
@@ -252,3 +288,33 @@ def prefill(params, tokens, s_max: int, cfg: ModelConfig, rc: RunConfig):
     return logits, DecodeState(
         slots=state.slots,
         pos=torch.full((B,), S, dtype=torch.int32, device=dev))
+
+
+def _mlstm_prefill(p, h, cfg: ModelConfig, rc: RunConfig):
+    """The mLSTM sequence pass and its final state.  The projections are
+    computed once and shared; the reference computes the same
+    deterministic values twice."""
+    qkvg = xlstm._mlstm_qkvg(p, h, cfg)
+    y = xlstm.mlstm_chunked(p, h, qkvg, cfg, rc)
+    return y, _mlstm_final_state(p, h, cfg, qkvg)
+
+
+def _mlstm_final_state(p, h, cfg: ModelConfig, qkvg=None) -> xlstm.MlstmState:
+    """(C, n, m) after the whole prompt, from one product over S."""
+    q, k, v, logi, logf, z = qkvg if qkvg is not None \
+        else xlstm._mlstm_qkvg(p, h, cfg)
+    kf, vf = k.float(), v.float()
+    cum = torch.cumsum(logf, dim=1)                         # [B,S,H]
+    total = cum[:, -1, :]                                   # [B,H]
+    scores = total[:, None, :] - cum + logi                 # [B,S,H]
+    m = scores.amax(dim=1)                                  # [B,H]
+    wk = torch.exp(scores - m[:, None, :])
+    c = torch.einsum("bshp,bshr->bhpr", kf * wk[..., None], vf)
+    n = torch.einsum("bshp,bsh->bhp", kf, wk)
+    return xlstm.MlstmState(c=c, n=n, m=m)
+
+
+def _slstm_prefill(p, h, cfg: ModelConfig, rc: RunConfig):
+    """The sLSTM time loop; returns its output and final state."""
+    hs, final = xlstm.slstm_scan(p, h, cfg)
+    return xlstm._slstm_out(p, hs.to(h.dtype), cfg), final

@@ -38,6 +38,9 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.kernels.build",
                 "repro_torch.kernels.flash_attention.ops",
                 "repro_torch.kernels.flash_attention.ref",
+                "repro_torch.kernels.mlstm_chunk.ops",
+                "repro_torch.kernels.mlstm_chunk.ref",
+                "repro_torch.models.xlstm",
                 "repro_torch.parallel.sharding", "repro_torch.runconfig",
                 "repro_torch.models.common", "repro_torch.models.rotary",
                 "repro_torch.models.mlp", "repro_torch.models.attention",

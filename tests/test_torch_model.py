@@ -13,6 +13,9 @@ Weights are made by the reference (``Model.init``) and carried across with
 
 ``attention_impl="flash"`` on CPU tensors runs the kernel's plain version
 in the port and the chunked path in the reference (its off-TPU dispatch).
+xlstm-1.3b's mLSTM layers run the chunkwise kernel's plain version in the
+port and the reference's jnp chunked scan; its smoke config has one group
+of 7 mLSTM + 1 sLSTM layers.
 """
 
 import jax
@@ -32,6 +35,7 @@ from repro_torch.runconfig import RunConfig
 
 DENSE = ["yi-6b", "qwen1.5-4b", "mistral-nemo-12b", "codeqwen1.5-7b",
          "qwen2-vl-72b"]
+PORTED = DENSE + ["xlstm-1.3b"]
 F32 = dict(param_dtype="float32", activation_dtype="float32",
            kv_cache_dtype="float32")
 
@@ -68,7 +72,7 @@ def _tokens(cfg, B, S, seed):
 # ---------------------------------------------------------------------------
 
 def test_param_tree_matches_reference_layout():
-    for arch in DENSE:
+    for arch in PORTED:
         jm = JModel(jax_smoke(arch))
         want = jax.tree.map(lambda s: (tuple(s.shape), str(s.dtype)),
                             jm.param_shapes(jnp.bfloat16))
@@ -78,7 +82,7 @@ def test_param_tree_matches_reference_layout():
         assert got == want, arch
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_forward_matches_reference(arch):
     jm, jp, tm, tp = _pair(arch)
     toks = _tokens(jm.cfg, 2, 11, seed=1)
@@ -97,7 +101,7 @@ def test_forward_matches_reference(arch):
 
 
 @pytest.mark.parametrize("impl", ["flash", "reference"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_prefill_then_decode_matches_reference(arch, impl):
     jm, jp, tm, tp = _pair(arch)
     kw = dict(F32, attention_impl=impl, flash_block_k=4)
@@ -155,8 +159,90 @@ def test_decode_matches_forward(dtype, tol):
                                rtol=tol[1])
 
 
-@pytest.mark.parametrize("arch", ["xlstm-1.3b", "jamba-1.5-large-398b",
-                                  "qwen2-moe-a2.7b", "whisper-tiny"])
+# ---------------------------------------------------------------------------
+# xlstm-1.3b: several chunks, bf16, decode == forward
+# ---------------------------------------------------------------------------
+
+def test_xlstm_prefill_over_several_chunks_then_decode():
+    """A 12-token prompt in chunks of 4: the mLSTM carry crosses chunks;
+    every recurrent state of the prefill matches the reference's."""
+    jm, jp, tm, tp = _pair("xlstm-1.3b")
+    kw = dict(F32, mlstm_chunk=4)
+    jrc, trc = JRunConfig(**kw), RunConfig(**kw)
+    toks = _tokens(jm.cfg, 2, 12, seed=7)
+    want, jst = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, 16, jrc)
+    got, tst = tm.prefill(tp, {"tokens": toks}, 16, trc)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-4, rtol=1e-4)
+    for tslot, jslot in zip(tst.slots, jst.slots):
+        for a, b in zip(tslot, jslot):
+            np.testing.assert_allclose(_np(a), _np(b), atol=1e-4, rtol=1e-4)
+    nxt = _tokens(jm.cfg, 2, 3, seed=8)
+    for t in range(3):
+        want, jst = jm.decode_step(jp, jnp.asarray(nxt[:, t:t + 1]), jst,
+                                   jrc)
+        got, tst = tm.decode_step(tp, nxt[:, t:t + 1], tst, trc)
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_xlstm_bf16_prefill_decode_at_reference_tolerance():
+    """bf16 weights against the reference evaluated op by op
+    (``jax.disable_jit``): jitted, XLA keeps fused bf16 intermediates in
+    float32 and lands beyond its own bf16 tolerance from its op-by-op
+    logits on this prompt; the port rounds where the ops do."""
+    jm, jp, tm, tp = _pair("xlstm-1.3b", dtype=jnp.bfloat16)
+    toks = _tokens(jm.cfg, 2, 8, seed=5)
+    with jax.disable_jit():
+        want, jst = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, 16,
+                               JRunConfig(mlstm_chunk=4))
+    got, tst = tm.prefill(tp, {"tokens": toks}, 16, RunConfig(mlstm_chunk=4))
+    np.testing.assert_allclose(_np(got), _np(want), atol=0.15, rtol=0.05)
+    with jax.disable_jit():
+        want, _ = jm.decode_step(jp, jnp.ones((2, 1), jnp.int32), jst,
+                                 JRunConfig())
+    got, _ = tm.decode_step(tp, np.ones((2, 1), np.int32), tst, RunConfig())
+    np.testing.assert_allclose(_np(got), _np(want), atol=0.15, rtol=0.05)
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, (1e-4, 1e-4)),
+                                        (torch.bfloat16, (0.15, 0.05))],
+                         ids=["f32", "bf16"])
+def test_xlstm_decode_matches_forward(dtype, tol):
+    """Teacher-forced decode (the sequential recurrence) == the full
+    forward (the chunkwise kernel's plain version, chunks of 4)."""
+    cfg = get_smoke_config("xlstm-1.3b")
+    m = Model(cfg, device="cpu")
+    params = m.init(0, dtype=dtype)
+    rc = RunConfig(**F32, mlstm_chunk=4) if dtype == torch.float32 \
+        else RunConfig(mlstm_chunk=4)
+    toks = torch.from_numpy(_tokens(cfg, 1, 12, seed=6))
+    full, _ = transformer.forward(params, toks, cfg, rc)
+    state = m.init_decode_state(1, 16, rc)
+    outs = []
+    for t in range(12):
+        logits, state = m.decode_step(params, toks[:, t:t + 1], state, rc)
+        outs.append(logits[:, 0])
+    dec = torch.stack(outs, dim=1)
+    np.testing.assert_allclose(_np(dec), _np(full), atol=tol[0],
+                               rtol=tol[1])
+
+
+def test_xlstm_decode_step_updates_states_in_place():
+    cfg = get_smoke_config("xlstm-1.3b")
+    m = Model(cfg, device="cpu")
+    params = m.init(0)
+    rc = RunConfig(mlstm_chunk=4)
+    _, st = m.prefill(params, {"tokens": _tokens(cfg, 2, 8, seed=9)}, 16,
+                      rc)
+    before = [t.clone() for slot in st.slots for t in slot]
+    _, st2 = m.decode_step(params, np.ones((2, 1), np.int32), st, rc)
+    assert st2.slots is st.slots
+    after = [t for slot in st2.slots for t in slot]
+    assert all(not torch.equal(a, b) for a, b in zip(after, before))
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "qwen2-moe-a2.7b",
+                                  "whisper-tiny"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(get_smoke_config(arch), device="cpu")

@@ -159,3 +159,66 @@ def test_launcher_serves_the_default_traffic_on_cpu(knob):
     assert res["tokens"] == 12 * 16
     assert all(len(r.out_tokens) == 16 and r.done for r in res["finished"])
     assert res["steps"] > 0
+
+
+# ---------------------------------------------------------------------------
+# xlstm-1.3b: recurrent states in the engine's slots
+# ---------------------------------------------------------------------------
+
+def _xlstm_engines(slots, s_max):
+    jm = JModel(jax_smoke("xlstm-1.3b"))
+    jp = jm.init(jax.random.key(0), dtype=jnp.float32)
+    tm = Model(get_smoke_config("xlstm-1.3b"), device="cpu")
+    tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp))
+    return (JEngine(jm, jp, JRunConfig(**F32), slots=slots, s_max=s_max),
+            Engine(tm, tp, RunConfig(**F32), slots=slots, s_max=s_max))
+
+
+def test_xlstm_engine_emits_the_reference_tokens():
+    jeng, teng = _xlstm_engines(3, 24)
+    for prompt in _prompts(jeng.model.cfg, 7, seed=2):
+        jeng.submit(prompt, 5)
+        teng.submit(prompt, 5)
+    want = {r.rid: r.out_tokens for r in jeng.run()}
+    got = {r.rid: r.out_tokens for r in teng.run()}
+    assert got == want and len(got) == 7
+    assert teng.step_count == jeng.step_count
+
+
+def test_recycled_recurrent_slot_keeps_the_previous_state():
+    """Admission resets only ``pos`` (the reference's ``Engine._admit``):
+    an attention slot's stale rows are masked by its kv_len, but a
+    recurrent slot keeps the previous request's (C, n, m) and (c, n, h, m)
+    as the next request's initial state.  Both packages do this, and the
+    port keeps the reference's tokens."""
+    jeng, teng = _xlstm_engines(1, 24)
+    first, second = _prompts(jeng.model.cfg, 2, seed=3)
+    for eng in (jeng, teng):
+        eng.submit(first, 3)
+        eng.run()
+    held = [np.array(jnp.asarray(t)) for slot in jeng.state.slots
+            for t in slot]
+    for eng in (jeng, teng):
+        eng.submit(second, 3)
+        eng._admit()
+        assert int(eng.state.pos[0]) == 0
+    for slot_j, slot_t in zip(jeng.state.slots, teng.state.slots):
+        for a, b in zip(slot_j, slot_t):
+            np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-4,
+                                       rtol=1e-4)
+    fresh = [np.array(t) for slot in
+             teng.model.init_decode_state(1, 24, teng.rc).slots
+             for t in slot]
+    now = [np.array(jnp.asarray(t)) for slot in jeng.state.slots
+           for t in slot]
+    assert all(np.array_equal(a, b) for a, b in zip(now, held))
+    assert not any(np.array_equal(a, b) for a, b in zip(now, fresh))
+    want = jeng.run()[-1].out_tokens
+    assert teng.run()[-1].out_tokens == want
+
+
+def test_launcher_serves_xlstm_on_cpu():
+    res = serve.main(["--arch", "xlstm-1.3b", "--device", "cpu"])
+    assert res["requests"] == 12
+    assert res["tokens"] == 12 * 16
+    assert all(len(r.out_tokens) == 16 and r.done for r in res["finished"])
