@@ -16,21 +16,26 @@ Phases (any failure exits non-zero before the result line):
    stage alone on the CPU must pick the same top-16 set.
 4. profile: one GP fit + q-EI selection at the main path's shapes under
    ``torch.profiler``: device busy time against wall time.
-5. flash kernel: hold ``kernels/flash_attention`` against its plain-torch
-   version over the reference's ``FLASH_CASES`` (atol 2e-5 in float32,
-   2e-2 in bfloat16), at yi-6b's prefill shape (B=2, S=4096, H=32, Kh=4,
-   D=128, causal, bf16) and at the ``prefill_32k`` shape (B=1, S=32768,
-   the heads of the first and last KV groups), each within relative L2
-   1e-2 (a planted dropped-tile fault, emulated with the plain version,
-   must land above it).  At the prefill shape it is timed beside the
-   plain version and ``scaled_dot_product_attention`` (the yardstick,
-   never called by the port), with its bound.
+5. flash kernels: hold ``kernels/flash_attention`` against its plain-torch
+   versions over the reference's ``FLASH_CASES`` through both routes:
+   bf16 at D 64/128 through the wgmma kernel against the plain version
+   that rounds P to bf16 and against the one that keeps P in f32, the
+   Pallas kernel's function (atol 2e-2 each), float32 through the FMA kernel
+   (2e-5; bf16 at D 32 takes it too); at yi-6b's prefill shape (B=2,
+   S=4096, H=32, Kh=4, D=128, causal, bf16) and at the ``prefill_32k``
+   shape (B=1, S=32768, the heads of the first and last KV groups), each
+   within relative L2 1e-2 (a planted dropped-tile fault, emulated with
+   the plain version, must land above it; at the prefill shape the f32-P
+   version too).  At the prefill shape the wgmma kernel is timed beside the plain version and ``scaled_dot_product_attention`` (the
+   yardstick, never called by the port), with its bound, and must be
+   within 3x of the yardstick; ptxas's report of it is printed.
 6. serving path, prefill: ``Model(yi-6b, full width).prefill`` with
    ``attention_impl="flash"`` at B=2, S=4096 against the same prefill
    under ``"reference"`` (and ``"chunked"``, the reference's own
    flash stand-in): last-token logits within relative L2 0.1 with bf16
-   weights, within atol 1e-3 with float32 weights; exactly 32 flash
-   launches per flash prefill and none otherwise; 16 greedy
+   weights, within atol 1e-3 with float32 weights; exactly 32 wgmma
+   launches (and no FMA launch) per bf16 flash prefill, 32 FMA launches
+   per float32 one, none otherwise; 16 greedy
    ``decode_step``s; then the ``prefill_32k`` cell at one card's share
    (B=1, S=32768; S=16384 when the kernel's measured time projects the
    32k prefill past 150 s): tokens/s and the flash kernel's share of
@@ -54,8 +59,8 @@ Phases (any failure exits non-zero before the result line):
    is chaotic at this width) and with the sLSTM recurrent weights scaled
    by 0.1 (relative L2 1e-3).
 
-The kernels are built at the start of phase 2, one ``nvcc`` each, all
-started together.  The line before the last is ``{"kernels": [...]}`` with each
+The kernels are built at the start of phase 2, one ``nvcc`` per source,
+all started together.  The line before the last is ``{"kernels": [...]}`` with each
 kernel's launches, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -81,7 +86,9 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM, dense bf16 tensor cores
 
 GRAM_SOURCE = "src/repro_torch/kernels/gp_gram/csrc/gp_gram.cu"
 GRAM_REPLACES = "src/repro/kernels/gp_gram/kernel.py:45"
-FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                "flash_attention_wgmma.cu")
+FLASH_FMA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:103"
 MLSTM_SOURCE = "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu"
 MLSTM_REPLACES = "src/repro/kernels/mlstm_chunk/kernel.py:90"
@@ -91,6 +98,7 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
 # a relative L2 error of the whole output, between its measured error and
 # that of a planted fault (one 64-key tile dropped from every row)
 FLASH_REL_L2 = 1e-2
+FLASH_LIBRARY_FACTOR = 3.0     # the wgmma kernel within 3x of SDPA
 # the reference's FLASH_CASES: (B, Sq, Sk, H, Kh, D, causal, window, softcap)
 FLASH_CASES = [(2, 256, 256, 4, 2, 64, True, None, None),
                (1, 128, 384, 8, 8, 128, True, None, 30.0),
@@ -102,12 +110,14 @@ PREFILL = (2, 4096, 32, 4, 128)  # yi-6b prefill: B, S, H, Kh, D
 LONG_S, LONG_S_CUT, LONG_LIMIT_S = 32768, 16384, 150.0
 DECODE_STEPS = 16
 # prefill logits, flash vs reference attention.  bf16 weights: relative
-# L2 error 0.1.  The reference path rounds p to bf16 before PV, the kernel
-# and the chunked path keep it in f32, and 32 bf16 layers amplify that
-# difference (and every bf16 re-rounding it flips) to a few percent of the
-# logits: the reference package's own chunked path lands as far from its
-# reference path as the kernel does (both printed).  float32 weights:
-# atol 1e-3 — the same function in float32, summed in another order.
+# L2 error 0.1.  The reference path rounds the normalised p to bf16 before
+# PV, the wgmma kernel the unnormalised exp against its running max, the
+# chunked path keeps it in f32, and 32 bf16 layers amplify those
+# differences (and every bf16 re-rounding they flip) to a few percent of
+# the logits: the reference package's own chunked path lands as far from
+# its reference path as the kernel does (both printed).  float32 weights
+# (the FMA kernel): atol 1e-3 — the same function in float32, summed in
+# another order.
 LOGIT_REL_L2_BF16, LOGIT_ATOL_F32 = 0.1, 1e-3
 
 # the reference's MLSTM_CASES: (B, S, H, P, chunk)
@@ -236,9 +246,12 @@ def build_all() -> None:
         return src, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         futs = [pool.submit(timed, GRAM_SOURCE, gram_ops.build),
-                pool.submit(timed, FLASH_SOURCE, flash_ops.build),
+                pool.submit(timed, FLASH_SOURCE, lambda verbose: flash_ops
+                            .build(verbose, which="wgmma")),
+                pool.submit(timed, FLASH_FMA_SOURCE, lambda verbose: flash_ops
+                            .build(verbose, which="fma")),
                 pool.submit(timed, MLSTM_SOURCE, mlstm_ops.build)]
         for f in futs:
             src, dt = f.result()
@@ -248,7 +261,7 @@ def build_all() -> None:
     # load every library before any profiler session: a library first
     # loaded after one has run showed no device time under later sessions
     gram_ops._LIB.load()
-    flash_ops._LIB.load()
+    flash_ops.load()
     mlstm_ops._LIB.load()
 
 
@@ -512,13 +525,30 @@ def flash_bound(B, Sq, Sk, H, Kh, D, causal, itemsize, flops_per_s):
             "bytes" if t_bytes >= t_ops else "operations", flops)
 
 
+def ptxas_summary(report: str, kernel: str) -> str:
+    """The registers / spills / shared-memory lines of ``kernel``'s
+    instantiations in a verbose nvcc build's output."""
+    keep, take = [], False
+    for line in report.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            take = kernel in line
+            if take and "Compiling" in line:
+                keep.append(line.split("'")[1] if "'" in line else line)
+        elif take and ("spill" in line or "registers" in line
+                       or "smem" in line):
+            keep.append("    " + line.strip())
+    return "\n".join(keep)
+
+
 def phase_flash(card: str):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
 
-    print("== phase 5: flash-attention kernel vs plain torch on the card",
+    print("== phase 5: flash-attention kernels vs plain torch on the card",
           flush=True)
+    print("ptxas, the wgmma kernel (flash_wgmma_kernel<D>):\n" + ptxas_summary(
+              ops._LIBS["wgmma"].report, "flash_wgmma_kernel"), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -526,33 +556,54 @@ def phase_flash(card: str):
         return [torch.randn(shape, generator=gen, device=dev).to(dtype)
                 for shape in ((B, Sq, H, D), (B, Sk, Kh, D), (B, Sk, Kh, D))]
 
-    err = {"float32": 0.0, "bfloat16": 0.0}
+    err = {}
     for B, Sq, Sk, H, Kh, D, causal, window, softcap in FLASH_CASES:
         for name, dt in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
             q, k, v = qkv(B, Sq, Sk, H, Kh, D, dt)
             kw = dict(causal=causal, window=window, softcap=softcap)
+            route = ops.route(dt, D)
+            before = (ops.launches_wgmma, ops.launches_fma)
             out = ops.flash_attention(q, k, v, **kw)
-            want = ref.reference_attention(q, k, v, **kw)
+            want = ops.plain_version(q, k, v, **kw)
             torch.cuda.synchronize()
             tag = (f"{name} B={B} Sq={Sq} Sk={Sk} H={H} Kh={Kh} D={D} "
-                   f"causal={causal} window={window} softcap={softcap}")
+                   f"causal={causal} window={window} softcap={softcap} "
+                   f"({route})")
+            check((ops.launches_wgmma, ops.launches_fma) == (
+                before[0] + (route == "wgmma"), before[1] + (route == "fma")),
+                f"{tag}: launched the wrong route")
             check(out.shape == want.shape and out.dtype == dt,
                   f"{tag}: {tuple(out.shape)} {out.dtype}")
             check(bool(torch.isfinite(out).all()), f"{tag}: non-finite")
             e = float((out.float() - want.float()).abs().max())
-            err[name] = max(err[name], e)
+            key = f"{name}_{route}"
+            err[key] = max(err.get(key, 0.0), e)
             check(e <= FLASH_TOL[name], f"{tag}: max |kernel - plain| = {e}")
-            print(f"  {tag}: max_abs_err={e:.3e}", flush=True)
+            line = f"  {tag}: max_abs_err={e:.3e}"
+            if route == "wgmma":
+                # the Pallas kernel's function keeps P in f32: the kernel
+                # is held to the reference's tolerance against that too
+                e32 = float((out.float() - ref.reference_attention(
+                    q, k, v, **kw).float()).abs().max())
+                err["bfloat16_wgmma_vs_f32p"] = max(
+                    err.get("bfloat16_wgmma_vs_f32p", 0.0), e32)
+                check(e32 <= FLASH_TOL[name],
+                      f"{tag}: max |kernel - plain with P in f32| = {e32}")
+                line += f" (vs P in f32: {e32:.3e})"
+            print(line, flush=True)
 
     B, S, H, Kh, D = PREFILL
     q, k, v = qkv(B, S, S, H, Kh, D, torch.bfloat16)
+    check(ops.route(q.dtype, D) == "wgmma", "the prefill shape is not on "
+          "the wgmma route")
 
     def kernel():
         return ops.flash_attention(q, k, v, causal=True)
 
-    def plain():
-        return ref.reference_attention(q, k, v, causal=True)
+    def plain_bf16p():
+        return ref.reference_attention(q, k, v, causal=True,
+                                       p_dtype=torch.bfloat16)
 
     # the yardstick: one PyTorch call over [B, H, S, D] with the K/V heads
     # repeated outside the timed calls; the port never calls it
@@ -563,42 +614,55 @@ def phase_flash(card: str):
     def library():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
-    out, want = kernel(), plain()
+    out, want = kernel(), plain_bf16p()
+    want_f32p = ref.reference_attention(q, k, v, causal=True)
     lib_out = library().transpose(1, 2)
     # the planted fault: rows past the first tile lose keys 0..63 (the
     # top-left causal alignment makes the plain version on q, k, v from
     # key 64 on exactly that)
     fault = want.clone()
     fault[:, 64:] = ref.reference_attention(q[:, 64:], k[:, 64:], v[:, 64:],
-                                            causal=True)
+                                            causal=True,
+                                            p_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     e = float((out.float() - want.float()).abs().max())
-    rel, rel_lib = rel_l2(out, want), rel_l2(lib_out, want)
+    rel = rel_l2(out, want)
+    rel_f32p, rel_lib = rel_l2(out, want_f32p), rel_l2(lib_out, want)
     rel_fault = rel_l2(fault, want)
-    print(f"  prefill shape B={B} S={S}: kernel vs plain max_abs_err={e:.3e}"
-          f" rel_l2={rel:.4e}; sdpa vs plain rel_l2={rel_lib:.4e}; planted "
-          f"fault vs plain rel_l2={rel_fault:.4e}; limit {FLASH_REL_L2}",
-          flush=True)
+    print(f"  prefill shape B={B} S={S}: kernel vs plain (P in bf16) "
+          f"max_abs_err={e:.3e} rel_l2={rel:.4e}; kernel vs plain with P in "
+          f"f32 rel_l2={rel_f32p:.4e};"
+          f" sdpa vs plain rel_l2={rel_lib:.4e}; planted fault vs plain "
+          f"rel_l2={rel_fault:.4e}; limit {FLASH_REL_L2}", flush=True)
     check(e <= FLASH_TOL["bfloat16"],
           f"prefill shape: max |kernel - plain| = {e}")
-    check(rel <= FLASH_REL_L2, f"prefill shape: kernel vs plain relative "
-          f"L2 {rel} > {FLASH_REL_L2}")
+    for name, r in (("plain", rel), ("plain with P in f32", rel_f32p)):
+        check(r <= FLASH_REL_L2, f"prefill shape: kernel vs {name} relative "
+              f"L2 {r} > {FLASH_REL_L2}")
     check(rel_fault > FLASH_REL_L2, f"prefill shape: the planted fault's "
           f"relative L2 {rel_fault} is within {FLASH_REL_L2}")
-    del out, want, lib_out, fault
+    del out, want, want_f32p, lib_out, fault
     # the kernel's device time comes from phase 6's profiled prefill (32
     # launches among the model's other kernels): profiling back-to-back
-    # launches of this kernel alone kept only some of them
-    k_ms = cuda_ms(kernel, reps=5, inner=4)
-    p_ms = cuda_ms(plain, reps=3, inner=2)
-    l_ms = cuda_ms(library, reps=5, inner=4)
+    # launches of this kernel alone kept only some of them.  Turns:
+    # library, kernel, kernel, library
+    l_ms1 = cuda_ms(library, reps=5, inner=4)
+    k_ms1 = cuda_ms(kernel, reps=5, inner=4)
+    k_ms2 = cuda_ms(kernel, reps=5, inner=4)
+    l_ms2 = cuda_ms(library, reps=5, inner=4)
+    k_ms, l_ms = min(k_ms1, k_ms2), min(l_ms1, l_ms2)
+    p_ms = cuda_ms(plain_bf16p, reps=3, inner=2)
     b_ms, b_by, flops = flash_bound(B, S, S, H, Kh, D, True, 2,
                                     BF16_FLOPS_PER_S)
     print(f"  prefill shape B={B} S={S} H={H} Kh={Kh} D={D} causal bf16 on "
-          f"{card}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
-          f"bound_ms={b_ms:.4f} ({b_by}; {flops / 1e9:.1f} GFLOP) "
-          f"achieved={flops / k_ms / 1e9:.2f} TFLOP/s (bound share "
-          f"{b_ms / k_ms:.4f})", flush=True)
+          f"{card}: kernel_ms={k_ms:.4f} ({k_ms1:.4f}, {k_ms2:.4f}) "
+          f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+          f"({l_ms1:.4f}, {l_ms2:.4f}) bound_ms={b_ms:.4f} ({b_by}; "
+          f"{flops / 1e9:.1f} GFLOP) achieved={flops / k_ms / 1e9:.2f} "
+          f"TFLOP/s (bound share {b_ms / k_ms:.4f}); kernel / library {k_ms / l_ms:.3f}", flush=True)
+    check(k_ms <= FLASH_LIBRARY_FACTOR * l_ms, f"prefill shape: the kernel's "
+          f"{k_ms:.4f} ms is more than {FLASH_LIBRARY_FACTOR}x the library "
+          f"call's {l_ms:.4f} ms")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
 
@@ -619,7 +683,8 @@ def phase_flash(card: str):
         kg, vg = k[:, :, g:g + 1], v[:, :, g:g + 1]
         for h in range(g * rep, (g + 1) * rep):
             want = ref.reference_attention(q[:, :, h:h + 1], kg, vg,
-                                           causal=True).float()
+                                           causal=True,
+                                           p_dtype=torch.bfloat16).float()
             diff = out[:, :, h:h + 1].float() - want
             d2 += float(diff.square().sum())
             w2 += float(want.square().sum())
@@ -627,7 +692,8 @@ def phase_flash(card: str):
             if h == 0:
                 fault = want.clone()
                 fault[:, 64:] = ref.reference_attention(
-                    q[:, 64:, :1], kg[:, 64:], vg[:, 64:], causal=True)
+                    q[:, 64:, :1], kg[:, 64:], vg[:, 64:], causal=True,
+                    p_dtype=torch.bfloat16)
                 rel_fault_long = rel_l2(fault, want)
             del want, diff
     rel_long = math.sqrt(d2 / w2)
@@ -644,13 +710,14 @@ def phase_flash(card: str):
           f"fault's relative L2 {rel_fault_long} is within {FLASH_REL_L2}")
     del q, k, v, out, fault
     return {"max_abs_err": e, "rel_l2": rel, "err": err, "ms": k_ms,
-            "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "shape": [B, PREFILL[1], PREFILL[1], H, Kh, D],
+            "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": [B, PREFILL[1], PREFILL[1], H, Kh, D],
             "max_abs_err_32k": e_long, "rel_l2_32k": rel_long}
 
 
 def profile_report(what: str, wall_s: float, by_name: dict, calls: int,
-                   kernels=("flash_fwd_kernel",), label: str = "flash"):
+                   kernels=("flash_wgmma_kernel",), label: str = "flash"):
     """Print a profiled run's device busy time, idle share, kernel count
     and top kernels; fails unless the profile holds exactly the run's
     ``calls`` launches of ``kernels[0]`` (one per wrapper call), and
@@ -698,17 +765,21 @@ def phase_prefill(card: str, flash: dict):
     rc_flash = RunConfig(attention_impl="flash")
     rc_ref = RunConfig(attention_impl="reference")
 
-    def prefill(tokens, rc):
+    def prefill(tokens, rc, route="wgmma"):
+        """One prefill; a flash one must launch the kernel of ``route``
+        once per layer and the other kernel never."""
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         logits, st = m.prefill(params, {"tokens": tokens},
                                tokens.shape[1] + 64, rc)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = ops.launches
-        want = cfg.n_layers if rc.attention_impl == "flash" else 0
-        check(n == want, f"{rc.attention_impl} prefill at S="
-              f"{tokens.shape[1]}: {n} flash launches, want {want}")
+        got = (ops.launches, ops.launches_wgmma, ops.launches_fma)
+        n = cfg.n_layers if rc.attention_impl == "flash" else 0
+        want = (n, n * (route == "wgmma"), n * (route == "fma"))
+        check(got == want, f"{rc.attention_impl} prefill at S="
+              f"{tokens.shape[1]}: (all, wgmma, fma) flash launches {got}, "
+              f"want {want}")
         check(bool(torch.isfinite(logits).all()),
               f"{rc.attention_impl} prefill: non-finite logits")
         return logits, st, wall
@@ -722,7 +793,9 @@ def phase_prefill(card: str, flash: dict):
                            device="cuda", dtype=torch.int32)
     _, _, wall_warm = prefill(tokens, rc_flash)   # first use of each shape
     lf, st, wall = prefill(tokens, rc_flash)
-    launches_4k = ops.launches             # the main path's bf16 prefill
+    launches_4k = {"launches": ops.launches,     # the main path's bf16 prefill
+                   "launches_wgmma": ops.launches_wgmma,
+                   "launches_fma": ops.launches_fma}
     lc, _, wall_chunk = prefill(tokens, RunConfig(attention_impl="chunked"))
     lr, _, wall_ref = prefill(tokens, rc_ref)
     print(f"prefill B={B} S={S} bf16 on {card}: flash wall={wall:.3f}s "
@@ -799,15 +872,17 @@ def phase_prefill(card: str, flash: dict):
     params = m.init(seed=0, dtype=torch.float32)
     tokens = tokens_4k
     f32 = dict(kv_cache_dtype="float32")
-    lf, _, wall32 = prefill(tokens, RunConfig(attention_impl="flash", **f32))
+    lf, _, wall32 = prefill(tokens, RunConfig(attention_impl="flash", **f32),
+                            route="fma")
     lr, _, _ = prefill(tokens, RunConfig(attention_impl="reference", **f32))
     rel, mx, agree = compare(lf, lr)
-    print(f"prefill B={B} S={S} float32 weights: flash wall={wall32:.3f}s; "
+    print(f"prefill B={B} S={S} float32 weights: flash wall={wall32:.3f}s "
+          f"({cfg.n_layers} FMA-kernel launches); "
           f"last-token logits flash vs reference: rel_l2={rel:.4e} "
           f"max_abs={mx:.4e} argmax_agreement={agree}", flush=True)
     check(mx <= LOGIT_ATOL_F32, f"f32 prefill logits: flash vs reference "
           f"max |diff| {mx} > {LOGIT_ATOL_F32}")
-    return {"launches": launches_4k, "launches_long": launches_long,
+    return {**launches_4k, "launches_long": launches_long,
             "long_s": s_long, "device_ms": flash_dev_ms}
 
 
@@ -1153,8 +1228,11 @@ def main() -> None:
         })
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",
-        "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+        "source": FLASH_SOURCE, "fma_source": FLASH_FMA_SOURCE,
+        "replaces": FLASH_REPLACES,
         "launches": serving["launches"],
+        "launches_wgmma": serving["launches_wgmma"],
+        "launches_fma": serving["launches_fma"],
         f"launches_{serving['long_s'] // 1024}k": serving["launches_long"],
         "max_abs_err": flash["max_abs_err"], "rel_l2": flash["rel_l2"],
         "max_abs_err_32k": flash["max_abs_err_32k"],

@@ -1,11 +1,13 @@
 """Build and load one hand-written CUDA source as a shared library.
 
-Each kernel of the port is one ``.cu`` file with a plain C interface.  It
-is compiled with ``nvcc`` for ``sm_90a`` into a shared library the first
-time a wrapper needs it, and loaded with ``ctypes``.  The library lands
-in ``build/<name>/`` at the root of the checkout, named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one
-is reused.  Nothing is built when a module is imported.
+Each library of the port is one ``.cu`` file with a plain C interface
+(it may include headers beside it in its ``csrc/``).  It is compiled with
+``nvcc`` for ``sm_90a`` into a shared library the first time a wrapper
+needs it, and loaded with ``ctypes``.  The library lands in
+``build/<name>/`` at the root of the checkout, named by a hash of every
+file in the source's directory and of the flags, so an edited source or
+header is rebuilt and an unchanged one is reused.  Nothing is built when
+a module is imported.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ def _nvcc() -> str:
 
 
 class NvccLibrary:
-    """One CUDA source built into ``build/<name>/lib<name>-<hash>.so``.
+    """One CUDA source built into ``build/<name>/lib<stem>-<hash>.so``
+    (``stem``: the source's file name without ``.cu``).
 
     ``functions`` maps each exported C function to its ctypes argument
     types; every function returns an ``int`` (a ``cudaError_t``)."""
@@ -47,15 +50,27 @@ class NvccLibrary:
         self.build_dir = BUILD_ROOT / name
         self._lock = threading.Lock()
         self._lib = None
+        self.report = ""        # the compiler's output of a verbose build
+
+    def digest(self) -> str:
+        """Hash of the source's name, every file under its directory
+        (headers included) and the flags; needs no compiler."""
+        h = hashlib.sha256(self.source.name.encode() + b"\0"
+                           + " ".join(NVCC_FLAGS).encode())
+        root = self.source.parent
+        for path in sorted(p for p in root.rglob("*") if p.is_file()):
+            h.update(b"\0" + path.relative_to(root).as_posix().encode()
+                     + b"\0" + path.read_bytes())
+        return h.hexdigest()[:16]
+
+    def library_path(self) -> Path:
+        return self.build_dir / f"lib{self.source.stem}-{self.digest()}.so"
 
     def build(self, verbose: bool = False) -> Path:
-        """Compile the library if this source has not been built yet;
+        """Compile the library if these sources have not been built yet;
         returns its path.  ``verbose`` adds ``-Xptxas -v`` and prints the
         compiler's report (registers, shared memory, spills)."""
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-        lib = self.build_dir / f"lib{self.name}-{digest}.so"
+        lib = self.library_path()
         if lib.exists() and not verbose:
             return lib
         self.build_dir.mkdir(parents=True, exist_ok=True)
@@ -71,7 +86,8 @@ class NvccLibrary:
                                    f"({proc.returncode}):\n"
                                    f"{proc.stdout}{proc.stderr}")
             if verbose:
-                print(proc.stdout + proc.stderr, end="")
+                self.report = proc.stdout + proc.stderr
+                print(self.report, end="")
             os.replace(tmp, lib)       # atomic: concurrent builds never tear
         finally:
             if os.path.exists(tmp):

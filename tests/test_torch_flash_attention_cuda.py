@@ -1,12 +1,16 @@
-"""The hand-written CUDA flash-attention kernel against its plain-torch
-version, on the card.  Needs an NVIDIA GPU (``cuda`` marker); skips
+"""The hand-written CUDA flash-attention kernels against their plain-torch
+versions, on the card.  Needs an NVIDIA GPU (``cuda`` marker); skips
 without one.  Imports nothing of JAX, so it runs on a machine that has
 only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_flash_attention_cuda.py
 
-Tolerances are the reference's flash tolerances
-(``tests/test_kernels.py``): atol 2e-5 in float32, 2e-2 in bfloat16.
+Two routes (``ops.route``): bf16 at head dims 64 and 128 runs the wgmma
+kernel, held against the plain version that rounds P to bf16 before P.V
+(``p_dtype=torch.bfloat16``); float32, and bf16 at the other head dims,
+runs the FMA kernel, held against the float32-P plain version.
+Tolerances are the reference's flash tolerances (``tests/test_kernels.py``):
+atol 2e-5 in float32, 2e-2 in bfloat16.
 """
 
 import numpy as np
@@ -17,9 +21,11 @@ from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import reference_attention
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                                 ids=["f32", "bf16"])
 
 # (B, Sq, Sk, H, Kh, D, causal, window, softcap): the reference's
-# FLASH_CASES, then cases for the kernel's own edges: every compiled head
+# FLASH_CASES, then cases for the kernels' own edges: every compiled head
 # dim, ragged tiles, Sq != Sk, a window without causal, and yi-6b's heads
 # at a short prefill
 CASES = [
@@ -34,6 +40,22 @@ CASES = [
     (1, 100, 300, 2, 2, 64, False, 8, None),
     (1, 70, 200, 2, 1, 32, False, None, 5.0),
     (1, 1000, 1000, 32, 4, 128, True, None, None),
+]
+
+# the wgmma route's own edges (bf16, D 64 and 128): Sq and Sk off the
+# 64-row and 128-key tiles and unequal, GQA ratios 1, 4 and 8, window and
+# soft-cap, with and without causal
+WGMMA_CASES = [
+    (1, 65, 65, 2, 2, 128, True, None, None),
+    (1, 191, 129, 4, 1, 64, True, None, None),
+    (2, 129, 333, 8, 2, 128, False, None, None),
+    (1, 333, 129, 8, 1, 128, True, None, None),
+    (1, 300, 300, 8, 8, 64, True, 100, None),
+    (1, 257, 257, 16, 2, 128, True, 130, 20.0),
+    (1, 200, 450, 4, 1, 64, False, 50, 10.0),
+    (2, 127, 127, 4, 1, 128, True, None, 50.0),
+    (1, 1, 1, 4, 4, 128, True, None, None),
+    (1, 17, 300, 8, 1, 64, False, None, None),
 ]
 
 
@@ -54,45 +76,94 @@ def _qkv(case, dtype, device, seed):
             for a in arrs]
 
 
+def _counts():
+    return ops.launches, ops.launches_wgmma, ops.launches_fma
+
+
+def _check_against_plain(q, k, v, **kw):
+    route = ops.route(q.dtype, q.shape[3])
+    n, n_wgmma, n_fma = _counts()
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ops.plain_version(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _counts() == (n + 1, n_wgmma + (route == "wgmma"),
+                         n_fma + (route == "fma"))
+    assert got.dtype == q.dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[q.dtype], rtol=0)
+    return got
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@DTYPES
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "B{}S{}x{}H{}-{}D{}"
                          .format(*c[:6]))
 def test_kernel_matches_plain(case, dtype, cuda):
     causal, window, softcap = case[6:]
     q, k, v = _qkv(case, dtype, cuda, seed=case[1] + case[3])
-    before = ops.launches
-    got = ops.flash_attention(q, k, v, causal=causal, window=window,
-                              softcap=softcap)
+    _check_against_plain(q, k, v, causal=causal, window=window,
+                         softcap=softcap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA_CASES,
+                         ids=lambda c: "B{}S{}x{}H{}-{}D{}c{}w{}s{}"
+                         .format(*c))
+def test_wgmma_route_edges_match_plain(case, cuda):
+    causal, window, softcap = case[6:]
+    q, k, v = _qkv(case, torch.bfloat16, cuda, seed=case[1] * 7 + case[2])
+    assert ops.route(q.dtype, q.shape[3]) == "wgmma"
+    got = _check_against_plain(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
+    # the Pallas kernel's function keeps P in f32: the kernel is held to
+    # the reference's bf16 tolerance against that too
     want = reference_attention(q, k, v, causal=causal, window=window,
                                softcap=softcap)
-    torch.cuda.synchronize()
-    assert ops.launches == before + 1
-    assert got.dtype == dtype and got.shape == q.shape
-    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
-                               rtol=0)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
 
 
 @pytest.mark.cuda
-def test_rows_with_nothing_visible_are_zero(cuda):
+@pytest.mark.parametrize("D", [64, 128])
+def test_wgmma_kernel_matches_plain(D, cuda):
+    """Several 128-row q blocks, each with two warpgroups of 64 rows, on
+    ragged edges, against both plain versions."""
+    case = (2, 333, 333, 8, 2, D)
+    q, k, v = _qkv(case, torch.bfloat16, cuda, seed=D)
+    got = ops._wgmma(q, k, v, True, None, None)
+    torch.cuda.synchronize()
+    for p_dtype in (torch.bfloat16, None):
+        want = reference_attention(q, k, v, p_dtype=p_dtype)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+@DTYPES
+@pytest.mark.parametrize("D", [64, 128])
+def test_rows_with_nothing_visible_are_zero(D, dtype, cuda):
     """A window without causal leaves rows i >= Sk + window - 1 with no
-    key; the kernel writes zeros there (as the TPU kernel does), and the
+    key; the kernels write zeros there (as the TPU kernel does), and the
     visible rows match the plain version."""
-    q, k, v = _qkv((1, 300, 100, 2, 2, 64), torch.float32, cuda, seed=3)
+    q, k, v = _qkv((1, 300, 100, 2, 2, D), dtype, cuda, seed=3)
     got = ops.flash_attention(q, k, v, causal=False, window=8)
-    want = reference_attention(q, k, v, causal=False, window=8)
+    want = ops.plain_version(q, k, v, causal=False, window=8)
     torch.cuda.synchronize()
     assert bool((got[:, 107:] == 0).all())
-    torch.testing.assert_close(got[:, :107], want[:, :107], atol=2e-5,
-                               rtol=0)
+    torch.testing.assert_close(got[:, :107].float(), want[:, :107].float(),
+                               atol=TOL[dtype], rtol=0)
+    empty = ops.flash_attention(q, k[:, :0], v[:, :0])    # no key at all
+    torch.cuda.synchronize()
+    assert empty.shape == q.shape and bool((empty == 0).all())
 
 
 @pytest.mark.cuda
-def test_strided_inputs_read_in_place(cuda):
-    """A view with non-default strides (heads sliced out of a wider
-    tensor) gives the same result as its contiguous copy."""
-    wide = torch.randn((1, 200, 8, 64), device=cuda)
+@DTYPES
+@pytest.mark.parametrize("D", [64, 128])
+def test_strided_inputs_read_in_place(D, dtype, cuda):
+    """Views with non-default strides (heads sliced out of a wider tensor,
+    and a transposed [B, H, S, D] tensor seen as [B, S, H, D]) give the
+    same result as their contiguous copies."""
+    wide = torch.randn((2, 200, 8, D), device=cuda).to(dtype)
     q = wide[:, :, :4]
     k, v = wide[:, :, 4:6], wide[:, :, 6:8]
     got = ops.flash_attention(q, k, v)
@@ -100,11 +171,21 @@ def test_strided_inputs_read_in_place(cuda):
                                v.contiguous())
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+    bhsd = torch.randn((2, 4, 200, D), device=cuda).to(dtype)
+    q = bhsd.transpose(1, 2)
+    got = ops.flash_attention(q, k, v)
+    want = ops.flash_attention(q.contiguous(), k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    torch.testing.assert_close(got.float(), ops.plain_version(q, k, v).float(),
+                               atol=TOL[dtype], rtol=0)
 
 
 @pytest.mark.cuda
-def test_block_size_knobs_do_not_change_the_output(cuda):
-    q, k, v = _qkv((1, 256, 256, 4, 2, 64), torch.float32, cuda, seed=7)
+@DTYPES
+@pytest.mark.parametrize("D", [64, 128])
+def test_block_size_knobs_do_not_change_the_output(D, dtype, cuda):
+    q, k, v = _qkv((1, 256, 256, 4, 2, D), dtype, cuda, seed=7)
     outs = [ops.flash_attention(q, k, v, block_q=bq, block_k=bk)
             for bq, bk in [(64, 64), (128, 256), (256, 128)]]
     for o in outs[1:]:
@@ -122,3 +203,11 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):          # head_dim 48 is not compiled
         x = torch.randn((1, 8, 4, 48), device=cuda)
         ops.flash_attention(x, x, x)
+    # the wgmma route does not fall back to the FMA kernel on a view TMA
+    # cannot read (a base pointer 8 bytes past a 16-byte boundary)
+    buf = torch.randn(8 * 4 * 128 + 4, device=cuda).bfloat16()
+    x = buf[4:].view(1, 8, 4, 128)
+    before = _counts()
+    with pytest.raises(ValueError, match="TMA"):
+        ops.flash_attention(x, x, x)
+    assert _counts() == before
