@@ -42,22 +42,28 @@ Phases (any failure exits non-zero before the result line):
    device time.
 7. serving path, engine: ``python -m repro_torch.launch.serve --arch yi-6b
    --full --device cuda`` with its default traffic (12 requests).
-8. mLSTM kernel: hold ``kernels/mlstm_chunk`` against its plain-torch
-   versions over the reference's ``MLSTM_CASES`` (atol 5e-5 in float32),
-   chunk invariance at chunks 32/64/256 (2e-4), and at xlstm-1.3b's layer
-   shape (q/k/v [2,4096,4,1024], bf16) at chunk 256 and 1024 within
-   relative L2 1e-3 (a planted fault, every chunk without its inter-chunk
-   term, must land above it); timed beside the plain version, with its
-   bound.
+8. mLSTM kernels: hold ``kernels/mlstm_chunk`` against its plain-torch
+   versions over the reference's ``MLSTM_CASES`` and the layer of phase
+   9's float32 check ([1,256,4,1024], chunk 64) (all on the FMA route:
+   atol 5e-5 in float32), chunk invariance at chunks 32/64/256 (2e-4), and
+   at xlstm-1.3b's layer shape (q/k/v [2,4096,4,1024], bf16) at chunk 256
+   and 1024, where the wgmma kernel runs: within relative L2 1e-3 of its
+   plain version (bf16 operands where the kernel rounds) and 1e-2 of the
+   float32 version, and the FMA kernel at the same inputs within 1e-3 of
+   the float32 version (a planted fault, every chunk without its
+   inter-chunk term, must land above every limit); timed beside the plain
+   version and the FMA kernel, with its bound, and failing above 2.0 ms
+   per call; ptxas's report of each of its passes is printed.
 9. serving path, xLSTM: ``Model(xlstm-1.3b, full width).prefill`` at B=2,
-   S=4096 with random bf16 weights: exactly 42 mLSTM launches per
-   prefill (also under ``torch.profiler``) and none per ``decode_step``;
+   S=4096 with random bf16 weights: exactly 42 wgmma mLSTM launches and no
+   FMA one per prefill (also under ``torch.profiler``, with the device ms
+   of each of its four kernels) and none per ``decode_step``;
    the sLSTM time loops' share of the wall; 16 greedy ``decode_step``s;
    peak memory.  Then float32 weights: last-token logits of a 256-token
    prefill in chunks of 64 against teacher-forced ``decode_step``s (the
    sequential recurrence), as initialised (recorded: the sLSTM recurrence
    is chaotic at this width) and with the sLSTM recurrent weights scaled
-   by 0.1 (relative L2 1e-3).
+   by 0.1 (relative L2 1e-3); that prefill runs the FMA kernel (float32).
 
 The kernels are built at the start of phase 2, one ``nvcc`` per source,
 all started together.  The line before the last is ``{"kernels": [...]}`` with each
@@ -90,7 +96,9 @@ FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                 "flash_attention_wgmma.cu")
 FLASH_FMA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:103"
-MLSTM_SOURCE = "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu"
+MLSTM_SOURCE = ("src/repro_torch/kernels/mlstm_chunk/csrc/"
+                "mlstm_chunk_wgmma.cu")
+MLSTM_FMA_SOURCE = "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu"
 MLSTM_REPLACES = "src/repro/kernels/mlstm_chunk/kernel.py:90"
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
 # at the path's shapes (bf16 outputs that average over up to S keys, ~0.03
@@ -130,10 +138,17 @@ MLSTM_BF16_TOL = (2e-2, 1e-2)    # atol, rtol
 MLSTM_LAYER = (2, 4096, 4, 1024)  # xlstm-1.3b's mLSTM layer at B=2: B S H P
 MLSTM_CHUNKS = (256, 1024)       # the default and one more of the knob's range
 # at the layer shape the whole output is held to a relative L2 error: the
-# limit sits between the kernel's reading and that of a planted fault
-# (every chunk without its inter-chunk term), both printed below (2.3e-5
-# and 5.6e-2 on an NVIDIA H100 80GB HBM3 at 700 W)
-MLSTM_REL_L2 = 1e-3
+# limits sit between the kernel's readings and those of a planted fault
+# (every chunk without its inter-chunk term), all printed below.  Against
+# each kernel's own plain version 1e-3: the FMA kernel read 2.3e-5 against
+# the float32 version, the wgmma kernel 1.1e-4 against the one that rounds
+# where it rounds, the fault 5.0e-2-5.6e-2 (NVIDIA H100 80GB HBM3, 700 W).
+# The wgmma kernel against the float32 version 1e-2: its three bf16
+# roundings read 2.8e-3 there
+MLSTM_REL_L2, MLSTM_REL_L2_F32 = 1e-3, 1e-2
+MLSTM_MAX_MS = 2.0               # the wgmma kernel at the layer shape, chunk 256
+MLSTM_PASSES = ("mlstm_chunk_gates_kernel", "mlstm_chunk_chain_kernel",
+                "mlstm_chunk_state_kernel", "mlstm_chunk_out_kernel")
 XLSTM_PREFILL = (2, 4096)        # B, S of the bf16 serving prefill
 # float32 check: a prompt in several chunks against teacher-forced decode.
 # As initialised, the sLSTM recurrence amplifies float rounding (x10 every
@@ -142,6 +157,9 @@ XLSTM_PREFILL = (2, 4096)        # B, S of the bf16 serving prefill
 # 0.1 it is not chaotic and is held to relative L2 1e-3
 XLSTM_CHECK_S, XLSTM_CHECK_CHUNK = 256, 64
 XLSTM_WREC_SCALE, XLSTM_LOGIT_REL_L2 = 0.1, 1e-3
+# that check's mLSTM layer (xlstm-1.3b: 4 heads of P 1024), on the FMA
+# route: held in phase 8 beside MLSTM_CASES, at their tolerances
+MLSTM_F32_PATH_CASE = (1, XLSTM_CHECK_S, 4, 1024, XLSTM_CHECK_CHUNK)
 
 # (n, m, d): the reference's GRAM_CASES, its off-ladder case, one knob,
 # the main path's shapes (56 observations padded to 64; 2048 LHS + 256
@@ -246,13 +264,16 @@ def build_all() -> None:
         return src, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         futs = [pool.submit(timed, GRAM_SOURCE, gram_ops.build),
                 pool.submit(timed, FLASH_SOURCE, lambda verbose: flash_ops
                             .build(verbose, which="wgmma")),
                 pool.submit(timed, FLASH_FMA_SOURCE, lambda verbose: flash_ops
                             .build(verbose, which="fma")),
-                pool.submit(timed, MLSTM_SOURCE, mlstm_ops.build)]
+                pool.submit(timed, MLSTM_SOURCE, lambda verbose: mlstm_ops
+                            .build(verbose, which="wgmma")),
+                pool.submit(timed, MLSTM_FMA_SOURCE, lambda verbose: mlstm_ops
+                            .build(verbose, which="fma"))]
         for f in futs:
             src, dt = f.result()
             print(f"nvcc build of {src}: {dt:.2f} s", flush=True)
@@ -262,7 +283,7 @@ def build_all() -> None:
     # loaded after one has run showed no device time under later sessions
     gram_ops._LIB.load()
     flash_ops.load()
-    mlstm_ops._LIB.load()
+    mlstm_ops.load()
 
 
 def phase_device():
@@ -911,12 +932,15 @@ def mlstm_bound(B, S, H, P, chunk, itemsize, flops_per_s):
     (and the two float32 gates read once) at the HBM rate, against the
     products the function needs at the peak rate for the inputs' type.
     Per (chunk, head): the causal half of q k^T and of ((q k^T) o W) v,
-    C(C+1)/2 pairs at 2P operations each, and the inter-chunk product
-    q C_prev and the carry update k^T v, 2 C P^2 each.  The gate terms,
-    O(C^2) per chunk, are not counted."""
-    n = B * H * (S // chunk)
+    C(C+1)/2 pairs at 2P operations each.  Per head, for each chunk but
+    one, 2 C P^2 each for the inter-chunk product q C_prev (the first
+    chunk's state is zero) and the carry update k^T v (the last chunk's
+    carry is not returned).  The gate terms, O(C^2) per chunk, are not
+    counted."""
+    n = S // chunk
     pairs = chunk * (chunk + 1) // 2
-    flops = n * (2 * 2 * P * pairs + 2 * 2 * chunk * P * P)
+    flops = B * H * (n * 2 * 2 * P * pairs
+                     + max(n - 1, 0) * 2 * 2 * chunk * P * P)
     nbytes = itemsize * 4 * B * S * H * P + 4 * 2 * B * S * H
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return (max(t_bytes, t_ops) * 1e3,
@@ -928,7 +952,10 @@ def phase_mlstm(card: str):
     import torch.nn.functional as F
     from repro_torch.kernels.mlstm_chunk import ops, ref
 
-    print("== phase 8: mLSTM kernel vs plain torch on the card", flush=True)
+    print("== phase 8: mLSTM kernels vs plain torch on the card", flush=True)
+    for name in MLSTM_PASSES:
+        print(f"ptxas, the wgmma route's {name}:\n" + ptxas_summary(
+            ops._LIBS["wgmma"].report, name), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
 
@@ -942,15 +969,20 @@ def phase_mlstm(card: str):
         return [t.to(dtype) for t in (q, k, v)] + [logi, logf]
 
     err = {"float32": 0.0, "bfloat16": 0.0}
-    for B, S, H, P, chunk in MLSTM_CASES:
+    for B, S, H, P, chunk in MLSTM_CASES + [MLSTM_F32_PATH_CASE]:
         for name, dt in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
             args = inputs(B, S, H, P, dt)
+            route = ops.route(dt, P, min(chunk, S))
+            before = (ops.launches_wgmma, ops.launches_fma)
             out = ops.mlstm_chunk(*args, chunk=chunk)
-            plain = ref.mlstm_chunkwise(*args, chunk)
+            plain = ops.plain_version(*args, chunk)
             oracle = ref.mlstm_sequential(*args)
             torch.cuda.synchronize()
-            tag = f"{name} B={B} S={S} H={H} P={P} chunk={chunk}"
+            tag = f"{name} B={B} S={S} H={H} P={P} chunk={chunk} ({route})"
+            check((ops.launches_wgmma, ops.launches_fma) == (
+                before[0] + (route == "wgmma"), before[1] + (route == "fma")),
+                f"{tag}: launched the wrong route")
             check(out.shape == plain.shape and out.dtype == dt,
                   f"{tag}: {tuple(out.shape)} {out.dtype}")
             check(bool(torch.isfinite(out.float()).all()),
@@ -977,50 +1009,93 @@ def phase_mlstm(card: str):
 
     B, S, H, P = MLSTM_LAYER
     args = inputs(B, S, H, P, torch.bfloat16)
-    res = {}
+    res, res_fma = {}, {}
     for chunk in MLSTM_CHUNKS:
+        check(ops.route(torch.bfloat16, P, chunk) == "wgmma",
+              f"the layer shape at chunk {chunk} is not on the wgmma route")
+        before = (ops.launches_wgmma, ops.launches_fma)
         out = ops.mlstm_chunk(*args, chunk=chunk)
-        want = ref.mlstm_chunkwise(*args, chunk)
+        # the FMA kernel at the same inputs: it still serves every float32
+        # prefill, and its plain version is the float32 one
+        out_fma = ops._fma(*args, chunk)
+        want = ops.plain_version(*args, chunk)
+        want32 = ref.mlstm_chunkwise(*args, chunk)
         torch.cuda.synchronize()
+        check((ops.launches_wgmma, ops.launches_fma) == (
+            before[0] + 1, before[1] + 1),
+            f"layer shape chunk={chunk}: not one launch of each kernel")
         res[chunk] = (float((out.float() - want.float()).abs().max()),
-                      rel_l2(out, want))
+                      rel_l2(out, want), rel_l2(out, want32))
+        res_fma[chunk] = (float((out_fma.float() - want32.float()).abs()
+                                .max()), rel_l2(out_fma, want32))
         if chunk == MLSTM_CHUNKS[0]:
             # the planted fault: every chunk loses its inter-chunk term
             # (each chunk run alone, from a zero carry)
             fault = torch.cat([ref.mlstm_chunkwise(
                 *(t[:, i:i + chunk] for t in args), chunk)
                 for i in range(0, S, chunk)], dim=1)
-            rel_fault = rel_l2(fault, want)
+            rel_fault = (rel_l2(fault, want), rel_l2(fault, want32))
             del fault
-        print(f"  layer shape B={B} S={S} H={H} P={P} bf16 chunk={chunk}: "
-              f"kernel vs plain max_abs_err={res[chunk][0]:.3e} rel_l2="
-              f"{res[chunk][1]:.4e}; limit {MLSTM_REL_L2}", flush=True)
-        check(bool(torch.isfinite(out.float()).all()),
-              f"layer shape chunk={chunk}: non-finite")
+        print(f"  layer shape B={B} S={S} H={H} P={P} bf16 chunk={chunk} "
+              f"(wgmma): kernel vs plain max_abs_err={res[chunk][0]:.3e} "
+              f"rel_l2={res[chunk][1]:.4e} (limit {MLSTM_REL_L2}); vs the "
+              f"float32 version rel_l2={res[chunk][2]:.4e} (limit "
+              f"{MLSTM_REL_L2_F32})", flush=True)
+        print(f"  layer shape B={B} S={S} H={H} P={P} bf16 chunk={chunk} "
+              f"(FMA kernel): vs its plain version (float32) max_abs_err="
+              f"{res_fma[chunk][0]:.3e} rel_l2={res_fma[chunk][1]:.4e} "
+              f"(limit {MLSTM_REL_L2})", flush=True)
+        for tag, o in (("wgmma", out), ("FMA", out_fma)):
+            check(bool(torch.isfinite(o.float()).all()),
+                  f"layer shape chunk={chunk} ({tag}): non-finite")
+        check(res_fma[chunk][1] <= MLSTM_REL_L2, f"layer shape chunk="
+              f"{chunk}: the FMA kernel's relative L2 {res_fma[chunk][1]} > "
+              f"{MLSTM_REL_L2}")
         check(res[chunk][1] <= MLSTM_REL_L2, f"layer shape chunk={chunk}: "
               f"relative L2 {res[chunk][1]} > {MLSTM_REL_L2}")
-        del out, want
-    print(f"  planted fault (no inter-chunk term, chunk "
-          f"{MLSTM_CHUNKS[0]}) vs plain rel_l2={rel_fault:.4e}", flush=True)
-    check(rel_fault > MLSTM_REL_L2, f"the planted fault's relative L2 "
-          f"{rel_fault} is within {MLSTM_REL_L2}")
+        check(res[chunk][2] <= MLSTM_REL_L2_F32, f"layer shape chunk="
+              f"{chunk}: relative L2 against the float32 version "
+              f"{res[chunk][2]} > {MLSTM_REL_L2_F32}")
+        del out, out_fma, want, want32
+    # the fault is held against the float32 version at the larger limit,
+    # so it also stays above the FMA kernel's
+    print(f"  planted fault (no inter-chunk term, chunk {MLSTM_CHUNKS[0]}) "
+          f"rel_l2 vs plain={rel_fault[0]:.4e}, vs the float32 version="
+          f"{rel_fault[1]:.4e}", flush=True)
+    check(rel_fault[0] > MLSTM_REL_L2, f"the planted fault's relative L2 "
+          f"{rel_fault[0]} is within {MLSTM_REL_L2}")
+    check(rel_fault[1] > max(MLSTM_REL_L2, MLSTM_REL_L2_F32), f"the "
+          f"planted fault's relative L2 {rel_fault[1]} against the float32 "
+          f"version is within {max(MLSTM_REL_L2, MLSTM_REL_L2_F32)}")
     chunk = MLSTM_CHUNKS[0]
+
+    # one timing window each, the same for all three (the passes' device
+    # times come from phase 9's profiled prefill)
     k_ms = cuda_ms(lambda: ops.mlstm_chunk(*args, chunk=chunk), reps=5,
                    inner=4)
-    p_ms = cuda_ms(lambda: ref.mlstm_chunkwise(*args, chunk), reps=3,
-                   inner=2)
+    f_ms = cuda_ms(lambda: ops._fma(*args, chunk), reps=5, inner=4)
+    p_ms = cuda_ms(lambda: ops.plain_version(*args, chunk), reps=5, inner=4)
     b_ms, b_by, flops = mlstm_bound(B, S, H, P, chunk, 2, BF16_FLOPS_PER_S)
     print(f"  layer shape B={B} S={S} H={H} P={P} chunk={chunk} bf16 on "
-          f"{card}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms="
-          f"none bound_ms={b_ms:.4f} ({b_by}; {flops / 1e9:.1f} GFLOP) "
-          f"achieved={flops / k_ms / 1e9:.2f} TFLOP/s (bound share "
+          f"{card}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+          f"fma_kernel_ms={f_ms:.4f} library_ms=none bound_ms={b_ms:.4f} "
+          f"({b_by}; {flops / 1e9:.1f} GFLOP) achieved="
+          f"{flops / k_ms / 1e9:.2f} TFLOP/s (bound share "
           f"{b_ms / k_ms:.4f})", flush=True)
+    check(k_ms <= MLSTM_MAX_MS, f"layer shape: the wgmma kernel's "
+          f"{k_ms:.4f} ms per call is over {MLSTM_MAX_MS} ms")
     del args
     return {"max_abs_err": res[chunk][0], "rel_l2": res[chunk][1],
-            "err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "rel_l2_f32": res[chunk][2], "err": err, "ms": k_ms,
+            "plain_ms": p_ms, "fma_ms": f_ms, "bound_ms": b_ms,
             "bound_by": b_by, "shape": [B, S, H, P, chunk],
+            "max_abs_err_fma": res_fma[chunk][0],
+            "rel_l2_fma": res_fma[chunk][1],
             f"rel_l2_chunk{MLSTM_CHUNKS[1]}": res[MLSTM_CHUNKS[1]][1],
-            "rel_l2_fault": rel_fault}
+            f"rel_l2_fma_chunk{MLSTM_CHUNKS[1]}":
+                res_fma[MLSTM_CHUNKS[1]][1],
+            f"rel_l2_f32_chunk{MLSTM_CHUNKS[1]}": res[MLSTM_CHUNKS[1]][2],
+            "rel_l2_fault": rel_fault[0], "rel_l2_f32_fault": rel_fault[1]}
 
 
 def phase_xlstm(card: str):
@@ -1052,9 +1127,13 @@ def phase_xlstm(card: str):
     print(f"random bf16 weights made on the card: {n_params} parameters in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(4)
-    mlstm_kernels = ("mlstm_chunk_kernel", "mlstm_qk_kernel")
+    # the output pass first: one launch per wrapper call on the wgmma
+    # route; then the FMA kernel's two passes
+    mlstm_kernels = ("mlstm_chunk_out_kernel", "mlstm_chunk_state_kernel",
+                     "mlstm_chunk_gates_kernel", "mlstm_chunk_chain_kernel",
+                     "mlstm_chunk_kernel", "mlstm_qk_kernel")
 
-    def prefill(p, tokens, rc):
+    def prefill(p, tokens, rc, route="wgmma"):
         ops.reset_launch_counts()
         flash_ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1062,9 +1141,11 @@ def phase_xlstm(card: str):
                                tokens.shape[1] + DECODE_STEPS, rc)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        check(ops.launches == n_mlstm, f"xlstm prefill at S="
-              f"{tokens.shape[1]}: {ops.launches} mLSTM launches, want "
-              f"{n_mlstm}")
+        want = (n_mlstm, n_mlstm if route == "wgmma" else 0,
+                n_mlstm if route == "fma" else 0)
+        got = (ops.launches, ops.launches_wgmma, ops.launches_fma)
+        check(got == want, f"xlstm prefill at S={tokens.shape[1]}: "
+              f"(all, wgmma, fma) mLSTM launches {got}, want {want}")
         check(flash_ops.launches == 0, "xlstm prefill launched flash")
         check(bool(torch.isfinite(logits).all()),
               "xlstm prefill: non-finite logits")
@@ -1076,10 +1157,12 @@ def phase_xlstm(card: str):
     _, _, wall_warm = prefill(params, tokens, rc)
     torch.cuda.reset_peak_memory_stats()
     logits, st, wall = prefill(params, tokens, rc)
-    launches = ops.launches              # the main path's bf16 prefill
+    launches = {"launches": ops.launches,    # the main path's bf16 prefill
+                "launches_wgmma": ops.launches_wgmma,
+                "launches_fma": ops.launches_fma}
     print(f"prefill B={B} S={S} bf16 chunk={rc.mlstm_chunk} on {card}: "
           f"wall={wall:.3f}s ({B * S / wall:.1f} tok/s; first call "
-          f"{wall_warm:.3f}s); {launches} mLSTM kernel launches",
+          f"{wall_warm:.3f}s); mLSTM kernel launches {launches}",
           flush=True)
 
     # the sLSTM time loops' share of the wall: each loop timed between
@@ -1112,11 +1195,16 @@ def phase_xlstm(card: str):
     t_read = time.perf_counter() - t0 - wall_p
     dev_ms = profile_report(f"prefill B={B} S={S}", wall_p, by_name,
                             n_mlstm, kernels=mlstm_kernels, label="mLSTM")
-    pass1_ms = sum(t for n, (t, _) in by_name.items()
-                   if "mlstm_qk_kernel" in n) / 1e3 / n_mlstm
-    print(f"  mLSTM kernel device ms per launch: {dev_ms:.4f} (pass 1, "
-          f"q k^T tiles: {pass1_ms:.4f}); profile read in {t_read:.1f}s",
-          flush=True)
+    pass_ms = {}
+    for name in MLSTM_PASSES:
+        t_us, count = (sum(v[i] for n, v in by_name.items() if name in n)
+                       for i in (0, 1))
+        check(count == n_mlstm, f"the prefill's profile holds {count} "
+              f"launches of {name}, want {n_mlstm}")
+        pass_ms[name] = t_us / count / 1e3
+    print(f"  mLSTM kernel device ms per launch: {dev_ms:.4f} (" + ", ".join(
+        f"{n} {t:.4f}" for n, t in pass_ms.items())
+        + f"); profile read in {t_read:.1f}s", flush=True)
 
     before = ops.launches
     tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
@@ -1159,8 +1247,8 @@ def phase_xlstm(card: str):
     toks = torch.randint(1, cfg.vocab_size, (1, XLSTM_CHECK_S),
                          generator=gen, device="cuda", dtype=torch.int32)
 
-    def prefill_vs_decode():
-        lp, _, _ = prefill(params, toks, rc32)
+    def prefill_vs_decode():          # float32: the FMA kernel
+        lp, _, _ = prefill(params, toks, rc32, route="fma")
         ds = m.init_decode_state(1, XLSTM_CHECK_S + 1, rc32)
         for t in range(XLSTM_CHECK_S):
             ld, ds = m.decode_step(params, toks[:, t:t + 1], ds, rc32)
@@ -1187,7 +1275,7 @@ def phase_xlstm(card: str):
           flush=True)
     check(rel1 <= XLSTM_LOGIT_REL_L2, f"f32 prefill vs teacher-forced "
           f"decode: relative L2 {rel1} > {XLSTM_LOGIT_REL_L2}")
-    return {"launches": launches, "device_ms": dev_ms}
+    return {**launches, "device_ms": dev_ms, "pass_device_ms": pass_ms}
 
 
 def main() -> None:
@@ -1245,13 +1333,19 @@ def main() -> None:
     })
     kernels.append({
         "name": "mlstm_chunk_fwd", "route": "cuda",
-        "source": MLSTM_SOURCE, "replaces": MLSTM_REPLACES,
+        "source": MLSTM_SOURCE, "fma_source": MLSTM_FMA_SOURCE,
+        "replaces": MLSTM_REPLACES,
         "launches": xlstm["launches"],
+        "launches_wgmma": xlstm["launches_wgmma"],
+        "launches_fma": xlstm["launches_fma"],
         "max_abs_err": mlstm["max_abs_err"], "rel_l2": mlstm["rel_l2"],
         "ms": mlstm["ms"], "plain_ms": mlstm["plain_ms"],
+        "fma_ms": mlstm["fma_ms"],
         "bound_ms": mlstm["bound_ms"], "bound_by": mlstm["bound_by"],
         "library_ms": None, "shape": mlstm["shape"],
         "device_ms": xlstm["device_ms"],
+        "pass_device_ms": xlstm["pass_device_ms"],
+        "max_abs_err_fma": mlstm["max_abs_err_fma"],
         **{k: v for k, v in mlstm.items() if k.startswith("rel_l2_")},
         "max_abs_err_cases": mlstm["err"],
     })

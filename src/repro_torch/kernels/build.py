@@ -1,13 +1,14 @@
 """Build and load one hand-written CUDA source as a shared library.
 
 Each library of the port is one ``.cu`` file with a plain C interface
-(it may include headers beside it in its ``csrc/``).  It is compiled with
-``nvcc`` for ``sm_90a`` into a shared library the first time a wrapper
-needs it, and loaded with ``ctypes``.  The library lands in
+(it may include headers beside it in its ``csrc/``, and the headers the
+kernels share in ``kernels/include/``, which is on the include path).  It
+is compiled with ``nvcc`` for ``sm_90a`` into a shared library the first
+time a wrapper needs it, and loaded with ``ctypes``.  The library lands in
 ``build/<name>/`` at the root of the checkout, named by a hash of every
-file in the source's directory and of the flags, so an edited source or
-header is rebuilt and an unchanged one is reused.  Nothing is built when
-a module is imported.
+file in the source's directory, of every shared header and of the flags,
+so an edited source or header is rebuilt and an unchanged one is reused.
+Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
+INCLUDE_DIR = Path(__file__).resolve().parent / "include"   # shared headers
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -54,13 +56,16 @@ class NvccLibrary:
 
     def digest(self) -> str:
         """Hash of the source's name, every file under its directory
-        (headers included) and the flags; needs no compiler."""
+        (headers included), every shared header under ``INCLUDE_DIR`` and
+        the flags; needs no compiler."""
         h = hashlib.sha256(self.source.name.encode() + b"\0"
                            + " ".join(NVCC_FLAGS).encode())
-        root = self.source.parent
-        for path in sorted(p for p in root.rglob("*") if p.is_file()):
-            h.update(b"\0" + path.relative_to(root).as_posix().encode()
-                     + b"\0" + path.read_bytes())
+        for tag, root in ((b"csrc", self.source.parent),
+                          (b"include", INCLUDE_DIR)):
+            for path in sorted(p for p in root.rglob("*") if p.is_file()):
+                h.update(b"\0" + tag + b"/"
+                         + path.relative_to(root).as_posix().encode()
+                         + b"\0" + path.read_bytes())
         return h.hexdigest()[:16]
 
     def library_path(self) -> Path:
@@ -76,7 +81,7 @@ class NvccLibrary:
         self.build_dir.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=self.build_dir)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS,
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR),
                *(("-Xptxas", "-v") if verbose else ()),
                "-o", tmp, str(self.source)]
         try:

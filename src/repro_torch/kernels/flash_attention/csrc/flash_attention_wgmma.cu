@@ -51,15 +51,12 @@
 //     they execute; and the two take turns to issue (ping-pong on named
 //     barriers), so one's softmax also runs under the other's products.
 
-#include <cuda.h>  // CUtensorMap and its enums only: the driver is reached
-                   // through the runtime's entry-point query
-#include <cuda_runtime.h>
-
-#include "hopper.cuh"
+#include "hopper.cuh"  // kernels/include: shared with mlstm_chunk_wgmma.cu
 
 namespace {
 
 using namespace hopper;
+using namespace hopper_host;
 
 constexpr int kBN = 128;           // keys per KV tile
 constexpr int kStages = 2;         // the K/V ring
@@ -393,49 +390,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ---- host side ----------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &res);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &res);
-#endif
-    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A bf16 tensor [B, S, heads, D] with element strides {b, s, h} (unit
-// stride along D) as a 4-D map read in boxes of 64 columns x `rows` rows,
-// 128-byte swizzled; rows past S read as zeros.
-CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B,
-                int S, int heads, int D, const long long* st, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
-                              (cuuint64_t)heads, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st[1] * 2,
-                                 (cuuint64_t)st[2] * 2,
-                                 (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 template <int D>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, const Params& p, int B,
@@ -468,11 +422,11 @@ extern "C" int flash_attention_wgmma_launch(
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -1000;
   CUtensorMap tq, tk, tv;
-  CUresult r = encode(fn, &tq, q, B, Sq, H, D, strides, kBM);
+  CUresult r = encode_bshd(fn, &tq, q, B, Sq, H, D, strides, kBM);
   if (r == CUDA_SUCCESS)
-    r = encode(fn, &tk, k, B, Sk, Kh, D, strides + 3, kBN);
+    r = encode_bshd(fn, &tk, k, B, Sk, Kh, D, strides + 3, kBN);
   if (r == CUDA_SUCCESS)
-    r = encode(fn, &tv, v, B, Sk, Kh, D, strides + 6, kBN);
+    r = encode_bshd(fn, &tv, v, B, Sk, Kh, D, strides + 6, kBN);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
 
   Params p;

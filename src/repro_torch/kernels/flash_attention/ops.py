@@ -40,6 +40,7 @@ import torch
 
 from repro_torch.kernels.build import NvccLibrary
 from repro_torch.kernels.flash_attention.ref import reference_attention
+from repro_torch.kernels.tma import check_tma, tma_strides
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 WGMMA_SOURCE = CSRC / "flash_attention_wgmma.cu"
@@ -103,31 +104,6 @@ def load() -> None:
     """Load every library (built first if needed)."""
     for lib in _LIBS.values():
         lib.load()
-
-
-def check_tma(*tensors) -> None:
-    """Raise ``ValueError`` unless TMA can read each [B, S, heads, D]
-    tensor in place: a 16-byte aligned base pointer and, for every dim of
-    more than one element, a stride of a multiple of 16 bytes."""
-    for t in tensors:
-        item = t.element_size()
-        if t.data_ptr() % 16:
-            raise ValueError(f"TMA needs a 16-byte aligned base pointer; "
-                             f"this view starts at {t.data_ptr():#x}")
-        for dim in range(3):
-            if t.shape[dim] > 1 and (t.stride(dim) * item) % 16:
-                raise ValueError(
-                    f"TMA needs strides of a multiple of 16 bytes; dim "
-                    f"{dim} of a {tuple(t.shape)} view has stride "
-                    f"{t.stride(dim)} ({t.stride(dim) * item} bytes)")
-
-
-def _tma_strides(t):
-    """t's element strides over (b, s, h); a dim of one element gets the
-    stride of a contiguous layout (TMA checks it, never steps along it)."""
-    B, S, heads, D = t.shape
-    dense = (S * heads * D, heads * D, D)
-    return [t.stride(i) if t.shape[i] > 1 else dense[i] for i in range(3)]
 
 
 def _check(q, k, v, window, softcap, block_q, block_k):
@@ -213,7 +189,7 @@ def _wgmma(q, k, v, causal, window, softcap):
     if Sk == 0:                  # nothing visible: zeros, as the kernel writes
         return out.zero_()
     strides = (ctypes.c_longlong * 12)(
-        *_tma_strides(q), *_tma_strides(k), *_tma_strides(v),
+        *tma_strides(q), *tma_strides(k), *tma_strides(v),
         *out.stride()[:3])
     lib = _LIBS["wgmma"].load()
     with torch.cuda.device(q.device):

@@ -1,17 +1,33 @@
-"""Wrapper of the hand-written CUDA chunkwise mLSTM kernel
-(``csrc/mlstm_chunk.cu``).
+"""Wrapper of the hand-written CUDA chunkwise mLSTM kernels
+(``csrc/mlstm_chunk_wgmma.cu`` and ``csrc/mlstm_chunk.cu``).
 
 ``mlstm_chunk(q, k, v, logi, logf)`` takes the model-zoo layout q/k/v
 [B,S,H,P] (k already scaled by 1/sqrt(P)) and float32 gates [B,S,H], and
-returns h [B,S,H,P] in q's dtype.  On CPU tensors it returns the
-plain-torch version (``ref.mlstm_chunkwise``); on CUDA tensors it launches
-the kernel on the current stream or raises.  The kernel reads its inputs
-in place through their strides, so no transposed copy is made; it needs a
-float32 scratch of B*H*S*chunk elements for the chunks' q k^T, which the
-wrapper allocates.  ``launches`` counts kernel launches.
+returns h [B,S,H,P] in q's dtype.  Which kernel runs is decided from the
+dtype, P and the chunk alone (``route``).  On CPU tensors it returns that
+kernel's plain-torch version (``plain_version``); on CUDA tensors it
+launches the kernel on the current stream or raises:
 
-The library is built with ``nvcc`` into ``build/mlstm_chunk/`` at first
-use (``kernels/build.py``).
+* ``"wgmma"``: bf16 with P in ``WGMMA_HEAD_DIMS`` and a chunk in
+  ``WGMMA_CHUNKS`` runs the tensor-core kernel: the stabilisers of every
+  chunk from the gates first, the chunk states in bf16, then every
+  output tile of every chunk at once.  It rounds (q k^T) o W, k o wk and
+  the stored state to bf16, so its plain version is
+  ``mlstm_chunkwise(..., operand_dtype=torch.bfloat16)``.  TMA reads q, k,
+  v in place (``check_tma``); it needs float32 scratch of about 5 B*H*S
+  elements and bf16 states of B*H*(S/chunk - 1)*P^2 elements, which the
+  wrapper allocates.
+* ``"fma"``: float32, and bf16 at the other shapes, runs the fp32-FMA
+  kernel, whose float32 path holds the reference's 5e-5; it needs a
+  float32 scratch of B*H*S*chunk elements for the chunks' q k^T.
+
+A failed build or launch raises; nothing retries on the other route.
+Both kernels read the inputs in place through their strides.
+``launches`` counts kernel launches (one per call, whatever the passes),
+``launches_wgmma`` and ``launches_fma`` those of each route.
+
+The libraries are built with ``nvcc`` into ``build/mlstm_chunk/`` at
+first use (``kernels/build.py``).
 """
 
 from __future__ import annotations
@@ -19,35 +35,77 @@ from __future__ import annotations
 import ctypes
 import threading
 from pathlib import Path
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels.build import NvccLibrary
 from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunkwise
+from repro_torch.kernels.tma import check_tma, tma_strides
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "mlstm_chunk.cu"
-_LIB = NvccLibrary("mlstm_chunk", SOURCE, {
-    "mlstm_chunk_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-    + [ctypes.c_void_p, ctypes.c_void_p]})
-HEAD_DIMS = (16, 32, 64, 128, 256, 512, 1024)   # compiled into the kernel
+CSRC = Path(__file__).resolve().parent / "csrc"
+WGMMA_SOURCE = CSRC / "mlstm_chunk_wgmma.cu"
+FMA_SOURCE = CSRC / "mlstm_chunk.cu"
+_LIBS = {
+    "wgmma": NvccLibrary("mlstm_chunk", WGMMA_SOURCE, {
+        "mlstm_chunk_wgmma_launch": [ctypes.c_void_p] * 10
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p]}),
+    "fma": NvccLibrary("mlstm_chunk", FMA_SOURCE, {
+        "mlstm_chunk_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p, ctypes.c_void_p]}),
+}
+HEAD_DIMS = (16, 32, 64, 128, 256, 512, 1024)   # compiled into the FMA kernel
+WGMMA_HEAD_DIMS = (64, 128, 256, 512, 1024)     # and into the wgmma kernel
+WGMMA_CHUNKS = (128, 256, 512, 1024)
 MAX_CHUNK = 2048                # the mlstm_chunk knob's upper end
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_BH = 65535                 # grid.y limit
+_MAX_GRID = 65535               # grid.y / grid.z limit
 
 launches = 0
+launches_wgmma = 0
+launches_fma = 0
 _lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    global launches
+    global launches, launches_wgmma, launches_fma
     with _lock:
-        launches = 0
+        launches = launches_wgmma = launches_fma = 0
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernel library if this source has not been built yet;
-    returns its path (``verbose`` prints ptxas's report)."""
-    return _LIB.build(verbose)
+def route(dtype: torch.dtype, head_dim: int, chunk: int) -> str:
+    """The kernel a CUDA call runs, from the dtype, P and the chunk in use
+    (``min(chunk, S)``): ``"wgmma"`` for bf16 with P in
+    ``WGMMA_HEAD_DIMS`` and a chunk in ``WGMMA_CHUNKS``, ``"fma"``
+    otherwise."""
+    if (dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS
+            and chunk in WGMMA_CHUNKS):
+        return "wgmma"
+    return "fma"
+
+
+def plain_version(q, k, v, logi, logf, chunk: int):
+    """The plain-torch version of the kernel ``route`` picks: on the wgmma
+    route (q k^T) o W, k o wk and the carried state are rounded to bf16
+    before their products, as the kernel does."""
+    c = min(chunk, q.shape[1])
+    wgmma = route(q.dtype, q.shape[3], c) == "wgmma"
+    return mlstm_chunkwise(q, k, v, logi, logf, c,
+                           operand_dtype=torch.bfloat16 if wgmma else None)
+
+
+def build(verbose: bool = False, which: Optional[str] = None):
+    """Compile the kernel libraries (``which``: one route's only) if these
+    sources have not been built yet; returns the paths (``verbose``
+    prints ptxas's report)."""
+    names = [which] if which is not None else list(_LIBS)
+    return [_LIBS[n].build(verbose) for n in names]
+
+
+def load() -> None:
+    """Load every library (built first if needed)."""
+    for lib in _LIBS.values():
+        lib.load()
 
 
 def _check(q, k, v, logi, logf, chunk):
@@ -88,32 +146,93 @@ def mlstm_chunk(q, k, v, logi, logf, *, chunk: int = 256,
 
     The chunk is ``min(chunk, S)`` and must divide S, as the reference
     asserts.  ``num_warps``/``pipeline`` are the reference's GPU scheduling
-    knobs: accepted and ignored (the kernel runs 256 threads per block);
+    knobs: accepted and ignored (the kernels run their own fixed blocks);
     they get their meaning with autotune.
     """
-    global launches
     _check(q, k, v, logi, logf, chunk)
     B, S, H, P = q.shape
     c = min(chunk, S)
     if S and S % c:
         raise ValueError(f"chunk {c} must divide the sequence length {S}")
     if q.device.type == "cpu":
-        return mlstm_chunkwise(q, k, v, logi, logf, c)
+        return plain_version(q, k, v, logi, logf, c)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_chunk runs on cpu or cuda, not {q.device}")
+    if route(q.dtype, P, c) == "wgmma":
+        return _wgmma(q, k, v, logi, logf, c)
+    return _fma(q, k, v, logi, logf, c)
+
+
+def _count(which: str) -> None:
+    global launches, launches_wgmma, launches_fma
+    with _lock:
+        launches += 1
+        if which == "wgmma":
+            launches_wgmma += 1
+        else:
+            launches_fma += 1
+
+
+def _gate_strides(logi, logf):
+    return [*logi.stride(), *logf.stride()]
+
+
+def _wgmma(q, k, v, logi, logf, c, library: Optional[NvccLibrary] = None):
+    """The wgmma route's launch; ``library`` is one built from a variant of
+    ``WGMMA_SOURCE`` with the same entry point (the route's own by
+    default)."""
+    B, S, H, P = q.shape
+    check_tma(q, k, v)
+    n, bh = S // c, B * H
+    if max(n, bh) > _MAX_GRID:
+        raise ValueError(f"S / chunk = {n} or B*H = {bh} exceeds the "
+                         f"kernel's grid ({_MAX_GRID})")
+    out = torch.empty((B, S, H, P), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    f32 = dict(dtype=torch.float32, device=q.device)
+    slabs = max(n - 1, 1)
+    gates = torch.empty((bh, 5, S), **f32)
+    chunks = torch.empty((bh, 3, n), **f32)
+    n_states = torch.empty((bh, slabs, P), **f32)
+    states = torch.empty((bh, slabs, P, P), dtype=torch.bfloat16,
+                         device=q.device)
+    strides = (ctypes.c_longlong * 18)(
+        *tma_strides(q), *tma_strides(k), *tma_strides(v),
+        *_gate_strides(logi, logf), *out.stride()[:3])
+    lib = (_LIBS["wgmma"] if library is None else library).load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mlstm_chunk_wgmma_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), logi.data_ptr(),
+            logf.data_ptr(), out.data_ptr(), gates.data_ptr(),
+            chunks.data_ptr(), n_states.data_ptr(), states.data_ptr(),
+            B, S, H, P, c, strides, stream)
+    if err < 0:
+        raise RuntimeError(f"mlstm_chunk (wgmma): TMA tensor map encoding "
+                           f"failed (CUresult {-err})")
+    if err != 0:
+        raise RuntimeError(f"mlstm_chunk (wgmma) kernel launch failed: "
+                           f"CUDA error {err}")
+    _count("wgmma")
+    return out
+
+
+def _fma(q, k, v, logi, logf, c):
+    B, S, H, P = q.shape
     if c > MAX_CHUNK:
         raise ValueError(f"chunk {c} exceeds the kernel's {MAX_CHUNK}")
-    if B * H > _MAX_BH:
+    if B * H > _MAX_GRID:
         raise ValueError(f"B*H = {B * H} exceeds the kernel's grid "
-                         f"({_MAX_BH})")
+                         f"({_MAX_GRID})")
     out = torch.empty((B, S, H, P), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     qk = torch.empty((B * H, S, c), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 18)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *logi.stride(), *logf.stride(), *out.stride()[:3])
-    lib = _LIB.load()
+        *_gate_strides(logi, logf), *out.stride()[:3])
+    lib = _LIBS["fma"].load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mlstm_chunk_launch(
@@ -121,8 +240,7 @@ def mlstm_chunk(q, k, v, logi, logf, *, chunk: int = 256,
             logf.data_ptr(), out.data_ptr(), qk.data_ptr(), _DTYPES[q.dtype],
             B, S, H, P, c, strides, stream)
     if err != 0:
-        raise RuntimeError(f"mlstm_chunk kernel launch failed: CUDA error "
-                           f"{err}")
-    with _lock:
-        launches += 1
+        raise RuntimeError(f"mlstm_chunk (fma) kernel launch failed: CUDA "
+                           f"error {err}")
+    _count("fma")
     return out

@@ -35,7 +35,7 @@ def test_port_imports_no_jax_and_no_reference():
     for mod in ("repro_torch.core.tuner", "repro_torch.core.gp",
                 "repro_torch.core.lasso", "repro_torch.core.evaluators",
                 "repro_torch.kernels.gp_gram.ops", "repro_torch.__main__",
-                "repro_torch.kernels.build",
+                "repro_torch.kernels.build", "repro_torch.kernels.tma",
                 "repro_torch.kernels.flash_attention.ops",
                 "repro_torch.kernels.flash_attention.ref",
                 "repro_torch.kernels.mlstm_chunk.ops",

@@ -1,12 +1,16 @@
 """``kernels/build.py``: a library is named by a hash of every file in its
-source's directory and of the flags, so an edited header is rebuilt.  The
-hash needs no compiler, so these run on the CPU."""
+source's directory, of the shared headers in ``kernels/include/`` and of
+the flags, so an edited header is rebuilt.  The hash needs no compiler,
+so these run on the CPU."""
+
+import shutil
 
 import pytest
 
 from repro_torch.kernels import build
 from repro_torch.kernels.build import NvccLibrary
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
 
 
 @pytest.fixture
@@ -68,3 +72,28 @@ def test_flash_libraries_share_a_directory_under_distinct_names():
     paths = [lib.library_path() for lib in flash_ops._LIBS.values()]
     assert paths[0].parent == paths[1].parent
     assert paths[0].name != paths[1].name
+
+
+def test_mlstm_libraries_share_a_directory_under_distinct_names():
+    paths = [lib.library_path() for lib in mlstm_ops._LIBS.values()]
+    assert paths[0].parent == paths[1].parent
+    assert paths[0].name != paths[1].name
+
+
+def test_editing_the_shared_header_renames_flash_and_mlstm(tmp_path,
+                                                          monkeypatch):
+    """``hopper.cuh`` lives in ``kernels/include/``, outside any kernel's
+    ``csrc/``: an edit to it must still rebuild both tensor-core kernels
+    (and every other library, which the header is on the include path
+    of)."""
+    include = tmp_path / "include"
+    shutil.copytree(build.INCLUDE_DIR, include)
+    monkeypatch.setattr(build, "INCLUDE_DIR", include)
+    libs = [flash_ops._LIBS["wgmma"], mlstm_ops._LIBS["wgmma"],
+            mlstm_ops._LIBS["fma"]]
+    before = [lib.library_path() for lib in libs]
+    header = include / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = [lib.library_path() for lib in libs]
+    for b, a in zip(before, after):
+        assert a != b and a.parent == b.parent

@@ -1,4 +1,4 @@
-"""The hand-written CUDA chunkwise mLSTM kernel against its plain-torch
+"""The hand-written CUDA chunkwise mLSTM kernels against their plain-torch
 versions, on the card.  Needs an NVIDIA GPU (``cuda`` marker); skips
 without one.  Imports nothing of JAX, so it runs on a machine that has
 only the port's dependencies:
@@ -14,9 +14,14 @@ version itself lands 2.6e-4 from a float64 evaluation of the same inputs
 than 5e-5 while both are right.  bfloat16 inputs go through both
 versions as the same bf16 numbers, both compute in float32 and round h
 once to bf16, so they differ where a rounding flips: one bf16 step at
-|h| <= 2 is 7.8e-3, and the limit is atol 2e-2 + rtol 1e-2.  At the
-full-width layer shape the whole output is held to a relative L2 error of
-1e-3, the limit ``chip_smoke.py`` uses (a planted fault lands far above).
+|h| <= 2 is 7.8e-3, and the limit is atol 2e-2 + rtol 1e-2.  bf16 inputs
+at the tensor-core route's shapes (``ops.route``) run the wgmma kernel,
+which also rounds (q k^T) o W, k o wk and the stored state to bf16: it is
+held to its own plain version (the same roundings) and to the float32
+version at that same tolerance.  At the full-width layer shape the whole
+output is held to a relative L2 error of 1e-3 against the route's plain
+version and, on the wgmma route, of 1e-2 against the float32 version, the
+limits ``chip_smoke.py`` uses (a planted fault lands far above both).
 """
 
 import numpy as np
@@ -36,6 +41,13 @@ CASES = [
     (1, 96, 1, 16, 48), (1, 128, 1, 128, 64), (1, 64, 1, 256, 32),
     (1, 64, 1, 512, 64), (1, 64, 1, 1024, 32), (1, 1024, 1, 32, 512),
     (1, 2048, 1, 32, 2048),
+]
+# wgmma-route edges: P 64/128/1024, chunks 128/256/1024, S = chunk (one
+# chunk, no state), odd B*H
+WGMMA_CASES = [
+    (1, 128, 1, 64, 128), (1, 512, 3, 64, 256), (3, 256, 1, 128, 128),
+    (1, 512, 2, 128, 256), (1, 1024, 1, 1024, 1024), (1, 2048, 1, 1024, 1024),
+    (1, 512, 1, 1024, 256), (1, 1024, 3, 256, 512),
 ]
 FULL = (2, 4096, 4, 1024)            # xlstm-1.3b's mLSTM layer at B=2
 TOL = {torch.float32: dict(atol=5e-5, rtol=0),
@@ -112,14 +124,54 @@ def test_strided_inputs_are_read_in_place(cuda):
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
+def _rel(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
 @pytest.mark.cuda
 def test_full_width_layer_shape(cuda):
     args = _inputs(*FULL, cuda, torch.bfloat16, seed=5)
-    for chunk in (256, 64):
+    for chunk, route in ((256, "wgmma"), (64, "fma")):
+        assert ops.route(torch.bfloat16, FULL[3], chunk) == route
         out = ops.mlstm_chunk(*args, chunk=chunk)
-        want = mlstm_chunkwise(*args, chunk).float()
-        rel = float((out.float() - want).norm() / want.norm())
+        rel = _rel(out, ops.plain_version(*args, chunk))
         assert rel <= 1e-3, (chunk, rel)
+        rel32 = _rel(out, mlstm_chunkwise(*args, chunk))
+        assert rel32 <= 1e-2, (chunk, rel32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", [False, True], ids=["dense", "strided"])
+@pytest.mark.parametrize("case", WGMMA_CASES,
+                         ids=lambda c: "B{}S{}H{}P{}C{}".format(*c))
+def test_wgmma_route_edges_match_plain(cuda, case, view):
+    B, S, H, P, chunk = case
+    assert ops.route(torch.bfloat16, P, chunk) == "wgmma"
+    args = _inputs(B, S, H, P, cuda, torch.bfloat16, seed=S + H + P)
+    if view:     # head slices of one [B,S,3H,P] tensor, gate columns
+        qkv = torch.cat(args[:3], dim=2)
+        gates = torch.cat(args[3:], dim=2)
+        args = [qkv[:, :, :H], qkv[:, :, H:2 * H], qkv[:, :, 2 * H:],
+                gates[..., :H], gates[..., H:]]
+    before = (ops.launches, ops.launches_wgmma, ops.launches_fma)
+    out = ops.mlstm_chunk(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert (ops.launches, ops.launches_wgmma, ops.launches_fma) == (
+        before[0] + 1, before[1] + 1, before[2])
+    assert out.shape == (B, S, H, P) and out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out.float()).all())
+    _close(out, ops.plain_version(*args, chunk), torch.bfloat16)
+    _close(out, mlstm_chunkwise(*args, chunk), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_wgmma_route_rejects_views_tma_cannot_read(cuda):
+    q, k, v, li, lf = _inputs(1, 256, 1, 64, cuda, torch.bfloat16)
+    wide = torch.zeros((1, 256, 1, 72), dtype=torch.bfloat16, device=cuda)
+    wide[..., 1:65] = q
+    with pytest.raises(ValueError, match="TMA"):
+        ops.mlstm_chunk(wide[..., 1:65], k, v, li, lf, chunk=128)
 
 
 @pytest.mark.cuda
