@@ -10,12 +10,24 @@ Phases (any failure exits non-zero before the result line):
    hold ``matern52_gram`` / ``matern52_cross`` against their plain-torch
    versions on the card (atol 2e-4) over the reference's test shapes, the
    main path's shapes and a stress shape, and time both (CUDA events).
+   The backward kernel ``matern52_gram_bwd`` at every case's Gram (n x n,
+   with repeated rows and pad rows of 0.5): within relative L2 1e-3 of
+   its plain version and of that formula in float64, and at the cases
+   with n = m of autograd through the plain Matérn (recorded elsewhere);
+   a planted fault (the formula without its (1+s) factor) above each
+   limit; two calls bit-equal; timed at the fit's Gram [64,16].
 3. main path: ``Sapphire(arch="yi-6b", shape="train_4k").tune()`` at the
    paper's budgets with ``batch_size`` 1 and 8; the kernel launch counters
-   are zeroed before each run and must have risen after it.  The rank
-   stage alone on the CPU must pick the same top-16 set.
-4. profile: one GP fit + q-EI selection at the main path's shapes under
-   ``torch.profiler``: device busy time against wall time.
+   (forward, cross and backward) are zeroed before each run and must have
+   risen after it.  The rank stage alone on the CPU must pick the same
+   top-16 set.  Then both runs again with the fit loop as it was before
+   the graphed step (eager Adam, autograd through the plain Gram), for
+   the stage walls before and after in one call.
+4. GP round: one fit + q-EI selection at the main path's shapes under
+   ``torch.profiler`` (device busy time against wall time), with the eager
+   plain-autograd fit loop (before) and the graphed kernel fit (after);
+   the graphed fit bit-equal to the same steps run eagerly (150 cold, 50
+   warm), and within 5e-3 of the plain-autograd fit.
 5. flash kernels: hold ``kernels/flash_attention`` against its plain-torch
    versions over the reference's ``FLASH_CASES`` through both routes:
    bf16 at D 64/128 through the wgmma kernel against the plain version
@@ -73,6 +85,7 @@ kernel's launches, error, times and bound; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -87,6 +100,16 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
 ATOL = 2e-4                    # the reference's gp_gram test tolerance
+# the backward kernel against its plain version, that formula in float64
+# and autograd through the plain Matérn: relative L2 of (dL/dls, dL/dsv),
+# each (the CPU tests hold the plain version to 1e-4 of the reference's
+# jax.grad).  Autograd differentiates the expanded |a|²+|b|²−2a·b: with
+# repeated rows its gradient of a zero distance is rounding noise (the
+# on-card test read 1.2e-2 between it and the kernel at n 300, d 40, where
+# the kernel holds 1e-3 of the float64 formula; NVIDIA H100 80GB HBM3,
+# 700 W), so it is held only at the cases with n = m
+GRAM_BWD_REL = 1e-3
+PARAM_ATOL = 5e-3              # tests/test_torch_gp.py: fitted log-params
 
 BF16_FLOPS_PER_S = 989e12      # H100 SXM, dense bf16 tensor cores
 
@@ -250,6 +273,36 @@ def gram_bound(n: int, m: int, d: int, gram: bool):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def gram_bwd_bound(n: int, d: int):
+    """(bound_ms, bound_by) of the Gram's backward: x, g, ls and sv read
+    once and (dL/dls, dL/dsv) written once at the HBM rate, against the
+    float32 operations at the non-tensor-core peak.  Per pair (i, j): 2d
+    for r² (a dot product; the norms' 3d per row are counted once), 3d for
+    the differences, their squares and the weighted sums into dL/dls, and
+    20 for s, exp(-s) and the two weights."""
+    nbytes = 4 * (n * d + n * n + d + 1 + d + 1)
+    ops = n * n * (5 * d + 20) + 3 * d * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def gram_bwd_without_one_plus_s(x, lengthscale, signal_var, g):
+    """A planted fault: the plain backward with w missing its (1 + s)."""
+    import torch
+    from repro_torch.kernels.gp_gram.ref import SQRT5, sqdist
+    d2 = sqdist(x, x, 1.0 / lengthscale)
+    pos = d2 > 1e-12
+    s = SQRT5 * torch.where(pos, torch.sqrt(torch.where(pos, d2, 1.0)), 0.0)
+    e = torch.exp(-s)
+    w = torch.where(pos, g * (5.0 / 3.0) * signal_var * e, 0.0)
+    acc = torch.zeros_like(lengthscale)
+    for i0 in range(0, x.shape[0], 256):
+        diff = x[i0:i0 + 256, None, :] - x[None, :, :]
+        acc = acc + torch.einsum("ij,ijk->k", w[i0:i0 + 256], diff * diff)
+    return acc / lengthscale ** 3, torch.sum(g * (1.0 + s + s * s / 3.0) * e)
+
+
 def build_all() -> None:
     """Build every kernel of the port from the checkout's sources, one
     ``nvcc`` each, all started together; print ptxas's reports."""
@@ -369,7 +422,129 @@ def phase_kernels(card: str):
                 float((c[same[:, :16]] - 1.7).abs().max()))
     check(e_dup <= ATOL, f"duplicated rows: max |K - sv| = {e_dup}")
     print(f"  duplicated rows: max |K - sv| = {e_dup:.3e}", flush=True)
+    timing["gram_bwd"] = phase_gram_bwd(gen, dev)
+    err["gram_bwd"] = timing["gram_bwd"].pop("rel_l2")
     return err, timing
+
+
+def phase_gram_bwd(gen, dev):
+    """The backward kernel at every case's Gram against its plain version,
+    that formula in float64 and autograd through the plain Matérn, with a
+    planted fault; two calls bit-equal; timed at the fit's Gram."""
+    import torch
+    from repro_torch.kernels.gp_gram import ops, ref
+
+    def rel2(got, want):                  # the larger of the two parts'
+        return max(rel_l2(got[0], want[0]),
+                   rel_l2(got[1].reshape(1), want[1].reshape(1)))
+
+    print(f"  backward kernel (relative L2 of dL/dls and dL/dsv, the larger;"
+          f" limit {GRAM_BWD_REL}; autograd held at n = m only):",
+          flush=True)
+    worst, worst_abs, out = 0.0, 0.0, {}
+    for n, m, d in CASES:
+        x = torch.rand((n, d), generator=gen)
+        x[-min(8, n // 2):] = 0.5             # the fit's pad rows
+        x[:n // 8] = x[n // 8:2 * (n // 8)].clone()   # repeated rows
+        x = x.to(dev)
+        ls = (0.1 + 0.9 * torch.rand((d,), generator=gen)).to(dev)
+        sv = torch.tensor(1.7, device=dev)
+        g = torch.randn((n, n), generator=gen).to(dev)
+        args = (x, ls, sv, g)
+        got = ops.matern52_gram_bwd(*args)
+        again = ops.matern52_gram_bwd(*args)
+        plain = ref.matern52_gram_bwd(*args)
+        exact = ref.matern52_gram_bwd(*(t.double() for t in args))
+        ls_ = ls.clone().requires_grad_(True)
+        sv_ = sv.clone().requires_grad_(True)
+        auto = torch.autograd.grad(
+            torch.sum(g * ref.matern52(x, x, ls_, sv_)), [ls_, sv_])
+        fault = gram_bwd_without_one_plus_s(*args)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all()) for t in got),
+              f"gram_bwd n={n} d={d}: non-finite output")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"gram_bwd n={n} d={d}: two calls gave different bits")
+        e_plain, e_exact, e_auto = (rel2(got, w) for w in (plain, exact,
+                                                           auto))
+        f_plain, f_exact, f_auto = (rel2(fault, w) for w in (plain, exact,
+                                                             auto))
+        held = [e_plain, e_exact] + ([e_auto] if n == m else [])
+        worst = max([worst] + held)
+        worst_abs = max([worst_abs] + [float((a - b).abs().max())
+                                       for a, b in zip(got, plain)])
+        print(f"  gram_bwd n={n:5d} d={d:3d}: rel_l2 vs plain={e_plain:.3e} "
+              f"vs float64={e_exact:.3e} vs autograd={e_auto:.3e}"
+              f"{'' if n == m else ' (recorded)'}; planted fault "
+              f"{f_plain:.3e} / {f_exact:.3e} / {f_auto:.3e}; two calls "
+              "bit-equal", flush=True)
+        check(max(held) <= GRAM_BWD_REL,
+              f"gram_bwd n={n} d={d}: relative L2 {held}")
+        check(min(f_plain, f_exact, f_auto) > GRAM_BWD_REL,
+              f"gram_bwd n={n} d={d}: the planted fault reads "
+              f"{f_plain} / {f_exact} / {f_auto}, within the limit")
+        if (n, n, d) == MAIN_GRAM:
+            k_ms = cuda_ms(lambda: ops.matern52_gram_bwd(*args))
+            p_ms = cuda_ms(lambda: ref.matern52_gram_bwd(*args))
+            b_ms, b_by = gram_bwd_bound(n, d)
+            out = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                   "bound_by": b_by,
+                   "device_ms": device_ms(
+                       lambda: ops.matern52_gram_bwd(*args)),
+                   "plain_device_ms": device_ms(
+                       lambda: ref.matern52_gram_bwd(*args))}
+            print(f"  gram_bwd n={n:5d} d={d:3d}: kernel_ms={k_ms:.5f} "
+                  f"plain_ms={p_ms:.5f} bound_ms={b_ms:.7f} ({b_by}) "
+                  f"library_ms=none device_ms={out['device_ms']:.7f} "
+                  f"plain_device_ms={out['plain_device_ms']:.5f}",
+                  flush=True)
+    out["rel_l2"], out["max_abs_err"] = worst, worst_abs
+    print(f"  gram_bwd max |kernel - plain| over the cases: {worst_abs:.3e}",
+          flush=True)
+    return out
+
+
+def eager_plain_fit(params, x, y, kind: str, steps: int = 200,
+                    lr: float = 0.05, extra_noise=None, use_kernel=False):
+    """The fit loop as it was before the graphed step, kept here for the
+    before/after comparison only: Adam stepped from Python, autograd
+    through the plain Gram (``use_kernel`` is ignored: the CUDA kernel had
+    no backward), bias corrections computed on the host every step."""
+    import numpy as np
+    import torch
+    from repro_torch.core import gp
+    p = [t.detach().clone() for t in params]
+    m = [torch.zeros_like(t) for t in p]
+    v = [torch.zeros_like(t) for t in p]
+    t = np.float32(0.0)
+    for _ in range(steps):
+        leaves = [pi.requires_grad_(True) for pi in p]
+        loss = gp.neg_log_marginal(gp.GPParams(*leaves), x, y, kind,
+                                   extra_noise)
+        grads = torch.autograd.grad(loss, leaves)
+        t = t + np.float32(1.0)
+        bc1 = float(np.float32(1.0) - np.float32(0.9) ** t)
+        bc2 = float(np.float32(1.0) - np.float32(0.999) ** t)
+        with torch.no_grad():
+            for i, (lo, hi) in enumerate(gp._BOXES):
+                g = torch.nan_to_num(grads[i])
+                m[i] = 0.9 * m[i] + 0.1 * g
+                v[i] = 0.999 * v[i] + 0.001 * g * g
+                step = lr * (m[i] / bc1) / (torch.sqrt(v[i] / bc2) + 1e-8)
+                p[i] = torch.clamp(leaves[i] - step, lo, hi)
+    return gp.GPParams(*p)
+
+
+@contextlib.contextmanager
+def fit_loop_before():
+    """Within this context ``gp.fit`` (and so ``tune()``) runs
+    :func:`eager_plain_fit` in place of the graphed fit."""
+    from repro_torch.core import gp
+    fit, gp._fit = gp._fit, eager_plain_fit
+    try:
+        yield
+    finally:
+        gp._fit = fit
 
 
 def _timed_sapphire(**kw):
@@ -410,7 +585,7 @@ def phase_main_path(card: str):
     print("== phase 3: Sapphire(arch='yi-6b', shape='train_4k').tune() "
           "at the paper's budgets (300 rank samples, top-16, BOConfig "
           "defaults)", flush=True)
-    launches = {"gram": 0, "cross": 0}
+    launches = {"gram": 0, "cross": 0, "gram_bwd": 0}
     results = {}
     for bs in (1, 8):
         s = _timed_sapphire(arch="yi-6b", shape="train_4k", batch_size=bs,
@@ -420,11 +595,13 @@ def phase_main_path(card: str):
         res = s.tune()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        g, c = ops.gram_launches, ops.cross_launches
-        check(g > 0 and c > 0,
-              f"batch_size={bs}: kernel launches gram={g} cross={c}")
+        g, c, b = ops.gram_launches, ops.cross_launches, ops.gram_bwd_launches
+        check(g > 0 and c > 0 and b > 0,
+              f"batch_size={bs}: kernel launches gram={g} cross={c} "
+              f"gram_bwd={b}")
         launches["gram"] += g
         launches["cross"] += c
+        launches["gram_bwd"] += b
         check(math.isfinite(res.best_value) and res.best_value > 0,
               f"batch_size={bs}: best value {res.best_value}")
         check(res.best_value <= res.default_value,
@@ -442,9 +619,32 @@ def phase_main_path(card: str):
               f"speedup_vs_expert={res.speedup_vs_expert:.4f} "
               f"best_step_s={res.best_value:.6f} "
               f"default_step_s={res.default_value:.6f}")
-        print(f"  kernel launches: matern52_gram={g} matern52_cross={c}")
+        print(f"  kernel launches: matern52_gram={g} matern52_cross={c} "
+              f"matern52_gram_bwd={b}")
         print(f"  top-16: {res.ranking.top(16)}", flush=True)
-        results[bs] = res
+        results[bs] = (res, s.stage_s)
+
+    # before: the same runs with the fit loop as it was (eager Adam,
+    # autograd through the plain Gram), in this call on this card
+    for bs in (1, 8):
+        s = _timed_sapphire(arch="yi-6b", shape="train_4k", batch_size=bs,
+                           device="cuda")
+        t0 = time.perf_counter()
+        with fit_loop_before():
+            res = s.tune()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(math.isfinite(res.best_value)
+              and res.best_value <= res.default_value,
+              f"batch_size={bs}, fit loop before: best {res.best_value}")
+        stages = " ".join(f"{k}={v:.3f}s" for k, v in s.stage_s.items())
+        after = results[bs][1]
+        print(f"batch_size={bs} on {card}, fit loop before (eager, plain "
+              f"autograd): tune wall={wall:.3f}s {stages}; search stage "
+              f"before/after = {s.stage_s['search'] / after['search']:.2f}x")
+        print(f"  speedup_vs_default={res.speedup_vs_default:.4f} "
+              f"best_step_s={res.best_value:.6f}", flush=True)
+    results = {bs: r for bs, (r, _) in results.items()}
 
     # the lasso path alone on the card, on the ranking's own samples: its
     # per-iteration stopping test is one host read per FISTA step
@@ -482,7 +682,9 @@ def phase_profile(card: str):
     from repro_torch.core import gp
 
     print("== phase 4: one GP fit (150 Adam steps) + q=8 selection at the "
-          "main path's shapes under torch.profiler", flush=True)
+          "main path's shapes under torch.profiler, before (eager Adam, "
+          "autograd through the plain Gram) and after (graphed kernel fit)",
+          flush=True)
     rng = np.random.default_rng(0)
     x = rng.random((56, 16))
     y = np.log(1.0 + x[:, 0] + (x[:, 1] - 0.4) ** 2
@@ -497,29 +699,86 @@ def phase_profile(card: str):
         return gp.select_batch(st, cand, y_raw, 56, float(y.min()), 8,
                                use_kernel=True).cpu()
 
-    round_()
-    torch.cuda.synchronize()
+    def wall_ms(before: bool):
+        with (fit_loop_before() if before else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            round_()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+    for before in (True, False):          # warm both
+        wall_ms(before)
+    walls = {"before": [], "after": []}
+    for before in (True, False, False, True):
+        walls["before" if before else "after"].append(wall_ms(before))
+    print(f"GP round wall on {card}, unprofiled, in turns before/after/"
+          f"after/before: before {walls['before'][0]:.3f}, "
+          f"{walls['before'][1]:.3f} ms; after {walls['after'][0]:.3f}, "
+          f"{walls['after'][1]:.3f} ms", flush=True)
+
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        round_()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.device_time for e in events)
-    print(f"GP round on {card}: wall={wall * 1e3:.3f}ms "
-          f"device_busy={busy_us / 1e3:.3f}ms "
-          f"idle_share={1 - busy_us / 1e3 / (wall * 1e3):.4f} "
-          f"device_kernels={len(events)}")
-    by_name = {}
-    for e in events:
-        t, k = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.device_time, k + 1)
-    for name, (t, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"  {t / 1e3:9.3f}ms {k:6d}x {name[:90]}")
-    sys.stdout.flush()
+    out = {}
+    for label, before in (("before", True), ("after", False)):
+        with (fit_loop_before() if before else contextlib.nullcontext()):
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                round_()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.device_time for e in events)
+        check(busy_us > 0, f"GP round {label}: no device time profiled")
+        idle = 1 - busy_us / 1e3 / (wall * 1e3)
+        out[label] = (wall * 1e3, busy_us / 1e3, idle)
+        print(f"GP round ({label}) on {card}: wall={wall * 1e3:.3f}ms "
+              f"device_busy={busy_us / 1e3:.3f}ms idle_share={idle:.4f} "
+              f"device_kernels={len(events)}")
+        by_name = {}
+        for e in events:
+            t, k = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.device_time, k + 1)
+        for name, (t, k) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][0])[:8]:
+            print(f"  {t / 1e3:9.3f}ms {k:6d}x {name[:90]}")
+        sys.stdout.flush()
+
+    # the fit alone: CUDA events around the 150 replays
+    xj, yj, ej, _, _ = gp._prepare(x, y, True, torch.device("cuda"), 64)
+    p0 = gp.init_params(16, device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    cold = gp._fit(p0, xj, yj, "matern52", steps=150, extra_noise=ej,
+                   use_kernel=True)
+    end.record()
+    end.synchronize()
+    print(f"graphed fit alone (150 steps, cached graph): wall "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms, device span "
+          f"{start.elapsed_time(end):.3f} ms "
+          f"({start.elapsed_time(end) / 150 * 1e3:.2f} us per step)",
+          flush=True)
+
+    # the graph against the same steps run eagerly, cold and warm
+    eager = gp._eager_fit(p0, xj, yj, "matern52", 150, 0.05, ej, True)
+    check(all(torch.equal(a, b) for a, b in zip(cold, eager)),
+          "graphed fit (150 steps) differs from the eager steps")
+    warm = gp._fit(cold, xj, yj, "matern52", steps=50, extra_noise=ej,
+                   use_kernel=True)
+    eager_w = gp._eager_fit(cold, xj, yj, "matern52", 50, 0.05, ej, True)
+    check(all(torch.equal(a, b) for a, b in zip(warm, eager_w)),
+          "graphed warm fit (50 steps) differs from the eager steps")
+    plain = eager_plain_fit(p0, xj, yj, "matern52", steps=150,
+                            extra_noise=ej)
+    dev_p = max(float((a - b).abs().max()) for a, b in zip(cold, plain))
+    print(f"graphed fit bit-equal to the eager steps (150 cold, 50 warm); "
+          f"max |kernel fit - plain-autograd fit| over the log-params = "
+          f"{dev_p:.3e} (limit {PARAM_ATOL})", flush=True)
+    check(dev_p <= PARAM_ATOL, f"kernel fit {dev_p} from the plain fit")
+    print(f"graph captures this process: {gp.graph_captures}", flush=True)
+    return out
 
 
 def rel_l2(a, b) -> float:
@@ -1290,7 +1549,7 @@ def main() -> None:
     card = phase_device()
     err, timing = phase_kernels(card)
     launches = phase_main_path(card)
-    phase_profile(card)
+    gp_round = phase_profile(card)
     torch.cuda.empty_cache()
     flash = phase_flash(card)
     torch.cuda.empty_cache()
@@ -1314,6 +1573,20 @@ def main() -> None:
             "bound_by": b_by, "library_ms": None,
             "shape": list(shape), **dev_ms,
         })
+    bwd = timing["gram_bwd"]
+    kernels.append({
+        "name": "matern52_gram_bwd", "route": "cuda",
+        "source": GRAM_SOURCE, "replaces": GRAM_REPLACES,
+        "launches": launches["gram_bwd"], "max_abs_err": bwd["max_abs_err"],
+        "rel_l2": err["gram_bwd"], "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"], "library_ms": None,
+        "shape": [MAIN_GRAM[0], MAIN_GRAM[2]],
+        "device_ms": bwd["device_ms"],
+        "plain_device_ms": bwd["plain_device_ms"],
+        "gp_round_ms_before_after": [gp_round["before"][0],
+                                     gp_round["after"][0]],
+    })
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",
         "source": FLASH_SOURCE, "fma_source": FLASH_FMA_SOURCE,

@@ -8,11 +8,18 @@ observations.  Implementation, in torch on an explicit device:
 * exact GP with Cholesky solves (≤ a few hundred points — the paper's
   regime, where each point costs a cluster benchmark);
 * hyperparameters (lengthscale per-dim, signal var, noise var) fit by
-  maximizing the log marginal likelihood with Adam on log-params, with
-  autograd through the plain-torch kernel;
-* with ``use_kernel`` the posterior Gram and every candidate cross-Gram go
-  through the hand-written CUDA kernel (``kernels/gp_gram``); on CPU
-  tensors its wrapper returns the plain-torch version.
+  maximizing the log marginal likelihood with Adam on log-params;
+* with ``use_kernel`` the Gram of every Adam step, the posterior Gram and
+  every candidate cross-Gram go through the hand-written CUDA kernels
+  (``kernels/gp_gram``): the Adam loop's gradient through the Gram is the
+  backward kernel's.  The reference keeps its Adam loop on its jnp kernel,
+  because its Pallas kernel defines no VJP; the gradient is the same
+  function.  On CPU tensors the wrappers return the plain-torch version,
+  with autograd;
+* on the card one Adam step (forward, backward, update) is captured once
+  in a CUDA graph per shape and replayed once per step, so the host does
+  not dispatch each step's ~100 small kernels; on the host the same step
+  function runs in a Python loop.
 
 Everything is float32.  A Cholesky of a matrix that is not positive
 definite yields NaNs (as ``jnp.linalg.cholesky`` does), which the Adam
@@ -22,6 +29,8 @@ loop's ``nan_to_num`` on the gradients absorbs.
 from __future__ import annotations
 
 import math
+import threading
+from collections import Counter
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -162,8 +171,9 @@ def _build(params: GPParams, x, y, kind: str, extra_noise=None,
     return chol, alpha
 
 
-def neg_log_marginal(params: GPParams, x, y, kind: str, extra_noise=None):
-    chol, alpha = _build(params, x, y, kind, extra_noise)
+def neg_log_marginal(params: GPParams, x, y, kind: str, extra_noise=None,
+                     use_kernel: bool = False):
+    chol, alpha = _build(params, x, y, kind, extra_noise, use_kernel)
     n = x.shape[0]
     return (0.5 * y @ alpha
             + torch.sum(torch.log(torch.diagonal(chol)))
@@ -175,31 +185,177 @@ _BOXES = ((math.log(1e-2), math.log(3.0)),     # log lengthscale
           (math.log(1e-4), math.log(1.0)))     # log noise (keeps chol PD)
 
 
-def _fit(params: GPParams, x, y, kind: str, steps: int = 200,
-         lr: float = 0.05, extra_noise=None) -> GPParams:
-    """Adam on log-hyperparameters maximizing the marginal likelihood, on
-    the differentiable plain-torch kernel (the CUDA kernel has no
-    backward).  NaN gradients are zeroed, hyperparameters clamped to sane
-    boxes after every step."""
-    p = [t.detach().clone() for t in params]
-    m = [torch.zeros_like(t) for t in p]
-    v = [torch.zeros_like(t) for t in p]
+def _bias_table(steps: int) -> np.ndarray:
+    """Adam's bias corrections [steps, 2]: row r holds 1 − 0.9ᵗ and
+    1 − 0.999ᵗ at t = r + 1, in float32 scalar arithmetic (the host loop's
+    rounding, kept bit for bit)."""
+    table = np.zeros((steps, 2), np.float32)
     t = np.float32(0.0)
-    for _ in range(steps):
-        leaves = [pi.requires_grad_(True) for pi in p]
-        loss = neg_log_marginal(GPParams(*leaves), x, y, kind, extra_noise)
-        grads = torch.autograd.grad(loss, leaves)
+    for r in range(steps):
         t = t + np.float32(1.0)
-        bc1 = float(np.float32(1.0) - np.float32(0.9) ** t)
-        bc2 = float(np.float32(1.0) - np.float32(0.999) ** t)
-        with torch.no_grad():
-            for i, (lo, hi) in enumerate(_BOXES):
-                g = torch.nan_to_num(grads[i])
-                m[i] = 0.9 * m[i] + 0.1 * g
-                v[i] = 0.999 * v[i] + 0.001 * g * g
-                step = lr * (m[i] / bc1) / (torch.sqrt(v[i] / bc2) + 1e-8)
-                p[i] = torch.clamp(leaves[i] - step, lo, hi)
-    return GPParams(*p)
+        table[r] = (np.float32(1.0) - np.float32(0.9) ** t,
+                    np.float32(1.0) - np.float32(0.999) ** t)
+    return table
+
+
+def _flat(params: GPParams) -> torch.Tensor:
+    """The log-hyperparameters as one new vector [d + 2]: lengthscales,
+    signal variance, noise variance (Adam steps all of them at once)."""
+    return torch.cat([params.log_lengthscale.detach().reshape(-1),
+                      params.log_signal_var.detach().reshape(1),
+                      params.log_noise_var.detach().reshape(1)])
+
+
+def _unflat(p: torch.Tensor) -> GPParams:
+    """GPParams viewing a vector of :func:`_flat`'s layout."""
+    d = p.shape[0] - 2
+    return GPParams(p[:d], p[d], p[d + 1])
+
+
+def _box_bounds(d: int, device) -> torch.Tensor:
+    """[2, d + 2]: the lower and upper clamp of each entry of :func:`_flat`
+    (``_BOXES``)."""
+    (ls_lo, ls_hi), (sv_lo, sv_hi), (nv_lo, nv_hi) = _BOXES
+    return torch.tensor([[ls_lo] * d + [sv_lo, nv_lo],
+                         [ls_hi] * d + [sv_hi, nv_hi]], dtype=F32,
+                        device=device)
+
+
+def _adam_step(p, m, v, t, table, bounds, x, y, kind: str, lr: float,
+               extra_noise=None, use_kernel: bool = False) -> None:
+    """One Adam step on the log-hyperparameters maximizing the marginal
+    likelihood, in place, with no host value in it: ``p``, ``m``, ``v``
+    [d + 2] in :func:`_flat`'s layout, ``t`` [1] int64 the steps done,
+    ``table`` the device copy of :func:`_bias_table`, ``bounds`` those of
+    :func:`_box_bounds`.  NaN gradients are zeroed, hyperparameters
+    clamped to sane boxes.  Stepping the three parameters as one vector
+    gives the bits of stepping each alone (every operation is
+    elementwise) in a third of the kernels."""
+    leaf = p.detach().requires_grad_(True)
+    loss = neg_log_marginal(_unflat(leaf), x, y, kind, extra_noise,
+                            use_kernel)
+    (g,) = torch.autograd.grad(loss, [leaf])
+    with torch.no_grad():
+        bc = table.index_select(0, t)
+        g = torch.nan_to_num(g)
+        m.copy_(0.9 * m + 0.1 * g)
+        v.copy_(0.999 * v + 0.001 * g * g)
+        step = lr * (m / bc[0, 0]) / (torch.sqrt(v / bc[0, 1]) + 1e-8)
+        p.copy_(torch.clamp(leaf - step, bounds[0], bounds[1]))
+        t.add_(1)
+
+
+def _eager_fit(params: GPParams, x, y, kind: str, steps: int, lr: float,
+               extra_noise=None, use_kernel: bool = False) -> GPParams:
+    """``steps`` calls of :func:`_adam_step` from Python, on any device:
+    the host's fit, and on the card the graph's reference."""
+    p = _flat(params)
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    t = torch.zeros((1,), dtype=torch.int64, device=x.device)
+    table = torch.tensor(_bias_table(steps), device=x.device)
+    bounds = _box_bounds(p.shape[0] - 2, x.device)
+    for _ in range(steps):
+        _adam_step(p, m, v, t, table, bounds, x, y, kind, lr, extra_noise,
+                   use_kernel)
+    return _unflat(p)
+
+
+_GRAPH_ROWS = 256       # bias-correction rows a new graph holds (≥ steps)
+_GRAPH_WARMUP = 3       # eager steps on scratch state before a capture
+_GRAPHS: dict = {}      # (device, n, d, kind, kernel, extra, lr) -> graph
+_GRAPH_LOCK = threading.Lock()   # one graphed fit (and capture) at a time
+graph_captures = 0      # captures made; a cached graph is replayed
+
+
+class _FitGraph:
+    """One :func:`_adam_step` captured in a CUDA graph over static
+    buffers, replayed once per step.  A fit loads its inputs and initial
+    parameters into the buffers, so one capture serves every fit at its
+    key.  The warm-up before the capture (cuSOLVER / cuBLAS handles, the
+    autograd engine) runs on scratch copies of the state: it does not
+    advance the fit."""
+
+    def __init__(self, x, y, extra_noise, params: GPParams, kind: str,
+                 lr: float, use_kernel: bool, rows: int):
+        self.x, self.y = torch.empty_like(x), torch.empty_like(y)
+        self.extra = (None if extra_noise is None
+                      else torch.empty_like(extra_noise))
+        self.p = _flat(params)
+        self.m, self.v = torch.zeros_like(self.p), torch.zeros_like(self.p)
+        self.t = torch.zeros((1,), dtype=torch.int64, device=x.device)
+        self.table = torch.zeros((rows, 2), dtype=F32, device=x.device)
+        self.bounds = _box_bounds(self.p.shape[0] - 2, x.device)
+        self.kind, self.lr, self.use_kernel = kind, lr, use_kernel
+        self.graph = None
+        self.launches = Counter()   # kernel launches one replay makes
+
+    def _step(self, p, m, v, t):
+        _adam_step(p, m, v, t, self.table, self.bounds, self.x, self.y,
+                   self.kind, self.lr, self.extra, self.use_kernel)
+
+    def _capture(self):
+        global graph_captures
+        dev = self.x.device
+        stream = torch.cuda.Stream(device=dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            scratch = [b.clone() for b in (self.p, self.m, self.v)]
+            t = self.t.clone()
+            for _ in range(_GRAPH_WARMUP):
+                self._step(*scratch, t)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        del scratch, t
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: a capture on a refit_async executor thread must
+        # not fail the other threads' CUDA calls
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            self._step(self.p, self.m, self.v, self.t)
+        self.launches = gram_ops.take_captured_launches(stream)
+        self.graph = graph
+        graph_captures += 1
+
+    def run(self, params: GPParams, x, y, extra_noise,
+            steps: int) -> GPParams:
+        self.x.copy_(x)
+        self.y.copy_(y)
+        if self.extra is not None:
+            self.extra.copy_(extra_noise)
+        self.p.copy_(_flat(params))
+        for buf in (self.m, self.v, self.t):
+            buf.zero_()
+        self.table[:steps].copy_(torch.tensor(_bias_table(steps)))
+        if self.graph is None:
+            self._capture()
+        for _ in range(steps):
+            self.graph.replay()
+        gram_ops.add_launches(self.launches, steps)
+        return _unflat(self.p.clone())
+
+
+def _graphed_fit(params: GPParams, x, y, kind: str, steps: int, lr: float,
+                 extra_noise=None, use_kernel: bool = False) -> GPParams:
+    """:func:`_eager_fit` on the card, as ``steps`` replays of the cached
+    graph of one step; a failed capture or replay raises."""
+    use_kernel = use_kernel and kind == "matern52"
+    key = (x.device, tuple(x.shape), kind, use_kernel,
+           extra_noise is not None, lr)
+    with _GRAPH_LOCK, torch.cuda.device(x.device):
+        g = _GRAPHS.get(key)
+        if g is None or g.table.shape[0] < steps:
+            g = _GRAPHS[key] = _FitGraph(x, y, extra_noise, params, kind, lr,
+                                         use_kernel, max(steps, _GRAPH_ROWS))
+        return g.run(params, x, y, extra_noise, steps)
+
+
+def _fit(params: GPParams, x, y, kind: str, steps: int = 200,
+         lr: float = 0.05, extra_noise=None,
+         use_kernel: bool = False) -> GPParams:
+    """Adam on log-hyperparameters maximizing the marginal likelihood:
+    replayed from a CUDA graph on the card, a Python loop on the host
+    (the same step function, :func:`_adam_step`)."""
+    fit_fn = _graphed_fit if x.device.type == "cuda" else _eager_fit
+    return fit_fn(params, x, y, kind, steps, lr, extra_noise, use_kernel)
 
 
 def _bucket(n: int) -> int:
@@ -254,9 +410,13 @@ def fit(x: np.ndarray, y: np.ndarray, kind: str = "matern52",
     heteroscedastic: per-observation measurement variance (raw y units)
     added to the noise diagonal on top of the fitted global scalar.
 
-    ``use_kernel`` routes the posterior Gram build through the CUDA tile
-    kernel (matern52 only).  The Adam loop stays on the plain kernel — it
-    is differentiated, and the CUDA kernel defines no backward.
+    ``use_kernel`` routes the Gram of every Adam step and of the
+    posterior build through the CUDA kernels (matern52 only): the Adam
+    loop differentiates through the backward kernel.  The reference's Adam
+    loop stays on its jnp kernel, as its Pallas kernel defines no VJP; the
+    gradient is the same function, computed by a kernel here.  On the
+    card the Adam steps are replays of one CUDA graph per shape
+    (:func:`_graphed_fit`), with or without ``use_kernel``.
     """
     dev = resolve_device(device)
     xj, yj, ej, y_mean, y_std = _prepare(x, y, pad, dev, pad_to, obs_var)
@@ -265,7 +425,8 @@ def fit(x: np.ndarray, y: np.ndarray, kind: str = "matern52",
     else:
         params = GPParams(*(p.detach().to(dev) for p in params))
     if steps > 0:
-        params = _fit(params, xj, yj, kind, steps=steps, extra_noise=ej)
+        params = _fit(params, xj, yj, kind, steps=steps, extra_noise=ej,
+                      use_kernel=use_kernel)
     with torch.no_grad():
         chol, alpha = _build(params, xj, yj, kind, ej, use_kernel=use_kernel)
     return GPState(params, xj, yj, chol, alpha,

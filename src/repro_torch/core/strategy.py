@@ -125,11 +125,12 @@ class BOConfig:
                                     # wave inflates the domain volume by at
                                     # most `boundary_factor` per round
                                     # instead of factor**k
-    use_kernel: bool = True         # route Gram builds and candidate
-                                    # scoring through the kernels/gp_gram
-                                    # CUDA tile kernel (matern52; the
-                                    # wrapper computes the plain-torch
-                                    # version on CPU tensors)
+    use_kernel: bool = True         # route the fit's Gram (forward and
+                                    # backward), the posterior Gram and
+                                    # candidate scoring through the
+                                    # kernels/gp_gram CUDA kernels
+                                    # (matern52; the wrappers compute the
+                                    # plain-torch version on CPU tensors)
     refit_async: bool = False       # marginal-likelihood refit on a
                                     # background executor over a snapshot
                                     # of the trace: ask() never blocks on
@@ -309,7 +310,9 @@ class BOStrategy(_StrategyBase):
     joins the executor (the strategy stays usable afterwards).
 
     The GP lives on ``cfg.device``; with ``cfg.use_kernel`` its Gram
-    builds and the candidate cross-Gram run the CUDA tile kernel.
+    builds (the Adam fit's through the backward kernel too) and the
+    candidate cross-Gram run the CUDA kernels.  On the card the fit's Adam
+    steps replay a CUDA graph, also from the background fit's thread.
     ``cfg.shard_candidates`` (sharded candidate scoring) is not ported yet
     and raises.
     """
