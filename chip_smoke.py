@@ -9,7 +9,10 @@ Phases (any failure exits non-zero before the result line):
 2. kernels: build ``kernels/gp_gram/csrc/gp_gram.cu`` with nvcc for sm_90a,
    hold ``matern52_gram`` / ``matern52_cross`` against their plain-torch
    versions on the card (atol 2e-4) over the reference's test shapes, the
-   main path's shapes and a stress shape, and time both (CUDA events).
+   main path's shapes, the tuning daemon's (d 327-332, 3939 candidates,
+   a 128-row multi-task corpus) and a stress shape, and time both (CUDA
+   events); at d 327 also a config's one-knob neighbours (r near 0)
+   against the float64 formula.
    The backward kernel ``matern52_gram_bwd`` at every case's Gram (n x n,
    with repeated rows and pad rows of 0.5): within relative L2 1e-3 of
    its plain version and of that formula in float64, and at the cases
@@ -76,6 +79,26 @@ Phases (any failure exits non-zero before the result line):
    sequential recurrence), as initialised (recorded: the sLSTM recurrence
    is chaotic at this width) and with the sLSTM recurrent weights scaled
    by 0.1 (relative L2 1e-3); that prefill runs the FMA kernel (float32).
+10. the tuning daemon: ``TuningServer(device="cuda")`` served over HTTP on
+   127.0.0.1 to 8 ``TuningClient`` threads on yi-6b and qwen1.5-4b at
+   train_4k (one recipe per workload, BOConfig's budget: 8 + 48
+   evaluations, 150 fit steps, 2048 + 256 candidates, over the full
+   327-knob spaces), the launch counters zeroed just before and read just
+   after (forward, cross and backward must have risen).  Gates: cache hit
+   rate >= 0.40, fewer evaluator calls than 8 local runs, every server
+   trace bit-identical to a local ``run_async`` on the card at the same
+   seed.  A ``transfer_bo`` session on codeqwen1.5-7b (``transfer_from``:
+   the corpus mined from the daemon's log of the two) whose multi-task
+   prior, refit graphed, is bit-equal to the session's and to its eager
+   steps; the kernel fit within 5e-3 of the plain-autograd fit on a
+   corpus of that shape with distinct rows (on the daemon's own, whose
+   sessions repeat each other's probes, recorded beside the fit's
+   sensitivity to one ulp of its inputs); an xlstm-1.3b one
+   (another space signature) gets no corpus.  One GP round at d = 327
+   under the profiler.  ``benchmarks/perf_transfer.py``'s full folds
+   through the port (no-corpus identity; every fold at 0.99 of the scratch
+   best within 60 % of the budget of 16).  A BO session at 20 % transient
+   faults (``FaultInjectingService``) bit-identical to the fault-free one.
 
 The kernels are built at the start of phase 2, one ``nvcc`` per source,
 all started together.  The line before the last is ``{"kernels": [...]}`` with each
@@ -186,13 +209,38 @@ MLSTM_F32_PATH_CASE = (1, XLSTM_CHECK_S, 4, 1024, XLSTM_CHECK_CHUNK)
 
 # (n, m, d): the reference's GRAM_CASES, its off-ladder case, one knob,
 # the main path's shapes (56 observations padded to 64; 2048 LHS + 256
-# local + 5·16 sweeps = 2384 candidates; top-16 knobs) and a stress shape
-# whose d spans two staged chunks
+# local + 5·16 sweeps = 2384 candidates; top-16 knobs), a stress shape
+# whose d spans two staged chunks, and the tuning daemon's (phase 10):
+# sessions search the whole cleaned space, d 327 (train_4k) to 332
+# (decode_32k), with 2048 + 256 + 5·d candidates, and the multi-task
+# prior stacks two corpus tasks of up to 64 rows each
 CASES = [(40, 17, 5), (130, 200, 16), (8, 8, 2), (300, 1, 24),
          (128, 128, 8), (136, 77, 9), (50, 30, 1), (64, 64, 16),
-         (2384, 64, 16), (3000, 1000, 40)]
+         (2384, 64, 16), (3000, 1000, 40), (64, 64, 327), (64, 64, 332),
+         (3939, 64, 327), (2304, 64, 332), (128, 128, 327)]
 MAIN_GRAM = (64, 64, 16)
 MAIN_CROSS = (2384, 64, 16)
+SERVICE_GRAM = (64, 64, 327)
+SERVICE_CROSS = (3939, 64, 327)
+
+# phase 10: the tuning daemon, as benchmarks/perf_tuning_service.py sets
+# it up (8 clients, two workloads, one recipe per workload) at BOConfig's
+# own per-session budget over the full 327-knob spaces
+SERVICE_WORKLOADS = ("yi-6b:train_4k", "qwen1.5-4b:train_4k")
+SERVICE_CLIENTS, SERVICE_SEED = 8, 5
+SERVICE_CFG = {"n_init": 8, "n_iter": 48, "fit_steps": 150,
+               "n_candidates": 2048, "n_local": 256}
+HIT_RATE_GATE = 0.40
+# the transfer_bo session: a dense-family workload whose space signature
+# equals the two donors' (xlstm-1.3b's train_4k space has 328 knobs, so no
+# dense log transfers to it)
+TRANSFER_ARCH, TRANSFER_SHAPE = "codeqwen1.5-7b", "train_4k"
+TRANSFER_BUDGET = 24
+# benchmarks/perf_transfer.py's full folds
+FOLD_ARCHS, FOLD_RANK_ARCH, FOLD_TOP_K = (
+    ("yi-6b", "codeqwen1.5-7b", "mistral-nemo-12b"), "qwen1.5-4b", 8)
+FOLD_BUDGET, FOLD_RATIO, FOLD_FRACTION = 16, 0.99, 0.60
+CHAOS_RATE, CHAOS_BUDGET, CHAOS_WIDTH = 0.2, 24, 4
 
 
 def fail(msg: str) -> None:
@@ -399,7 +447,8 @@ def phase_kernels(card: str):
             p_ms = cuda_ms(lambda: plain(*args))
             b_ms, b_by = gram_bound(*shape, gram=kind == "gram")
             dev_ms = {}
-            if shape in (MAIN_GRAM, MAIN_CROSS):
+            if shape in (MAIN_GRAM, MAIN_CROSS, SERVICE_GRAM,
+                         SERVICE_CROSS):
                 dev_ms = {"device_ms": device_ms(lambda: fn(*args)),
                           "plain_device_ms": device_ms(lambda: plain(*args))}
             timing[(kind, shape)] = (k_ms, p_ms, b_ms, b_by, dev_ms)
@@ -422,6 +471,38 @@ def phase_kernels(card: str):
                 float((c[same[:, :16]] - 1.7).abs().max()))
     check(e_dup <= ATOL, f"duplicated rows: max |K - sv| = {e_dup}")
     print(f"  duplicated rows: max |K - sv| = {e_dup:.3e}", flush=True)
+
+    # a config's one-knob neighbours (the candidates' axis sweeps) at the
+    # daemon's 327 knobs and the fit's initial lengthscale 0.3: r near 0,
+    # where the expanded |a|² + |b|² − 2a·b (the reference's arithmetic,
+    # recorded here) cancels; beyond 64 features the kernel sums direct
+    # differences
+    d = SERVICE_GRAM[2]
+    x = torch.rand((64, d), generator=gen).to(dev)
+    sweeps = x[:1].repeat(5 * d, 1)
+    for j in range(d):
+        sweeps[5 * j:5 * j + 5, j] = torch.linspace(0, 1, 5, device=dev)
+    ls = torch.full((d,), 0.3, device=dev)
+    sv = torch.tensor(1.7, device=dev)
+    got = ops.matern52_cross(sweeps, x, ls, sv)
+    exact = ref.matern52_cross_ref(sweeps.double(), x.double(), ls.double(),
+                                   sv.double())
+    e_plain = float((got - ref.matern52_cross_ref(sweeps, x, ls, sv))
+                    .abs().max())
+    e_exact = float((got.double() - exact).abs().max())
+    a, b = sweeps / ls, x / ls
+    d2 = torch.clamp_min((a * a).sum(1)[:, None] + (b * b).sum(1)[None, :]
+                         - 2.0 * (a @ b.T), 0.0)
+    r = torch.where(d2 > 1e-12, torch.sqrt(torch.where(d2 > 1e-12, d2, 1.0)),
+                    0.0) * math.sqrt(5.0)
+    e_expanded = float((sv * (1 + r + r * r / 3) * torch.exp(-r)).double()
+                       .sub(exact).abs().max())
+    print(f"  one-knob neighbours [{5 * d},{d}] x [64,{d}], lengthscale "
+          f"0.3: max |kernel - plain| = {e_plain:.3e}, |kernel - float64| "
+          f"= {e_exact:.3e}; the expanded form in float32: "
+          f"{e_expanded:.3e} (recorded)", flush=True)
+    check(max(e_plain, e_exact) <= ATOL,
+          f"one-knob neighbours: {e_plain}, {e_exact}")
     timing["gram_bwd"] = phase_gram_bwd(gen, dev)
     err["gram_bwd"] = timing["gram_bwd"].pop("rel_l2")
     return err, timing
@@ -483,20 +564,24 @@ def phase_gram_bwd(gen, dev):
         check(min(f_plain, f_exact, f_auto) > GRAM_BWD_REL,
               f"gram_bwd n={n} d={d}: the planted fault reads "
               f"{f_plain} / {f_exact} / {f_auto}, within the limit")
-        if (n, n, d) == MAIN_GRAM:
+        if (n, n, d) in (MAIN_GRAM, SERVICE_GRAM):
             k_ms = cuda_ms(lambda: ops.matern52_gram_bwd(*args))
             p_ms = cuda_ms(lambda: ref.matern52_gram_bwd(*args))
             b_ms, b_by = gram_bwd_bound(n, d)
-            out = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                   "bound_by": b_by,
-                   "device_ms": device_ms(
-                       lambda: ops.matern52_gram_bwd(*args)),
-                   "plain_device_ms": device_ms(
-                       lambda: ref.matern52_gram_bwd(*args))}
+            t = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                 "bound_by": b_by,
+                 "device_ms": device_ms(
+                     lambda: ops.matern52_gram_bwd(*args)),
+                 "plain_device_ms": device_ms(
+                     lambda: ref.matern52_gram_bwd(*args))}
+            if (n, n, d) == MAIN_GRAM:
+                out.update(t)
+            else:
+                out["service"] = t
             print(f"  gram_bwd n={n:5d} d={d:3d}: kernel_ms={k_ms:.5f} "
                   f"plain_ms={p_ms:.5f} bound_ms={b_ms:.7f} ({b_by}) "
-                  f"library_ms=none device_ms={out['device_ms']:.7f} "
-                  f"plain_device_ms={out['plain_device_ms']:.5f}",
+                  f"library_ms=none device_ms={t['device_ms']:.7f} "
+                  f"plain_device_ms={t['plain_device_ms']:.5f}",
                   flush=True)
     out["rel_l2"], out["max_abs_err"] = worst, worst_abs
     print(f"  gram_bwd max |kernel - plain| over the cases: {worst_abs:.3e}",
@@ -1537,6 +1622,487 @@ def phase_xlstm(card: str):
     return {**launches, "device_ms": dev_ms, "pass_device_ms": pass_ms}
 
 
+def service_local_run(workload: str, budget: int, seed: int, cfg: dict,
+                      device: str):
+    """One client tuning alone (``benchmarks/perf_tuning_service.py``'s
+    baseline): a local ``run_async`` on an immediate service over a fresh
+    evaluator.  Returns (trace, evaluator calls)."""
+    from repro_torch.core.controller import Controller, EvalDB
+    from repro_torch.core.service import ImmediateEvaluationService
+    from repro_torch.core.strategy import BOConfig, make_strategy
+    from repro_torch.service import default_catalog
+    space, backend = default_catalog()[workload].build()
+    strat = make_strategy("bo", space, budget=budget, seed=seed,
+                          cfg=BOConfig(**cfg, device=device))
+    ctrl = Controller(ImmediateEvaluationService(backend), db=EvalDB(),
+                      tag="bo", workload=workload, seed=seed)
+    trace = ctrl.run_async(strat, budget=budget, max_in_flight=1,
+                           min_ask=1)
+    return trace, backend.calls
+
+
+def service_daemon(device: str, cfg: dict, clients: int = SERVICE_CLIENTS):
+    """The daemon on ``device`` behind HTTP on 127.0.0.1, ``clients``
+    ``TuningClient`` threads each creating a session on one of
+    ``SERVICE_WORKLOADS`` (alternating) and having the server drive it.
+    Returns (server, httpd, url, {client: (workload, reply)}, wall s)."""
+    import threading
+    from repro_torch.service import (TuningClient, TuningServer,
+                                     default_catalog, serve_background)
+    from repro_torch.service.server import _analytic_spec
+    catalog = default_catalog()
+    target = _analytic_spec(TRANSFER_ARCH, TRANSFER_SHAPE)
+    catalog[target.name] = target
+    srv = TuningServer(catalog, max_workers=4, device=device)
+    httpd, _ = serve_background(srv, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{httpd.server_port}"
+    budget = cfg["n_init"] + cfg["n_iter"]
+    replies, errors = {}, []
+
+    def client(i: int):
+        wl = SERVICE_WORKLOADS[i % len(SERVICE_WORKLOADS)]
+        try:
+            sess = TuningClient(url).create_session(
+                wl, budget=budget, seed=SERVICE_SEED,
+                strategy_kwargs={"cfg": cfg})
+            replies[i] = (wl, sess.run())
+        except Exception as e:             # reported below, fails the run
+            errors.append(f"client {i}: {e!r}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,), name=f"client-{i}")
+               for i in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    check(not errors, f"daemon clients failed: {errors}")
+    return srv, httpd, url, replies, wall
+
+
+def transfer_folds(device: str, budget: int = FOLD_BUDGET,
+                   fit_steps: int = 40, corpus_fit_steps: int = 100,
+                   seed: int = 7):
+    """``benchmarks/perf_transfer.py``'s full leave-one-out folds through
+    the port on ``device``: rank once on the donor-only arch, tune every
+    arch from scratch (each run is its fold's baseline and the others'
+    corpus), the no-corpus identity, then per fold a ``transfer_bo`` run
+    on the corpus of the other archs.  Returns the per-fold results and
+    whether the identity held."""
+    import numpy as np
+    from dataclasses import replace
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import ranking
+    from repro_torch.core.controller import EvalRecord
+    from repro_torch.core.costmodel import SINGLE_POD
+    from repro_torch.core.evaluators import AnalyticEvaluator
+    from repro_torch.core.knobs import clean_space
+    from repro_torch.core.strategy import BOConfig, BOStrategy, make_strategy
+    from repro_torch.models.config import SHAPES_BY_NAME
+    from repro_torch.transfer import (TransferBOStrategy, TransferCorpus,
+                                      build_corpus, space_signature)
+
+    def drive(strategy, f):
+        while not strategy.finished:
+            cfgs = strategy.ask()
+            if not cfgs:
+                break
+            strategy.tell(cfgs, [f(c) for c in cfgs])
+        return strategy.trace
+
+    def objective(space, ev, base):
+        def f(c):
+            full = dict(base)
+            full.update(c)
+            return float(ev(space.project(full)))
+        return f
+
+    cfg = BOConfig(n_init=6, n_iter=budget - 6, n_candidates=256,
+                   fit_steps=fit_steps, seed=seed, device=device)
+    tcfg = replace(cfg, n_init=3, n_iter=budget - 3, local_sigma=0.02)
+    archs = (FOLD_RANK_ARCH,) + FOLD_ARCHS
+    work = {}
+    for a in archs:
+        space, _, _ = clean_space(get_smoke_config(a),
+                                  SHAPES_BY_NAME["train_4k"], SINGLE_POD)
+        ev = AnalyticEvaluator(get_smoke_config(a),
+                               SHAPES_BY_NAME["train_4k"], SINGLE_POD,
+                               noise_sigma=0.0, seed=0)
+        work[a] = (space, ev, space.default_config())
+    sig = space_signature(work[FOLD_RANK_ARCH][0])
+    check(all(space_signature(w[0]) == sig for w in work.values()),
+          "the fold archs do not share one space signature")
+    t0 = time.perf_counter()
+    rk = ranking.rank(work[FOLD_RANK_ARCH][0], work[FOLD_RANK_ARCH][1],
+                      n_samples=300, seed=0, stability_rounds=8,
+                      device=device)
+    sub = rk.top_space(FOLD_TOP_K)
+    rank_s = time.perf_counter() - t0
+    scratch, records = {}, []
+    t0 = time.perf_counter()
+    for a in archs:
+        f = objective(*work[a])
+        trace = drive(make_strategy("bo", sub, budget=budget, cfg=cfg), f)
+        scratch[a] = trace
+        records += [EvalRecord(dict(c), float(v), 0.0, "scratch", a)
+                    for c, v in zip(trace.configs, trace.values)]
+    scratch_s = time.perf_counter() - t0
+    f = objective(*work[FOLD_ARCHS[0]])
+    plain = drive(BOStrategy(sub, tcfg), f)
+    identical = True
+    for corpus in (None, TransferCorpus(sub, [])):
+        twin = drive(TransferBOStrategy(sub, tcfg, corpus=corpus), f)
+        identical &= (twin.configs == plain.configs
+                      and twin.values == plain.values)
+    out = {}
+    t0 = time.perf_counter()
+    for target in FOLD_ARCHS:
+        corpus = build_corpus(sub, [records], exclude=(target,))
+        check(corpus.n_tasks == len(archs) - 1,
+              f"fold {target}: corpus of {corpus.n_tasks} tasks")
+        trace = drive(make_strategy("transfer_bo", sub, budget=budget,
+                                    cfg=tcfg, corpus=corpus,
+                                    corpus_fit_steps=corpus_fit_steps),
+                      objective(*work[target]))
+        best = min(scratch[target].values)
+        matched = next((i + 1 for i, v in enumerate(trace.best_values)
+                        if v <= best / FOLD_RATIO), None)
+        out[target] = {"scratch_best": best,
+                       "transfer_best": min(trace.values),
+                       "evals_to_match": matched,
+                       "transfer_best_values": list(trace.best_values),
+                       "scratch_best_values": list(
+                           scratch[target].best_values)}
+    transfer_s = time.perf_counter() - t0
+    return out, identical, {"rank_s": rank_s, "scratch_s": scratch_s,
+                            "transfer_s": transfer_s, "top": rk.top(
+                                FOLD_TOP_K)}
+
+
+def chaos_arm(device: str, plan):
+    """One BO session on yi-6b:train_4k behind a one-worker pool, under
+    ``plan`` (or none), with retries; the daemon's barrier cadence.
+    Returns (trace, injected counts)."""
+    from repro_torch.core.controller import Controller, EvalDB
+    from repro_torch.core.faults import FaultInjectingService
+    from repro_torch.core.resilience import RetryPolicy
+    from repro_torch.core.service import WorkerPoolEvaluationService
+    from repro_torch.core.strategy import BOConfig, make_strategy
+    from repro_torch.service import default_catalog
+    space, backend = default_catalog()["yi-6b:train_4k"].build()
+    inner = WorkerPoolEvaluationService(backend, max_workers=1)
+    svc = inner if plan is None else FaultInjectingService(inner, plan)
+    ctrl = Controller(svc, EvalDB(), tag="chaos", workload="yi-6b:train_4k",
+                      seed=SERVICE_SEED,
+                      resilience=RetryPolicy(max_attempts=8, backoff_s=0.0))
+    strat = make_strategy("bo", space, budget=CHAOS_BUDGET,
+                          seed=SERVICE_SEED, batch_size=CHAOS_WIDTH,
+                          cfg=BOConfig(device=device))
+    try:
+        trace = ctrl.run_async(strat, batch_size=CHAOS_WIDTH,
+                               max_in_flight=CHAOS_WIDTH,
+                               min_ask=CHAOS_WIDTH)
+        return trace, dict(getattr(svc, "injected", {}))
+    finally:
+        svc.close()
+
+
+def gp_round_327(card: str):
+    """One GP round of a daemon session at d = 327 (a 150-step fit at 56
+    observations padded to 64, then the q = 1 pick over 2048 + 256 + 5·327
+    candidates) under ``torch.profiler``: wall, device busy, idle share."""
+    import numpy as np
+    import torch
+    from repro_torch.core import gp
+    n, d = 56, SERVICE_GRAM[2]
+    rng = np.random.default_rng(1)
+    x = rng.random((n, d))
+    y = np.log(1.0 + x[:, 0] + (x[:, 1] - 0.4) ** 2
+               + 0.05 * rng.normal(size=n))
+    cand = rng.random((SERVICE_CROSS[0], d)).astype(np.float32)
+    y_raw = np.zeros(64, np.float32)
+    y_raw[:n] = y
+
+    def round_():
+        st = gp.fit(x, y, steps=150, pad_to=64, use_kernel=True,
+                    device="cuda")
+        return gp.select_batch(st, cand, y_raw, n, float(y.min()), 1,
+                               use_kernel=True).cpu()
+
+    round_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    round_()
+    torch.cuda.synchronize()
+    wall_unprofiled = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        round_()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.device_time for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    check(busy > 0, "GP round at d=327: no device time profiled")
+    idle = 1 - busy / wall
+    print(f"GP round at d={d} (fit 150 steps [64,{d}], q=1 over "
+          f"{SERVICE_CROSS[0]} candidates) on {card}: unprofiled wall "
+          f"{wall_unprofiled:.3f} ms; profiled wall {wall:.3f} ms, device "
+          f"busy {busy:.3f} ms, idle share {idle:.4f}", flush=True)
+    return {"wall_ms": wall_unprofiled, "profiled_wall_ms": wall,
+            "busy_ms": busy, "idle_share": idle}
+
+
+def mtgp_fits(p0, x, tasks, y, extra, steps: int):
+    """(graphed kernel fit, the same steps eager, the plain-autograd fit)
+    of the multi-task GP from ``p0``."""
+    from repro_torch.core import gp
+    args = (p0, x, tasks, y, "matern52")
+    return (gp._mt_fit(*args, steps=steps, extra_noise=extra,
+                       use_kernel=True),
+            gp._mt_fit(*args, steps=steps, extra_noise=extra,
+                       use_kernel=True, graphed=False),
+            gp._mt_fit(*args, steps=steps, extra_noise=extra,
+                       use_kernel=False, graphed=False))
+
+
+def mtgp_check(srv, sid: str, card: str, steps: int = 200):
+    """The transfer session's multi-task prior, refit on its corpus from
+    the same init: graphed, bit-equal to the session's prior and to the
+    same steps run eagerly; device µs per graphed step.  The kernel fit
+    against the plain-autograd fit: on that corpus recorded beside the
+    fit's own sensitivity (the plain fit again with one float32 ulp added
+    to 1 % of x), since the daemon's sessions repeat each other's probes
+    and leave it ill-conditioned; held to ``PARAM_ATOL`` on a corpus of
+    the same shape whose rows are distinct (two tasks of 64 at 327
+    knobs)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import gp
+    sess = srv.session(sid)
+    strat = sess.strategy
+    prior = strat._prior
+    check(prior is not None and prior.multitask,
+          f"transfer session {sid}: no multi-task prior")
+    corpus = srv._build_transfer_corpus(sess.workload, strat.space, True)
+    x, y, var, tasks = corpus.stacked(log_objective=strat.cfg.log_objective,
+                                      max_per_task=64)
+    obs = var if np.any(var > 0) else None
+    dev = torch.device("cuda")
+    xj, tj, yj, extra, _, _, off = gp._mt_prepare(x, y, tasks, obs, dev)
+    p0 = gp.init_mt_params(x.shape[1], len(off), offsets=off, device=dev)
+    graphed, eager, plain = mtgp_fits(p0, xj, tj, yj, extra, steps)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    gp._mt_fit(p0, xj, tj, yj, "matern52", steps=steps, extra_noise=extra,
+               use_kernel=True)
+    end.record()
+    end.synchronize()
+    step_us = start.elapsed_time(end) / steps * 1e3
+    check(all(torch.equal(a, b) for a, b in zip(graphed,
+                                                 prior.state.params)),
+          "the refit multi-task prior differs from the session's")
+    check(all(torch.equal(a, b) for a, b in zip(graphed, eager)),
+          "graphed multi-task fit differs from its eager steps")
+    dev_p = max(float((a - b).abs().max()) for a, b in zip(graphed, plain))
+    bump = torch.from_numpy(np.random.default_rng(0).random(x.shape)
+                            < 0.01).to(dev)
+    x_ulp = torch.where(bump, torch.nextafter(xj, torch.full_like(xj, 2.0)),
+                        xj)
+    plain_ulp = gp._mt_fit(p0, x_ulp, tj, yj, "matern52", steps=steps,
+                           extra_noise=extra, use_kernel=False, graphed=False)
+    floor = max(float((a - b).abs().max()) for a, b in zip(plain, plain_ulp))
+    unique = len(np.unique(x, axis=0))
+    print(f"transfer session {sid}: multi-task prior over "
+          f"{corpus.workloads}, x [{x.shape[0]},{x.shape[1]}] ({unique} "
+          f"distinct rows), T {corpus.n_tasks}; graphed fit ({steps} "
+          f"steps) bit-equal to the session's prior and to its eager "
+          f"steps; {step_us:.2f} us device per graphed step on {card}; "
+          f"max |kernel fit - plain fit| = {dev_p:.3e}, |plain fit - plain "
+          f"fit of x + 1 ulp on 1 %| = {floor:.3e} (both recorded)",
+          flush=True)
+
+    # the same shape with distinct rows: the kernel fit held to PARAM_ATOL
+    rng = np.random.default_rng(1)
+    xs = rng.random((128, x.shape[1]))
+    ts = np.repeat(np.arange(2, dtype=np.int32), 64)
+    ys = np.log(1.0 + xs[:, 0] + (xs[:, 1] - 0.4) ** 2 + 0.3 * ts
+                + 0.05 * rng.normal(size=128))
+    xd, td, yd, ed, _, _, od = gp._mt_prepare(xs, ys, ts, None, dev)
+    q0 = gp.init_mt_params(xs.shape[1], 2, offsets=od, device=dev)
+    g2, e2, p2 = mtgp_fits(q0, xd, td, yd, ed, steps)
+    check(all(torch.equal(a, b) for a, b in zip(g2, e2)),
+          "graphed multi-task fit differs from its eager steps (distinct "
+          "rows)")
+    dev_d = max(float((a - b).abs().max()) for a, b in zip(g2, p2))
+    print(f"  distinct rows [128,{xs.shape[1]}], T 2: graphed fit bit-equal "
+          f"to its eager steps; max |kernel fit - plain fit| = {dev_d:.3e} "
+          f"(limit {PARAM_ATOL})", flush=True)
+    check(dev_d <= PARAM_ATOL,
+          f"multi-task kernel fit {dev_d} from the plain fit")
+    return {"rows": int(x.shape[0]), "distinct_rows": unique,
+            "d": int(x.shape[1]), "tasks": corpus.n_tasks,
+            "param_dev_daemon_corpus": dev_p, "plain_ulp_floor": floor,
+            "param_dev": dev_d, "step_us": step_us}
+
+
+def phase_service(card: str):
+    import warnings
+    import torch
+    from repro_torch.core import gp
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.kernels.gp_gram import ops
+    from repro_torch.service import TuningClient
+    from repro_torch.service.wire import trace_to_json
+    from repro_torch.transfer import CorpusMismatch
+
+    budget = SERVICE_CFG["n_init"] + SERVICE_CFG["n_iter"]
+    print(f"== phase 10: the tuning daemon on the card: "
+          f"{SERVICE_CLIENTS} HTTP clients x budget {budget} on "
+          f"{SERVICE_WORKLOADS} (BOConfig {SERVICE_CFG}), a transfer_bo "
+          f"session, perf_transfer's folds, 20 % transient faults",
+          flush=True)
+    t_phase = time.perf_counter()
+    local = {}
+    t0 = time.perf_counter()
+    for wl in SERVICE_WORKLOADS:
+        local[wl] = service_local_run(wl, budget, SERVICE_SEED, SERVICE_CFG,
+                                      "cuda")
+        check(local[wl][1] == budget, f"local {wl}: {local[wl][1]} calls")
+    torch.cuda.synchronize()
+    print(f"local baseline: {len(SERVICE_WORKLOADS)} sessions alone in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    captures, evictions = gp.graph_captures, gp.graph_evictions
+    ops.reset_launch_counts()
+    srv, httpd, url, replies, wall = service_daemon("cuda", SERVICE_CFG)
+    torch.cuda.synchronize()
+    launches = {"gram": ops.gram_launches, "cross": ops.cross_launches,
+                "gram_bwd": ops.gram_bwd_launches}
+    try:
+        cache = srv.pool.cache.snapshot()
+        calls = sum(srv.pool.inner.backends[wl].calls
+                    for wl in SERVICE_WORKLOADS)
+        independent = SERVICE_CLIENTS * budget
+        print(f"daemon on {card}: {SERVICE_CLIENTS} sessions in "
+              f"{wall:.3f} s = {SERVICE_CLIENTS / wall:.4f} sessions/s; "
+              f"evaluator calls {calls} (independent runs: "
+              f"{independent}); cache {cache['hits']}/{cache['requests']} "
+              f"hits = {cache['hit_rate']:.4f} ({cache['hits_inflight']} "
+              f"in flight); graph captures {gp.graph_captures - captures}, "
+              f"evictions {gp.graph_evictions - evictions}; kernel "
+              f"launches matern52_gram={launches['gram']} "
+              f"matern52_cross={launches['cross']} "
+              f"matern52_gram_bwd={launches['gram_bwd']}", flush=True)
+        check(all(v > 0 for v in launches.values()),
+              f"daemon: gp_gram launches {launches}")
+        check(cache["hit_rate"] >= HIT_RATE_GATE,
+              f"cache hit rate {cache['hit_rate']} < {HIT_RATE_GATE}")
+        check(calls < independent,
+              f"evaluator calls {calls} not fewer than {independent}")
+        for i, (wl, reply) in sorted(replies.items()):
+            check(reply["n_evaluations"] == budget,
+                  f"client {i}: {reply['n_evaluations']} evaluations")
+            check(reply["trace"] == trace_to_json(local[wl][0]),
+                  f"client {i} ({wl}): server trace differs from the "
+                  "local run_async")
+        print(f"all {SERVICE_CLIENTS} server traces bit-identical to the "
+              "local run_async at the same seed; best "
+              + ", ".join(f"{wl} {min(local[wl][0].values):.6g}"
+                          for wl in SERVICE_WORKLOADS), flush=True)
+
+        # transfer_bo, its corpus mined from the daemon's own log
+        client = TuningClient(url)
+        target = f"{TRANSFER_ARCH}:{TRANSFER_SHAPE}"
+        captures = gp.graph_captures
+        t0 = time.perf_counter()
+        sess = client.create_session(
+            target, strategy="transfer_bo", budget=TRANSFER_BUDGET,
+            seed=SERVICE_SEED, transfer_from=True,
+            strategy_kwargs={"cfg": {**SERVICE_CFG, "n_iter":
+                                     TRANSFER_BUDGET - SERVICE_CFG["n_init"]}})
+        create_s = time.perf_counter() - t0
+        mtgp = mtgp_check(srv, sess.session_id, card)
+        mtgp["captures"] = gp.graph_captures - captures
+        mtgp["create_s"] = create_s
+        t0 = time.perf_counter()
+        out = sess.run()
+        mtgp["run_s"] = time.perf_counter() - t0
+        check(out["n_evaluations"] == TRANSFER_BUDGET,
+              f"transfer session: {out['n_evaluations']} evaluations")
+        print(f"transfer_bo on {target}: created (corpus fit, pseudo "
+              f"rows) in {create_s:.3f} s, ran {TRANSFER_BUDGET} "
+              f"evaluations in {mtgp['run_s']:.3f} s, best "
+              f"{out['best_value']:.6g}", flush=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            xl = client.create_session(
+                "xlstm-1.3b:train_4k", strategy="transfer_bo", budget=8,
+                transfer_from=True, strategy_kwargs={"cfg": SERVICE_CFG})
+        check(srv.session(xl.session_id).strategy._prior is None
+              and any(issubclass(w.category, CorpusMismatch)
+                      for w in caught),
+              "xlstm-1.3b took a corpus of another space signature")
+        xl.close()
+        print("transfer_bo on xlstm-1.3b:train_4k: the dense logs skipped "
+              "with a CorpusMismatch warning (328 knobs, another "
+              "signature): plain BO", flush=True)
+    finally:
+        httpd.shutdown()
+        srv.close()
+    round327 = gp_round_327(card)
+
+    t0 = time.perf_counter()
+    folds, identical, walls = transfer_folds("cuda")
+    torch.cuda.synchronize()
+    folds_s = time.perf_counter() - t0
+    max_evals = int(FOLD_FRACTION * FOLD_BUDGET)
+    print(f"perf_transfer folds on {card} in {folds_s:.3f} s (rank "
+          f"{walls['rank_s']:.3f}, scratch {walls['scratch_s']:.3f}, "
+          f"transfer {walls['transfer_s']:.3f}); top-{FOLD_TOP_K} "
+          f"{walls['top']}", flush=True)
+    for target, r in folds.items():
+        print(f"  {target:18s} scratch {r['scratch_best']:.6g} transfer "
+              f"{r['transfer_best']:.6g} (ratio "
+              f"{r['scratch_best'] / r['transfer_best']:.4f}) matched at "
+              f"eval {r['evals_to_match']} (gate <= {max_evals})",
+              flush=True)
+    check(identical, "transfer_bo with no corpus is not trace-identical "
+          "to plain BO")
+    for target, r in folds.items():
+        m = r["evals_to_match"]
+        check(m is not None and m <= max_evals,
+              f"fold {target}: reached {FOLD_RATIO} of the scratch best at "
+              f"eval {m}, gate {max_evals}")
+    print("no-corpus identity: transfer_bo == plain BO at equal seed",
+          flush=True)
+
+    t0 = time.perf_counter()
+    clean, _ = chaos_arm("cuda", None)
+    chaotic, injected = chaos_arm("cuda", FaultPlan(
+        transient_rate=CHAOS_RATE, seed=11))
+    chaos_s = time.perf_counter() - t0
+    print(f"chaos: {CHAOS_BUDGET} evaluations in waves of {CHAOS_WIDTH}, "
+          f"{CHAOS_RATE:.0%} transient faults injected {injected}; "
+          f"{chaos_s:.3f} s both arms", flush=True)
+    check(injected.get("transient", 0) > 0, "no fault injected")
+    check(chaotic.configs == clean.configs
+          and chaotic.values == clean.values
+          and chaotic.best_values == clean.best_values,
+          "the trace under faults differs from the fault-free one")
+    print("trace under 20 % transient faults bit-identical to the "
+          "fault-free one", flush=True)
+    total = time.perf_counter() - t_phase
+    print(f"phase 10 total {total:.1f} s", flush=True)
+    return {"launches": launches, "sessions_per_s": SERVICE_CLIENTS / wall,
+            "wall_s": wall, "hit_rate": cache["hit_rate"],
+            "evaluator_calls": calls, "round327": round327, "mtgp": mtgp,
+            "folds": folds, "phase_s": total}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1560,11 +2126,14 @@ def main() -> None:
     mlstm = phase_mlstm(card)
     torch.cuda.empty_cache()
     xlstm = phase_xlstm(card)
+    torch.cuda.empty_cache()
+    service = phase_service(card)
 
     kernels = []
-    for kind, shape in (("gram", MAIN_GRAM),
-                        ("cross", MAIN_CROSS)):
+    for kind, shape, svc_shape in (("gram", MAIN_GRAM, SERVICE_GRAM),
+                                   ("cross", MAIN_CROSS, SERVICE_CROSS)):
         k_ms, p_ms, b_ms, b_by, dev_ms = timing[(kind, shape)]
+        s_ms, s_p_ms, s_b_ms, s_b_by, s_dev = timing[(kind, svc_shape)]
         kernels.append({
             "name": f"matern52_{kind}", "route": "cuda",
             "source": GRAM_SOURCE, "replaces": GRAM_REPLACES,
@@ -1572,8 +2141,15 @@ def main() -> None:
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
             "shape": list(shape), **dev_ms,
+            "launches_phase10": service["launches"][kind],
+            "phase10_shape": list(svc_shape), "phase10_ms": s_ms,
+            "phase10_plain_ms": s_p_ms, "phase10_bound_ms": s_b_ms,
+            "phase10_bound_by": s_b_by,
+            "phase10_device_ms": s_dev["device_ms"],
+            "phase10_plain_device_ms": s_dev["plain_device_ms"],
         })
     bwd = timing["gram_bwd"]
+    svc_bwd = bwd["service"]
     kernels.append({
         "name": "matern52_gram_bwd", "route": "cuda",
         "source": GRAM_SOURCE, "replaces": GRAM_REPLACES,
@@ -1586,6 +2162,14 @@ def main() -> None:
         "plain_device_ms": bwd["plain_device_ms"],
         "gp_round_ms_before_after": [gp_round["before"][0],
                                      gp_round["after"][0]],
+        "launches_phase10": service["launches"]["gram_bwd"],
+        "phase10_shape": [SERVICE_GRAM[0], SERVICE_GRAM[2]],
+        "phase10_ms": svc_bwd["ms"], "phase10_plain_ms": svc_bwd["plain_ms"],
+        "phase10_bound_ms": svc_bwd["bound_ms"],
+        "phase10_bound_by": svc_bwd["bound_by"],
+        "phase10_device_ms": svc_bwd["device_ms"],
+        "phase10_plain_device_ms": svc_bwd["plain_device_ms"],
+        "mtgp_step_us": service["mtgp"]["step_us"],
     })
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",

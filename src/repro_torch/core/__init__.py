@@ -11,13 +11,15 @@ Public API:
     Controller.run / .run_async / EvalDB
                                   (Fig 3 — repro_torch.core.controller)
     Sapphire(...).tune()          (Fig 3 — repro_torch.core.tuner)
-    RetryPolicy / ResilientService / CircuitBreaker
-                                  (repro_torch.core.resilience)
-
-The seeded fault-injection harness of the reference (``core/faults.py``)
-is not ported yet.
+    RetryPolicy / ResilientService / CircuitBreaker / FaultPlan /
+    FaultInjectingService         (repro_torch.core.resilience, .faults;
+                                   the fault-tolerant evaluation layer
+                                   and the seeded chaos harness that
+                                   tests it)
 """
 
+from repro_torch.core.faults import (FaultInjectingService,  # noqa: F401
+                                     FaultPlan)
 from repro_torch.core.resilience import (CircuitBreaker,  # noqa: F401
                                          ResilientService, RetryPolicy,
                                          TransientEvalError,

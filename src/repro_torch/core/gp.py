@@ -19,7 +19,13 @@ observations.  Implementation, in torch on an explicit device:
 * on the card one Adam step (forward, backward, update) is captured once
   in a CUDA graph per shape and replayed once per step, so the host does
   not dispatch each step's ~100 small kernels; on the host the same step
-  function runs in a Python loop.
+  function runs in a Python loop.  The cache keeps the
+  ``_GRAPH_CAPACITY`` most recently used graphs (a long-lived daemon
+  meets many shapes);
+* the multi-task (ICM) GP of the transfer layer, ``K_base ∘ B[t, t]``
+  with a rank-1-plus-diagonal task covariance B, fits with the same
+  Adam step over one flat vector of its parameters (a graph of its own
+  key on the card); its base Gram takes the same kernel route.
 
 Everything is float32.  A Cholesky of a matrix that is not positive
 definite yields NaNs (as ``jnp.linalg.cholesky`` does), which the Adam
@@ -31,6 +37,7 @@ from __future__ import annotations
 import math
 import threading
 from collections import Counter
+from functools import partial
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -89,6 +96,30 @@ class GPState(NamedTuple):
     y_std: torch.Tensor
 
 
+class MTGPParams(NamedTuple):
+    """Multi-task (ICM) hyperparameters: the base-kernel triple shared
+    across tasks plus a rank-1-plus-diagonal task covariance and a
+    per-task mean offset.  ``task_w``/``log_task_kappa``/``task_offset``
+    are [T]; everything else matches :class:`GPParams`."""
+    log_lengthscale: torch.Tensor   # [d] (ARD, shared across tasks)
+    log_signal_var: torch.Tensor    # []
+    log_noise_var: torch.Tensor     # []
+    task_w: torch.Tensor            # [T] rank-1 factor of the task kernel
+    log_task_kappa: torch.Tensor    # [T] per-task diagonal boost
+    task_offset: torch.Tensor       # [T] per-task mean (standardized y)
+
+
+class MTGPState(NamedTuple):
+    params: MTGPParams
+    x: torch.Tensor                 # [n, d] inputs (unit cube, no task col)
+    tasks: torch.Tensor             # [n] int64 task indices
+    y: torch.Tensor                 # [n] standardized targets
+    chol: torch.Tensor              # [n, n]
+    alpha: torch.Tensor             # [n] K⁻¹ (y - offset[tasks])
+    y_mean: torch.Tensor
+    y_std: torch.Tensor
+
+
 def _tensor(a, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a, np.float32), device=device)
 
@@ -135,6 +166,24 @@ def state_from_numpy(params: dict, x, y, chol, alpha, y_mean, y_std,
     return GPState(params_from_numpy(params, dev),
                    *(_tensor(a, dev) for a in (x, y, chol, alpha, y_mean,
                                                y_std)))
+
+
+def mt_params_from_numpy(arrays: dict, device="cuda") -> MTGPParams:
+    """MTGPParams from the reference's fields as numpy arrays (or lists)."""
+    dev = resolve_device(device)
+    return MTGPParams(*(_tensor(arrays[k], dev) for k in MTGPParams._fields))
+
+
+def mt_state_from_numpy(params: dict, x, tasks, y, chol, alpha, y_mean,
+                        y_std, device="cuda") -> MTGPState:
+    """MTGPState from the reference's ``MTGPState`` fields as numpy arrays
+    (``params`` as a dict of its six fields)."""
+    dev = resolve_device(device)
+    return MTGPState(mt_params_from_numpy(params, dev), _tensor(x, dev),
+                     torch.as_tensor(np.asarray(tasks, np.int64),
+                                     device=dev),
+                     *(_tensor(a, dev) for a in (y, chol, alpha, y_mean,
+                                                 y_std)))
 
 
 PAD_NOISE = 1e6   # pseudo-point noise: pads contribute ~nothing to the fit
@@ -221,19 +270,16 @@ def _box_bounds(d: int, device) -> torch.Tensor:
                         device=device)
 
 
-def _adam_step(p, m, v, t, table, bounds, x, y, kind: str, lr: float,
-               extra_noise=None, use_kernel: bool = False) -> None:
-    """One Adam step on the log-hyperparameters maximizing the marginal
-    likelihood, in place, with no host value in it: ``p``, ``m``, ``v``
-    [d + 2] in :func:`_flat`'s layout, ``t`` [1] int64 the steps done,
-    ``table`` the device copy of :func:`_bias_table`, ``bounds`` those of
-    :func:`_box_bounds`.  NaN gradients are zeroed, hyperparameters
-    clamped to sane boxes.  Stepping the three parameters as one vector
-    gives the bits of stepping each alone (every operation is
-    elementwise) in a third of the kernels."""
+def _adam_update(p, m, v, t, table, bounds, loss_fn, lr: float) -> None:
+    """One Adam step on the flat log-hyperparameters ``p`` minimizing
+    ``loss_fn(leaf)``, in place, with no host value in it: ``p``, ``m``,
+    ``v`` of one layout, ``t`` [1] int64 the steps done, ``table`` the
+    device copy of :func:`_bias_table`, ``bounds`` [2, len(p)] the clamp
+    boxes.  NaN gradients are zeroed, parameters clamped to their boxes.
+    Every operation is elementwise, so stepping the parameters as one
+    vector gives the bits of stepping each alone."""
     leaf = p.detach().requires_grad_(True)
-    loss = neg_log_marginal(_unflat(leaf), x, y, kind, extra_noise,
-                            use_kernel)
+    loss = loss_fn(leaf)
     (g,) = torch.autograd.grad(loss, [leaf])
     with torch.no_grad():
         bc = table.index_select(0, t)
@@ -245,57 +291,83 @@ def _adam_step(p, m, v, t, table, bounds, x, y, kind: str, lr: float,
         t.add_(1)
 
 
+def _gp_loss(leaf, x, y, extra_noise, *, kind: str, use_kernel: bool):
+    """The single-task negative log marginal at flat params ``leaf``."""
+    return neg_log_marginal(_unflat(leaf), x, y, kind, extra_noise,
+                            use_kernel)
+
+
+def _adam_step(p, m, v, t, table, bounds, x, y, kind: str, lr: float,
+               extra_noise=None, use_kernel: bool = False) -> None:
+    """One Adam step on the log-hyperparameters maximizing the marginal
+    likelihood (:func:`_adam_update`): ``p``, ``m``, ``v`` [d + 2] in
+    :func:`_flat`'s layout, ``bounds`` those of :func:`_box_bounds`."""
+    _adam_update(p, m, v, t, table, bounds,
+                 lambda leaf: _gp_loss(leaf, x, y, extra_noise, kind=kind,
+                                       use_kernel=use_kernel), lr)
+
+
+def _run_eager(p, bounds, loss, inputs, steps: int, lr: float):
+    """``steps`` calls of :func:`_adam_update` from Python on a copy of
+    the flat params ``p``; ``loss(leaf, *inputs)``.  Returns the new flat
+    params."""
+    p = p.detach().clone()
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    t = torch.zeros((1,), dtype=torch.int64, device=p.device)
+    table = torch.tensor(_bias_table(steps), device=p.device)
+    for _ in range(steps):
+        _adam_update(p, m, v, t, table, bounds,
+                     lambda leaf: loss(leaf, *inputs), lr)
+    return p
+
+
 def _eager_fit(params: GPParams, x, y, kind: str, steps: int, lr: float,
                extra_noise=None, use_kernel: bool = False) -> GPParams:
     """``steps`` calls of :func:`_adam_step` from Python, on any device:
     the host's fit, and on the card the graph's reference."""
     p = _flat(params)
-    m, v = torch.zeros_like(p), torch.zeros_like(p)
-    t = torch.zeros((1,), dtype=torch.int64, device=x.device)
-    table = torch.tensor(_bias_table(steps), device=x.device)
-    bounds = _box_bounds(p.shape[0] - 2, x.device)
-    for _ in range(steps):
-        _adam_step(p, m, v, t, table, bounds, x, y, kind, lr, extra_noise,
-                   use_kernel)
-    return _unflat(p)
+    loss = partial(_gp_loss, kind=kind, use_kernel=use_kernel)
+    return _unflat(_run_eager(p, _box_bounds(p.shape[0] - 2, x.device),
+                              loss, (x, y, extra_noise), steps, lr))
 
 
 _GRAPH_ROWS = 256       # bias-correction rows a new graph holds (≥ steps)
 _GRAPH_WARMUP = 3       # eager steps on scratch state before a capture
-_GRAPHS: dict = {}      # (device, n, d, kind, kernel, extra, lr) -> graph
+_GRAPH_CAPACITY = 32    # captured graphs kept, least recently used evicted
+_GRAPHS: dict = {}      # key -> _FitGraph, oldest use first
 _GRAPH_LOCK = threading.Lock()   # one graphed fit (and capture) at a time
 graph_captures = 0      # captures made; a cached graph is replayed
+graph_evictions = 0     # graphs dropped to stay within _GRAPH_CAPACITY
 
 
 class _FitGraph:
-    """One :func:`_adam_step` captured in a CUDA graph over static
-    buffers, replayed once per step.  A fit loads its inputs and initial
-    parameters into the buffers, so one capture serves every fit at its
-    key.  The warm-up before the capture (cuSOLVER / cuBLAS handles, the
-    autograd engine) runs on scratch copies of the state: it does not
-    advance the fit."""
+    """One :func:`_adam_update` captured in a CUDA graph over static
+    buffers, replayed once per step.  A fit loads its inputs (the tensors
+    ``loss`` reads after the flat params; ``None`` stays ``None``) and
+    initial parameters into the buffers, so one capture serves every fit
+    at its key.  The warm-up before the capture (cuSOLVER / cuBLAS
+    handles, the autograd engine) runs on scratch copies of the state: it
+    does not advance the fit."""
 
-    def __init__(self, x, y, extra_noise, params: GPParams, kind: str,
-                 lr: float, use_kernel: bool, rows: int):
-        self.x, self.y = torch.empty_like(x), torch.empty_like(y)
-        self.extra = (None if extra_noise is None
-                      else torch.empty_like(extra_noise))
-        self.p = _flat(params)
+    def __init__(self, inputs, p, bounds, loss, lr: float, rows: int):
+        self.inputs = tuple(None if a is None else torch.empty_like(a)
+                            for a in inputs)
+        self.p = p.detach().clone()
         self.m, self.v = torch.zeros_like(self.p), torch.zeros_like(self.p)
-        self.t = torch.zeros((1,), dtype=torch.int64, device=x.device)
-        self.table = torch.zeros((rows, 2), dtype=F32, device=x.device)
-        self.bounds = _box_bounds(self.p.shape[0] - 2, x.device)
-        self.kind, self.lr, self.use_kernel = kind, lr, use_kernel
+        self.t = torch.zeros((1,), dtype=torch.int64, device=p.device)
+        self.table = torch.zeros((rows, 2), dtype=F32, device=p.device)
+        self.bounds = bounds
+        self.loss, self.lr = loss, lr
         self.graph = None
         self.launches = Counter()   # kernel launches one replay makes
 
     def _step(self, p, m, v, t):
-        _adam_step(p, m, v, t, self.table, self.bounds, self.x, self.y,
-                   self.kind, self.lr, self.extra, self.use_kernel)
+        _adam_update(p, m, v, t, self.table, self.bounds,
+                     lambda leaf: self.loss(leaf, *self.inputs), self.lr)
 
     def _capture(self):
         global graph_captures
-        dev = self.x.device
+        dev = self.p.device
         stream = torch.cuda.Stream(device=dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
@@ -306,8 +378,8 @@ class _FitGraph:
         torch.cuda.current_stream(dev).wait_stream(stream)
         del scratch, t
         graph = torch.cuda.CUDAGraph()
-        # thread_local: a capture on a refit_async executor thread must
-        # not fail the other threads' CUDA calls
+        # thread_local: a capture on one thread (a refit_async executor, a
+        # daemon's session) must not fail the other threads' CUDA calls
         with torch.cuda.graph(graph, stream=stream,
                               capture_error_mode="thread_local"):
             self._step(self.p, self.m, self.v, self.t)
@@ -315,13 +387,11 @@ class _FitGraph:
         self.graph = graph
         graph_captures += 1
 
-    def run(self, params: GPParams, x, y, extra_noise,
-            steps: int) -> GPParams:
-        self.x.copy_(x)
-        self.y.copy_(y)
-        if self.extra is not None:
-            self.extra.copy_(extra_noise)
-        self.p.copy_(_flat(params))
+    def run(self, p, inputs, steps: int) -> torch.Tensor:
+        for buf, a in zip(self.inputs, inputs):
+            if buf is not None:
+                buf.copy_(a)
+        self.p.copy_(p)
         for buf in (self.m, self.v, self.t):
             buf.zero_()
         self.table[:steps].copy_(torch.tensor(_bias_table(steps)))
@@ -330,22 +400,41 @@ class _FitGraph:
         for _ in range(steps):
             self.graph.replay()
         gram_ops.add_launches(self.launches, steps)
-        return _unflat(self.p.clone())
+        return self.p.clone()
+
+
+def _run_graphed(key, p, bounds, loss, inputs, steps: int, lr: float):
+    """:func:`_run_eager` on the card, as ``steps`` replays of the cached
+    graph of one step at ``key`` (captured on first use, or again when
+    its bias table is too short).  The cache keeps the
+    ``_GRAPH_CAPACITY`` most recently used graphs, each with its buffers
+    and its private memory pool; a failed capture or replay raises."""
+    global graph_evictions
+    with _GRAPH_LOCK, torch.cuda.device(p.device):
+        g = _GRAPHS.pop(key, None)
+        if g is None or g.table.shape[0] < steps:
+            g = _FitGraph(inputs, p, bounds, loss, lr,
+                          max(steps, _GRAPH_ROWS))
+        _GRAPHS[key] = g                    # now the most recently used
+        while len(_GRAPHS) > _GRAPH_CAPACITY:
+            del _GRAPHS[next(iter(_GRAPHS))]
+            graph_evictions += 1
+        return g.run(p, inputs, steps)
 
 
 def _graphed_fit(params: GPParams, x, y, kind: str, steps: int, lr: float,
                  extra_noise=None, use_kernel: bool = False) -> GPParams:
     """:func:`_eager_fit` on the card, as ``steps`` replays of the cached
-    graph of one step; a failed capture or replay raises."""
+    graph of one step per (device, shape, kind, kernel, extra noise,
+    lr)."""
     use_kernel = use_kernel and kind == "matern52"
     key = (x.device, tuple(x.shape), kind, use_kernel,
            extra_noise is not None, lr)
-    with _GRAPH_LOCK, torch.cuda.device(x.device):
-        g = _GRAPHS.get(key)
-        if g is None or g.table.shape[0] < steps:
-            g = _GRAPHS[key] = _FitGraph(x, y, extra_noise, params, kind, lr,
-                                         use_kernel, max(steps, _GRAPH_ROWS))
-        return g.run(params, x, y, extra_noise, steps)
+    p = _flat(params)
+    loss = partial(_gp_loss, kind=kind, use_kernel=use_kernel)
+    return _unflat(_run_graphed(key, p, _box_bounds(p.shape[0] - 2,
+                                                    x.device),
+                                loss, (x, y, extra_noise), steps, lr))
 
 
 def _fit(params: GPParams, x, y, kind: str, steps: int = 200,
@@ -399,7 +488,8 @@ def fit(x: np.ndarray, y: np.ndarray, kind: str = "matern52",
         steps: int = 200, params: Optional[GPParams] = None,
         pad: bool = True, pad_to: Optional[int] = None,
         use_kernel: bool = False,
-        obs_var: Optional[np.ndarray] = None, device="cuda") -> GPState:
+        obs_var: Optional[np.ndarray] = None, device="cuda",
+        tasks: Optional[np.ndarray] = None):
     """Standardize y, fit hyperparameters, build the posterior on
     ``device``.
 
@@ -417,7 +507,27 @@ def fit(x: np.ndarray, y: np.ndarray, kind: str = "matern52",
     gradient is the same function, computed by a kernel here.  On the
     card the Adam steps are replays of one CUDA graph per shape
     (:func:`_graphed_fit`), with or without ``use_kernel``.
+
+    ``tasks`` [n] switches on the multi-task (ICM) path: integer task
+    indices aligned with the rows of ``x``.  With more than one distinct
+    task the fit routes through :func:`fit_multitask` and returns an
+    :class:`MTGPState`; with exactly one distinct task the column is
+    dropped and this is *exactly* the single-task fit — the fallback the
+    transfer layer relies on when a corpus collapses to one workload.
     """
+    if tasks is not None:
+        t = np.asarray(tasks, np.int32)
+        if t.shape[0] != np.asarray(x).shape[0]:
+            raise ValueError(
+                f"tasks has {t.shape[0]} rows, x has "
+                f"{np.asarray(x).shape[0]}")
+        if t.size and int(t.max()) > 0:
+            if params is not None and not isinstance(params, MTGPParams):
+                raise TypeError("multi-task fit warm-start needs MTGPParams")
+            return fit_multitask(x, y, t, kind=kind, steps=steps,
+                                 params=params, obs_var=obs_var,
+                                 use_kernel=use_kernel, device=device)
+        # exact single-task fallback: one task present, column dropped
     dev = resolve_device(device)
     xj, yj, ej, y_mean, y_std = _prepare(x, y, pad, dev, pad_to, obs_var)
     if params is None:
@@ -444,6 +554,262 @@ def condition(params: GPParams, x: np.ndarray, y: np.ndarray,
     marginal-likelihood refit (one Cholesky rebuild, no Adam)."""
     return fit(x, y, kind, steps=0, params=params, pad=pad, pad_to=pad_to,
                use_kernel=use_kernel, obs_var=obs_var, device=device)
+
+
+# ---------------------------------------------------------------------------
+# multi-task GP (intrinsic coregionalization, rank-1 + diagonal)
+# ---------------------------------------------------------------------------
+
+def init_mt_params(d: int, n_tasks: int, lengthscale: float = 0.3,
+                   signal: float = 1.0, noise: float = 1e-2,
+                   offsets: Optional[np.ndarray] = None,
+                   device="cuda") -> MTGPParams:
+    """ICM init: ``task_w = 1`` (tasks fully correlated a priori) with a
+    small diagonal boost, per-task offsets from the data when given."""
+    dev = resolve_device(device)
+    off = (torch.zeros((n_tasks,), dtype=F32, device=dev) if offsets is None
+           else _tensor(offsets, dev))
+    base = init_params(d, lengthscale, signal, noise, device=dev)
+    return MTGPParams(
+        *base,
+        task_w=torch.ones((n_tasks,), dtype=F32, device=dev),
+        log_task_kappa=torch.full((n_tasks,), math.log(0.1), dtype=F32,
+                                  device=dev),
+        task_offset=off)
+
+
+def mt_params_to_dict(params: MTGPParams) -> dict:
+    """JSON snapshot of the multi-task hyperparameters (log-domain values
+    as fitted; the reference's format)."""
+    out = params_to_dict(shared_params(params))
+    for k in ("task_w", "log_task_kappa", "task_offset"):
+        out[k] = [float(v) for v in getattr(params, k).detach().cpu()
+                  .numpy()]
+    return out
+
+
+def mt_params_from_dict(d: dict, device="cuda") -> MTGPParams:
+    """Inverse of :func:`mt_params_to_dict`."""
+    return mt_params_from_numpy(d, device)
+
+
+def shared_params(params: MTGPParams) -> GPParams:
+    """Project the shared base-kernel triple out of a multi-task fit —
+    the warm start a single-task GP on a *new* workload inherits."""
+    return GPParams(params.log_lengthscale, params.log_signal_var,
+                    params.log_noise_var)
+
+
+def _task_cov(params: MTGPParams):
+    """B = w wᵀ + diag(exp κ) — rank-1 plus diagonal, always PSD."""
+    w = params.task_w
+    return w[:, None] * w[None, :] + torch.diag(
+        torch.exp(params.log_task_kappa))
+
+
+def _one_hot(tasks, n_tasks: int):
+    """[n, T] float32 indicator of each row's task, built by comparison
+    (no host read, so a CUDA graph can hold it)."""
+    return (tasks[:, None] == torch.arange(n_tasks, device=tasks.device)
+            ).to(F32)
+
+
+def _mt_build(params: MTGPParams, x, tasks, y, kind: str, extra_noise=None,
+              use_kernel: bool = False):
+    """Cholesky, K⁻¹r and residual r of the ICM Gram
+    ``K_base ∘ B[t_i, t_j]``.  ``B[t_i, t_j]`` is ``E B Eᵀ`` with E the
+    one-hot task matrix (exact: one nonzero product per entry), so the
+    gradient reaches ``B`` through two products and the base Gram's
+    through ``G ∘ B[t, t]``: with ``use_kernel`` the backward kernel."""
+    ls = torch.exp(params.log_lengthscale)
+    sv = torch.exp(params.log_signal_var)
+    nv = torch.exp(params.log_noise_var)
+    e = _one_hot(tasks, params.task_w.shape[0])
+    k = gram(kind, x, ls, sv, use_kernel=use_kernel) * (
+        e @ _task_cov(params) @ e.T)
+    n = x.shape[0]
+    diag = _jitter(nv, sv).expand(n)
+    if extra_noise is not None:
+        diag = diag + extra_noise
+    chol = _cholesky(k + torch.diag(diag))
+    r = y - e @ params.task_offset
+    alpha = torch.cholesky_solve(r[:, None], chol)[:, 0]
+    return chol, alpha, r
+
+
+def mt_neg_log_marginal(params: MTGPParams, x, tasks, y, kind: str,
+                        extra_noise=None, use_kernel: bool = False):
+    chol, alpha, r = _mt_build(params, x, tasks, y, kind, extra_noise,
+                               use_kernel)
+    n = x.shape[0]
+    return (0.5 * r @ alpha
+            + torch.sum(torch.log(torch.diagonal(chol)))
+            + 0.5 * n * math.log(2 * math.pi))
+
+
+def _mt_flat(params: MTGPParams) -> torch.Tensor:
+    """The multi-task log-hyperparameters as one new vector [d + 2 + 3T]:
+    lengthscales, signal variance, noise variance, task_w,
+    log_task_kappa, task_offset."""
+    return torch.cat([t.detach().reshape(-1) for t in params])
+
+
+def _mt_unflat(p: torch.Tensor, n_tasks: int) -> MTGPParams:
+    """MTGPParams viewing a vector of :func:`_mt_flat`'s layout."""
+    d = p.shape[0] - 2 - 3 * n_tasks
+    w0 = d + 2
+    return MTGPParams(p[:d], p[d], p[d + 1], p[w0:w0 + n_tasks],
+                      p[w0 + n_tasks:w0 + 2 * n_tasks],
+                      p[w0 + 2 * n_tasks:])
+
+
+_MT_BOXES = ((-3.0, 3.0),                          # task_w (linear)
+             (math.log(1e-4), math.log(10.0)),     # log task kappa
+             (-5.0, 5.0))                          # task offset
+
+
+def _mt_box_bounds(d: int, n_tasks: int, device) -> torch.Tensor:
+    """[2, d + 2 + 3T]: the clamp of each entry of :func:`_mt_flat` (the
+    base boxes of :func:`_box_bounds`, then ``_MT_BOXES``)."""
+    base = _box_bounds(d, device).cpu()
+    task = torch.tensor([[lo for lo, _ in _MT_BOXES],
+                         [hi for _, hi in _MT_BOXES]], dtype=F32)
+    return torch.cat([base, task.repeat_interleave(n_tasks, dim=1)],
+                     dim=1).to(device)
+
+
+def _mt_loss(leaf, x, tasks, y, extra_noise, *, n_tasks: int, kind: str,
+             use_kernel: bool):
+    """The multi-task negative log marginal at flat params ``leaf``."""
+    return mt_neg_log_marginal(_mt_unflat(leaf, n_tasks), x, tasks, y, kind,
+                               extra_noise, use_kernel)
+
+
+def _mt_fit(params: MTGPParams, x, tasks, y, kind: str, steps: int = 200,
+            lr: float = 0.05, extra_noise=None, use_kernel: bool = False,
+            graphed: Optional[bool] = None) -> MTGPParams:
+    """Adam on the joint (base + task) log-marginal: the step of
+    :func:`_fit` on the flat layout of :func:`_mt_flat`, with the task
+    blocks clamped to their own boxes.  Replayed from a CUDA graph of its
+    own key on the card (each corpus size is a new graph: the reference
+    does not pad the multi-task fit), a Python loop on the host;
+    ``graphed=False`` runs the loop on the card too."""
+    use_kernel = use_kernel and kind == "matern52"
+    n_tasks = params.task_w.shape[0]
+    p = _mt_flat(params)
+    bounds = _mt_box_bounds(x.shape[1], n_tasks, x.device)
+    loss = partial(_mt_loss, n_tasks=n_tasks, kind=kind,
+                   use_kernel=use_kernel)
+    inputs = (x, tasks, y, extra_noise)
+    if graphed is None:
+        graphed = x.device.type == "cuda"
+    if graphed:
+        key = ("mtgp", x.device, tuple(x.shape), n_tasks, kind, use_kernel,
+               extra_noise is not None, lr)
+        p = _run_graphed(key, p, bounds, loss, inputs, steps, lr)
+    else:
+        p = _run_eager(p, bounds, loss, inputs, steps, lr)
+    return _mt_unflat(p, n_tasks)
+
+
+def _mt_prepare(x: np.ndarray, y: np.ndarray, tasks: np.ndarray,
+                obs_var: Optional[np.ndarray], device):
+    """The multi-task fit's tensors on ``device``: x, int64 tasks, the
+    globally standardized y, the extra-noise diagonal (``obs_var`` / σ²,
+    or ``None``), y's mean and std, and each task's mean standardized y
+    (the offsets' init)."""
+    x = np.asarray(x, np.float32)
+    y_raw = np.asarray(y, np.float32)
+    t = np.asarray(tasks, np.int32)
+    n_tasks = int(t.max()) + 1
+    y_mean, y_std = float(y_raw.mean()), float(y_raw.std())
+    if y_std < 1e-12:
+        y_std = 1.0
+    ys = (y_raw - y_mean) / y_std
+    extra = None
+    if obs_var is not None:
+        extra = _tensor(np.asarray(obs_var, np.float32) / (y_std * y_std),
+                        device)
+    offsets = np.zeros(n_tasks, np.float32)
+    for i in range(n_tasks):
+        sel = t == i
+        if sel.any():
+            offsets[i] = float(ys[sel].mean())
+    return (_tensor(x, device), torch.as_tensor(t.astype(np.int64),
+                                                device=device),
+            _tensor(ys, device), extra, y_mean, y_std, offsets)
+
+
+def fit_multitask(x: np.ndarray, y: np.ndarray, tasks: np.ndarray,
+                  kind: str = "matern52", steps: int = 200,
+                  params: Optional[MTGPParams] = None,
+                  obs_var: Optional[np.ndarray] = None,
+                  use_kernel: bool = False, device="cuda") -> MTGPState:
+    """Fit the ICM multi-task GP over stacked per-task observations.
+
+    Targets are standardized *globally* (one μ/σ over every task) and the
+    per-task level differences are absorbed by the learned ``task_offset``
+    mean — initialized at each task's empirical standardized mean so the
+    Adam loop starts from the right basin.  No shape padding, as in the
+    reference.  ``use_kernel`` routes the base Gram of every Adam step
+    (forward and backward) and of the posterior through the CUDA kernels;
+    the reference's multi-task fit uses its jnp Matérn throughout.
+    """
+    dev = resolve_device(device)
+    xj, tj, yj, extra, y_mean, y_std, offsets = _mt_prepare(
+        x, y, tasks, obs_var, dev)
+    if params is None:
+        params = init_mt_params(int(xj.shape[1]), len(offsets),
+                                offsets=offsets, device=dev)
+    else:
+        params = MTGPParams(*(p.detach().to(dev) for p in params))
+    if steps > 0:
+        params = _mt_fit(params, xj, tj, yj, kind, steps=steps,
+                         extra_noise=extra, use_kernel=use_kernel)
+    with torch.no_grad():
+        chol, alpha, _ = _mt_build(params, xj, tj, yj, kind, extra,
+                                   use_kernel=use_kernel)
+    return MTGPState(params, xj, tj, yj, chol, alpha,
+                     torch.tensor(y_mean, dtype=F32, device=dev),
+                     torch.tensor(y_std, dtype=F32, device=dev))
+
+
+@torch.no_grad()
+def _mt_predict(state: MTGPState, xq, w_q, kappa_q, off_q, kind: str,
+                use_kernel: bool):
+    ls = torch.exp(state.params.log_lengthscale)
+    sv = torch.exp(state.params.log_signal_var)
+    kq = (cross(kind, xq, state.x, ls, sv, use_kernel=use_kernel)
+          * (w_q * state.params.task_w)[state.tasks][None, :])
+    mean_s = off_q + kq @ state.alpha
+    v = torch.linalg.solve_triangular(state.chol, kq.T, upper=False)
+    prior = (w_q * w_q + kappa_q) * sv
+    var_s = torch.clamp_min(prior - torch.sum(v * v, dim=0), 1e-12)
+    mean = mean_s * state.y_std + state.y_mean
+    std = torch.sqrt(var_s) * state.y_std
+    return mean, std
+
+
+def predict_multitask(state: MTGPState, xq, task: Optional[int] = None,
+                      kind: str = "matern52", use_kernel: bool = False):
+    """Posterior mean/std at ``xq`` for one task (original y scale).
+
+    ``task=None`` is the **stacked prior** for an *unseen* task: its
+    rank-1 weight, diagonal and mean offset are the averages over the
+    fitted tasks, so the prediction borrows exactly the structure every
+    corpus workload shares and stays honestly wide where they disagree.
+    ``use_kernel`` computes the cross-Gram with the CUDA kernel."""
+    p = state.params
+    if task is None:
+        w_q = torch.mean(p.task_w)
+        kappa_q = torch.mean(torch.exp(p.log_task_kappa))
+        off_q = torch.mean(p.task_offset)
+    else:
+        w_q = p.task_w[task]
+        kappa_q = torch.exp(p.log_task_kappa)[task]
+        off_q = p.task_offset[task]
+    xq = torch.as_tensor(xq, dtype=F32, device=state.x.device).contiguous()
+    return _mt_predict(state, xq, w_q, kappa_q, off_q, kind, use_kernel)
 
 
 @torch.no_grad()

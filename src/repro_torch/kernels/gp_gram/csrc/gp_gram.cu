@@ -8,6 +8,16 @@
 //   r^2 = max(|a_i|^2 + |b_j|^2 - 2 a_i.b_j, 0),  r = 0 where r^2 <= 1e-12,
 //   a = xa / ls,  b = xb / ls   (ls: ARD lengthscale [d], sv: signal variance).
 //
+// Beyond kExpandedMaxD = 64 features r^2 is summed over direct differences,
+// sum_k (a_ik - b_jk)^2, as the plain version (ref.py) sums it there: the
+// expansion's float32 cancellation grows with the norms, and at the tuning
+// daemon's 327 knobs and lengthscale 0.3 (norms ~1200) it lands a config's
+// one-knob neighbours (the candidates' axis sweeps) up to ~4e-4 off in K.
+// Up to 64 features the kernel keeps the reference's expansion, and with
+// it the reference's rounding on the tuner's main path.  Both forms give
+// exactly 0 between equal rows (the expansion sums a.a, b.b and a.b in the
+// same order).
+//
 // What bounds it on an H100: the output. At the tuner's shapes (d <= 32 knobs,
 // n*m up to a few 10^5 entries) the kernel reads (n + m) * d floats and writes
 // n * m floats, so the bytes are ~4 n m at 3.35 TB/s: 0.2 us for the
@@ -41,7 +51,9 @@ constexpr int kTile = 32;        // output rows and columns per block
 constexpr int kRowsPerThread = 4;
 constexpr int kThreadsY = kTile / kRowsPerThread;   // 8
 constexpr int kChunk = 32;       // d columns staged per pass
+constexpr int kExpandedMaxD = 64;   // widest d whose r^2 is expanded
 
+template <bool kDirect>
 __global__ void __launch_bounds__(kTile * kThreadsY)
 matern52_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
                 const float* __restrict__ ls, const float* __restrict__ sv,
@@ -56,6 +68,7 @@ matern52_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
   const int row0 = blockIdx.y * kTile;
   const int col0 = blockIdx.x * kTile;
 
+  // a.b, or with kDirect the sum of squared differences
   float dot[kRowsPerThread] = {0.f, 0.f, 0.f, 0.f};
   float a2[kRowsPerThread] = {0.f, 0.f, 0.f, 0.f};
   float b2 = 0.f;
@@ -79,12 +92,17 @@ matern52_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
     const int kn = min(kChunk, d - k0);
     for (int c = 0; c < kn; ++c) {
       const float bv = sb[tx][c];
-      b2 = fmaf(bv, bv, b2);
+      if (!kDirect) b2 = fmaf(bv, bv, b2);
 #pragma unroll
       for (int i = 0; i < kRowsPerThread; ++i) {
         const float av = sa[ty + i * kThreadsY][c];
-        dot[i] = fmaf(av, bv, dot[i]);
-        a2[i] = fmaf(av, av, a2[i]);
+        if (kDirect) {
+          const float diff = av - bv;
+          dot[i] = fmaf(diff, diff, dot[i]);
+        } else {
+          dot[i] = fmaf(av, bv, dot[i]);
+          a2[i] = fmaf(av, av, a2[i]);
+        }
       }
     }
     __syncthreads();
@@ -98,7 +116,8 @@ matern52_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
   for (int i = 0; i < kRowsPerThread; ++i) {
     const int row = row0 + ty + i * kThreadsY;
     if (row >= n) continue;
-    const float d2 = fmaxf(a2[i] + b2 - 2.0f * dot[i], 0.0f);
+    const float d2 =
+        kDirect ? dot[i] : fmaxf(a2[i] + b2 - 2.0f * dot[i], 0.0f);
     const float r = d2 > 1e-12f ? sqrtf(d2) : 0.0f;
     const float s = sqrt5 * r;
     out[(size_t)row * m + col] = s_var * (1.0f + s + s * s / 3.0f) * expf(-s);
@@ -114,7 +133,12 @@ extern "C" int matern52_launch(const float* xa, const float* xb,
                                int n, int m, int d, cudaStream_t stream) {
   const dim3 block(kTile, kThreadsY);
   const dim3 grid((m + kTile - 1) / kTile, (n + kTile - 1) / kTile);
-  matern52_kernel<<<grid, block, 0, stream>>>(xa, xb, ls, sv, out, n, m, d);
+  if (d > kExpandedMaxD)
+    matern52_kernel<true><<<grid, block, 0, stream>>>(xa, xb, ls, sv, out,
+                                                      n, m, d);
+  else
+    matern52_kernel<false><<<grid, block, 0, stream>>>(xa, xb, ls, sv, out,
+                                                       n, m, d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -125,9 +149,10 @@ extern "C" int matern52_launch(const float* xa, const float* xb,
 //   w_ij     = G_ij (5/3) sv exp(-s) (1 + s)  where r^2 > 1e-12, else 0,
 //   dL/dsv   = sum_ij G_ij (1 + s + s^2/3) exp(-s),
 //
-// with r^2 and s computed exactly as the forward computes them (the plain
+// with r^2 and s computed exactly as the forward computes them (expanded up
+// to kExpandedMaxD features, from direct differences beyond; the plain
 // version's double-where zeroes the gradient where r^2 <= 1e-12). The
-// differences are taken directly, not from the expanded |a|^2+|b|^2-2a.b.
+// feature sums take the differences directly.
 //
 // What bounds it on an H100: at the fit's shape (n = 64, d = 16) it reads
 // 4 KB of x and 16 KB of G (~6 ns at the HBM rate) and does ~0.4 MFLOP (~6 ns
@@ -183,7 +208,7 @@ __device__ __forceinline__ void bwd_stage(
   if (tid < kC) inv_s[tid] = k0 + tid < d ? 1.0f / ls_s[k0 + tid] : 0.f;
 }
 
-template <int kC>
+template <int kC, bool kDirect>
 __global__ void __launch_bounds__(kBwdThreads)
 matern52_gram_bwd_kernel(const float* __restrict__ x,
                          const float* __restrict__ ls,
@@ -239,13 +264,25 @@ matern52_gram_bwd_kernel(const float* __restrict__ x,
 #pragma unroll
       for (int c = 0; c < kC; ++c) {
         const float inv = inv_s[c];
-        const float bv = xc[c][j] * inv;
-        b2 = fmaf(bv, bv, b2);
+        if (kDirect) {
+          // the scaled values rounded before the subtract, as the forward
+          // stages them: no contraction into an FMA
+          const float bv = __fmul_rn(xc[c][j], inv);
 #pragma unroll
-        for (int t = 0; t < kBwdPairs; ++t) {
-          const float av = xr[c][i0 + kBwdRowStep * t] * inv;
-          dot[t] = fmaf(av, bv, dot[t]);
-          a2[t] = fmaf(av, av, a2[t]);
+          for (int t = 0; t < kBwdPairs; ++t) {
+            const float diff =
+                __fmul_rn(xr[c][i0 + kBwdRowStep * t], inv) - bv;
+            dot[t] = fmaf(diff, diff, dot[t]);
+          }
+        } else {
+          const float bv = xc[c][j] * inv;
+          b2 = fmaf(bv, bv, b2);
+#pragma unroll
+          for (int t = 0; t < kBwdPairs; ++t) {
+            const float av = xr[c][i0 + kBwdRowStep * t] * inv;
+            dot[t] = fmaf(av, bv, dot[t]);
+            a2[t] = fmaf(av, av, a2[t]);
+          }
         }
       }
     }
@@ -254,7 +291,8 @@ matern52_gram_bwd_kernel(const float* __restrict__ x,
     float w[kBwdPairs];
 #pragma unroll
     for (int t = 0; t < kBwdPairs; ++t) {
-      const float d2 = fmaxf(a2[t] + b2 - 2.0f * dot[t], 0.0f);
+      const float d2 =
+          kDirect ? dot[t] : fmaxf(a2[t] + b2 - 2.0f * dot[t], 0.0f);
       const bool pos = d2 > 1e-12f;
       const float s = sqrt5 * (pos ? sqrtf(d2) : 0.0f);
       const float e = expf(-s);
@@ -348,7 +386,7 @@ matern52_gram_bwd_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
-template <int kC>
+template <int kC, bool kDirect>
 int bwd_launch(const float* x, const float* ls, const float* sv,
                const float* g, float* partial, float* out, int n, int d,
                cudaStream_t stream) {
@@ -356,11 +394,12 @@ int bwd_launch(const float* x, const float* ls, const float* sv,
   const size_t smem = sizeof(float) * (size_t)(2 * d + 1);
   if (smem > 48 * 1024) {                 // beyond ~6k features
     const cudaError_t e = cudaFuncSetAttribute(
-        matern52_gram_bwd_kernel<kC>,
+        matern52_gram_bwd_kernel<kC, kDirect>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  matern52_gram_bwd_kernel<kC><<<tiles, kBwdThreads, smem, stream>>>(
+  matern52_gram_bwd_kernel<kC, kDirect><<<tiles, kBwdThreads, smem,
+                                          stream>>>(
       x, ls, sv, g, partial, out, n, d);
   if (tiles > 1) {
     const cudaError_t e = cudaGetLastError();
@@ -377,12 +416,15 @@ int bwd_launch(const float* x, const float* ls, const float* sv,
 // out [d + 1] receives (dL/dls, dL/dsv); partial [ceil(n / 64), d + 1] is
 // scratch, read only when n > 64 (it may be null otherwise). Launches on
 // `stream` (one kernel for n <= 64, two above) and returns
-// cudaGetLastError(). d <= 16 takes 16-feature chunks, wider d 32.
+// cudaGetLastError(). d <= 16 takes 16-feature chunks, wider d 32; beyond
+// kExpandedMaxD, r^2 from direct differences.
 extern "C" int matern52_gram_bwd_launch(const float* x, const float* ls,
                                         const float* sv, const float* g,
                                         float* partial, float* out, int n,
                                         int d, cudaStream_t stream) {
   if (d <= 16)
-    return bwd_launch<16>(x, ls, sv, g, partial, out, n, d, stream);
-  return bwd_launch<32>(x, ls, sv, g, partial, out, n, d, stream);
+    return bwd_launch<16, false>(x, ls, sv, g, partial, out, n, d, stream);
+  if (d <= kExpandedMaxD)
+    return bwd_launch<32, false>(x, ls, sv, g, partial, out, n, d, stream);
+  return bwd_launch<32, true>(x, ls, sv, g, partial, out, n, d, stream);
 }

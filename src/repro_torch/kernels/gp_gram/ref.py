@@ -1,6 +1,14 @@
 """Plain-torch Matérn-5/2 and its backward: the oracles of the CUDA
-kernels, and the GP's differentiable path on the host (``matern52``
-mirrors ``gp.matern52`` of the JAX reference)."""
+kernels, and the GP's differentiable path on the host (``matern52`` is
+``gp.matern52`` of the JAX reference).
+
+Up to ``EXPANDED_MAX_D`` features r² is the reference's expansion
+|a|² + |b|² − 2a·b.  Beyond it r² is summed over direct differences, as
+the CUDA kernels sum it there (``kExpandedMaxD``): the expansion's float32
+cancellation grows with the norms, and at the tuning daemon's 327
+features (norms ~1200 at lengthscale 0.3) it is ~1e-3 of r² near r = 0,
+between duplicated rows and between a config and its one-knob
+neighbours."""
 
 from __future__ import annotations
 
@@ -9,15 +17,25 @@ import math
 import torch
 
 SQRT5 = math.sqrt(5.0)
+EXPANDED_MAX_D = 64     # widest d whose r² is the reference's expansion
+_DIFF_ELEMS = 1 << 25   # differences [rows, m, d] formed at once
 
 
 def sqdist(xa, xb, inv_ls):
-    """Scaled squared distance: xa [n,d], xb [m,d], inv_ls [d] -> [n,m]."""
+    """Scaled squared distance: xa [n,d], xb [m,d], inv_ls [d] -> [n,m]:
+    expanded up to ``EXPANDED_MAX_D`` features, else summed over direct
+    differences (exact 0 between equal rows) a block of rows at a time."""
     a = xa * inv_ls
     b = xb * inv_ls
-    a2 = torch.sum(a * a, dim=1)[:, None]
-    b2 = torch.sum(b * b, dim=1)[None, :]
-    return torch.clamp_min(a2 + b2 - 2.0 * (a @ b.T), 0.0)
+    n, m, d = a.shape[0], b.shape[0], a.shape[1]
+    if d <= EXPANDED_MAX_D:
+        a2 = torch.sum(a * a, dim=1)[:, None]
+        b2 = torch.sum(b * b, dim=1)[None, :]
+        return torch.clamp_min(a2 + b2 - 2.0 * (a @ b.T), 0.0)
+    rows = max(1, _DIFF_ELEMS // max(1, m * d))
+    parts = [torch.sum((a[i:i + rows, None, :] - b[None, :, :]) ** 2, dim=2)
+             for i in range(0, n, rows)]
+    return torch.cat(parts) if parts else a.new_zeros((0, m))
 
 
 def matern52(xa, xb, lengthscale, signal_var):

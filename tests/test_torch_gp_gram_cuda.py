@@ -5,7 +5,12 @@ only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_gp_gram_cuda.py
 
-Tolerance atol 2e-4, the reference's gp_gram tolerance (f32 Gram).  The
+Tolerance atol 2e-4, the reference's gp_gram tolerance (f32 Gram), also
+against the float64 formula where r is near 0: a config's one-knob
+neighbours (the candidates' axis sweeps) at the tuning daemon's 327-332
+knobs, where the expanded |a|² + |b|² − 2a·b of the reference cancels
+(beyond 64 features the kernels and the plain version sum direct
+differences).  The
 backward kernel's (dL/dlengthscale, dL/dsignal_var) is held to relative
 L2 1e-3 of its plain version and of that formula in float64 at every
 case, and of autograd through the plain Matérn at the cases with n = m,
@@ -28,10 +33,14 @@ ATOL = 2e-4
 GRAD_REL = 1e-3
 
 # the reference's GRAM_CASES, its off-ladder case, one knob, the main
-# path's shapes, and a d that spans two staged chunks of the kernel
+# path's shapes, a d that spans two staged chunks of the kernel, and the
+# tuning daemon's: whole cleaned spaces of 327-332 knobs (56 observations
+# padded to 64; 2048 LHS + 256 local + 5·d sweep candidates, and 2304 of
+# them without the sweeps) and a multi-task corpus of two 64-row tasks
 CASES = [(40, 17, 5), (130, 200, 16), (8, 8, 2), (300, 1, 24),
          (128, 128, 8), (136, 77, 9), (50, 30, 1), (64, 64, 16),
-         (2384, 64, 16), (300, 200, 40)]
+         (2384, 64, 16), (300, 200, 40), (64, 64, 327), (64, 64, 332),
+         (3939, 64, 327), (2304, 64, 332), (128, 128, 327)]
 
 
 @pytest.fixture
@@ -66,6 +75,47 @@ def test_kernel_matches_plain(case, cuda):
                                atol=ATOL, rtol=0)
     assert (ops.gram_launches, ops.cross_launches) == (before[0] + 1,
                                                        before[1] + 1)
+
+
+def _one_knob_neighbours(d, seed, device):
+    """64 training rows whose first is the incumbent, and the candidates'
+    axis sweeps: the incumbent with one knob set to 0, 0.25, ..., 1 (5·d
+    rows), at lengthscale 0.3 (the fit's init): near r = 0, where the
+    expanded |a|² + |b|² − 2a·b cancels."""
+    rng = np.random.default_rng(seed)
+    x = rng.random((64, d), dtype=np.float32)
+    sweeps = np.repeat(x[:1], 5 * d, axis=0)
+    for j in range(d):
+        sweeps[5 * j:5 * j + 5, j] = np.linspace(0, 1, 5, dtype=np.float32)
+    return (torch.from_numpy(x).to(device), torch.from_numpy(sweeps).to(device),
+            torch.full((d,), 0.3, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 327, 332])
+def test_one_knob_neighbours_match_plain_and_float64(d, cuda):
+    x, sweeps, ls = _one_knob_neighbours(d, d, cuda)
+    sv = torch.tensor(1.3, device=cuda)
+    got = ops.matern52_cross(sweeps, x, ls, sv)
+    exact = tref.matern52_cross_ref(sweeps.double(), x.double(), ls.double(),
+                                    sv.double())
+    torch.testing.assert_close(got, tref.matern52_cross_ref(sweeps, x, ls, sv),
+                               atol=ATOL, rtol=0)
+    torch.testing.assert_close(got.double(), exact, atol=ATOL, rtol=0)
+    # the Gram of the incumbent and 63 of its neighbours, and its backward
+    near = torch.cat([x[:1], sweeps[1:64]]).contiguous()
+    torch.testing.assert_close(
+        ops.matern52_gram(near, ls, sv).double(),
+        tref.matern52_gram_ref(*(t.double() for t in (near, ls, sv))),
+        atol=ATOL, rtol=0)
+    g = torch.randn((64, 64), generator=torch.Generator().manual_seed(d))
+    g = g.to(cuda)
+    dls, dsv = ops.matern52_gram_bwd(near, ls, sv, g)
+    for w in (tref.matern52_gram_bwd(near, ls, sv, g),
+              tref.matern52_gram_bwd(*(t.double() for t in (near, ls, sv,
+                                                            g)))):
+        assert _rel(dls, w[0]) <= GRAD_REL
+        assert _rel(dsv, w[1]) <= GRAD_REL
 
 
 @pytest.mark.cuda
@@ -120,7 +170,7 @@ def test_backward_kernel_matches_plain(case, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [(64, 16), (300, 40)],
+@pytest.mark.parametrize("case", [(64, 16), (300, 40), (64, 327)],
                          ids=lambda c: f"n{c[0]}d{c[1]}")
 def test_backward_kernel_is_deterministic(case, cuda):
     x, ls, sv, g = _grad_inputs(*case, 11, cuda)

@@ -46,13 +46,29 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.models.mlp", "repro_torch.models.attention",
                 "repro_torch.models.transformer", "repro_torch.models.model",
                 "repro_torch.serve.kvcache", "repro_torch.serve.engine",
-                "repro_torch.launch.serve"):
+                "repro_torch.launch.serve", "repro_torch.core.faults",
+                "repro_torch.core.bo", "repro_torch.core.optimizers",
+                "repro_torch.transfer", "repro_torch.transfer.corpus",
+                "repro_torch.transfer.strategy", "repro_torch.service",
+                "repro_torch.service.__main__", "repro_torch.service.cache",
+                "repro_torch.service.shardlog", "repro_torch.service.pool",
+                "repro_torch.service.session", "repro_torch.service.server",
+                "repro_torch.service.wire", "repro_torch.service.client"):
         assert mod in res["modules"]
     assert res["bad"] == []
 
 
 def test_port_core_does_not_import_faults():
-    """``core/faults.py`` is not ported; the package init must not need it."""
-    assert not (ROOT / "src" / "repro_torch" / "core" / "faults.py").exists()
+    """The port's ``core`` package re-exports the fault-injection harness
+    (``core/faults.py``), as the reference's ``core/__init__`` does."""
     init = (ROOT / "src" / "repro_torch" / "core" / "__init__.py").read_text()
-    assert "faults import" not in init
+    assert "from repro_torch.core.faults import" in init
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", "import repro_torch.core as c, "
+         "repro_torch.core.faults as f; "
+         "print(c.FaultPlan is f.FaultPlan and "
+         "c.FaultInjectingService is f.FaultInjectingService)"],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "True"
