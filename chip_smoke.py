@@ -99,6 +99,23 @@ Phases (any failure exits non-zero before the result line):
    through the port (no-corpus identity; every fold at 0.99 of the scratch
    best within 60 % of the budget of 16).  A BO session at 20 % transient
    faults (``FaultInjectingService``) bit-identical to the fault-free one.
+11. the kernels' tile knobs and the autotune loop: every instantiation
+   of every kernel against its plain version (gp_gram: each of its
+   tilings bit-equal to the default launch, which holds atol 2e-4 of
+   plain; flash: each route's set at the reference's cases, 2e-5 / 2e-2,
+   float32 tilings within 1e-5 of the default launch; mLSTM: 5e-5 on the
+   FMA route, relative L2 1e-3 against the bf16-operand version on the
+   wgmma route), a planted fault (one instantiation fed inputs rolled by
+   one tile) above each limit; then, the launch counters zeroed just
+   before, ``tune_kernel`` for each kernel at its bench's default shape
+   and at the path's (the daemon's cross-Gram, yi-6b's bf16 prefill,
+   xlstm-1.3b's bf16 mLSTM layer), budget 24, batch 2, repeats 5; the
+   tuned config re-measured head to head (best of 12 calls, 3 turns)
+   against the space's default, or against the default launch where the
+   card refuses that default, held to 1.15x; the refused configs
+   printed.  Then ``gp.select_batch_sharded`` over 1, 2 and 3 shards of
+   the card at the tuner's and the daemon's shapes: picks array-equal to
+   ``select_batch``, wall time printed.
 
 The kernels are built at the start of phase 2, one ``nvcc`` per source,
 all started together.  The line before the last is ``{"kernels": [...]}`` with each
@@ -2103,6 +2120,344 @@ def phase_service(card: str):
             "folds": folds, "phase_s": total}
 
 
+# phase 11: the kernels' tile knobs and the autotune loop on the card.
+# tune_kernel at the benches' default shapes and at the path's shapes:
+# the daemon's candidate cross-Gram, yi-6b's bf16 prefill, xlstm-1.3b's
+# bf16 mLSTM layer; then each tuned config re-measured head to head against
+# the space's default (or, where the card refuses that TPU-sized default,
+# the default launch), held to benchmarks/perf_multi_device.py's 1.15
+AUTOTUNE_BUDGET, AUTOTUNE_BATCH, AUTOTUNE_REPEATS = 24, 2, 5
+AUTOTUNE_RECHECK, AUTOTUNE_ROUNDS, AUTOTUNE_GATE = 12, 3, 1.15
+AUTOTUNE_RUNS = (
+    ("gp_gram", "bench", {}),
+    ("gp_gram", "path", {"n": SERVICE_CROSS[0], "m": SERVICE_CROSS[1],
+                         "d": SERVICE_CROSS[2]}),
+    ("flash_attention", "bench", {}),
+    ("flash_attention", "path", {"B": PREFILL[0], "S": PREFILL[1],
+                                 "H": PREFILL[2], "Kh": PREFILL[3],
+                                 "D": PREFILL[4], "dtype": "bfloat16"}),
+    ("mlstm_chunk", "bench", {}),
+    ("mlstm_chunk", "path", {"B": MLSTM_LAYER[0], "S": MLSTM_LAYER[1],
+                             "H": MLSTM_LAYER[2], "P": MLSTM_LAYER[3],
+                             "dtype": "bfloat16"}),
+)
+# every instantiation against the plain version: gp_gram at the
+# reference's off-ladder case (Gram and cross) and the daemon's cross
+TILE_GRAM_CASES = ((136, 77, 9), (SERVICE_CROSS[0], 64, SERVICE_CROSS[2]))
+TILE_MLSTM_WGMMA = (1, 1024, 2, 1024)   # B S H P, chunks 128, 256, 512
+# sharded candidate scoring on one card: (d, candidates, q), the tuner's
+# and the daemon's
+SHARD_CASES = ((16, MAIN_CROSS[0], 8), (SERVICE_CROSS[2], SERVICE_CROSS[0],
+                                        8))
+
+
+def tiles_gp_gram(dev) -> dict:
+    """Every gp_gram instantiation bit-equal to the default launch, which
+    holds 2e-4 of the plain version; a planted fault (one instantiation
+    fed rows one tile off) above both gates."""
+    import torch
+    from repro_torch.kernels.gp_gram import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(11)
+    err, n_inst = 0.0, 0
+    tiles = ops.supported_tiles()
+    for n, m, d in TILE_GRAM_CASES:
+        xa = torch.rand((n, d), generator=gen, device=dev)
+        xb = torch.rand((m, d), generator=gen, device=dev)
+        xb[:2] = xa[:2]
+        ls = 0.1 + torch.rand((d,), generator=gen, device=dev)
+        for kind, call, plain in (
+                ("cross", lambda **kw: ops.matern52_cross(xa, xb, ls, 0.8,
+                                                          **kw),
+                 ref.matern52(xa, xb, ls, 0.8)),
+                ("gram", lambda **kw: ops.matern52_gram(xa, ls, 1.3, **kw),
+                 ref.matern52(xa, xa, ls, 1.3))):
+            base = call()
+            e = float((base - plain).abs().max())
+            err = max(err, e)
+            check(e <= ATOL, f"gp_gram {kind} [{n},{d}]x[{m},{d}]: default "
+                  f"launch vs plain {e}")
+            for bn in tiles["block_n"]:
+                for bm in tiles["block_m"]:
+                    for nw in tiles["num_warps"]:
+                        for st in tiles["pipeline"]:
+                            out = call(block=bn, block_m=bm, num_warps=nw,
+                                       pipeline=st)
+                            n_inst += 1
+                            check(torch.equal(out, base),
+                                  f"gp_gram {kind} [{n},{d}] tile "
+                                  f"{(bn, bm, nw, st)}: not bit-equal to "
+                                  f"the default launch (max diff "
+                                  f"{float((out - base).abs().max())})")
+    # the planted fault: the 64 x 64 tile fed xa rolled by one tile
+    n, m, d = TILE_GRAM_CASES[0]
+    xa = torch.rand((n, d), generator=gen, device=dev)
+    xb = torch.rand((m, d), generator=gen, device=dev)
+    ls = 0.1 + torch.rand((d,), generator=gen, device=dev)
+    fault = ops.matern52_cross(torch.roll(xa, 64, 0), xb, ls, 0.8, block=64,
+                               block_m=64)
+    e_fault = float((fault - ref.matern52(xa, xb, ls, 0.8)).abs().max())
+    check(e_fault > ATOL and not torch.equal(
+        fault, ops.matern52_cross(xa, xb, ls, 0.8)),
+        f"gp_gram planted fault within the gates ({e_fault})")
+    print(f"  gp_gram: {n_inst} launches of {len(tiles['block_n'])}x"
+          f"{len(tiles['block_m'])}x{len(tiles['num_warps'])}x"
+          f"{len(tiles['pipeline'])} tilings over {len(TILE_GRAM_CASES)} "
+          f"shapes (Gram and cross) bit-equal to the default launch, "
+          f"which is {err:.3e} from plain (limit {ATOL}); planted fault "
+          f"{e_fault:.3e}", flush=True)
+    return {"max_abs_err": err, "instantiations": n_inst,
+            "fault": e_fault}
+
+
+def tiles_flash(dev) -> dict:
+    """Every flash instantiation of each route at the reference's cases
+    against the route's plain version (2e-5 / 2e-2), float32 tilings
+    within 1e-5 of the default launch; a planted fault (one instantiation
+    fed keys rolled by one tile) above the limit."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    gen = torch.Generator(device=dev).manual_seed(12)
+    err, inv, n_inst = {}, 0.0, 0
+    for B, Sq, Sk, H, Kh, D, causal, window, softcap in FLASH_CASES:
+        for name, dt in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+            q, k, v = [torch.randn(s, generator=gen, device=dev).to(dt)
+                       for s in ((B, Sq, H, D), (B, Sk, Kh, D),
+                                 (B, Sk, Kh, D))]
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            want = ops.plain_version(q, k, v, **kw).float()
+            base = ops.flash_attention(q, k, v, **kw).float()
+            route = ops.route(dt, D)
+            for t in ops.supported_tiles(route, dt, D):
+                out = ops.flash_attention(q, k, v, block_q=t[0],
+                                          block_k=t[1], num_warps=t[2],
+                                          pipeline=t[3], **kw).float()
+                n_inst += 1
+                e = float((out - want).abs().max())
+                key = f"{name}_{route}"
+                err[key] = max(err.get(key, 0.0), e)
+                check(e <= FLASH_TOL[name], f"flash {name} {route} D={D} "
+                      f"Sq={Sq} tile {t}: max |kernel - plain| = {e}")
+                if name == "float32":
+                    i = float((out - base).abs().max())
+                    inv = max(inv, i)
+                    check(i <= 1e-5, f"flash float32 D={D} Sq={Sq} tile {t}:"
+                          f" {i} from the default launch (limit 1e-5)")
+    # the planted fault: one wgmma instantiation fed keys rolled by a tile
+    q, k, v = [torch.randn(s, generator=gen, device=dev).bfloat16()
+               for s in ((1, 256, 4, 128), (1, 256, 2, 128), (1, 256, 2, 128))]
+    want = ops.plain_version(q, k, v).float()
+    fault = ops.flash_attention(q, torch.roll(k, 64, 1), torch.roll(v, 64, 1),
+                                block_q=64, block_k=64).float()
+    e_fault = float((fault - want).abs().max())
+    check(e_fault > FLASH_TOL["bfloat16"],
+          f"flash planted fault within the limit ({e_fault})")
+    print(f"  flash: {n_inst} launches over the reference's cases, every "
+          f"instantiation of each route; max |kernel - plain| "
+          f"{ {k: f'{v:.3e}' for k, v in err.items()} }, float32 tilings "
+          f"{inv:.3e} from the default launch (limit 1e-5); planted fault "
+          f"{e_fault:.3e}", flush=True)
+    return {"max_abs_err": err, "invariance": inv, "instantiations": n_inst,
+            "fault": e_fault}
+
+
+def tiles_mlstm(dev) -> dict:
+    """Every mLSTM launch of each route against its plain version:
+    float32 (FMA) at the reference's cases within 5e-5, bf16 (wgmma) at
+    P 1024 and chunks 128-512 within relative L2 1e-3 of the bf16-operand
+    version; a planted fault (one launch fed q rolled by one chunk) above
+    the limit."""
+    import torch
+    from repro_torch.kernels.mlstm_chunk import ops
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def inputs(B, S, H, P, dt):
+        def n(*s):
+            return torch.randn(s, generator=gen, device=dev)
+        q, k, v = n(B, S, H, P) * 0.5, n(B, S, H, P) * 0.5 / P ** 0.5, \
+            n(B, S, H, P) * 0.5
+        return (q.to(dt), k.to(dt), v.to(dt), n(B, S, H),
+                -torch.nn.functional.softplus(-n(B, S, H) * 2.0))
+
+    err, rel, n_inst = 0.0, 0.0, 0
+    for B, S, H, P, chunk in MLSTM_CASES:
+        args = inputs(B, S, H, P, torch.float32)
+        want = ops.plain_version(*args, chunk)
+        for nw, st in ops.supported_tiles("fma", P, chunk):
+            out = ops.mlstm_chunk(*args, chunk=chunk, num_warps=nw,
+                                  pipeline=st)
+            n_inst += 1
+            e = float((out - want).abs().max())
+            err = max(err, e)
+            check(e <= MLSTM_ATOL, f"mlstm fma {(B, S, H, P, chunk)} "
+                  f"num_warps={nw}: {e}")
+    B, S, H, P = TILE_MLSTM_WGMMA
+    args = inputs(B, S, H, P, torch.bfloat16)
+    for chunk in (128, 256, 512):
+        want = ops.plain_version(*args, chunk)
+        for nw, st in ops.supported_tiles("wgmma", P, chunk):
+            out = ops.mlstm_chunk(*args, chunk=chunk, num_warps=nw,
+                                  pipeline=st)
+            n_inst += 1
+            r = rel_l2(out, want)
+            rel = max(rel, r)
+            check(r <= MLSTM_REL_L2, f"mlstm wgmma chunk {chunk} "
+                  f"num_warps={nw} pipeline={st}: rel L2 {r}")
+    fault = ops.mlstm_chunk(torch.roll(args[0], 256, 1), *args[1:],
+                            chunk=256, num_warps=4, pipeline=2)
+    r_fault = rel_l2(fault, ops.plain_version(*args, 256))
+    check(r_fault > MLSTM_REL_L2, f"mlstm planted fault within the limit "
+          f"({r_fault})")
+    print(f"  mlstm: {n_inst} launches; fma max |kernel - plain| "
+          f"{err:.3e} (limit {MLSTM_ATOL}), wgmma rel L2 {rel:.3e} (limit "
+          f"{MLSTM_REL_L2}); planted fault {r_fault:.3e}", flush=True)
+    return {"max_abs_err": err, "rel_l2": rel, "instantiations": n_inst,
+            "fault": r_fault}
+
+
+def head_to_head(kernel: str, shape: dict, configs: dict) -> dict:
+    """ms of each named config (None: the default launch) at ``shape``:
+    the tuner's own timing (best of AUTOTUNE_RECHECK calls after warmup),
+    in AUTOTUNE_ROUNDS turns, the best of the turns."""
+    from repro_torch.kernels import autotune
+    ev = autotune.KernelEvaluator(kernel, shape=shape, warmup=2)
+    best = {name: math.inf for name in configs}
+    for _ in range(AUTOTUNE_ROUNDS):
+        for name, cfg in configs.items():
+            best[name] = min(best[name],
+                             ev.time(ev._build(cfg), AUTOTUNE_RECHECK))
+    return best
+
+
+def select_sharded(dev) -> dict:
+    """select_batch_sharded over 1-3 shards of one card at the tuner's and
+    the daemon's shapes: picks array-equal to select_batch; wall per k."""
+    import numpy as np
+    import torch
+    from repro_torch.core import gp
+    out = {}
+    for d, n_cand, q in SHARD_CASES:
+        rng = np.random.default_rng(d)
+        x = rng.random((56, d))
+        y = (np.sin(3 * x[:, 0]) + (x[:, 1] - 0.4) ** 2
+             + 0.1 * rng.normal(size=56))
+        st = gp.fit(x, y, steps=60, pad_to=64, use_kernel=True, device=dev)
+        y_raw = np.zeros(64, np.float32)
+        y_raw[:56] = y
+        cand = rng.random((n_cand, d)).astype(np.float32)
+        best_y = float(y.min())
+        want = gp.select_batch(st, cand, y_raw, 56, best_y, q,
+                               use_kernel=True).cpu()
+        walls = {}
+        for k in (1, 2, 3):
+            gp.select_batch_sharded(st, cand, y_raw, 56, best_y, q,
+                                    use_kernel=True, devices=(dev,) * k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = gp.select_batch_sharded(st, cand, y_raw, 56, best_y, q,
+                                          use_kernel=True,
+                                          devices=(dev,) * k).cpu()
+            walls[k] = (time.perf_counter() - t0) * 1e3
+            check(torch.equal(got, want), f"select_batch_sharded d={d} "
+                  f"k={k}: picks {got.tolist()} != select_batch's "
+                  f"{want.tolist()}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gp.select_batch(st, cand, y_raw, 56, best_y, q, use_kernel=True).cpu()
+        base = (time.perf_counter() - t0) * 1e3
+        print(f"  select_batch_sharded d={d}, {n_cand} candidates, q={q}: "
+              f"picks array-equal to select_batch at 1-3 shards of one card;"
+              f" wall ms "
+              f"{', '.join(f'{k}: {w:.3f}' for k, w in walls.items())}"
+              f" (select_batch {base:.3f}; one card: no gate)", flush=True)
+        out[f"d{d}"] = {"wall_ms": walls, "select_batch_ms": base,
+                        "picks": want.tolist()}
+    return out
+
+
+def phase_autotune(card: str):
+    import torch
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.gp_gram import ops as gram_ops
+    from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
+
+    print("== phase 11: the kernels' tile knobs and tune_kernel on the card "
+          f"(budget {AUTOTUNE_BUDGET}, batch {AUTOTUNE_BATCH}, repeats "
+          f"{AUTOTUNE_REPEATS}; head to head best of {AUTOTUNE_RECHECK} x "
+          f"{AUTOTUNE_ROUNDS}, gate {AUTOTUNE_GATE})", flush=True)
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    tiles = {"gp_gram": tiles_gp_gram(dev), "flash_attention":
+             tiles_flash(dev), "mlstm_chunk": tiles_mlstm(dev)}
+    torch.cuda.synchronize()
+    t_tiles = time.perf_counter() - t_phase
+
+    # the path: tune_kernel, launches counted from 0 just before it
+    gram_ops.reset_launch_counts()
+    flash_ops.reset_launch_counts()
+    mlstm_ops.reset_launch_counts()
+    tuned = {}
+    for kernel, label, shape in AUTOTUNE_RUNS:
+        t0 = time.perf_counter()
+        res = autotune.tune_kernel(kernel, shape=shape,
+                                   budget=AUTOTUNE_BUDGET,
+                                   batch_size=AUTOTUNE_BATCH,
+                                   repeats=AUTOTUNE_REPEATS)
+        wall = time.perf_counter() - t0
+        failed = [r.config for r in res["db"].records if not r.ok]
+        ok = [r for r in res["db"].records if r.ok]
+        check(ok, f"tune_kernel({kernel}, {label}): every evaluation failed")
+        tuned[(kernel, label)] = (res, wall, failed)
+    torch.cuda.synchronize()
+    launches = {"gp_gram": gram_ops.gram_launches + gram_ops.cross_launches
+                + gram_ops.gram_bwd_launches,
+                "flash_attention": flash_ops.launches,
+                "mlstm_chunk": mlstm_ops.launches}
+    for k, n in launches.items():
+        check(n > 0, f"phase 11: no {k} launch while tuning")
+
+    # head to head: tuned vs the space's default (when the card takes it)
+    # vs the default launch
+    summary = {}
+    for (kernel, label, shape) in AUTOTUNE_RUNS:
+        res, wall, failed = tuned[(kernel, label)]
+        dflt_ok = res["default_value"] is not None
+        configs = {"tuned": res["best_config"], "no_knob": None}
+        if dflt_ok:
+            configs["default"] = res["default_config"]
+        ms = head_to_head(kernel, shape, configs)
+        ref_name = "default" if dflt_ok else "no_knob"
+        ratio = ms["tuned"] / ms[ref_name]
+        print(f"  tune_kernel({kernel}, {label} {shape or 'bench default'})"
+              f" in {wall:.1f} s: {len(res['trace'].values)} evaluations, "
+              f"{len(failed)} refused by the card: {failed}", flush=True)
+        print(f"    tuned {res['best_config']} {ms['tuned']:.5f} ms; space "
+              f"default {res['default_config']} "
+              + (f"{ms['default']:.5f} ms" if dflt_ok else
+                 "refused (no instantiation): gate against the default "
+                 "launch")
+              + f"; default launch {ms['no_knob']:.5f} ms; tuned/"
+              f"{ref_name} {ratio:.4f} (gate {AUTOTUNE_GATE})", flush=True)
+        check(ratio <= AUTOTUNE_GATE, f"tune_kernel({kernel}, {label}): "
+              f"tuned {ms['tuned']} ms > {AUTOTUNE_GATE} x {ref_name} "
+              f"{ms[ref_name]} ms")
+        summary.setdefault(kernel, {})[label] = {
+            "shape": shape, "config": res["best_config"],
+            "ms": ms["tuned"], "default_config": res["default_config"],
+            "default_ms": ms.get("default"), "no_knob_ms": ms["no_knob"],
+            "gate_against": ref_name, "ratio": ratio,
+            "evaluations": len(res["trace"].values),
+            "refused": len(failed), "tune_wall_s": wall}
+    shard = select_sharded(dev)
+    total = time.perf_counter() - t_phase
+    print(f"phase 11: launches while tuning {launches}; instantiation "
+          f"checks {t_tiles:.1f} s; total {total:.1f} s", flush=True)
+    return {"tiles": tiles, "tuned": summary, "launches": launches,
+            "shard": shard, "phase_s": total}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2128,6 +2483,8 @@ def main() -> None:
     xlstm = phase_xlstm(card)
     torch.cuda.empty_cache()
     service = phase_service(card)
+    torch.cuda.empty_cache()
+    autotune = phase_autotune(card)
 
     kernels = []
     for kind, shape, svc_shape in (("gram", MAIN_GRAM, SERVICE_GRAM),
@@ -2147,6 +2504,9 @@ def main() -> None:
             "phase10_bound_by": s_b_by,
             "phase10_device_ms": s_dev["device_ms"],
             "phase10_plain_device_ms": s_dev["plain_device_ms"],
+            "launches_phase11": autotune["launches"]["gp_gram"],
+            "tiles_phase11": autotune["tiles"]["gp_gram"],
+            "tuned_phase11": autotune["tuned"]["gp_gram"],
         })
     bwd = timing["gram_bwd"]
     svc_bwd = bwd["service"]
@@ -2187,6 +2547,9 @@ def main() -> None:
         "shape": flash["shape"],
         "device_ms": serving["device_ms"],
         "max_abs_err_cases": flash["err"],
+        "launches_phase11": autotune["launches"]["flash_attention"],
+        "tiles_phase11": autotune["tiles"]["flash_attention"],
+        "tuned_phase11": autotune["tuned"]["flash_attention"],
     })
     kernels.append({
         "name": "mlstm_chunk_fwd", "route": "cuda",
@@ -2205,6 +2568,9 @@ def main() -> None:
         "max_abs_err_fma": mlstm["max_abs_err_fma"],
         **{k: v for k, v in mlstm.items() if k.startswith("rel_l2_")},
         "max_abs_err_cases": mlstm["err"],
+        "launches_phase11": autotune["launches"]["mlstm_chunk"],
+        "tiles_phase11": autotune["tiles"]["mlstm_chunk"],
+        "tuned_phase11": autotune["tuned"]["mlstm_chunk"],
     })
     print(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

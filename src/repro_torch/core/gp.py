@@ -988,3 +988,175 @@ def select_batch(state: GPState, cand, y_raw, n: int, best_y, q: int,
             y_f[j] = lie
             x_f[j] = x_new
     return torch.stack(picks)
+
+
+# ---------------------------------------------------------------------------
+# sharded q-batch selection (the candidate pool over several devices)
+# ---------------------------------------------------------------------------
+
+_NO_INDEX = torch.iinfo(torch.int64).max     # a shard without the max
+
+
+@torch.no_grad()
+def select_batch_sharded(state: GPState, cand, y_raw, n: int, best_y,
+                         q: int, kind: str = "matern52",
+                         fantasy: str = "liar", acquisition: str = "ei",
+                         xi: float = 0.01, use_kernel: bool = False,
+                         devices=None) -> torch.Tensor:
+    """:func:`select_batch` with the candidate pool split row-wise over
+    ``devices`` (default: every card of the state's host,
+    ``parallel.sharding.pool_devices``).
+
+    Each shard keeps its rows of the pool, their cross-Gram against the
+    training block (through the CUDA kernel under ``use_kernel``) and
+    their columns of the forward-substitution state ``V``; the posterior,
+    its Cholesky factor and the fantasy block stay on the state's device
+    and are copied to each shard as it needs them (copies are exact).
+    Per pick each shard scores its columns, and the picks merge with the
+    reference's collective argmax: the largest acquisition, then the
+    smallest global index that attains it (``torch.argmax``'s first
+    occurrence, per shard).  The winner's row is copied from its shard
+    with selects, never summed.  Shards run in turn from this thread; a
+    tuple may name one device more than once (each entry is one shard).
+
+    The per-column arithmetic is :func:`select_batch`'s, op for op, so
+    the picks equal its picks on the same pool.  The pool is padded to a
+    multiple of the shard count with unit-cube midpoints marked taken,
+    so a pad row is never picked.  Returns ``picks`` [q] int64 on the
+    state's device.
+    """
+    from repro_torch.parallel.sharding import pool_devices
+    home = state.x.device
+    devs = (tuple(torch.device(d) for d in devices) if devices is not None
+            else pool_devices(None, home))
+    nd = len(devs)
+    if nd == 0:
+        raise ValueError("select_batch_sharded needs at least one device")
+    m, d_dim = state.x.shape
+    cand = torch.as_tensor(cand, dtype=F32, device=home).contiguous()
+    M = cand.shape[0]
+    Ml = -(-M // nd)
+    Mp = Ml * nd
+    if Mp > M:
+        cand = torch.cat([cand, torch.full((Mp - M, d_dim), 0.5, dtype=F32,
+                                           device=home)])
+    S = q - 1
+    T = m + S
+    ls = torch.exp(state.params.log_lengthscale)
+    sv = torch.exp(state.params.log_signal_var)
+    nv = torch.exp(state.params.log_noise_var)
+    kfn = KERNELS[kind]
+    y_raw = torch.as_tensor(y_raw, dtype=F32, device=home)
+    best_y = torch.as_tensor(best_y, dtype=F32, device=home)
+
+    # the replicated carry, on the state's device
+    chol = torch.zeros((T, T), dtype=F32, device=home)
+    chol[:m, :m] = state.chol
+    if S:
+        fdiag = torch.arange(m, T, device=home)
+        chol[fdiag, fdiag] = 1.0
+    real = torch.arange(m, device=home) < n
+    noise_ss = _jitter(nv, sv)
+    y_masked = torch.where(real, y_raw, 0.0)
+    ab = torch.linalg.solve_triangular(
+        state.chol, torch.stack([y_masked, real.to(F32)], dim=1),
+        upper=False)
+    a = torch.zeros((T,), dtype=F32, device=home)
+    a[:m] = ab[:, 0]
+    b = torch.zeros((T,), dtype=F32, device=home)
+    b[:m] = ab[:, 1]
+    y_f = torch.zeros((S,), dtype=F32, device=home)
+    x_f = torch.zeros((S, d_dim), dtype=F32, device=home)
+    slots = torch.arange(S, device=home)
+
+    # the shards: pool rows, cross-Gram, V columns, taken mask
+    shards = []
+    for s, dev in enumerate(devs):
+        to = partial(_on, dev=dev)
+        c_s = to(cand[s * Ml:(s + 1) * Ml]).contiguous()
+        ls_s, sv_s = to(ls), to(sv)
+        k_cx = cross(kind, c_s, to(state.x), ls_s, sv_s,
+                     use_kernel=use_kernel)
+        v = torch.zeros((T, Ml), dtype=F32, device=dev)
+        v[:m] = torch.linalg.solve_triangular(to(state.chol), k_cx.T,
+                                              upper=False)
+        taken = torch.arange(s * Ml, (s + 1) * Ml, device=dev) >= M
+        shards.append(dict(dev=dev, cand=c_s, ls=ls_s, sv=sv_s, k_cx=k_cx,
+                           v=v, taken=taken, off=s * Ml))
+
+    picks = []
+    for j in range(q):
+        active = slots < j
+        w = torch.cat([real, active]).to(F32)
+        yr = torch.cat([y_masked, torch.where(active, y_f, 0.0)])
+        cnt = torch.sum(w)
+        mu_y = torch.sum(yr) / cnt
+        std_y = torch.sqrt(torch.sum(w * (yr - mu_y) ** 2) / cnt)
+        std_y = torch.where(std_y < 1e-12, 1.0, std_y)
+        coef = a - mu_y * b
+
+        # each shard: its columns' acquisition and its first maximum
+        tops, firsts = [], []
+        for sh in shards:
+            to = partial(_on, dev=sh["dev"])
+            mu_s, std_s = to(mu_y), to(std_y)
+            v = sh["v"]
+            mean_s = (v.T @ to(coef)) / std_s
+            var_s = torch.clamp_min(sh["sv"] - torch.sum(v * v, dim=0),
+                                    1e-12)
+            mean = mean_s * std_s + mu_s
+            std = torch.sqrt(var_s) * std_s
+            if acquisition == "ei":
+                acq = _ei(mean, std, to(best_y), xi)
+            else:
+                acq = -(mean - 2.0 * std)
+            acq = torch.where(sh["taken"], -math.inf, acq)
+            li = torch.argmax(acq)
+            sh["mean"], sh["li"] = mean, li
+            tops.append(_on(acq[li], home))
+            firsts.append(_on(li, home) + sh["off"])
+        tops = torch.stack(tops)
+        gi = torch.min(torch.where(tops == torch.max(tops),
+                                   torch.stack(firsts), _NO_INDEX))
+        picks.append(gi)
+
+        # the winner's shard marks it taken and hands its row over
+        x_new = torch.zeros((d_dim,), dtype=F32, device=home)
+        k_ci = torch.zeros((m,), dtype=F32, device=home)
+        mean_i = torch.zeros((), dtype=F32, device=home)
+        for sh in shards:
+            dev = sh["dev"]
+            off = _on(gi, dev) - sh["off"]
+            has = (off >= 0) & (off < Ml)
+            il = torch.clamp(off, 0, Ml - 1)
+            sh["taken"][il] = sh["taken"][il] | has
+            has_h = _on(has, home)
+            x_new = torch.where(has_h, _on(sh["cand"][il], home), x_new)
+            k_ci = torch.where(has_h, _on(sh["k_cx"][il], home), k_ci)
+            mean_i = torch.where(has_h, _on(sh["mean"][il], home), mean_i)
+
+        if j < S:                           # fantasy-append (not the last)
+            lie = mean_i if fantasy == "believer" else best_y
+            k_f_new = torch.where(active, kfn(x_new[None], x_f, ls, sv)[0],
+                                  0.0)
+            k_vec = torch.cat([k_ci, k_f_new])
+            l, dg = chol_append(chol, k_vec, sv + noise_ss)
+            row = m + j
+            chol[row] = l
+            chol[row, row] = dg
+            for sh in shards:
+                to = partial(_on, dev=sh["dev"])
+                l_s, dg_s = to(l), to(dg)
+                col_c = kfn(sh["cand"], to(x_new)[None], sh["ls"],
+                            sh["sv"])[:, 0]
+                sh["v"][row] = (col_c - l_s @ sh["v"]) / dg_s
+            a[row] = (lie - l @ a) / dg
+            b[row] = (1.0 - l @ b) / dg
+            y_f[j] = lie
+            x_f[j] = x_new
+    return torch.stack(picks)
+
+
+def _on(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``t`` on ``dev`` (itself when it is there already)."""
+    return t if t.device == dev else t.to(dev)

@@ -52,6 +52,7 @@ from repro_torch.core import gp
 from repro_torch.core.sampling import init_design, latin_hypercube, lhs_unit
 from repro_torch.core.space import Config, Space
 from repro_torch.device import resolve_device
+from repro_torch.parallel.sharding import pool_devices, spare_device
 
 
 # ---------------------------------------------------------------------------
@@ -137,11 +138,14 @@ class BOConfig:
                                     # the Adam loop, selection runs against
                                     # the last *completed* posterior
     shard_candidates: Union[bool, int] = False
-                                    # sharded candidate scoring is not
-                                    # ported yet: any true value raises
+                                    # shard the q-EI candidate pool over
+                                    # the host's cards (True: all, an int:
+                                    # the first k); picks are identical,
+                                    # one card falls back to select_batch
     refit_device: Optional[int] = None
                                     # pin the refit_async background fit to
-                                    # cuda:i (None: the strategy's device)
+                                    # cuda:i (None: the spare card of a
+                                    # multi-card host, else the strategy's)
     device: str = "cuda"            # where the GP is fitted and queried
     seed: int = 0
 
@@ -218,6 +222,11 @@ def _json_cfg(cfg: Config) -> Config:
             v = bool(v)
         out[k] = v
     return out
+
+
+def _card_index(dev: torch.device) -> int:
+    """The index of a CUDA device (``cuda`` alone: the current card)."""
+    return torch.cuda.current_device() if dev.index is None else dev.index
 
 
 class _PendingSet:
@@ -306,26 +315,23 @@ class BOStrategy(_StrategyBase):
     expansion fires, the snapshot handed to the background fit is
     re-encoded in the enlarged space first (the trace's unit-cube
     coordinates just moved).  The background fit runs on the strategy's
-    device (``cfg.refit_device`` pins it to another card).  :meth:`close`
-    joins the executor (the strategy stays usable afterwards).
+    device, or on the host's spare card when it has more than one
+    (``cfg.refit_device`` pins it to a given card).  :meth:`close` joins
+    the executor (the strategy stays usable afterwards).
 
     The GP lives on ``cfg.device``; with ``cfg.use_kernel`` its Gram
     builds (the Adam fit's through the backward kernel too) and the
     candidate cross-Gram run the CUDA kernels.  On the card the fit's Adam
     steps replay a CUDA graph, also from the background fit's thread.
-    ``cfg.shard_candidates`` (sharded candidate scoring) is not ported yet
-    and raises.
+    With ``cfg.shard_candidates`` the candidate pool is scored across the
+    host's cards (``gp.select_batch_sharded``): the picks, and so the
+    trace, are those of the one-card path.
     """
 
     def __init__(self, space: Space, cfg: Optional[BOConfig] = None,
                  init_configs: Optional[List[Config]] = None):
         super().__init__(space)
         self.cfg = cfg or BOConfig()
-        if self.cfg.shard_candidates:
-            raise NotImplementedError(
-                "BOConfig.shard_candidates: sharded candidate scoring "
-                "(gp.select_batch_sharded) is not ported yet — ROADMAP "
-                "queue A, item 12")
         self.rng = np.random.default_rng(self.cfg.seed)
         # the base space's numeric bounds, before any dynamic expansion —
         # the identity a state snapshot must match to be loadable here
@@ -397,13 +403,18 @@ class BOStrategy(_StrategyBase):
 
     def _refit_device(self) -> torch.device:
         """Device the background fit runs on: ``cuda:<cfg.refit_device>``
-        when set on a CUDA strategy, else the strategy's own device (the
-        fit shares the card; it only thread-yields, never blocks ask)."""
+        when set on a CUDA strategy, else the spare card of a multi-card
+        host (off the experiment loop's card), else the strategy's own
+        device (the fit shares the card; it only thread-yields, never
+        blocks ask)."""
         home = resolve_device(self.cfg.device)
-        if self.cfg.refit_device is None or home.type != "cuda":
+        if home.type != "cuda":
             return home
-        return torch.device("cuda",
-                            self.cfg.refit_device % torch.cuda.device_count())
+        if self.cfg.refit_device is not None:
+            return torch.device(
+                "cuda", self.cfg.refit_device % torch.cuda.device_count())
+        spare = spare_device(avoid_index=_card_index(home))
+        return home if spare is None else spare
 
     def _fit_background(self, x: np.ndarray, y: np.ndarray, steps: int,
                         warm, obs_var: Optional[np.ndarray] = None):
@@ -480,6 +491,18 @@ class BOStrategy(_StrategyBase):
             for name in near:
                 self.trace.boundary_events.append((at, name))
         return near
+
+    # -- sharded candidate scoring --------------------------------------------
+
+    def _shard_devices(self):
+        """Devices for sharded candidate scoring, or ``None`` for the
+        one-device path (gate off, or nothing to shard over)."""
+        sc = self.cfg.shard_candidates
+        if not sc:
+            return None
+        devs = pool_devices(None if sc is True else int(sc),
+                            resolve_device(self.cfg.device))
+        return devs if len(devs) > 1 else None
 
     # -- GP training set (overridable) ----------------------------------------
 
@@ -572,11 +595,22 @@ class BOStrategy(_StrategyBase):
         y_raw = np.zeros(int(state.x.shape[0]), np.float32)
         y_raw[:n_fit] = np.asarray(y_fit, np.float32)
         q_sel = cfg.batch_size * -(-q // cfg.batch_size)
-        idx = gp.select_batch(
-            state, cand.astype(np.float32), y_raw, n_fit, best_y, q_sel,
-            kind=cfg.kernel, fantasy=cfg.fantasy,
-            acquisition=cfg.acquisition,
-            use_kernel=cfg.use_kernel).cpu().numpy()
+        devs = self._shard_devices()
+        if devs is not None:
+            # the pool sharded row-wise over the cards; picks equal
+            # select_batch's at equal pool, so the gate never changes a
+            # trace, only its wall-clock
+            idx = gp.select_batch_sharded(
+                state, cand.astype(np.float32), y_raw, n_fit, best_y,
+                q_sel, kind=cfg.kernel, fantasy=cfg.fantasy,
+                acquisition=cfg.acquisition, use_kernel=cfg.use_kernel,
+                devices=devs).cpu().numpy()
+        else:
+            idx = gp.select_batch(
+                state, cand.astype(np.float32), y_raw, n_fit, best_y, q_sel,
+                kind=cfg.kernel, fantasy=cfg.fantasy,
+                acquisition=cfg.acquisition,
+                use_kernel=cfg.use_kernel).cpu().numpy()
         picks = [cand[int(i)] for i in idx[:q]]
         probes = self.space.decode_batch(np.stack(picks))
         expanded = self._expand_near(probes)

@@ -44,18 +44,36 @@
 //     99 KB, two blocks per SM (dynamic shared memory above 48 KB is
 //     enabled with cudaFuncSetAttribute).
 // Head dims 16, 32, 64, 128 and 256 are compiled; float32 and bfloat16.
+//
+// The tile knobs (block_q, block_k, num_warps) pick an instantiation: a
+// BQ-row q tile against BK-key KV tiles per block of 32 NW threads; a
+// thread owns rows ty + TY i (TY = 2 NW rows of threads, BQ / TY rows
+// each) and score columns tx + 16 j.  Every dtype and head dim has the
+// default 64 x 64 tile with 8 warps; float32 at head dims 64 and 128 also
+// has the tiles of kTiles below (fma_tiles() in the wrapper names them).
+// The KV tiles are staged one at a time (no ring): the pipeline knob's
+// only value here is 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kBQ = 64;            // q rows per block
-constexpr int kBK = 64;            // keys per KV tile
-constexpr int kThreads = 256;
-constexpr int kRows = 4;           // q rows per thread: ty + 16 i
-constexpr int kCols = 4;           // score columns per thread: tx + 16 j
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
+constexpr int kSmemLimit = 232448; // a block's shared-memory limit on sm_90
+
+// BQ q rows and BK keys per tile, 32 NW threads: 16 threads along the
+// score columns, TY along the rows
+template <int BQ, int BK, int NW>
+struct Tile {
+  static constexpr int kThreads = 32 * NW;
+  static constexpr int kTY = kThreads / 16;
+  static constexpr int kRows = BQ / kTY;   // q rows per thread: ty + TY i
+  static constexpr int kCols = BK / 16;    // score columns: tx + 16 j
+  static_assert(BQ % kTY == 0 && BK % 16 == 0, "tile");
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -87,14 +105,14 @@ struct Params {
   float scale;                     // 1 / sqrt(D)
 };
 
-template <int D>
+template <int D, int BQ, int BK>
 __host__ __device__ constexpr int kp_floats() {        // the K tile, later the P tile
-  return kBK * (D + 1) > kBQ * (kBK + 1) ? kBK * (D + 1) : kBQ * (kBK + 1);
+  return BK * (D + 1) > BQ * (BK + 1) ? BK * (D + 1) : BQ * (BK + 1);
 }
 
-template <int D>
+template <int D, int BQ, int BK>
 __host__ __device__ constexpr int smem_bytes() {
-  return (kBQ * (D + 1) + kp_floats<D>() + kBK * D) * (int)sizeof(float);
+  return (BQ * (D + 1) + kp_floats<D, BQ, BK>() + BK * D) * (int)sizeof(float);
 }
 
 __device__ __forceinline__ float half_warp_max(float x) {
@@ -111,14 +129,17 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
+template <typename T, int D, int BQ, int BK, int NW>
+__global__ void __launch_bounds__(32 * NW, D <= 128 ? 2 : 1)
 flash_fwd_kernel(const Params p) {
+  using L = Tile<BQ, BK, NW>;
+  constexpr int kBQ = BQ, kBK = BK, kThreads = L::kThreads;
+  constexpr int kRows = L::kRows, kCols = L::kCols, kTY = L::kTY;
   constexpr int kOC = D / 16;      // output columns per thread: tx + 16 c
   extern __shared__ float smem[];
   float* sQ = smem;                          // [kBQ][D + 1], pre-scaled
   float* sKP = sQ + kBQ * (D + 1);           // K [kBK][D + 1], then P [kBQ][kBK + 1]
-  float* sV = sKP + kp_floats<D>();          // [kBK][D]
+  float* sV = sKP + kp_floats<D, BQ, BK>();  // [kBK][D]
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -187,7 +208,7 @@ flash_fwd_kernel(const Params p) {
     for (int d = 0; d < D; ++d) {
       float a[kRows], bk[kCols];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) a[i] = sQ[(ty + 16 * i) * (D + 1) + d];
+      for (int i = 0; i < kRows; ++i) a[i] = sQ[(ty + kTY * i) * (D + 1) + d];
 #pragma unroll
       for (int j = 0; j < kCols; ++j) bk[j] = sKP[(tx + 16 * j) * (D + 1) + d];
 #pragma unroll
@@ -198,7 +219,7 @@ flash_fwd_kernel(const Params p) {
 
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      const int qi = q0 + ty + 16 * i;
+      const int qi = q0 + ty + kTY * i;
       bool vis[kCols];
       float mx = kNegInf;
 #pragma unroll
@@ -232,14 +253,14 @@ flash_fwd_kernel(const Params p) {
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
       for (int j = 0; j < kCols; ++j)
-        sKP[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = s[i][j];
+        sKP[(ty + kTY * i) * (kBK + 1) + tx + 16 * j] = s[i][j];
     __syncthreads();
 
 #pragma unroll 4
     for (int kk = 0; kk < kBK; ++kk) {
       float pv[kRows], vv[kOC];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = sKP[(ty + 16 * i) * (kBK + 1) + kk];
+      for (int i = 0; i < kRows; ++i) pv[i] = sKP[(ty + kTY * i) * (kBK + 1) + kk];
 #pragma unroll
       for (int c = 0; c < kOC; ++c) vv[c] = sV[kk * D + tx + 16 * c];
 #pragma unroll
@@ -251,7 +272,7 @@ flash_fwd_kernel(const Params p) {
 
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
-    const int qi = q0 + ty + 16 * i;
+    const int qi = q0 + ty + kTY * i;
     if (qi >= p.Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
@@ -260,26 +281,53 @@ flash_fwd_kernel(const Params p) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int BQ, int BK, int NW>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + kBQ - 1) / kBQ, batch * p.H);
-  flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(p);
-  return cudaGetLastError();
+  constexpr int bytes = smem_bytes<D, BQ, BK>();
+  if constexpr (bytes > kSmemLimit) {
+    return cudaErrorInvalidValue;
+  } else {
+    auto kernel = flash_fwd_kernel<T, D, BQ, BK, NW>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.Sq + BQ - 1) / BQ, batch * p.H);
+    kernel<<<grid, 32 * NW, bytes, stream>>>(p);
+    return cudaGetLastError();
+  }
+}
+
+// the tuned tiles (BQ, BK, NW) of float32 at head dims 64 and 128; the
+// default 64 x 64 x 8 is compiled for every dtype and head dim
+#define FLASH_FMA_TILES(X)                                              \
+  X(16, 32, 2) X(16, 64, 2) X(32, 32, 4) X(32, 64, 4) X(32, 32, 8)      \
+  X(32, 64, 8) X(64, 32, 4) X(64, 64, 4) X(64, 32, 8) X(128, 32, 8)     \
+  X(128, 64, 8)
+
+template <typename T, int D>
+cudaError_t launch_tile(const Params& p, int batch, int bq, int bk, int nw,
+                        cudaStream_t stream) {
+  if (bq == 64 && bk == 64 && nw == 8)
+    return launch<T, D, 64, 64, 8>(p, batch, stream);
+  if constexpr (std::is_same<T, float>::value && (D == 64 || D == 128)) {
+#define FLASH_FMA_CASE(BQ, BK, NW)                                      \
+    if (bq == BQ && bk == BK && nw == NW)                               \
+      return launch<T, D, BQ, BK, NW>(p, batch, stream);
+    FLASH_FMA_TILES(FLASH_FMA_CASE)
+#undef FLASH_FMA_CASE
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
-cudaError_t launch_dim(const Params& p, int batch, int d, cudaStream_t stream) {
+cudaError_t launch_dim(const Params& p, int batch, int d, int bq, int bk,
+                       int nw, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(p, batch, stream);
-    case 32: return launch<T, 32>(p, batch, stream);
-    case 64: return launch<T, 64>(p, batch, stream);
-    case 128: return launch<T, 128>(p, batch, stream);
-    case 256: return launch<T, 256>(p, batch, stream);
+    case 16: return launch_tile<T, 16>(p, batch, bq, bk, nw, stream);
+    case 32: return launch_tile<T, 32>(p, batch, bq, bk, nw, stream);
+    case 64: return launch_tile<T, 64>(p, batch, bq, bk, nw, stream);
+    case 128: return launch_tile<T, 128>(p, batch, bq, bk, nw, stream);
+    case 256: return launch_tile<T, 256>(p, batch, bq, bk, nw, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -289,12 +337,15 @@ cudaError_t launch_dim(const Params& p, int batch, int d, cudaStream_t stream) {
 // q [B, Sq, H, D], k/v [B, Sk, Kh, D], o [B, Sq, H, D] on the device, with
 // element strides {q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s,
 // o_h} in `strides` (host memory) and unit stride along D.  dtype 0 is
-// float32, 1 bfloat16.  window <= 0 and softcap <= 0 mean none.  Launches
-// on `stream` and returns cudaGetLastError().
+// float32, 1 bfloat16.  window <= 0 and softcap <= 0 mean none.  The tile
+// is block_q x block_k with 32 num_warps threads (64, 64, 8 by default;
+// cudaErrorInvalidValue for one without an instantiation).  Launches on
+// `stream` and returns cudaGetLastError().
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int H, int Kh, int Sq, int Sk, int D, const long long* strides,
-    int causal, int window, float softcap, float scale, cudaStream_t stream) {
+    int causal, int window, float softcap, float scale, int block_q,
+    int block_k, int num_warps, cudaStream_t stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -314,9 +365,10 @@ extern "C" int flash_attention_launch(
   p.scale = scale;
   cudaError_t err;
   if (dtype == 0)
-    err = launch_dim<float>(p, B, D, stream);
+    err = launch_dim<float>(p, B, D, block_q, block_k, num_warps, stream);
   else if (dtype == 1)
-    err = launch_dim<__nv_bfloat16>(p, B, D, stream);
+    err = launch_dim<__nv_bfloat16>(p, B, D, block_q, block_k, num_warps,
+                                    stream);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -50,6 +50,17 @@
 //     t's QK^T together with tile t-1's PV and runs tile t's softmax while
 //     they execute; and the two take turns to issue (ping-pong on named
 //     barriers), so one's softmax also runs under the other's products.
+//
+// The tile knobs pick an instantiation and its ring depth: block_q is the
+// consumer warpgroups' rows (NC = 1 or 2 warpgroups of 64 rows; one
+// warpgroup issues without the ping-pong), block_k the keys of a KV tile
+// (BN = 64 or 128: wgmma N of Q.K^T, K of P.V), pipeline the stages of the
+// K/V ring (1 to 4, as many as fit in 227 KB of shared memory), and
+// num_warps the warps of a consumer warpgroup, which wgmma fixes at 4.  The
+// default launch is 128 rows, 128 keys, 2 stages.  Each tile is compiled
+// twice: with a 2-stage ring fixed at compile time (the default depth: its
+// ring indices fold to shifts, as in the kernel before the knobs) and
+// with the depth read at run time (1, 3 or 4).
 
 #include "hopper.cuh"  // kernels/include: shared with mlstm_chunk_wgmma.cu
 
@@ -58,11 +69,9 @@ namespace {
 using namespace hopper;
 using namespace hopper_host;
 
-constexpr int kBN = 128;           // keys per KV tile
-constexpr int kStages = 2;         // the K/V ring
 constexpr int kRows = 64;          // q rows per consumer warpgroup
-constexpr int kNC = 2;             // consumer warpgroups per block
-constexpr int kBM = kNC * kRows;   // q rows per block
+constexpr int kMaxStages = 4;      // the K/V ring's deepest
+constexpr int kSmemLimit = 232448; // a block's shared-memory limit on sm_90
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -77,20 +86,39 @@ struct Params {
   float fac;                       // log2(e) per unit of the softmax's score
 };
 
-// Q (the block's rows) and a ring of K/V tiles, each split into 64-column
-// blocks of 128-byte rows as the swizzled TMA boxes land; 1024-aligned.
-template <int D>
+// Q (the block's NC * 64 rows) and a ring of `stages` K/V tiles of BN
+// keys, each split into 64-column blocks of 128-byte rows as the swizzled
+// TMA boxes land (every part a multiple of 1024 bytes from a 1024-aligned
+// base), then the barriers.
+template <int D, int NC, int BN>
 struct Smem {
+  static constexpr int kBM = NC * kRows;
   static constexpr int kQBytes = kBM * D * 2;
-  static constexpr int kKVBytes = kBN * D * 2;
-  alignas(1024) __nv_bfloat16 q[kBM * D];
-  alignas(1024) __nv_bfloat16 k[kStages][kBN * D];
-  alignas(1024) __nv_bfloat16 v[kStages][kBN * D];
-  uint64_t q_full;
-  uint64_t k_full[kStages];
-  uint64_t v_full[kStages];
-  uint64_t k_empty[kStages];       // K is released after Q.K^T, V after P.V
-  uint64_t v_empty[kStages];
+  static constexpr int kKVBytes = BN * D * 2;
+  __nv_bfloat16* q;
+  __nv_bfloat16* k0;
+  __nv_bfloat16* v0;
+  uint64_t* q_full;
+  uint64_t* k_full;
+  uint64_t* v_full;
+  uint64_t* k_empty;               // K is released after Q.K^T, V after P.V
+  uint64_t* v_empty;
+  __host__ __device__ static int bytes(int stages) {
+    return kQBytes + 2 * stages * kKVBytes + 8 * (1 + 4 * stages);
+  }
+  __device__ Smem(unsigned char* base, int stages) {
+    q = reinterpret_cast<__nv_bfloat16*>(base);
+    k0 = reinterpret_cast<__nv_bfloat16*>(base + kQBytes);
+    v0 = reinterpret_cast<__nv_bfloat16*>(base + kQBytes + stages * kKVBytes);
+    q_full = reinterpret_cast<uint64_t*>(base + kQBytes
+                                         + 2 * stages * kKVBytes);
+    k_full = q_full + 1;
+    v_full = k_full + stages;
+    k_empty = v_full + stages;
+    v_empty = k_empty + stages;
+  }
+  __device__ __nv_bfloat16* k(int st) const { return k0 + st * BN * D; }
+  __device__ __nv_bfloat16* v(int st) const { return v0 + st * BN * D; }
 };
 
 __device__ __forceinline__ bool visible(const Params& p, int row, int key) {
@@ -101,39 +129,45 @@ __device__ __forceinline__ bool visible(const Params& p, int row, int key) {
 }
 
 // whether any (row, key) of a warpgroup's 64 rows x this tile is masked
+template <int BN>
 __device__ __forceinline__ bool tile_needs_mask(const Params& p, int rq0,
                                                 int k0) {
-  return k0 + kBN > p.Sk || (p.causal && k0 + kBN - 1 > rq0) ||
+  return k0 + BN > p.Sk || (p.causal && k0 + BN - 1 > rq0) ||
          (p.window > 0 && k0 <= rq0 + kRows - 1 - p.window);
 }
 
 // S = Q . K^T for one warpgroup's 64 rows against the tile in `stage`
-template <int D>
-__device__ __forceinline__ void issue_qk(float (&s)[kBN / 2],
-                                         const Smem<D>& sm, int wg,
+template <int D, int NC, int BN>
+__device__ __forceinline__ void issue_qk(float (&s)[BN / 2],
+                                         const Smem<D, NC, BN>& sm, int wg,
                                          int stage) {
+  constexpr int kBM = NC * kRows;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint64_t da = desc_sw128(
         &sm.q[(kk / 4) * kBM * 64 + wg * kRows * 64 + (kk % 4) * 16],
         16, 1024);
     const uint64_t db = desc_sw128(
-        &sm.k[stage][(kk / 4) * kBN * 64 + (kk % 4) * 16], 16, 1024);
-    wgmma_m64n128k16_ss(s, da, db, kk > 0);
+        sm.k(stage) + (kk / 4) * BN * 64 + (kk % 4) * 16, 16, 1024);
+    if constexpr (BN == 128)
+      wgmma_m64n128k16_ss(s, da, db, kk > 0);
+    else
+      wgmma_m64n64k16_ss(s, da, db, kk > 0);
   }
 }
 
 // O += P . V, P in registers (bf16x2), V the tile in `stage`
-template <int D>
+template <int D, int NC, int BN>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         const uint32_t (&pk)[kBN / 4],
-                                         const Smem<D>& sm, int stage) {
+                                         const uint32_t (&pk)[BN / 4],
+                                         const Smem<D, NC, BN>& sm,
+                                         int stage) {
 #pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
+  for (int kk = 0; kk < BN / 16; ++kk) {
     const uint32_t a[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2],
                            pk[4 * kk + 3]};
     const uint64_t db =
-        desc_sw128(&sm.v[stage][kk * 16 * 64], kBN * 64 * 2, 1024);
+        desc_sw128(sm.v(stage) + kk * 16 * 64, BN * 64 * 2, 1024);
     if constexpr (D == 128)
       wgmma_m64n128k16_rs(o, a, db, 1);
     else
@@ -145,20 +179,20 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
 // rows row0 and row0 + 8, columns k0 + 8 j + col0 + {0, 1}): updates the
 // running max m and sum l, leaves the unnormalised exp in `s` and the
 // factor the accumulator must be rescaled by in `alpha`.
-template <bool kMask>
-__device__ __forceinline__ void softmax_tile(float (&s)[kBN / 2],
+template <bool kMask, int BN>
+__device__ __forceinline__ void softmax_tile(float (&s)[BN / 2],
                                              float (&m)[2], float (&l)[2],
                                              float (&alpha)[2],
                                              const Params& p, int row0,
                                              int k0, int col0) {
   if (p.softcap > 0.f) {
 #pragma unroll
-    for (int i = 0; i < kBN / 2; ++i)
+    for (int i = 0; i < BN / 2; ++i)
       s[i] = p.softcap * tanhf(s[i] * p.cap_in);
   }
   if constexpr (kMask) {
 #pragma unroll
-    for (int i = 0; i < kBN / 2; ++i) {
+    for (int i = 0; i < BN / 2; ++i) {
       const int row = row0 + 8 * ((i / 2) % 2);
       const int key = k0 + 8 * (i / 4) + col0 + i % 2;
       if (!visible(p, row, key)) s[i] = kNegInf;
@@ -166,7 +200,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kBN / 2],
   }
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int i = 0; i < kBN / 2; ++i) {
+  for (int i = 0; i < BN / 2; ++i) {
     const int r = (i / 2) % 2;
     mx[r] = fmaxf(mx[r], s[i]);
   }
@@ -180,7 +214,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kBN / 2],
     neg[r] = -mx[r] * p.fac;
   }
 #pragma unroll
-  for (int i = 0; i < kBN / 2; ++i) {
+  for (int i = 0; i < BN / 2; ++i) {
     const int r = (i / 2) % 2;
     float x = exp2_approx(fmaf(s[i], p.fac, neg[r]));
     if constexpr (kMask) {
@@ -194,10 +228,11 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kBN / 2],
   for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
 }
 
-__device__ __forceinline__ void pack_p(const float (&s)[kBN / 2],
-                                       uint32_t (&pk)[kBN / 4]) {
+template <int BN>
+__device__ __forceinline__ void pack_p(const float (&s)[BN / 2],
+                                       uint32_t (&pk)[BN / 4]) {
 #pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
+  for (int j = 0; j < BN / 8; ++j) {
     pk[2 * j] = pack_bf16x2(s[4 * j], s[4 * j + 1]);
     pk[2 * j + 1] = pack_bf16x2(s[4 * j + 2], s[4 * j + 3]);
   }
@@ -210,21 +245,23 @@ __device__ __forceinline__ void rescale(float (&o)[D / 2],
   for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
 }
 
-__device__ __forceinline__ void softmax_any(float (&s)[kBN / 2],
+template <int BN>
+__device__ __forceinline__ void softmax_any(float (&s)[BN / 2],
                                             float (&m)[2], float (&l)[2],
                                             float (&alpha)[2],
                                             const Params& p, int rq0,
                                             int row0, int k0, int col0) {
-  if (tile_needs_mask(p, rq0, k0))
-    softmax_tile<true>(s, m, l, alpha, p, row0, k0, col0);
+  if (tile_needs_mask<BN>(p, rq0, k0))
+    softmax_tile<true, BN>(s, m, l, alpha, p, row0, k0, col0);
   else
-    softmax_tile<false>(s, m, l, alpha, p, row0, k0, col0);
+    softmax_tile<false, BN>(s, m, l, alpha, p, row0, k0, col0);
 }
 
-template <int D>
-__device__ __forceinline__ void consume(Smem<D>& sm, const Params& p,
-                                        int b, int h, int q0, int t_begin,
-                                        int n_tiles) {
+template <int D, int NC, int BN>
+__device__ __forceinline__ void consume(const Smem<D, NC, BN>& sm,
+                                        const Params& p, int b, int h,
+                                        int q0, int t_begin, int n_tiles,
+                                        int stages) {
   const int wg = threadIdx.x / 128;
   const int t = threadIdx.x % 128;
   const int lane = t % 32;
@@ -232,25 +269,29 @@ __device__ __forceinline__ void consume(Smem<D>& sm, const Params& p,
   const int row0 = rq0 + (t / 32) * 16 + lane / 4;
   const int col0 = 2 * (lane % 4);
 
-  float o[D / 2], s[kBN / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[D / 2], s[BN / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float alpha[2];
-  uint32_t pk[kBN / 4];
+  uint32_t pk[BN / 4];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
+  for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
 
-  mbar_wait(&sm.q_full, 0);
+  mbar_wait(sm.q_full, 0);
   if (n_tiles > 0) {
-    // ping-pong: the two warpgroups take turns to issue their products
+    // ping-pong (two warpgroups): they take turns to issue their products
     // (named barriers 1 and 2), so one's softmax runs under the other's
     // products; warpgroup 0 goes first, warpgroup 1 does not hand the
-    // turn back after its last issue
-    const auto take_turn = [&]() { bar_sync(1 + wg, 2 * 128); };
-    const auto pass_turn = [&](bool last) {
-      if (!(last && wg == 1)) bar_arrive(2 - wg, 2 * 128);
+    // turn back after its last issue.  One warpgroup issues at will.
+    const auto take_turn = [&]() {
+      if constexpr (NC == 2) bar_sync(1 + wg, 2 * 128);
     };
-    if (wg == 1) bar_arrive(1, 2 * 128);
+    const auto pass_turn = [&](bool last) {
+      if constexpr (NC == 2)
+        if (!(last && wg == 1)) bar_arrive(2 - wg, 2 * 128);
+    };
+    if constexpr (NC == 2)
+      if (wg == 1) bar_arrive(1, 2 * 128);
     mbar_wait(&sm.k_full[0], 0);
     take_turn();
     wgmma_fence();
@@ -260,12 +301,12 @@ __device__ __forceinline__ void consume(Smem<D>& sm, const Params& p,
     wgmma_wait<0>();
     fence_operands(s);
     mbar_arrive(&sm.k_empty[0]);
-    softmax_any(s, m, l, alpha, p, rq0, row0, t_begin * kBN, col0);
-    pack_p(s, pk);
+    softmax_any<BN>(s, m, l, alpha, p, rq0, row0, t_begin * BN, col0);
+    pack_p<BN>(s, pk);
     for (int i = 1; i < n_tiles; ++i) {
-      const int st = i % kStages, ph = (i / kStages) & 1;
-      const int sp = (i - 1) % kStages, pph = ((i - 1) / kStages) & 1;
-      const int k0 = (t_begin + i) * kBN;
+      const int st = i % stages, ph = (i / stages) & 1;
+      const int sp = (i - 1) % stages, pph = ((i - 1) / stages) & 1;
+      const int k0 = (t_begin + i) * BN;
       mbar_wait(&sm.k_full[st], ph);
       mbar_wait(&sm.v_full[sp], pph);
       take_turn();
@@ -278,16 +319,16 @@ __device__ __forceinline__ void consume(Smem<D>& sm, const Params& p,
       wgmma_wait<1>();                     // S_i is in
       fence_operands(s);
       mbar_arrive(&sm.k_empty[st]);
-      softmax_any(s, m, l, alpha, p, rq0, row0, k0, col0);
+      softmax_any<BN>(s, m, l, alpha, p, rq0, row0, k0, col0);
       wgmma_wait<0>();                     // O and P_{i-1} are free
       fence_operands(o);
       fence_operands(pk);
       mbar_arrive(&sm.v_empty[sp]);
       rescale<D>(o, alpha);
-      pack_p(s, pk);
+      pack_p<BN>(s, pk);
     }
-    const int sl = (n_tiles - 1) % kStages;
-    mbar_wait(&sm.v_full[sl], ((n_tiles - 1) / kStages) & 1);
+    const int sl = (n_tiles - 1) % stages;
+    mbar_wait(&sm.v_full[sl], ((n_tiles - 1) / stages) & 1);
     take_turn();
     wgmma_fence();
     issue_pv(o, pk, sm, sl);
@@ -320,16 +361,22 @@ __device__ __forceinline__ void consume(Smem<D>& sm, const Params& p,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__((kNC + 1) * 128, 1)
+// compiled for three warpgroups' registers (168 a thread), which
+// setmaxnreg moves from the producer to the consumers at run time, also
+// when one consumer warpgroup runs
+template <int D, int NC, int BN, int kST>
+__global__ void __launch_bounds__(3 * 128, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
-                   const Params p) {
-  using S = Smem<D>;
+                   const Params p, const int stages_arg) {
+  // kST > 0: the ring depth is a compile-time constant
+  const int stages = kST > 0 ? kST : stages_arg;
+  using S = Smem<D, NC, BN>;
+  constexpr int kNC = NC, kBN = BN, kBM = S::kBM;
   extern __shared__ unsigned char smem_raw[];
-  S& sm = *reinterpret_cast<S*>(
-      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  const S sm(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023),
+             stages);
 
   const int bh = blockIdx.x;
   const int b = bh / p.H;
@@ -345,9 +392,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int n_tiles = max(0, (kv_end + kBN - 1) / kBN - t_begin);
 
   if (threadIdx.x == 0) {
-    mbar_init(&sm.q_full, 1);
-#pragma unroll
-    for (int s = 0; s < kStages; ++s) {
+    mbar_init(sm.q_full, 1);
+    for (int s = 0; s < stages; ++s) {
       mbar_init(&sm.k_full[s], 1);
       mbar_init(&sm.v_full[s], 1);
       mbar_init(&sm.k_empty[s], kNC * 128);
@@ -360,48 +406,68 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (threadIdx.x >= kNC * 128) {        // the producer warpgroup
     regs_dealloc<40>();
     if (threadIdx.x == kNC * 128) {
-      mbar_expect_tx(&sm.q_full, S::kQBytes);
+      mbar_expect_tx(sm.q_full, S::kQBytes);
 #pragma unroll
       for (int c = 0; c < D / 64; ++c)
-        tma_load_4d(&sm.q[c * kBM * 64], &tm_q, &sm.q_full, 64 * c,
+        tma_load_4d(&sm.q[c * kBM * 64], &tm_q, sm.q_full, 64 * c,
                     q0, h, b);
       for (int i = 0; i < n_tiles; ++i) {
-        const int st = i % kStages, par = ((i / kStages) & 1) ^ 1;
+        const int st = i % stages, par = ((i / stages) & 1) ^ 1;
         const int k0 = (t_begin + i) * kBN;
         mbar_wait(&sm.k_empty[st], par);
         mbar_expect_tx(&sm.k_full[st], S::kKVBytes);
 #pragma unroll
         for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(&sm.k[st][c * kBN * 64], &tm_k, &sm.k_full[st],
+          tma_load_4d(sm.k(st) + c * kBN * 64, &tm_k, &sm.k_full[st],
                       64 * c, k0, kh, b);
         mbar_wait(&sm.v_empty[st], par);
         mbar_expect_tx(&sm.v_full[st], S::kKVBytes);
 #pragma unroll
         for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(&sm.v[st][c * kBN * 64], &tm_v, &sm.v_full[st],
+          tma_load_4d(sm.v(st) + c * kBN * 64, &tm_v, &sm.v_full[st],
                       64 * c, k0, kh, b);
       }
     }
   } else {                               // the consumer warpgroups
     regs_alloc<232>();
-    consume<D>(sm, p, b, h, q0, t_begin, n_tiles);
+    consume<D, NC, BN>(sm, p, b, h, q0, t_begin, n_tiles, stages);
   }
 }
 
 // ---- host side ----------------------------------------------------------
 
-template <int D>
+template <int D, int NC, int BN>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, const Params& p, int B,
-                   cudaStream_t stream) {
-  constexpr int bytes = sizeof(Smem<D>) + 1024;   // + alignment slack
-  auto kernel = flash_wgmma_kernel<D>;
+                   int stages, cudaStream_t stream) {
+  using S = Smem<D, NC, BN>;
+  const int bytes = S::bytes(stages) + 1024;      // + alignment slack
+  if (stages < 1 || stages > kMaxStages || bytes > kSmemLimit)
+    return cudaErrorInvalidValue;
+  auto kernel = stages == 2 ? flash_wgmma_kernel<D, NC, BN, 2>
+                            : flash_wgmma_kernel<D, NC, BN, 0>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * p.H, (p.Sq + kBM - 1) / kBM);
-  kernel<<<grid, (kNC + 1) * 128, bytes, stream>>>(tq, tk, tv, p);
+  const dim3 grid(B * p.H, (p.Sq + S::kBM - 1) / S::kBM);
+  kernel<<<grid, (NC + 1) * 128, bytes, stream>>>(tq, tk, tv, p, stages);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_tile(const CUtensorMap& tq, const CUtensorMap& tk,
+                        const CUtensorMap& tv, const Params& p, int B,
+                        int block_q, int block_k, int stages,
+                        cudaStream_t stream) {
+  if (block_q == 128 && block_k == 128)
+    return launch<D, 2, 128>(tq, tk, tv, p, B, stages, stream);
+  if (block_q == 128 && block_k == 64)
+    return launch<D, 2, 64>(tq, tk, tv, p, B, stages, stream);
+  if (block_q == 64 && block_k == 128)
+    return launch<D, 1, 128>(tq, tk, tv, p, B, stages, stream);
+  if (block_q == 64 && block_k == 64)
+    return launch<D, 1, 64>(tq, tk, tv, p, B, stages, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -410,23 +476,28 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
 // with element strides {q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b,
 // o_s, o_h} in `strides` (host memory) and unit stride along D; q, k, v
 // 16-byte aligned with strides a multiple of 8 elements (TMA).  D is 64 or
-// 128.  window <= 0 and softcap <= 0 mean none.  Launches on `stream`; returns 0, a cudaError_t, or
-// -CUresult when a tensor map cannot be encoded (-1000: the driver has no
-// cuTensorMapEncodeTiled).
+// 128.  window <= 0 and softcap <= 0 mean none.  The tile: block_q (64
+// or 128) q rows, block_k (64 or 128) keys, a ring of `stages` (1 to 4,
+// within 227 KB) K/V tiles; 128, 128, 2 by default.  Launches on `stream`;
+// returns 0, a cudaError_t (cudaErrorInvalidValue for a tile outside that
+// set), or -CUresult when a tensor map cannot be encoded (-1000: the
+// CUDA driver has no cuTensorMapEncodeTiled).
 extern "C" int flash_attention_wgmma_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int Kh, int Sq, int Sk, int D, const long long* strides, int causal,
-    int window, float softcap, float scale, cudaStream_t stream) {
-  if (D != 64 && D != 128)
+    int window, float softcap, float scale, int block_q, int block_k,
+    int stages, cudaStream_t stream) {
+  if ((D != 64 && D != 128) || (block_q != 64 && block_q != 128) ||
+      (block_k != 64 && block_k != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -1000;
   CUtensorMap tq, tk, tv;
-  CUresult r = encode_bshd(fn, &tq, q, B, Sq, H, D, strides, kBM);
+  CUresult r = encode_bshd(fn, &tq, q, B, Sq, H, D, strides, block_q);
   if (r == CUDA_SUCCESS)
-    r = encode_bshd(fn, &tk, k, B, Sk, Kh, D, strides + 3, kBN);
+    r = encode_bshd(fn, &tk, k, B, Sk, Kh, D, strides + 3, block_k);
   if (r == CUDA_SUCCESS)
-    r = encode_bshd(fn, &tv, v, B, Sk, Kh, D, strides + 6, kBN);
+    r = encode_bshd(fn, &tv, v, B, Sk, Kh, D, strides + 6, block_k);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
 
   Params p;
@@ -445,8 +516,10 @@ extern "C" int flash_attention_wgmma_launch(
   p.fac = softcap > 0.f ? kLog2e : scale * kLog2e;
   cudaError_t err;
   if (D == 128)
-    err = launch<128>(tq, tk, tv, p, B, stream);
+    err = launch_tile<128>(tq, tk, tv, p, B, block_q, block_k, stages,
+                           stream);
   else
-    err = launch<64>(tq, tk, tv, p, B, stream);
+    err = launch_tile<64>(tq, tk, tv, p, B, block_q, block_k, stages,
+                          stream);
   return static_cast<int>(err);
 }

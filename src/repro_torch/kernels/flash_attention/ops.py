@@ -21,6 +21,19 @@ tensors it launches the kernel on the current stream or raises
 A failed build or launch raises; nothing retries on the other route.
 Both kernels read the inputs in place through their strides and mask
 their ragged edges, so no padded or transposed copy is made.
+
+The tile knobs (``block_q``, ``block_k``, ``num_warps``, ``pipeline``, the
+reference's) pick one of the route's instantiations on CUDA tensors
+(:func:`resolve_tiles`; the sets are :func:`supported_tiles`) or raise
+``ValueError`` naming the set; all ``None`` is the route's default
+launch.  As in the reference, ``block_q``/``block_k`` are first clamped
+to the sequence (to its power-of-two ceiling, no lower than the route's
+smallest tile).  A knob without a counterpart in a route's design takes
+only the value that design implies (``num_warps`` 4 on the wgmma route,
+the warps of a warpgroup; ``pipeline`` 1 on the FMA route, which stages
+one KV tile at a time).  On CPU tensors the plain version has no tiles
+and takes any positive knob.  :func:`autotune_space` and
+:func:`autotune_bench` are the reference's autotune hooks.
 ``launches`` counts kernel launches, ``launches_wgmma`` and
 ``launches_fma`` those of each route.
 
@@ -31,6 +44,7 @@ first use (``kernels/build.py``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from pathlib import Path
@@ -38,6 +52,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import check_positive
 from repro_torch.kernels.build import NvccLibrary
 from repro_torch.kernels.flash_attention.ref import reference_attention
 from repro_torch.kernels.tma import check_tma, tma_strides
@@ -50,16 +65,28 @@ _LIBS = {
         "flash_attention_wgmma_launch": [ctypes.c_void_p] * 4
         + [ctypes.c_int] * 6
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-           ctypes.c_float, ctypes.c_void_p]}),
+           ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]}),
     "fma": NvccLibrary("flash_attention", FMA_SOURCE, {
         "flash_attention_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-           ctypes.c_float, ctypes.c_void_p]}),
+           ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]}),
 }
 HEAD_DIMS = (16, 32, 64, 128, 256)          # compiled into the FMA kernel
 WGMMA_HEAD_DIMS = (64, 128)                 # compiled into the wgmma kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
+_SMEM_LIMIT = 232448            # a block's shared memory on sm_90
+
+# (block_q, block_k, num_warps, pipeline) of each route's default launch
+DEFAULT_TILES = {"wgmma": (128, 128, 4, 2), "fma": (64, 64, 8, 1)}
+# the FMA kernel's tiles (block_q, block_k, num_warps) beyond its default,
+# compiled for float32 at these head dims (csrc/flash_attention.cu)
+FMA_TILES = ((16, 32, 2), (16, 64, 2), (32, 32, 4), (32, 64, 4),
+             (32, 32, 8), (32, 64, 8), (64, 32, 4), (64, 64, 4),
+             (64, 32, 8), (128, 32, 8), (128, 64, 8))
+FMA_TILE_DIMS = (64, 128)
+WGMMA_BLOCKS = (64, 128)        # block_q (64 rows a warpgroup), block_k
+WGMMA_STAGES = (1, 2, 3, 4)
 
 launches = 0
 launches_wgmma = 0
@@ -92,6 +119,69 @@ def plain_version(q, k, v, *, causal: bool = True,
                                p_dtype=torch.bfloat16 if wgmma else None)
 
 
+def _wgmma_smem(D: int, bq: int, bk: int, stages: int) -> int:
+    """Shared memory of a wgmma launch: Q, the K/V ring, the barriers and
+    the alignment slack (csrc/flash_attention_wgmma.cu's Smem)."""
+    return bq * D * 2 + 2 * stages * bk * D * 2 + 8 * (1 + 4 * stages) + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def supported_tiles(route: str, dtype: torch.dtype = torch.float32,
+                    head_dim: int = 64) -> tuple:
+    """Every (block_q, block_k, num_warps, pipeline) the card's kernel of
+    ``route`` has for this dtype and head dim, the default first.  A pure
+    function: no device is touched."""
+    if route == "wgmma":
+        out = [DEFAULT_TILES["wgmma"]]
+        out += [(bq, bk, 4, st) for bq in WGMMA_BLOCKS
+                for bk in WGMMA_BLOCKS for st in WGMMA_STAGES
+                if _wgmma_smem(head_dim, bq, bk, st) <= _SMEM_LIMIT
+                and (bq, bk, 4, st) != DEFAULT_TILES["wgmma"]]
+        return tuple(out)
+    if route != "fma":
+        raise ValueError(f"unknown route {route!r}")
+    out = [DEFAULT_TILES["fma"]]
+    if dtype == torch.float32 and head_dim in FMA_TILE_DIMS:
+        out += [(bq, bk, nw, 1) for bq, bk, nw in FMA_TILES]
+    return tuple(out)
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
+
+
+
+@functools.lru_cache(maxsize=4096)
+def resolve_tiles(route: str, dtype: torch.dtype, head_dim: int, sq: int,
+                  sk: int, block_q=None, block_k=None, num_warps=None,
+                  pipeline=None) -> tuple:
+    """The (block_q, block_k, num_warps, pipeline) a CUDA call of
+    ``route`` launches.  All ``None``: the route's default launch.
+    Otherwise a knob left ``None`` takes the default's value,
+    ``block_q``/``block_k`` are clamped to the sequence (its power-of-two
+    ceiling, no lower than the route's smallest tile; the reference
+    clamps to the sequence rounded up to 8) and the result must be one of
+    :func:`supported_tiles`, else ``ValueError`` names the set."""
+    check_positive("flash_attention", block_q=block_q, block_k=block_k,
+                   num_warps=num_warps, pipeline=pipeline)
+    default = DEFAULT_TILES[route]
+    knobs = (block_q, block_k, num_warps, pipeline)
+    if all(k is None for k in knobs):
+        return default
+    bq, bk, nw, st = (d if k is None else int(k)
+                      for k, d in zip(knobs, default))
+    tiles = supported_tiles(route, dtype, head_dim)
+    bq = min(bq, max(_pow2_ceil(sq), min(t[0] for t in tiles)))
+    bk = min(bk, max(_pow2_ceil(sk), min(t[1] for t in tiles)))
+    if (bq, bk, nw, st) not in tiles:
+        raise ValueError(
+            f"flash_attention ({route}, {str(dtype).split('.')[-1]}, D "
+            f"{head_dim}): no instantiation for block_q={bq}, block_k={bk},"
+            f" num_warps={nw}, pipeline={st}; (block_q, block_k, num_warps,"
+            f" pipeline) in {tiles}")
+    return bq, bk, nw, st
+
+
 def build(verbose: bool = False, which: Optional[str] = None):
     """Compile the kernel libraries (``which``: one route's only) if these
     sources have not been built yet; returns the paths (``verbose``
@@ -106,7 +196,7 @@ def load() -> None:
         lib.load()
 
 
-def _check(q, k, v, window, softcap, block_q, block_k):
+def _check(q, k, v, window, softcap):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor, got {type(t)}")
@@ -138,33 +228,36 @@ def _check(q, k, v, window, softcap, block_q, block_k):
                          f"got {window}")
     if softcap is not None and not float(softcap) > 0:
         raise ValueError(f"softcap must be positive or None, got {softcap}")
-    if int(block_q) < 1 or int(block_k) < 1:
-        raise ValueError(f"block sizes must be positive, got "
-                         f"{block_q}, {block_k}")
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None,
-                    block_q: int = 512, block_k: int = 512):
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None,
+                    num_warps: Optional[int] = None,
+                    pipeline: Optional[int] = None):
     """q [B,Sq,H,D], k/v [B,Sk,Kh,D] -> [B,Sq,H,D] (q.dtype).
 
-    ``block_q``/``block_k`` are the TPU kernel's tile knobs
-    (``flash_block_q``/``flash_block_k``).  They are checked and then
-    ignored: the CUDA kernels run their own fixed tiles, and the plain
-    version has no tiles, so the output does not depend on them.  The
-    GPU's own tile knobs come with autotune.
+    ``block_q``/``block_k``/``num_warps``/``pipeline``: the tile of a
+    CUDA launch (module docstring); ``None`` each, the route's default.
+    The plain version of a CPU call has no tiles.
     """
-    _check(q, k, v, window, softcap, block_q, block_k)
+    _check(q, k, v, window, softcap)
     if q.device.type == "cpu":
+        check_positive("flash_attention", block_q=block_q, block_k=block_k,
+                       num_warps=num_warps, pipeline=pipeline)
         return plain_version(q, k, v, causal=causal, window=window,
                              softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, "
                          f"not {q.device}")
-    if route(q.dtype, q.shape[3]) == "wgmma":
-        return _wgmma(q, k, v, causal, window, softcap)
-    return _fma(q, k, v, causal, window, softcap)
+    which = route(q.dtype, q.shape[3])
+    tiles = resolve_tiles(which, q.dtype, q.shape[3], q.shape[1],
+                          k.shape[1], block_q, block_k, num_warps, pipeline)
+    if which == "wgmma":
+        return _wgmma(q, k, v, causal, window, softcap, tiles)
+    return _fma(q, k, v, causal, window, softcap, tiles)
 
 
 def _count(which: str) -> None:
@@ -177,11 +270,13 @@ def _count(which: str) -> None:
             launches_fma += 1
 
 
-def _wgmma(q, k, v, causal, window, softcap):
+def _wgmma(q, k, v, causal, window, softcap,
+           tiles=DEFAULT_TILES["wgmma"]):
     B, Sq, H, D = q.shape
     Sk, Kh = k.shape[1], k.shape[2]
+    bq, bk, _, stages = tiles
     check_tma(q, k, v)
-    if -(-Sq // 128) > _MAX_GRID_Y:          # 128 q rows per block
+    if -(-Sq // bq) > _MAX_GRID_Y:           # bq q rows per block
         raise ValueError(f"Sq = {Sq} exceeds the kernel's grid")
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
@@ -199,7 +294,7 @@ def _wgmma(q, k, v, causal, window, softcap):
             B, H, Kh, Sq, Sk, D, strides, int(causal),
             0 if window is None else int(window),
             0.0 if softcap is None else float(softcap),
-            1.0 / math.sqrt(D), stream)
+            1.0 / math.sqrt(D), bq, bk, stages, stream)
     if err < 0:
         raise RuntimeError(f"flash_attention (wgmma): TMA tensor map "
                            f"encoding failed (CUresult {-err})")
@@ -210,8 +305,9 @@ def _wgmma(q, k, v, causal, window, softcap):
     return out
 
 
-def _fma(q, k, v, causal, window, softcap):
+def _fma(q, k, v, causal, window, softcap, tiles=DEFAULT_TILES["fma"]):
     B, Sq, H, D = q.shape
+    bq, bk, nw, _ = tiles
     Sk, Kh = k.shape[1], k.shape[2]
     if B * H > _MAX_GRID_Y:
         raise ValueError(f"B*H = {B * H} exceeds the kernel's grid "
@@ -230,9 +326,68 @@ def _fma(q, k, v, causal, window, softcap):
             _DTYPES[q.dtype], B, H, Kh, Sq, Sk, D, strides, int(causal),
             0 if window is None else int(window),
             0.0 if softcap is None else float(softcap),
-            1.0 / math.sqrt(D), stream)
+            1.0 / math.sqrt(D), bq, bk, nw, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention (fma) kernel launch failed: "
                            f"CUDA error {err}")
     _count("fma")
     return out
+
+
+# ---------------------------------------------------------------------------
+# autotune hooks (repro_torch.kernels.autotune)
+# ---------------------------------------------------------------------------
+
+def autotune_space():
+    """Tunable tiling/scheduling space of the flash forward (the
+    reference's: knobs, ladders, ``inert`` flags, the tile budget).  On
+    the card ``num_warps`` and ``pipeline`` are live where the route has
+    a counterpart; points outside the route's set are refused."""
+    from repro_torch.core.space import Knob, ProductLeq, Space, pow2_knob
+    return Space(
+        knobs=(
+            pow2_knob("block_q", 512, 16, 1024,
+                      description="query tile rows"),
+            pow2_knob("block_k", 512, 16, 1024,
+                      description="kv tile rows"),
+            pow2_knob("num_warps", 4, 1, 8, inert=True,
+                      description="GPU warps per block (inert off-GPU)"),
+            Knob("pipeline", "int", 2, lo=1, hi=4, inert=True,
+                 description="GPU pipeline stages (inert off-GPU)"),
+        ),
+        # the reference's [bq, bk] score tile budget
+        constraints=(ProductLeq(("block_q", "block_k"), limit=512 * 512),),
+    )
+
+
+def autotune_native(D: int = 64, dtype=torch.float32, **shape) -> dict:
+    """The default launch's tiles of the route a bench of this dtype and
+    head dim takes, as a point of :func:`autotune_space`."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    return dict(zip(("block_q", "block_k", "num_warps", "pipeline"),
+                    DEFAULT_TILES[route(dtype, D)]))
+
+
+def autotune_bench(B: int = 1, S: int = 192, H: int = 4, Kh: int = 2,
+                   D: int = 64, causal: bool = True, seed: int = 0,
+                   dtype=torch.float32, device: str = "cuda"):
+    """``build(cfg) -> run()`` factory for ``KernelEvaluator`` (the
+    reference's bench; ``dtype`` bfloat16 reaches the wgmma route at D 64
+    and 128).  Inputs from ``seed``, made on ``device``."""
+    from repro_torch.device import resolve_device
+    dev = resolve_device(device)
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype)
+               for shape in ((B, S, H, D), (B, S, Kh, D), (B, S, Kh, D)))
+
+    def build(cfg):                      # cfg None: the default launch
+        kw = {} if cfg is None else dict(
+            block_q=int(cfg["block_q"]), block_k=int(cfg["block_k"]),
+            num_warps=int(cfg.get("num_warps", 0)) or None,
+            pipeline=int(cfg.get("pipeline", 0)) or None)
+
+        def run():
+            return flash_attention(q, k, v, causal=causal, **kw)
+        return run
+    return build

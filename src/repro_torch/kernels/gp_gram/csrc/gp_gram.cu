@@ -30,116 +30,282 @@
 //     wrapper padded rows to +-1e4; here the ragged edge is masked in-kernel);
 //   * ls and sv are read from device memory, so the caller never syncs the
 //     host to pass them;
-//   * a 32 x 32 output tile per block of 256 threads (4 outputs a thread):
-//     the [2384, 64] cross-Gram gives 150 blocks, about one per SM;
-//   * writes are coalesced (a warp stores 32 neighbouring columns of a row);
+//   * by default a 32 x 32 output tile per block of 256 threads (4 outputs
+//     a thread): the [2384, 64] cross-Gram gives 150 blocks, about one per
+//     SM;
+//   * writes are coalesced (a warp stores up to 32 neighbouring columns of
+//     a row);
 //   * plain fp32 FMAs, no tensor cores: at d <= 32 the work is tiny, and
 //     TF32 would not hold the |a|^2+|b|^2-2a.b cancellation near the
 //     diagonal to 2e-4.
-// Any d is accepted: the block walks d in chunks of 32 staged in shared memory.
+// Any d is accepted: the block walks d in chunks of 32 staged in shared
+// memory.
 //
-// The backward of the Gram (matern52_gram_bwd_launch, below the forward)
-// gives the GP's marginal-likelihood gradient in (ls, sv), so the fit's Adam
-// loop runs on these kernels. The Pallas kernel defines no VJP, and the
-// reference differentiates its jnp Matérn instead.
+// The tile knobs (the reference's block, block_m, num_warps, pipeline) pick
+// one of the instantiations below and its ring depth: a BN x BM output tile
+// (BN, BM in {32, 64, 128}) per block of 32 NW threads (NW in {1, 2, 4, 8});
+// each thread owns rows ty + kTY i and columns tx + kTX j of a pass of kPR
+// rows, at most kMaxOutputs outputs a pass, and the block walks the tile's
+// rows in BN / kPR passes.  With one stage the block loads each d chunk,
+// scaled by 1/ls, then sums it (the default launch); with `stages` 2 to 4
+// the chunks of a pass stream through a ring of that many slots filled by
+// cp.async, so up to stages - 1 chunks load while one is summed, and once
+// a chunk has landed each thread scales the values it copied in place.  Every output's sums over d run in one fixed order (chunk by
+// chunk, feature by feature, one fmaf each, the inputs scaled with one
+// rounding), so every tiling gives the same bits as the default one.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 32;        // output rows and columns per block
-constexpr int kRowsPerThread = 4;
-constexpr int kThreadsY = kTile / kRowsPerThread;   // 8
 constexpr int kChunk = 32;       // d columns staged per pass
 constexpr int kExpandedMaxD = 64;   // widest d whose r^2 is expanded
+constexpr int kMaxOutputs = 16;  // outputs a thread sums at once
+constexpr int kMaxStages = 4;
+constexpr int kLoad = 0, kIssue = 1, kScale = 2;   // the staging modes
+constexpr int kSmemLimit = 232448;  // a block's shared-memory limit on sm_90
 
-template <bool kDirect>
-__global__ void __launch_bounds__(kTile * kThreadsY)
+__host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+template <int BN, int BM, int NW>
+struct FwdTile {
+  static constexpr int kThreads = 32 * NW;
+  static constexpr int kTX = cmin(BM, 32);        // threads along columns
+  static constexpr int kTY = kThreads / kTX;      // threads along rows
+  static constexpr int kCJ = BM / kTX;            // columns a thread owns
+  static constexpr int kRT = BN / kTY;            // rows a thread owns
+  static constexpr int kRP = cmin(kRT, cmax(1, kMaxOutputs / kCJ));
+  static constexpr int kPR = kRP * kTY;           // rows of one pass
+  static constexpr int kPasses = BN / kPR;
+  // one ring slot: the pass's rows of xa, the tile's rows of xb (each
+  // padded by a column: conflict-free)
+  static constexpr int kSlotFloats = (kPR + BM) * (kChunk + 1);
+  static constexpr int kStageRows = cmax(kPR, BM);   // rows a pass stages
+  static_assert(kThreads % kTX == 0 && BM % kTX == 0, "columns");
+  static_assert(kTY <= BN && BN % kTY == 0 && kRT % kRP == 0, "rows");
+};
+
+__device__ __forceinline__ void cp_async_4(float* dst, const float* src,
+                                           bool ok) {
+  // zero-fills the word when !ok (src-size 0)
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most `pending` groups are in flight (0 .. kMaxStages - 1)
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+template <int BN, int BM, int NW, bool kDirect>
+__global__ void __launch_bounds__(32 * NW)
 matern52_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
                 const float* __restrict__ ls, const float* __restrict__ sv,
-                float* __restrict__ out, int n, int m, int d) {
-  // +1 column of padding: thread tx reads row tx of sb, conflict-free
-  __shared__ float sa[kTile][kChunk + 1];
-  __shared__ float sb[kTile][kChunk + 1];
+                float* __restrict__ out, int n, int m, int d, int stages) {
+  using F = FwdTile<BN, BM, NW>;
+  constexpr int kTX = F::kTX, kTY = F::kTY, kCJ = F::kCJ, kRP = F::kRP;
+  constexpr int kPR = F::kPR, kLd = kChunk + 1;
+  extern __shared__ float smem[];
 
-  const int tx = threadIdx.x;             // output column within the tile
-  const int ty = threadIdx.y;             // first output row within the tile
-  const int tid = ty * kTile + tx;
-  const int row0 = blockIdx.y * kTile;
-  const int col0 = blockIdx.x * kTile;
-
-  // a.b, or with kDirect the sum of squared differences
-  float dot[kRowsPerThread] = {0.f, 0.f, 0.f, 0.f};
-  float a2[kRowsPerThread] = {0.f, 0.f, 0.f, 0.f};
-  float b2 = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += kChunk) {
-    // stage both tiles, scaled by 1/ls; out-of-range entries are zero
-    for (int idx = tid; idx < kTile * kChunk; idx += kTile * kThreadsY) {
-      const int r = idx / kChunk;
-      const int c = idx % kChunk;
-      const int k = k0 + c;
-      float va = 0.f, vb = 0.f;
-      if (k < d) {
-        const float inv = 1.0f / ls[k];
-        if (row0 + r < n) va = xa[(size_t)(row0 + r) * d + k] * inv;
-        if (col0 + r < m) vb = xb[(size_t)(col0 + r) * d + k] * inv;
-      }
-      sa[r][c] = va;
-      sb[r][c] = vb;
-    }
-    __syncthreads();
-    const int kn = min(kChunk, d - k0);
-    for (int c = 0; c < kn; ++c) {
-      const float bv = sb[tx][c];
-      if (!kDirect) b2 = fmaf(bv, bv, b2);
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) {
-        const float av = sa[ty + i * kThreadsY][c];
-        if (kDirect) {
-          const float diff = av - bv;
-          dot[i] = fmaf(diff, diff, dot[i]);
-        } else {
-          dot[i] = fmaf(av, bv, dot[i]);
-          a2[i] = fmaf(av, av, a2[i]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const int col = col0 + tx;
-  if (col >= m) return;
+  const int tid = threadIdx.x;
+  const int tx = tid % kTX;               // first output column of the tile
+  const int ty = tid / kTX;               // first output row of a pass
+  const int col0 = blockIdx.x * BM;
+  const int nk = (d + kChunk - 1) / kChunk;
   const float s_var = *sv;
   const float sqrt5 = 2.2360679774997896f;
+
+  for (int pass = 0; pass < F::kPasses; ++pass) {
+    const int row0 = blockIdx.y * BN + pass * kPR;
+    // chunk kc's inputs into ring slot kc % stages, zeros outside: kLoad
+    // loads and scales them, kIssue issues this thread's cp.async copies,
+    // kScale scales what they copied once they have landed
+    const auto stage = [&](int kc, int mode) {
+      float* sa = smem + (kc % stages) * F::kSlotFloats;
+      float* sb = sa + kPR * kLd;
+      const int k0 = kc * kChunk;
+      // one element: dst from src (valid when ok), scaled by inv
+      const auto put = [&](float* dst, const float* src, bool ok,
+                           float inv) {
+        if (mode == kIssue)
+          cp_async_4(dst, ok ? src : xa, ok);
+        else if (mode == kScale)
+          *dst = ok ? *dst * inv : 0.f;
+        else
+          *dst = ok ? *src * inv : 0.f;
+      };
+      // row r of both operands' slices per index, as the default launch
+      // has always staged them (kPR = BM there)
+      for (int idx = tid; idx < F::kStageRows * kChunk;
+           idx += F::kThreads) {
+        const int r = idx / kChunk;
+        const int c = idx % kChunk;
+        const int k = k0 + c;
+        const float inv = (mode != kIssue && k < d) ? 1.0f / ls[k] : 0.f;
+        if (r < kPR)
+          put(sa + r * kLd + c, xa + (size_t)(row0 + r) * d + k,
+              k < d && row0 + r < n, inv);
+        if (r < BM)
+          put(sb + r * kLd + c, xb + (size_t)(col0 + r) * d + k,
+              k < d && col0 + r < m, inv);
+      }
+    };
+
+    // a.b, or with kDirect the sum of squared differences
+    float dot[kRP][kCJ], a2[kRP], b2[kCJ];
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int row = row0 + ty + i * kThreadsY;
-    if (row >= n) continue;
-    const float d2 =
-        kDirect ? dot[i] : fmaxf(a2[i] + b2 - 2.0f * dot[i], 0.0f);
-    const float r = d2 > 1e-12f ? sqrtf(d2) : 0.0f;
-    const float s = sqrt5 * r;
-    out[(size_t)row * m + col] = s_var * (1.0f + s + s * s / 3.0f) * expf(-s);
+    for (int i = 0; i < kRP; ++i) {
+      a2[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kCJ; ++j) dot[i][j] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kCJ; ++j) b2[j] = 0.f;
+
+    for (int kc = 0; kc < stages - 1; ++kc) {
+      if (kc < nk) stage(kc, kIssue);
+      cp_async_commit();
+    }
+    for (int kc = 0; kc < nk; ++kc) {
+      if (stages == 1) {
+        stage(kc, kLoad);
+      } else {
+        if (kc + stages - 1 < nk) stage(kc + stages - 1, kIssue);
+        cp_async_commit();
+        cp_async_wait(stages - 1);       // this thread's copies of chunk kc
+        stage(kc, kScale);
+      }
+      __syncthreads();
+      const float* sa = smem + (kc % stages) * F::kSlotFloats;
+      const float* sb = sa + kPR * kLd;
+      const int kn = min(kChunk, d - kc * kChunk);
+      for (int c = 0; c < kn; ++c) {
+        float bv[kCJ];
+#pragma unroll
+        for (int j = 0; j < kCJ; ++j) {
+          bv[j] = sb[(tx + j * kTX) * kLd + c];
+          if (!kDirect) b2[j] = fmaf(bv[j], bv[j], b2[j]);
+        }
+#pragma unroll
+        for (int i = 0; i < kRP; ++i) {
+          const float av = sa[(ty + i * kTY) * kLd + c];
+          if (!kDirect) a2[i] = fmaf(av, av, a2[i]);
+#pragma unroll
+          for (int j = 0; j < kCJ; ++j) {
+            if (kDirect) {
+              const float diff = av - bv[j];
+              dot[i][j] = fmaf(diff, diff, dot[i][j]);
+            } else {
+              dot[i][j] = fmaf(av, bv[j], dot[i][j]);
+            }
+          }
+        }
+      }
+      __syncthreads();                   // slot kc % stages is free
+    }
+
+#pragma unroll
+    for (int i = 0; i < kRP; ++i) {
+      const int row = row0 + ty + i * kTY;
+      if (row >= n) continue;
+#pragma unroll
+      for (int j = 0; j < kCJ; ++j) {
+        const int col = col0 + tx + j * kTX;
+        if (col >= m) continue;
+        const float d2 =
+            kDirect ? dot[i][j] : fmaxf(a2[i] + b2[j] - 2.0f * dot[i][j], 0.0f);
+        const float r = d2 > 1e-12f ? sqrtf(d2) : 0.0f;
+        const float s = sqrt5 * r;
+        out[(size_t)row * m + col] =
+            s_var * (1.0f + s + s * s / 3.0f) * expf(-s);
+      }
+    }
+  }
+}
+
+template <int BN, int BM, int NW>
+int fwd_launch(const float* xa, const float* xb, const float* ls,
+               const float* sv, float* out, int n, int m, int d, int stages,
+               cudaStream_t stream) {
+  using F = FwdTile<BN, BM, NW>;
+  const int smem = stages * F::kSlotFloats * (int)sizeof(float);
+  if (stages < 1 || stages > kMaxStages || smem > kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
+  const bool direct = d > kExpandedMaxD;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = direct
+        ? cudaFuncSetAttribute(matern52_kernel<BN, BM, NW, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem)
+        : cudaFuncSetAttribute(matern52_kernel<BN, BM, NW, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (direct)
+    matern52_kernel<BN, BM, NW, true><<<grid, F::kThreads, smem, stream>>>(
+        xa, xb, ls, sv, out, n, m, d, stages);
+  else
+    matern52_kernel<BN, BM, NW, false><<<grid, F::kThreads, smem, stream>>>(
+        xa, xb, ls, sv, out, n, m, d, stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN, int BM>
+int fwd_launch_nw(int nw, const float* xa, const float* xb, const float* ls,
+                  const float* sv, float* out, int n, int m, int d,
+                  int stages, cudaStream_t stream) {
+  switch (nw) {
+    case 1: return fwd_launch<BN, BM, 1>(xa, xb, ls, sv, out, n, m, d, stages, stream);
+    case 2: return fwd_launch<BN, BM, 2>(xa, xb, ls, sv, out, n, m, d, stages, stream);
+    case 4: return fwd_launch<BN, BM, 4>(xa, xb, ls, sv, out, n, m, d, stages, stream);
+    case 8: return fwd_launch<BN, BM, 8>(xa, xb, ls, sv, out, n, m, d, stages, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int BN>
+int fwd_launch_bm(int bm, int nw, const float* xa, const float* xb,
+                  const float* ls, const float* sv, float* out, int n, int m,
+                  int d, int stages, cudaStream_t stream) {
+  switch (bm) {
+    case 32: return fwd_launch_nw<BN, 32>(nw, xa, xb, ls, sv, out, n, m, d, stages, stream);
+    case 64: return fwd_launch_nw<BN, 64>(nw, xa, xb, ls, sv, out, n, m, d, stages, stream);
+    case 128: return fwd_launch_nw<BN, 128>(nw, xa, xb, ls, sv, out, n, m, d, stages, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
 // xa [n, d], xb [m, d], ls [d], sv [1], out [n, m]: float32, contiguous, on
-// the device. Launches on `stream` and returns cudaGetLastError().
+// the device.  The tile: block_n x block_m outputs (32, 64 or 128 each) per
+// block of 32 num_warps threads (1, 2, 4 or 8), d chunks through a ring of
+// `stages` slots (1 to 4); the default launch is 32, 32, 8, 1.  Launches on
+// `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for a tile
+// outside that set).
 extern "C" int matern52_launch(const float* xa, const float* xb,
                                const float* ls, const float* sv, float* out,
-                               int n, int m, int d, cudaStream_t stream) {
-  const dim3 block(kTile, kThreadsY);
-  const dim3 grid((m + kTile - 1) / kTile, (n + kTile - 1) / kTile);
-  if (d > kExpandedMaxD)
-    matern52_kernel<true><<<grid, block, 0, stream>>>(xa, xb, ls, sv, out,
-                                                      n, m, d);
-  else
-    matern52_kernel<false><<<grid, block, 0, stream>>>(xa, xb, ls, sv, out,
-                                                       n, m, d);
-  return static_cast<int>(cudaGetLastError());
+                               int n, int m, int d, int block_n, int block_m,
+                               int num_warps, int stages,
+                               cudaStream_t stream) {
+  switch (block_n) {
+    case 32: return fwd_launch_bm<32>(block_m, num_warps, xa, xb, ls, sv, out, n, m, d, stages, stream);
+    case 64: return fwd_launch_bm<64>(block_m, num_warps, xa, xb, ls, sv, out, n, m, d, stages, stream);
+    case 128: return fwd_launch_bm<128>(block_m, num_warps, xa, xb, ls, sv, out, n, m, d, stages, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -55,7 +55,15 @@
 //     Pallas kernel uses it; masked entries are selected to 0, never
 //     exp'd, so no inf - inf.
 // P in {16, 32, 64, 128, 256, 512, 1024}; float32 and bfloat16 q, k, v;
-// float32 gates.  q, k, v, h are read and written in place in the model's
+// float32 gates.
+//
+// The num_warps knob picks pass 2's instantiation: 32 num_warps threads
+// (4 or 8 warps; 8 by default), one per row of its row block (kRB = the
+// thread count), each owning an RPT x 4 register tile of the output.
+// Every output sums the same terms in the same order at either count (a
+// larger row block only adds exact zeros above the diagonal).  Pass 1 keeps
+// its 256 threads.  The tiles are staged one at a time (no ring): the
+// pipeline knob's only value here is 1.  q, k, v, h are read and written in place in the model's
 // [B, S, H, P] layout through the strides the wrapper passes.
 
 #include <cuda_bf16.h>
@@ -63,18 +71,17 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // pass 1
 constexpr float kNegInf = -1e30f;  // the Pallas kernel's NEG_INF
 
 // pass 1: q k^T tiles
 constexpr int kT1 = 64;            // rows and columns of a score tile
 constexpr int kK1 = 32;            // P step
 
-// pass 2: the sequential chunk walk
-constexpr int kRB = 256;           // rows (of the chunk, or of P) per register tile
+// pass 2: the sequential chunk walk, with kRB = its thread count rows (of
+// the chunk, or of P) per register tile
 constexpr int kKT = 32;            // reduction step staged in shared memory
 constexpr int kMaxSmem = 232448;   // a block's shared-memory limit on sm_90
-static_assert(kRB == kThreads, "a thread owns one row of a row block");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -179,6 +186,7 @@ mlstm_qk_kernel(const Params p) {
 // pass 2: one block per (column slice of C, b*h) walks the chunks in order
 // ---------------------------------------------------------------------------
 
+template <int kThreads2>
 __device__ __forceinline__ float block_max(float x, float* red) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -187,21 +195,23 @@ __device__ __forceinline__ float block_max(float x, float* red) {
   __syncthreads();
   float r = red[0];
 #pragma unroll
-  for (int w = 1; w < kThreads / 32; ++w) r = fmaxf(r, red[w]);
+  for (int w = 1; w < kThreads2 / 32; ++w) r = fmaxf(r, red[w]);
   __syncthreads();                 // red may be written again
   return r;
 }
 
-__host__ __device__ constexpr long long smem_floats(int P, int NS, int C) {
+__host__ __device__ constexpr long long smem_floats(int P, int NS, int C,
+                                                    int kRB) {
   // sC [P][NS], sN [P], cum/li/m_comb/scale [C] each, sDen [kRB],
-  // tile A [kRB][kKT + 1], tile V [kKT][NS], red [kThreads / 32]
+  // tile A [kRB][kKT + 1], tile V [kKT][NS], red [kRB / 32]
   return (long long)P * NS + P + 4LL * C + kRB + kRB * (kKT + 1)
-      + kKT * NS + kThreads / 32;
+      + kKT * NS + kRB / 32;
 }
 
-template <typename T, int NS>
-__global__ void __launch_bounds__(kThreads, 1)
+template <typename T, int NS, int kRB>
+__global__ void __launch_bounds__(kRB, 1)
 mlstm_chunk_kernel(const Params p) {
+  constexpr int kThreads = kRB;          // a thread owns one row of a row block
   constexpr int TC = NS / 4;             // thread columns: tx + TC c, c < 4
   constexpr int TR = kThreads / TC;      // thread rows: ty + TR r
   constexpr int RPT = kRB / TR;          // rows per thread
@@ -266,7 +276,7 @@ mlstm_chunk_kernel(const Params p) {
       sW[i] = expf((ci + m_prev) - mc);            // scale_in
       gmax = fmaxf(gmax, (total - ci) + sLi[i]);
     }
-    gmax = block_max(gmax, sRed);                  // syncs: sMc, sW ready
+    gmax = block_max<kThreads>(gmax, sRed);        // syncs: sMc, sW ready
     const float m_new = fmaxf(total + m_prev, gmax);
     const float decay = expf((total + m_prev) - m_new);
 
@@ -417,9 +427,10 @@ mlstm_chunk_kernel(const Params p) {
   }
 }
 
-template <typename T, int NS>
+template <typename T, int NS, int kRB>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
-  const long long bytes = smem_floats(p.P, NS, p.C) * (long long)sizeof(float);
+  const long long bytes =
+      smem_floats(p.P, NS, p.C, kRB) * (long long)sizeof(float);
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
   const int n_chunks = p.S / p.C;
   const int tiles = (p.C + kT1 - 1) / kT1;
@@ -427,21 +438,31 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   mlstm_qk_kernel<T><<<grid1, kThreads, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(mlstm_chunk_kernel<T, NS>,
+  err = cudaFuncSetAttribute(mlstm_chunk_kernel<T, NS, kRB>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid2(p.P / NS, batch * p.H);
-  mlstm_chunk_kernel<T, NS><<<grid2, kThreads, (int)bytes, stream>>>(p);
+  mlstm_chunk_kernel<T, NS, kRB><<<grid2, kRB, (int)bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int kRB>
 cudaError_t launch_p(const Params& p, int batch, cudaStream_t stream) {
   switch (p.P) {
-    case 16: return launch<T, 16>(p, batch, stream);
+    case 16: return launch<T, 16, kRB>(p, batch, stream);
     case 32: case 64: case 128: case 256: case 512: case 1024:
-      return launch<T, 32>(p, batch, stream);
+      return launch<T, 32, kRB>(p, batch, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t launch_warps(const Params& p, int batch, int num_warps,
+                         cudaStream_t stream) {
+  switch (num_warps) {
+    case 8: return launch_p<T, 256>(p, batch, stream);
+    case 4: return launch_p<T, 128>(p, batch, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -451,12 +472,14 @@ cudaError_t launch_p(const Params& p, int batch, cudaStream_t stream) {
 // q/k/v/o [B, S, H, P] (float32 or bfloat16: dtype 0 or 1), logi/logf
 // [B, S, H] float32, on the device; element strides {q_b, q_s, q_h, k_*,
 // v_*, logi_*, logf_*, o_*} (18, host memory), unit stride along P.  qk is
-// a float32 scratch of B*H*S*chunk elements.  S % chunk == 0.  Launches
-// both passes on `stream` and returns the first CUDA error.
+// a float32 scratch of B*H*S*chunk elements.  S % chunk == 0.  Pass 2
+// runs 32 num_warps threads (4 or 8 warps).  Launches both passes on
+// `stream` and returns the first CUDA error.
 extern "C" int mlstm_chunk_launch(
     const void* q, const void* k, const void* v, const float* logi,
     const float* logf, void* o, float* qk, int dtype, int B, int S, int H,
-    int P, int chunk, const long long* strides, cudaStream_t stream) {
+    int P, int chunk, const long long* strides, int num_warps,
+    cudaStream_t stream) {
   if (chunk < 1 || S % chunk != 0) return cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -478,9 +501,9 @@ extern "C" int mlstm_chunk_launch(
   p.C = chunk;
   cudaError_t err;
   if (dtype == 0)
-    err = launch_p<float>(p, B, stream);
+    err = launch_warps<float>(p, B, num_warps, stream);
   else if (dtype == 1)
-    err = launch_p<__nv_bfloat16>(p, B, stream);
+    err = launch_warps<__nv_bfloat16>(p, B, num_warps, stream);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

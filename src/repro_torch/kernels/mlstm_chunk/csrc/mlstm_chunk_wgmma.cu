@@ -75,6 +75,13 @@
 //   layout; the scratch comes from the wrapper.  Measured on an H100 at
 //   the layer shape (PERF.md): the passes wait on the L2 -> shared-memory
 //   supply of their tiles, not on the tensor cores.
+//
+// The tile knobs: pipeline is the state pass's ring depth (1 to 4 stages;
+// 3 by default), num_warps the output pass's consumer warps (4: one
+// warpgroup, 8: two sharing every B tile; by default two up to chunk 256,
+// one above).  Two warpgroups take 256-column tiles where their S o W
+// leaves room for them (P >= 256, chunk <= 256), else 128; chunk 1024 has
+// room for one warpgroup only.  The chunk is the third knob.
 
 #include "hopper.cuh"  // kernels/include: shared with flash_attention_wgmma.cu
 
@@ -222,21 +229,37 @@ struct StateParams {
 };
 
 // A TN x TN tile of C: rows of k (one warpgroup per 64) by columns of v
-// (the accumulator's N).  Three stages leave room for two blocks per SM,
+// (the accumulator's N), k and v streamed through a ring of `stages`
+// slots.  Three stages (the default) leave room for two blocks per SM,
 // which overlap one block's scaling with the other's products (128 x 256
-// tiles with one block per SM and four stages were slower).
+// tiles with one block per SM and four stages were slower).  The slots'
+// k boxes, then their v boxes, nbuf and the barriers, from a 1024-aligned
+// base.
+constexpr int kMaxStagesState = 4;
 template <int TN>
 struct StateSmem {
-  static constexpr int kStages = 3;
   static constexpr int kBoxes = TN / kBox;
   static constexpr int kThreads = kBoxes * 128;
   static constexpr int kGroups = TN / 8;             // 16-byte column groups of k
   static constexpr int kLanes = kThreads / kGroups;  // rows scaled at once
   static constexpr uint32_t kStageBytes = 2 * kBoxes * kBoxBytes;
-  alignas(1024) __nv_bfloat16 k[kStages][kBoxes * kBoxElems];
-  alignas(1024) __nv_bfloat16 v[kStages][kBoxes * kBoxElems];
-  float nbuf[kLanes][TN];
-  uint64_t full[kStages];
+  static constexpr int kSlot = kBoxes * kBoxElems;   // elements of one slot
+  __nv_bfloat16* k0;
+  __nv_bfloat16* v0;
+  float (*nbuf)[TN];
+  uint64_t* full;
+  __host__ __device__ static int bytes(int stages) {
+    return stages * (int)kStageBytes + kLanes * TN * 4 + 8 * stages;
+  }
+  __device__ StateSmem(unsigned char* base, int stages) {
+    k0 = reinterpret_cast<__nv_bfloat16*>(base);
+    v0 = k0 + stages * kSlot;
+    nbuf = reinterpret_cast<float (*)[TN]>(base + stages * kStageBytes);
+    full = reinterpret_cast<uint64_t*>(base + stages * kStageBytes
+                                       + kLanes * TN * 4);
+  }
+  __device__ __nv_bfloat16* k(int st) const { return k0 + st * kSlot; }
+  __device__ __nv_bfloat16* v(int st) const { return v0 + st * kSlot; }
 };
 
 // acc (+)= A . B over one k16 step, N = TN
@@ -251,16 +274,17 @@ __device__ __forceinline__ void mma_k16(float (&acc)[TN / 2], uint64_t da,
     wgmma_m64n64k16_ss<TransA, TransB>(acc, da, db, scale_d);
 }
 
-template <int TN>
+// kST > 0: the ring depth is a compile-time constant (the default, 3: its
+// ring indices fold as in the kernel before the knobs); 0: read at run time
+template <int TN, int kST>
 __global__ void __launch_bounds__(StateSmem<TN>::kThreads)
 mlstm_chunk_state_kernel(const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v,
-                         const StateParams p) {
+                         const StateParams p, const int stages_arg) {
   using Sm = StateSmem<TN>;
-  constexpr int ST = Sm::kStages;
+  const int ST = kST > 0 ? kST : stages_arg;
   extern __shared__ unsigned char smem_raw[];
-  Sm& sm = *reinterpret_cast<Sm*>(
-      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  const Sm sm(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023), ST);
 
   const int pc0 = blockIdx.x * TN;     // columns of C (of v)
   const int pr0 = blockIdx.y * TN;     // rows of C (of k)
@@ -272,7 +296,6 @@ mlstm_chunk_state_kernel(const __grid_constant__ CUtensorMap tm_k,
   const float* wk = p.g + ((long long)bh * kGateArrays + 4) * p.S;
 
   if (tid == 0) {
-#pragma unroll
     for (int s = 0; s < ST; ++s) mbar_init(&sm.full[s], 1);
     fence_barrier_init();
   }
@@ -284,9 +307,9 @@ mlstm_chunk_state_kernel(const __grid_constant__ CUtensorMap tm_k,
     mbar_expect_tx(&sm.full[st], Sm::kStageBytes);
 #pragma unroll
     for (int x = 0; x < Sm::kBoxes; ++x) {
-      tma_load_4d(&sm.k[st][x * kBoxElems], &tm_k, &sm.full[st],
+      tma_load_4d(sm.k(st) + x * kBoxElems, &tm_k, &sm.full[st],
                   pr0 + kBox * x, j0, h, b);
-      tma_load_4d(&sm.v[st][x * kBoxElems], &tm_v, &sm.full[st],
+      tma_load_4d(sm.v(st) + x * kBoxElems, &tm_v, &sm.full[st],
                   pc0 + kBox * x, j0, h, b);
     }
   };
@@ -325,7 +348,7 @@ mlstm_chunk_state_kernel(const __grid_constant__ CUtensorMap tm_k,
     for (int i = 0; i < kJ / Sm::kLanes; ++i) {
       const int r = rl + Sm::kLanes * i;
       uint4* cell = reinterpret_cast<uint4*>(
-          &sm.k[st][x * kBoxElems + r * kBox + ((lc ^ (r % 8)) * 8)]);
+          sm.k(st) + x * kBoxElems + r * kBox + ((lc ^ (r % 8)) * 8));
       uint4 raw = *cell;
       uint32_t* wds = reinterpret_cast<uint32_t*>(&raw);
 #pragma unroll
@@ -343,9 +366,9 @@ mlstm_chunk_state_kernel(const __grid_constant__ CUtensorMap tm_k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kJ / 16; ++kk) {
-      const uint64_t da = desc_sw128(&sm.k[st][wg * kBoxElems + kk * 16 * kBox],
+      const uint64_t da = desc_sw128(sm.k(st) + wg * kBoxElems + kk * 16 * kBox,
                                      kBoxBytes, 1024);
-      const uint64_t db = desc_sw128(&sm.v[st][kk * 16 * kBox], kBoxBytes, 1024);
+      const uint64_t db = desc_sw128(sm.v(st) + kk * 16 * kBox, kBoxBytes, 1024);
       mma_k16<TN, 1, 1>(acc, da, db, 1);
     }
     wgmma_commit();
@@ -426,12 +449,10 @@ struct OutLayout {
   }
 };
 
-// Rows of a chunk per block: 64 per consumer warpgroup.  Two warpgroups
-// share every B tile (k, state, v: half the reads of one) where their
-// S o W leaves room for a 3-stage ring of 256-column tiles: up to chunk 256.
-__host__ __device__ constexpr int out_warpgroups(int C) {
-  return C <= 256 ? 2 : 1;
-}
+// Rows of a chunk per block: 64 per consumer warpgroup (WG of them).  Two
+// warpgroups share every B tile (k, state, v: half the reads of one); by
+// default they run where their S o W leaves room for a 3-stage ring of
+// 256-column tiles, up to chunk 256 (the wrapper's default num_warps).
 
 template <int TN, int WG>
 __global__ void __launch_bounds__(WG * 128 + 32)
@@ -715,37 +736,54 @@ cudaError_t launch_out(const CUtensorMap& tq, const CUtensorMap& tk128,
 
 template <int TN>
 cudaError_t launch_state(const CUtensorMap& tk64, const CUtensorMap& tv64,
-                         const StateParams& sp, int BH, cudaStream_t stream) {
-  constexpr int bytes = sizeof(StateSmem<TN>) + 1024;  // + alignment slack
-  auto kernel = mlstm_chunk_state_kernel<TN>;
+                         const StateParams& sp, int BH, int stages,
+                         cudaStream_t stream) {
+  // + alignment slack
+  const int bytes = StateSmem<TN>::bytes(stages) + 1024;
+  if (stages < 1 || stages > kMaxStagesState || bytes > kMaxSmem)
+    return cudaErrorInvalidValue;
+  auto kernel = stages == 3 ? mlstm_chunk_state_kernel<TN, 3>
+                            : mlstm_chunk_state_kernel<TN, 0>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(sp.P / TN, sp.P / TN, BH);
-  kernel<<<grid, StateSmem<TN>::kThreads, bytes, stream>>>(tk64, tv64, sp);
+  kernel<<<grid, StateSmem<TN>::kThreads, bytes, stream>>>(tk64, tv64, sp,
+                                                           stages);
   return cudaGetLastError();
 }
 
-// The tiles by P: the state pass's TN x TN tile of C, TN = min(P, 128);
-// the output pass's column tile, 256 wide where two warpgroups share it
+// The output pass's column tile: min(P, 128), or 256 where two warpgroups
+// share it and their S o W leaves room (P >= 256, chunk <= 256)
+__host__ __device__ constexpr int out_tile(int P, int C, int WG) {
+  return P == 64 ? 64 : (WG == 2 && P >= 256 && C <= 256 ? 256 : 128);
+}
+
+// The tiles by P: the state pass's TN x TN tile of C, TN = min(P, 128),
+// through a ring of `state_stages`; the output pass's `out_wg` warpgroups
 cudaError_t launch_passes(const CUtensorMap& tq, const CUtensorMap& tk128,
                           const CUtensorMap& tk64, const CUtensorMap& tv64,
                           const CUtensorMap& tst, const StateParams& sp,
-                          const OutParams& op, int BH, cudaStream_t stream) {
+                          const OutParams& op, int BH, int state_stages,
+                          int out_wg, cudaStream_t stream) {
   cudaError_t err = cudaSuccess;
   if (sp.S / sp.C > 1) {
-    err = sp.P == 64 ? launch_state<64>(tk64, tv64, sp, BH, stream)
-                     : launch_state<128>(tk64, tv64, sp, BH, stream);
+    err = sp.P == 64
+        ? launch_state<64>(tk64, tv64, sp, BH, state_stages, stream)
+        : launch_state<128>(tk64, tv64, sp, BH, state_stages, stream);
     if (err != cudaSuccess) return err;
   }
-  const bool two = out_warpgroups(op.C) == 2;
-  if (op.P == 64)
-    return two ? launch_out<64, 2>(tq, tk128, tv64, tst, op, BH, stream)
-               : launch_out<64, 1>(tq, tk128, tv64, tst, op, BH, stream);
-  if (op.P == 128 || !two)
-    return two ? launch_out<128, 2>(tq, tk128, tv64, tst, op, BH, stream)
-               : launch_out<128, 1>(tq, tk128, tv64, tst, op, BH, stream);
-  return launch_out<256, 2>(tq, tk128, tv64, tst, op, BH, stream);
+  const bool two = out_wg == 2;
+  switch (out_tile(op.P, op.C, out_wg)) {
+    case 64:
+      return two ? launch_out<64, 2>(tq, tk128, tv64, tst, op, BH, stream)
+                 : launch_out<64, 1>(tq, tk128, tv64, tst, op, BH, stream);
+    case 128:
+      return two ? launch_out<128, 2>(tq, tk128, tv64, tst, op, BH, stream)
+                 : launch_out<128, 1>(tq, tk128, tv64, tst, op, BH, stream);
+    default:
+      return launch_out<256, 2>(tq, tk128, tv64, tst, op, BH, stream);
+  }
 }
 
 }  // namespace
@@ -756,24 +794,28 @@ cudaError_t launch_passes(const CUtensorMap& tq, const CUtensorMap& tk128,
 // multiple of 8 elements (TMA).  P in {64, 128, 256, 512, 1024}; chunk in
 // {128, 256, 512, 1024} dividing S.  Scratch: gates float32 [B*H, 5, S],
 // chunks float32 [B*H, 3, S / chunk], n_states float32 [B*H, max(S / chunk
-// - 1, 1), P], states bf16 [B*H, max(S / chunk - 1, 1), P, P].  Launches
-// the passes on `stream`; returns 0, the first cudaError_t, or -CUresult
-// when a tensor map cannot be encoded (-1000: cuTensorMapEncodeTiled is
-// not available).
+// - 1, 1), P], states bf16 [B*H, max(S / chunk - 1, 1), P, P].  The state
+// pass streams through `state_stages` slots (1 to 4; 3 by default), the
+// output pass runs `out_wg` consumer warpgroups (1 or 2, where their
+// shared memory fits; 2 up to chunk 256, 1 above by default).  Launches the
+// passes on `stream`; returns 0, the first cudaError_t, or -CUresult when
+// a tensor map cannot be encoded (-1000: cuTensorMapEncodeTiled is not
+// available).
 extern "C" int mlstm_chunk_wgmma_launch(
     const void* q, const void* k, const void* v, const float* logi,
     const float* logf, void* o, float* gates, float* chunks, float* n_states,
     void* states, int B, int S, int H, int P, int chunk,
-    const long long* strides, cudaStream_t stream) {
+    const long long* strides, int state_stages, int out_wg,
+    cudaStream_t stream) {
   if (!(P == 64 || (P % 128 == 0 && P <= 1024)) || chunk % kKeys != 0 ||
-      chunk > 1024 || S % chunk != 0)
+      chunk > 1024 || S % chunk != 0 || (out_wg != 1 && out_wg != 2) ||
+      OutLayout(chunk, out_wg, out_tile(P, chunk, out_wg)).stages < 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n = S / chunk, BH = B * H;
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -1000;
   CUtensorMap tq, tk128, tk64, tv64, tst;
-  CUresult r = encode_bshd(fn, &tq, q, B, S, H, P, strides,
-                           kRows * out_warpgroups(chunk));
+  CUresult r = encode_bshd(fn, &tq, q, B, S, H, P, strides, kRows * out_wg);
   if (r == CUDA_SUCCESS)
     r = encode_bshd(fn, &tk128, k, B, S, H, P, strides + 3, kKeys);
   if (r == CUDA_SUCCESS)
@@ -831,6 +873,7 @@ extern "C" int mlstm_chunk_wgmma_launch(
   op.S = S;
   op.P = P;
   op.C = chunk;
-  err = launch_passes(tq, tk128, tk64, tv64, tst, sp, op, BH, stream);
+  err = launch_passes(tq, tk128, tk64, tv64, tst, sp, op, BH, state_stages,
+                      out_wg, stream);
   return static_cast<int>(err);
 }

@@ -23,6 +23,19 @@ launches the kernel on the current stream or raises:
 
 A failed build or launch raises; nothing retries on the other route.
 Both kernels read the inputs in place through their strides.
+
+The reference's scheduling knobs ``num_warps``/``pipeline`` pick, on CUDA
+tensors, one of the route's launches (:func:`resolve_tiles`; the sets
+are :func:`supported_tiles`) or raise ``ValueError`` naming the set;
+``None`` is the route's default.  On the wgmma route ``pipeline`` is the
+state pass's ring depth (1 to 4; 3) and ``num_warps`` the output pass's
+consumer warps (4 or 8: one or two warpgroups; 8 up to chunk 256, 4
+above, where two fit in shared memory).  On the FMA route ``num_warps``
+is the sequential pass's threads (4 or 8 warps; 8), and ``pipeline``
+takes only 1: that kernel stages one tile at a time.  ``chunk`` is the
+third knob.  On CPU tensors the plain version takes any positive knob.
+:func:`autotune_space` and :func:`autotune_bench` are the reference's
+autotune hooks.
 ``launches`` counts kernel launches (one per call, whatever the passes),
 ``launches_wgmma`` and ``launches_fma`` those of each route.
 
@@ -33,12 +46,14 @@ first use (``kernels/build.py``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import check_positive
 from repro_torch.kernels.build import NvccLibrary
 from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunkwise
 from repro_torch.kernels.tma import check_tma, tma_strides
@@ -49,10 +64,11 @@ FMA_SOURCE = CSRC / "mlstm_chunk.cu"
 _LIBS = {
     "wgmma": NvccLibrary("mlstm_chunk", WGMMA_SOURCE, {
         "mlstm_chunk_wgmma_launch": [ctypes.c_void_p] * 10
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p]}),
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p]}),
     "fma": NvccLibrary("mlstm_chunk", FMA_SOURCE, {
         "mlstm_chunk_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-        + [ctypes.c_void_p, ctypes.c_void_p]}),
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]}),
 }
 HEAD_DIMS = (16, 32, 64, 128, 256, 512, 1024)   # compiled into the FMA kernel
 WGMMA_HEAD_DIMS = (64, 128, 256, 512, 1024)     # and into the wgmma kernel
@@ -60,6 +76,9 @@ WGMMA_CHUNKS = (128, 256, 512, 1024)
 MAX_CHUNK = 2048                # the mlstm_chunk knob's upper end
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID = 65535               # grid.y / grid.z limit
+_SMEM_LIMIT = 232448            # a block's shared memory on sm_90
+WARPS = (8, 4)                  # num_warps of either route, default first
+STATE_STAGES = (1, 2, 3, 4)     # the wgmma state pass's ring depths
 
 launches = 0
 launches_wgmma = 0
@@ -92,6 +111,64 @@ def plain_version(q, k, v, logi, logf, chunk: int):
     wgmma = route(q.dtype, q.shape[3], c) == "wgmma"
     return mlstm_chunkwise(q, k, v, logi, logf, c,
                            operand_dtype=torch.bfloat16 if wgmma else None)
+
+
+def _out_tile(P: int, chunk: int, wg: int) -> int:
+    """The wgmma output pass's column tile (csrc: out_tile)."""
+    return 64 if P == 64 else (256 if wg == 2 and P >= 256
+                               and chunk <= 256 else 128)
+
+
+def _out_stages(P: int, chunk: int, wg: int) -> int:
+    """The ring stages of the wgmma output pass's shared memory (csrc:
+    OutLayout); it launches with two or more."""
+    q_stage = wg * 8192
+    b_stage = max(_out_tile(P, chunk, wg) // 64, 2) * 8192
+    fixed = chunk * 64 * wg * 2 + (2 * chunk + 2 * 64 * wg + 1024) * 4 + 64
+    return min((_SMEM_LIMIT - 1024 - fixed) // (q_stage + b_stage), 4)
+
+
+def default_tiles(which: str, chunk: int) -> tuple:
+    """(num_warps, pipeline) of the route's default launch at ``chunk``."""
+    if which == "wgmma":
+        return (8 if chunk <= 256 else 4), 3
+    return 8, 1
+
+
+@functools.lru_cache(maxsize=None)
+def supported_tiles(which: str, head_dim: int, chunk: int) -> tuple:
+    """Every (num_warps, pipeline) the card's kernel of route ``which``
+    has at this P and chunk, the default first.  A pure function: no
+    device is touched."""
+    if which == "fma":
+        return tuple((nw, 1) for nw in WARPS)
+    if which != "wgmma":
+        raise ValueError(f"unknown route {which!r}")
+    out = [default_tiles("wgmma", chunk)]
+    out += [(nw, st) for nw in WARPS for st in STATE_STAGES
+            if _out_stages(head_dim, chunk, nw // 4) >= 2
+            and (nw, st) not in out]
+    return tuple(out)
+
+
+
+@functools.lru_cache(maxsize=4096)
+def resolve_tiles(which: str, head_dim: int, chunk: int, num_warps=None,
+                  pipeline=None) -> tuple:
+    """The (num_warps, pipeline) a CUDA call of route ``which`` launches
+    at ``chunk``: the default for a knob left ``None``; a pair outside
+    :func:`supported_tiles` raises ``ValueError`` naming the set."""
+    check_positive("mlstm_chunk", num_warps=num_warps, pipeline=pipeline)
+    dnw, dst = default_tiles(which, chunk)
+    got = (dnw if num_warps is None else int(num_warps),
+           dst if pipeline is None else int(pipeline))
+    tiles = supported_tiles(which, head_dim, chunk)
+    if got not in tiles:
+        raise ValueError(
+            f"mlstm_chunk ({which}, P {head_dim}, chunk {chunk}): no launch "
+            f"for num_warps={got[0]}, pipeline={got[1]}; (num_warps, "
+            f"pipeline) in {tiles}")
+    return got
 
 
 def build(verbose: bool = False, which: Optional[str] = None):
@@ -141,13 +218,13 @@ def _check(q, k, v, logi, logf, chunk):
 
 
 def mlstm_chunk(q, k, v, logi, logf, *, chunk: int = 256,
-                num_warps=None, pipeline=None):
+                num_warps: Optional[int] = None,
+                pipeline: Optional[int] = None):
     """q/k/v [B,S,H,P], logi/logf [B,S,H] float32 -> h [B,S,H,P] (q.dtype).
 
     The chunk is ``min(chunk, S)`` and must divide S, as the reference
-    asserts.  ``num_warps``/``pipeline`` are the reference's GPU scheduling
-    knobs: accepted and ignored (the kernels run their own fixed blocks);
-    they get their meaning with autotune.
+    asserts.  ``num_warps``/``pipeline``: the launch of a CUDA call
+    (module docstring); ``None`` each, the route's default.
     """
     _check(q, k, v, logi, logf, chunk)
     B, S, H, P = q.shape
@@ -155,12 +232,16 @@ def mlstm_chunk(q, k, v, logi, logf, *, chunk: int = 256,
     if S and S % c:
         raise ValueError(f"chunk {c} must divide the sequence length {S}")
     if q.device.type == "cpu":
+        check_positive("mlstm_chunk", num_warps=num_warps, pipeline=pipeline)
         return plain_version(q, k, v, logi, logf, c)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_chunk runs on cpu or cuda, not {q.device}")
-    if route(q.dtype, P, c) == "wgmma":
-        return _wgmma(q, k, v, logi, logf, c)
-    return _fma(q, k, v, logi, logf, c)
+    which = route(q.dtype, P, c)
+    if which == "wgmma":
+        return _wgmma(q, k, v, logi, logf, c,
+                      tiles=resolve_tiles(which, P, c, num_warps, pipeline))
+    return _fma(q, k, v, logi, logf, c,
+                tiles=resolve_tiles(which, P, c, num_warps, pipeline))
 
 
 def _count(which: str) -> None:
@@ -177,11 +258,14 @@ def _gate_strides(logi, logf):
     return [*logi.stride(), *logf.stride()]
 
 
-def _wgmma(q, k, v, logi, logf, c, library: Optional[NvccLibrary] = None):
-    """The wgmma route's launch; ``library`` is one built from a variant of
+def _wgmma(q, k, v, logi, logf, c, library: Optional[NvccLibrary] = None,
+           tiles: Optional[tuple] = None):
+    """The wgmma route's launch at ``tiles`` = (num_warps, pipeline) (the
+    default launch at None); ``library`` is one built from a variant of
     ``WGMMA_SOURCE`` with the same entry point (the route's own by
     default)."""
     B, S, H, P = q.shape
+    nw, stages = default_tiles("wgmma", c) if tiles is None else tiles
     check_tma(q, k, v)
     n, bh = S // c, B * H
     if max(n, bh) > _MAX_GRID:
@@ -207,7 +291,7 @@ def _wgmma(q, k, v, logi, logf, c, library: Optional[NvccLibrary] = None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), logi.data_ptr(),
             logf.data_ptr(), out.data_ptr(), gates.data_ptr(),
             chunks.data_ptr(), n_states.data_ptr(), states.data_ptr(),
-            B, S, H, P, c, strides, stream)
+            B, S, H, P, c, strides, stages, nw // 4, stream)
     if err < 0:
         raise RuntimeError(f"mlstm_chunk (wgmma): TMA tensor map encoding "
                            f"failed (CUresult {-err})")
@@ -218,8 +302,9 @@ def _wgmma(q, k, v, logi, logf, c, library: Optional[NvccLibrary] = None):
     return out
 
 
-def _fma(q, k, v, logi, logf, c):
+def _fma(q, k, v, logi, logf, c, tiles: Optional[tuple] = None):
     B, S, H, P = q.shape
+    nw = default_tiles("fma", c)[0] if tiles is None else tiles[0]
     if c > MAX_CHUNK:
         raise ValueError(f"chunk {c} exceeds the kernel's {MAX_CHUNK}")
     if B * H > _MAX_GRID:
@@ -238,9 +323,73 @@ def _fma(q, k, v, logi, logf, c):
         err = lib.mlstm_chunk_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), logi.data_ptr(),
             logf.data_ptr(), out.data_ptr(), qk.data_ptr(), _DTYPES[q.dtype],
-            B, S, H, P, c, strides, stream)
+            B, S, H, P, c, strides, nw, stream)
     if err != 0:
         raise RuntimeError(f"mlstm_chunk (fma) kernel launch failed: CUDA "
                            f"error {err}")
     _count("fma")
     return out
+
+
+# ---------------------------------------------------------------------------
+# autotune hooks (repro_torch.kernels.autotune)
+# ---------------------------------------------------------------------------
+
+def autotune_space():
+    """Tunable chunking/scheduling space of the mLSTM forward (the
+    reference's: knobs, ladders, ``inert`` flags; no cross-knob
+    constraint).  On the card ``num_warps`` and ``pipeline`` are live
+    where the route has a counterpart; other points are refused."""
+    from repro_torch.core.space import Knob, Space, pow2_knob
+    return Space(
+        knobs=(
+            pow2_knob("chunk", 256, 16, 512,
+                      description="sequence chunk width"),
+            pow2_knob("num_warps", 4, 1, 8, inert=True,
+                      description="GPU warps per block (inert off-GPU)"),
+            Knob("pipeline", "int", 2, lo=1, hi=4, inert=True,
+                 description="GPU pipeline stages (inert off-GPU)"),
+        ),
+    )
+
+
+def autotune_native(S: int = 256, P: int = 32, dtype=torch.float32,
+                    chunk: int = 256, **shape) -> dict:
+    """The default launch at ``chunk`` (the wrapper's default chunk) of
+    the route a bench of this dtype and P takes, as a point of
+    :func:`autotune_space`."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    c = min(chunk, S)
+    nw, st = default_tiles(route(dtype, P, c), c)
+    return {"chunk": chunk, "num_warps": nw, "pipeline": st}
+
+
+def autotune_bench(B: int = 1, S: int = 256, H: int = 2, P: int = 32,
+                   seed: int = 0, dtype=torch.float32, device: str = "cuda"):
+    """``build(cfg) -> run()`` factory for ``KernelEvaluator`` (the
+    reference's bench and input scales; ``dtype`` bfloat16 reaches the
+    wgmma route at P 64-1024 and chunks 128-512).  Inputs from ``seed``,
+    made on ``device``; the gates stay float32."""
+    from repro_torch.device import resolve_device
+    dev = resolve_device(device)
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen)
+    q = (randn(B, S, H, P) * 0.5).to(dev, dtype)
+    k = (randn(B, S, H, P) * 0.5 / P ** 0.5).to(dev, dtype)
+    v = (randn(B, S, H, P) * 0.5).to(dev, dtype)
+    logi = randn(B, S, H).to(dev)
+    logf = (-torch.nn.functional.softplus(-randn(B, S, H) * 2.0)).to(dev)
+
+    def build(cfg):                      # cfg None: the default launch
+        kw = {} if cfg is None else dict(
+            chunk=int(cfg["chunk"]),
+            num_warps=int(cfg.get("num_warps", 0)) or None,
+            pipeline=int(cfg.get("pipeline", 0)) or None)
+
+        def run():
+            return mlstm_chunk(q, k, v, logi, logf, **kw)
+        return run
+    return build

@@ -139,10 +139,14 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
 def flash_attention_dispatch(q, k, v, *, causal, window, softcap,
                              rc: RunConfig):
     """The flash kernel: on a CUDA tensor it launches the CUDA kernel (or
-    raises); on a CPU tensor it computes the kernel's plain version."""
+    raises); on a CPU tensor it computes the kernel's plain version.
+
+    The kernel runs its route's default tiles: ``rc.flash_block_q``/
+    ``flash_block_k`` are the TPU kernel's tile knobs (multiples of 128
+    up to 2048), which the card's kernels have no counterpart of, so they
+    are not passed (the card's own tiles are ``kernels.autotune``'s)."""
     return flash_ops.flash_attention(
-        q, k, v, causal=causal, window=window, softcap=softcap,
-        block_q=rc.flash_block_q, block_k=rc.flash_block_k)
+        q, k, v, causal=causal, window=window, softcap=softcap)
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,15 @@ so knob dicts round-trip, and nothing reads them to place a tensor.
 ``gather_weights_for_compute`` act only on a mesh and are not ported; off
 a mesh the reference's two helpers are no-ops, and the port calls nothing
 in their place.
+
+The proposer's side is ported: the candidate pool of
+``gp.select_batch_sharded`` shards over an ordered tuple of devices
+(:func:`pool_devices`, axis :data:`POOL_AXIS`), and :func:`spare_device`
+picks the card background work (the GP refit) runs on.  The reference's
+``pool_mesh`` returns a ``jax.sharding.Mesh``; what it carries, the ordered
+device tuple and its axis name, is :func:`pool_devices` and
+:data:`POOL_AXIS` here.  No process group is involved: one process drives
+every card of the tuple in turn.
 """
 
 from __future__ import annotations
@@ -16,7 +25,43 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple, Union
 
+import torch
+
 MeshAxes = Union[None, str, Tuple[str, ...]]
+
+POOL_AXIS = "pool"
+
+
+def pool_devices(n: Optional[int] = None,
+                 device: Union[str, torch.device] = "cuda") -> Tuple:
+    """The devices the proposer's candidate pool shards over: the first
+    ``n`` cards of the host (all of them when ``n`` is None or exceeds
+    the host), ``(cpu,)`` for a CPU strategy.  Deterministic order:
+    shard k owns pool rows ``[k·M/nd, (k+1)·M/nd)``, so the tuple is part
+    of the pick-reproducibility contract."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return (torch.device("cpu"),)
+    devs = tuple(torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count()))
+    if n is not None:
+        devs = devs[:max(int(n), 1)]
+    return devs
+
+
+def spare_device(avoid_index: int = 0,
+                 device: Union[str, torch.device] = "cuda"):
+    """A card for background work (the GP refit executor): the *last*
+    card of the host when it has more than one, never ``avoid_index``
+    (the experiment loop's), else ``None`` (one card, or a CPU strategy:
+    background work shares the device and only thread-yields)."""
+    devs = pool_devices(None, device)
+    if len(devs) <= 1:
+        return None
+    for d in reversed(devs):
+        if d.index != avoid_index:
+            return d
+    return None
 
 
 @dataclass(frozen=True)

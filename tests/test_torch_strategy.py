@@ -117,13 +117,6 @@ def test_refit_async_runs_on_the_strategy_device():
     assert p._posterior[0].x.device == torch.device("cpu")
 
 
-def test_shard_candidates_is_not_ported_yet():
-    pspace, _ = _spaces()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ps.BOStrategy(pspace, ps.BOConfig(shard_candidates=True,
-                                          device="cpu"))
-
-
 def test_measurement_variance_matches_reference():
     p, r = _bo_pair(3)
     _drive(p, rounds=2)

@@ -11,11 +11,13 @@ its own library under ``build/mlstm_variants/``:
 * ``wait0``: the output pass waits for each item's products before it
   issues the next (``wgmma.wait_group 0`` instead of 1);
 * ``out128``: two output warpgroups on 128-column tiles instead of 256;
-* ``wg1``: one output warpgroup (64 rows per block) at every chunk;
-* ``state4``: the state pass with a 4-stage ring (one block per SM);
 * ``no_state``, ``no_qk``, ``no_qn``: the output pass without its q C_prev
   products, its q k^T phase or its q . n_prev (wrong outputs: they show
   what each piece costs).
+
+One output warpgroup and the state pass's ring depth are the kernel's
+tile knobs now (``num_warps=4``, ``pipeline``: ``kernels/autotune.py``
+tunes them), not variants.
 
 ``base`` is first held against the route's plain version at a few shapes
 and at xlstm-1.3b's layer shape (rel L2 1e-3, and 1e-2 against the
@@ -45,9 +47,6 @@ VARIANTS = {
     "wait0": [("    wgmma_commit();\n    wgmma_wait<1>();",
                "    wgmma_commit();\n    wgmma_wait<0>();")],
     "out128": [("return launch_out<256, 2>(", "return launch_out<128, 2>(")],
-    "wg1": [("return C <= 256 ? 2 : 1;", "return 1;")],
-    "state4": [("static constexpr int kStages = 3;",
-                "static constexpr int kStages = 4;")],
     "no_state": [("      if (t > 0)\n", "      if (false)\n"),
                  ("    if (t > 0) {", "    if (false) {")],
     "no_qk": [("const int n_kb = (i0 + kBlockRows + kKeys - 1) / kKeys;",
