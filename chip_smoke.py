@@ -116,6 +116,39 @@ Phases (any failure exits non-zero before the result line):
    printed.  Then ``gp.select_batch_sharded`` over 1, 2 and 3 shards of
    the card at the tuner's and the daemon's shapes: picks array-equal to
    ``select_batch``, wall time printed.
+12. the MoE, Mamba and whisper families at full width, every earlier
+   model freed first (memory printed at the start and after each part).
+   Flash at the new paths' shapes, held as in phase 5 (atol 2e-2,
+   relative L2 1e-2 against both plain versions, a planted fault of
+   keys 0..63 dropped above it) and timed beside the plain version and
+   SDPA, with its bound: whisper's encoder self-attention (2,1500,1500,
+   6,6,64, non-causal, a ragged last key tile), its cross-attention
+   (2,448,1500,6,6,64) and qwen2-moe's MHA prefill (2,4096,4096,16,16,
+   128, causal).  ``Model(qwen2-moe-a2.7b, full width and depth)``:
+   prefill B=2 S=4096 with exactly 24 wgmma flash launches (counted from
+   0 around it) and none on the FMA route; flash vs reference logits.  A
+   random-weight MoE model in bf16 is chaotic as initialised (a rounding
+   difference flips a routing near-tie and the flip cascades), so each
+   model-level comparison is printed as initialised and held to relative
+   L2 0.1 with the other run's routing replayed (``routing_replay``);
+   ``moe_impl="dropping"`` at capacity T (factor E/K = 15) against dense
+   on every MoE layer's own prefill input (1e-2) and for the whole prefill
+   (0.1 replayed), the default factor printed; the MoE and attention
+   layers' shares of the prefill (CUDA events) and flash's (profiler);
+   a 256-token prefill + 8 teacher-forced decode steps against
+   ``transformer.forward``; ``launch.serve --arch qwen2-moe-a2.7b --full
+   --device cuda`` (12 requests).  jamba-1.5-large-398b cut to positions
+   0-4 of its period (5 layers, ~24 B parameters): prefill B=1 S=4096
+   with 1 wgmma launch, logits flash vs reference (0.1) and the attention
+   layer's output on its own input (1e-2); 248 + 8 teacher-forced steps
+   (replayed routing, 0.1); peak memory; one full-width mamba layer in
+   float32 at S=1024, chunk 256 against ``ssd_reference`` (relative L2
+   1e-4, a planted fault of chunks without their carried state above
+   it).  whisper-tiny: prefill B=2 at S=448 and 4096 with exactly 12
+   wgmma launches each (4 encoder, 4 decoder self, 4 cross; device ms of
+   each kind under the profiler), flash vs reference (0.1); 16 greedy
+   decode steps; 432 + 16 teacher-forced steps against ``decode_train``
+   (0.1); ``Engine`` must refuse it.
 
 The kernels are built at the start of phase 2, one ``nvcc`` per source,
 all started together.  The line before the last is ``{"kernels": [...]}`` with each
@@ -2458,6 +2491,745 @@ def phase_autotune(card: str):
             "shard": shard, "phase_s": total}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the MoE, Mamba and whisper families at full width
+# ---------------------------------------------------------------------------
+
+# flash at the new paths' shapes, (B, Sq, Sk, H, Kh, D, causal, what):
+# whisper's encoder self-attention (Sk 1500 = 11 tiles of 128 keys and a
+# ragged 92, without the causal mask), its cross-attention (Sq 448, the
+# product's cap, against the 1500 frames) and qwen2-moe's MHA prefill
+FAMILY_FLASH = [(2, 1500, 1500, 6, 6, 64, False, "whisper encoder"),
+                (2, 448, 1500, 6, 6, 64, False, "whisper cross"),
+                (2, 4096, 4096, 16, 16, 128, True, "qwen2-moe MHA")]
+MOE_PREFILL = (2, 4096)          # qwen2-moe-a2.7b: B, S
+TF_PROMPT, TF_STEPS = 256, 8     # teacher-forced decode after the prompt
+# dropping at capacity T against dense: the same function, summed in
+# another order over bf16 weights (each kept token's expert product and
+# the combine round in bf16 at other places)
+DROPPING_REL_L2 = 1e-2
+JAMBA_DEPTH = 5                  # positions 0-4 of the 8-layer period
+JAMBA_PREFILL = (1, 4096)
+# jamba's teacher-forced check: a 248-token prompt + 8 steps, so that the
+# forward's 256 tokens are one chunk of 256 (the chunk must divide S)
+JAMBA_TF_PROMPT = 248
+MAMBA_LAYER_S = 1024
+# one full-width mamba layer in float32, chunked SSD (chunk 256) against
+# the sequential recurrence: the same sums in another order.  1.3e-6 at
+# d_model 512 on the host (float64 oracle 1.4e-6); the limit leaves two
+# orders for the card's products at 16384 channels
+MAMBA_REL_L2 = 1e-4
+WHISPER_B = 2
+WHISPER_S = (448, 4096)          # the product's cap, and the 4k cell
+WHISPER_TF_PROMPT = 432          # + 16 teacher-forced steps = 448
+FAMILY_DECODE_STEPS = 16
+PHASE12_BUDGET_S = 150.0
+
+
+def flash_events(fn):
+    """(fn(), [device µs of each flash wgmma launch, in launch order])
+    from ``torch.profiler`` over one call that ends in a sync."""
+    import torch
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    evs = sorted((e.time_range.start, e.device_time) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "flash_wgmma_kernel" in e.name)
+    return out, [t for _, t in evs]
+
+
+@contextlib.contextmanager
+def module_timers(targets):
+    """Wrap ``(module, attr, key)`` functions with CUDA events; yields
+    {key: [(start, end), ...]} (read after a sync)."""
+    import torch
+    spans = {key: [] for _, _, key in targets}
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+
+    def timed(fn, key):
+        def run(*a, **k):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = fn(*a, **k)
+            e.record()
+            spans[key].append((s, e))
+            return out
+        return run
+
+    for (mod, attr, key), (_, _, fn) in zip(targets, saved):
+        setattr(mod, attr, timed(fn, key))
+    try:
+        yield spans
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def families_flash(card: str):
+    """Flash against its plain version at the new paths' shapes, with a
+    planted fault, and timed beside the plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows = []
+    for B, Sq, Sk, H, Kh, D, causal, what in FAMILY_FLASH:
+        q, k, v = (torch.randn(s, generator=gen, device=dev).bfloat16()
+                   for s in ((B, Sq, H, D), (B, Sk, Kh, D), (B, Sk, Kh, D)))
+        check(ops.route(q.dtype, D) == "wgmma", f"{what}: not on the wgmma "
+              "route")
+
+        def kernel():
+            return ops.flash_attention(q, k, v, causal=causal)
+
+        def plain():
+            return ops.plain_version(q, k, v, causal=causal)
+
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))     # Kh == H
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
+
+        before = ops.launches_wgmma
+        out, want = kernel(), plain()
+        torch.cuda.synchronize()
+        check(ops.launches_wgmma == before + 1, f"{what}: no wgmma launch")
+        want_f32p = ref.reference_attention(q, k, v, causal=causal)
+        # the planted fault: every row loses keys 0..63 (non-causal: the
+        # plain version over keys 64..; causal: rows past the first tile,
+        # as in phase 5)
+        if causal:
+            fault = want.clone()
+            fault[:, 64:] = ops.plain_version(q[:, 64:], k[:, 64:],
+                                              v[:, 64:], causal=True)
+        else:
+            fault = ops.plain_version(q, k[:, 64:], v[:, 64:], causal=False)
+        e = float((out.float() - want.float()).abs().max())
+        rel, rel_f32p = rel_l2(out, want), rel_l2(out, want_f32p)
+        rel_lib, rel_fault = rel_l2(library().transpose(1, 2), want), \
+            rel_l2(fault, want)
+        tag = (f"{what} B={B} Sq={Sq} Sk={Sk} H={H} Kh={Kh} D={D} "
+               f"causal={causal}")
+        print(f"  {tag}: max_abs_err={e:.3e} rel_l2={rel:.4e}; vs P in f32 "
+              f"rel_l2={rel_f32p:.4e}; sdpa vs plain rel_l2={rel_lib:.4e}; "
+              f"planted fault rel_l2={rel_fault:.4e}; limit {FLASH_REL_L2}",
+              flush=True)
+        check(bool(torch.isfinite(out).all()), f"{tag}: non-finite")
+        check(e <= FLASH_TOL["bfloat16"], f"{tag}: max |kernel - plain| {e}")
+        for name, r in (("plain", rel), ("plain with P in f32", rel_f32p)):
+            check(r <= FLASH_REL_L2, f"{tag}: kernel vs {name} relative L2 "
+                  f"{r} > {FLASH_REL_L2}")
+        check(rel_fault > FLASH_REL_L2, f"{tag}: the planted fault's "
+              f"relative L2 {rel_fault} is within {FLASH_REL_L2}")
+        del out, want, want_f32p, fault
+        # turns: library, kernel, kernel, library
+        l1 = cuda_ms(library, reps=5, inner=4)
+        k1 = cuda_ms(kernel, reps=5, inner=4)
+        k2 = cuda_ms(kernel, reps=5, inner=4)
+        l2 = cuda_ms(library, reps=5, inner=4)
+        p_ms = cuda_ms(plain, reps=3, inner=2)
+        b_ms, b_by, flops = flash_bound(B, Sq, Sk, H, Kh, D, causal, 2,
+                                        BF16_FLOPS_PER_S)
+        k_ms, l_ms = min(k1, k2), min(l1, l2)
+        print(f"  {tag} bf16 on {card}: kernel_ms={k_ms:.4f} ({k1:.4f}, "
+              f"{k2:.4f}) plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+              f"({l1:.4f}, {l2:.4f}) bound_ms={b_ms:.4f} ({b_by}; "
+              f"{flops / 1e9:.2f} GFLOP); kernel / library "
+              f"{k_ms / l_ms:.3f}", flush=True)
+        rows.append({"what": what, "shape": [B, Sq, Sk, H, Kh, D],
+                     "causal": causal, "max_abs_err": e, "rel_l2": rel,
+                     "rel_l2_f32p": rel_f32p, "ms": k_ms, "plain_ms": p_ms,
+                     "library_ms": l_ms, "bound_ms": b_ms,
+                     "bound_by": b_by})
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def capture_calls(mod, attr):
+    """Wrap ``mod.attr``; yields the list of (args, kwargs, output) of
+    its calls."""
+    fn, calls = getattr(mod, attr), []
+
+    def run(*a, **k):
+        out = fn(*a, **k)
+        calls.append((a, k, out))
+        return out
+
+    setattr(mod, attr, run)
+    try:
+        yield calls
+    finally:
+        setattr(mod, attr, fn)
+
+
+@contextlib.contextmanager
+def routing_replay(plan=None):
+    """With ``plan`` None, record: yields the list of each
+    ``moe._routing`` call's top-k indices [T, K].  Otherwise replay: the
+    i-th call routes to ``plan(i)`` instead, its weights renormalised from
+    its own float32 probabilities at those experts; the yielded list then
+    holds, per call, the number of tokens whose own top-k set differed.
+
+    A random-weight MoE model in bf16 is chaotic as initialised: a
+    rounding difference flips a routing near-tie, and the flipped expert's
+    output moves the next layers' routing.  Replaying one run's routing
+    into another separates that discontinuity from the arithmetic."""
+    import torch
+    from repro_torch.models import moe
+    routing, log = moe._routing, []
+
+    def patched(params, x, cfg):
+        w, aux, topi, topv = routing(params, x, cfg)
+        if plan is None:
+            log.append(topi)
+            return w, aux, topi, topv
+        want = plan(len(log)).to(topi.device)
+        log.append(int((topi.sort(-1).values != want.sort(-1).values)
+                       .any(-1).sum()))
+        probs = torch.softmax(torch.matmul(
+            x.float(), params["router"]["w"].float()), dim=-1)
+        topv = probs.gather(-1, want)
+        topv = topv / topv.sum(dim=-1, keepdim=True)
+        return torch.zeros_like(probs).scatter(-1, want, topv), aux, want, \
+            topv
+
+    moe._routing = patched
+    try:
+        yield log
+    finally:
+        moe._routing = routing
+
+
+def _logit_gap(a, b):
+    """(relative L2, max |a - b|, argmax agreement) of two logit tensors."""
+    d = (a.float() - b.float())
+    return (float(d.norm() / b.float().norm()), float(d.abs().max()),
+            float((a.argmax(-1) == b.argmax(-1)).float().mean()))
+
+
+def _family_prefill(m, params, inputs, s_max, rc, want_flash, what):
+    """One prefill through ``Model.prefill``; the flash counters are set to
+    0 just before and read just after: a flash prefill must launch the
+    wgmma kernel ``want_flash`` times and the FMA kernel never."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, st = m.prefill(params, inputs, s_max, rc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = want_flash if rc.attention_impl == "flash" else 0
+    got = (ops.launches, ops.launches_wgmma, ops.launches_fma)
+    check(got == (n, n, 0), f"{what} {rc.attention_impl} prefill: (all, "
+          f"wgmma, fma) flash launches {got}, want {(n, n, 0)}")
+    check(bool(torch.isfinite(logits).all()),
+          f"{what} {rc.attention_impl} prefill: non-finite logits")
+    return logits, st, wall
+
+
+def _teacher_forced(m, params, tokens, prompt, rc, forward, what,
+                    extra=None, moe_calls=0):
+    """Prefill ``prompt`` tokens, then decode the rest teacher-forced; the
+    logits of every position from the prompt's last on against
+    ``forward()``'s (the full-sequence pass), at the bf16 logit limit.
+    With MoE layers (``moe_calls`` routings per pass) the comparison as
+    initialised is recorded, and the one with the forward's routing
+    replayed into the prefill and every step is held to the limit.
+    Returns (relative L2, ms per decode step)."""
+    import torch
+    B, S = tokens.shape
+    routes = []
+    with (routing_replay() if moe_calls else contextlib.nullcontext(
+            routes)) as routes:
+        full = forward()
+
+    def at(pos):                 # the forward's routing of these positions
+        return lambda i: routes[i].view(B, S, -1)[:, pos].reshape(
+            -1, routes[i].shape[-1])
+
+    def run(replay):
+        flips = []
+        ctx = routing_replay(at(slice(0, prompt))) if replay \
+            else contextlib.nullcontext([])
+        with ctx as f:
+            logits, st = m.prefill(
+                params, {"tokens": tokens[:, :prompt], **(extra or {})}, S,
+                rc)
+        flips += f
+        outs = [logits[:, 0]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(prompt, S):
+            ctx = routing_replay(at(t)) if replay \
+                else contextlib.nullcontext([])
+            with ctx as f:
+                logits, st = m.decode_step(params, tokens[:, t:t + 1], st,
+                                           rc)
+            flips += f
+            outs.append(logits[:, 0])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / (S - prompt) * 1e3
+        return _logit_gap(torch.stack(outs, dim=1), full[:, prompt - 1:]) \
+            + (ms, sum(flips))
+
+    head = (f"  {what}: {prompt}-token prefill + {S - prompt} teacher-"
+            "forced decode steps vs the full-sequence forward")
+    if moe_calls:
+        rel0, mx0, agree0, _, _ = run(False)
+        print(f"{head}, as initialised: rel_l2={rel0:.4e} max_abs="
+              f"{mx0:.4e} argmax_agreement={agree0} (recorded)", flush=True)
+    rel, mx, agree, ms, flips = run(bool(moe_calls))
+    routed = (f"with the forward's routing replayed ({flips} of "
+              f"{B * S * moe_calls} token routings had flipped)"
+              if moe_calls else "")
+    print(f"{head}{', ' + routed if routed else ''}: rel_l2={rel:.4e} "
+          f"max_abs={mx:.4e} argmax_agreement={agree}; limit "
+          f"{LOGIT_REL_L2_BF16}; {ms:.3f} ms/step", flush=True)
+    check(rel <= LOGIT_REL_L2_BF16, f"{what}: teacher-forced decode vs "
+          f"forward relative L2 {rel} > {LOGIT_REL_L2_BF16}")
+    return rel, ms
+
+
+def families_moe(card: str):
+    import gc
+
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, moe, transformer
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import Model
+    from repro_torch.runconfig import RunConfig
+
+    cfg = get_config("qwen2-moe-a2.7b")
+    B, S = MOE_PREFILL
+    L = cfg.n_layers
+    print(f"-- qwen2-moe-a2.7b: {L} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads (MHA, D {cfg.resolved_head_dim}), "
+          f"{cfg.n_experts} experts top-{cfg.n_experts_per_tok} of width "
+          f"{cfg.moe_d_ff} + {cfg.n_shared_experts} shared, vocab "
+          f"{cfg.vocab_size}; prefill B={B} S={S}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    m = Model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = m.init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"random bf16 weights made on the card: {n_params} parameters "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    rc_flash = RunConfig(attention_impl="flash")
+    rc_ref = RunConfig(attention_impl="reference")
+    n_route = B * S * L
+
+    def prefill(rc):
+        return _family_prefill(m, params, {"tokens": tokens}, S + 64, rc, L,
+                               "qwen2-moe")
+
+    _, _, wall_warm = prefill(rc_flash)
+    # the main path's prefill; its MoE layers' inputs and routing kept
+    with capture_calls(moe, "apply") as moe_calls, \
+            routing_replay() as flash_routes:
+        lf, _, wall = prefill(rc_flash)
+    launches = flash_ops.launches
+    with routing_replay() as ref_routes:
+        lr, _, wall_ref = prefill(rc_ref)
+    rel0, mx0, agree0 = _logit_gap(lf, lr)
+    with routing_replay(lambda i: ref_routes[i]) as flips:
+        lfr, _, _ = prefill(rc_flash)
+    rel, mx, agree = _logit_gap(lfr, lr)
+    print(f"prefill B={B} S={S} bf16 on {card}: flash wall={wall:.3f}s "
+          f"({B * S / wall:.1f} tok/s; first call {wall_warm:.3f}s), "
+          f"reference wall={wall_ref:.3f}s; last-token logits flash vs "
+          f"reference as initialised rel_l2={rel0:.4e} max_abs={mx0:.4e} "
+          f"argmax_agreement={agree0} (recorded: routing flips cascade); "
+          f"with the reference's routing replayed ({sum(flips)} of "
+          f"{n_route} token routings had flipped) rel_l2={rel:.4e} "
+          f"max_abs={mx:.4e} argmax_agreement={agree}; max|ref logit|="
+          f"{float(lr.abs().max()):.3f}; limit {LOGIT_REL_L2_BF16}",
+          flush=True)
+    check(rel <= LOGIT_REL_L2_BF16, f"qwen2-moe prefill logits with the "
+          f"routing replayed: flash vs reference relative L2 {rel} > "
+          f"{LOGIT_REL_L2_BF16}")
+    del lr, lfr
+
+    # dropping at capacity T: each MoE layer on its own input from the
+    # main path's prefill against dense (the same function, summed in
+    # another order), then the whole prefill
+    cf = cfg.n_experts / cfg.n_experts_per_tok
+    rc_cap = RunConfig(attention_impl="flash", moe_impl="dropping",
+                       moe_capacity_factor=cf)
+    check(moe._capacity(B * S, cfg, rc_cap) == B * S, "capacity is not T")
+    # (a comprehension: no name outlives it holding views of the weights)
+    layer_rel = [rel_l2(moe.apply(a[0], a[1], cfg, rc_cap)[0], y)
+                 for a, _, (y, _) in moe_calls]
+    del moe_calls
+    ld0, _, _ = prefill(rc_cap)
+    rel_d0 = _logit_gap(ld0, lf)[0]
+    with routing_replay(lambda i: flash_routes[i]) as flips_d:
+        ld, _, wall_drop = prefill(rc_cap)
+    rel_d = _logit_gap(ld, lf)[0]
+    ld2, _, wall_drop2 = prefill(RunConfig(attention_impl="flash",
+                                           moe_impl="dropping"))
+    rel_d2 = _logit_gap(ld2, lf)[0]
+    print(f"  moe_impl='dropping' at capacity factor {cf:g} (capacity = T "
+          f"= {B * S}, nothing dropped) vs 'dense', each of the {L} MoE "
+          f"layers on its prefill input: rel_l2 {min(layer_rel):.4e}-"
+          f"{max(layer_rel):.4e} (limit {DROPPING_REL_L2}); whole prefill "
+          f"as initialised rel_l2={rel_d0:.4e} (recorded), with the dense "
+          f"run's routing replayed ({sum(flips_d)} flipped) rel_l2="
+          f"{rel_d:.4e} (limit {LOGIT_REL_L2_BF16}), wall {wall_drop:.3f}s;"
+          f" at the default factor 1.25 (capacity "
+          f"{moe._capacity(B * S, cfg, RunConfig())}, tokens dropped by "
+          f"design, not gated) rel_l2={rel_d2:.4e}, wall {wall_drop2:.3f}s",
+          flush=True)
+    check(max(layer_rel) <= DROPPING_REL_L2, f"qwen2-moe dropping at "
+          f"capacity T vs dense: a layer's relative L2 {max(layer_rel)} > "
+          f"{DROPPING_REL_L2}")
+    check(rel_d <= LOGIT_REL_L2_BF16, f"qwen2-moe dropping at capacity T "
+          f"vs dense, routing replayed: relative L2 {rel_d} > "
+          f"{LOGIT_REL_L2_BF16}")
+    del ld0, ld, ld2, flash_routes, ref_routes
+
+    # where the time goes: MoE and attention layers timed by CUDA events
+    # in one prefill, then the device's busy share and flash's under the
+    # profiler in another
+    torch.cuda.synchronize()
+    with module_timers([(moe, "apply", "moe"),
+                        (attention, "apply", "attention")]) as spans:
+        s0, s1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s0.record()
+        prefill(rc_flash)
+        s1.record()
+        torch.cuda.synchronize()
+    span_ms = s0.elapsed_time(s1)
+    share = {k: sum(a.elapsed_time(b) for a, b in v) / span_ms
+             for k, v in spans.items()}
+    (_, _, wall_p), by_name = profiled_device_us(lambda: prefill(rc_flash))
+    flash_dev_ms = profile_report(f"qwen2-moe prefill B={B} S={S}", wall_p,
+                                  by_name, L)
+    print(f"  shares of the prefill's {span_ms:.1f} ms device span (CUDA "
+          f"events): MoE layers {share['moe']:.4f}, attention layers "
+          f"{share['attention']:.4f}; flash device ms per launch "
+          f"{flash_dev_ms:.4f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    # teacher-forced decode through the caches against the forward
+    toks = torch.randint(1, cfg.vocab_size, (B, TF_PROMPT + TF_STEPS),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    rel_tf, ms_step = _teacher_forced(
+        m, params, toks, TF_PROMPT, rc_flash,
+        lambda: transformer.forward(params, toks, cfg, rc_flash)[0],
+        "qwen2-moe", moe_calls=L)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params, lf
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  memory allocated before the engine's own model "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
+
+    argv = ["--arch", "qwen2-moe-a2.7b", "--full", "--device", "cuda"]
+    print("  python -m repro_torch.launch.serve " + " ".join(argv)
+          + " (12 requests, 4 slots, s_max 128, 16 new tokens)", flush=True)
+    res = serve.main(argv)
+    check(res["requests"] == 12 and res["tokens"] == 12 * 16,
+          f"qwen2-moe engine served {res['requests']} requests, "
+          f"{res['tokens']} tokens")
+    check(all(r.done and len(r.out_tokens) == 16 for r in res["finished"]),
+          "qwen2-moe engine: a request did not finish with 16 tokens")
+    print(f"  engine on {card}: {res['tokens'] / res['wall_s']:.2f} tok/s, "
+          f"{res['steps']} steps, {res['wall_s'] / res['steps'] * 1e3:.3f} "
+          f"ms per step", flush=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall": wall, "tok_s": B * S / wall,
+            "rel_l2": rel, "rel_l2_as_init": rel0,
+            "rel_dropping_layers": max(layer_rel), "rel_dropping": rel_d,
+            "share": share, "flash_device_ms": flash_dev_ms,
+            "decode_ms": ms_step, "rel_tf": rel_tf, "peak_gib": peak,
+            "engine_tok_s": res["tokens"] / res["wall_s"],
+            "engine_ms_step": res["wall_s"] / res["steps"] * 1e3}
+
+
+def families_jamba(card: str):
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, moe, ssm, transformer
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.config import MAMBA, MLP_MOE
+    from repro_torch.models.model import Model
+    from repro_torch.runconfig import RunConfig
+
+    full_cfg = get_config("jamba-1.5-large-398b")
+    cfg = full_cfg.scaled(n_layers=JAMBA_DEPTH,
+                          pattern=full_cfg.pattern[:JAMBA_DEPTH])
+    B, S = JAMBA_PREFILL
+    kinds = ", ".join(f"{sp.kind}+{sp.mlp}" for sp in cfg.pattern)
+    print(f"-- jamba-1.5-large-398b cut to {cfg.n_layers} layers ({kinds}; "
+          f"full depth {full_cfg.n_layers}): d_model {cfg.d_model}, d_inner "
+          f"{cfg.d_inner}, {ssm.dims(cfg)[1]} SSD heads of {ssm.HEAD_P}, N "
+          f"{cfg.ssm_state_dim}, {cfg.n_experts} experts top-"
+          f"{cfg.n_experts_per_tok} of width {cfg.moe_d_ff}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads; prefill B={B} S={S}",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    m = Model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = m.init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    w_gib = torch.cuda.memory_allocated() / 2**30
+    print(f"random bf16 weights made on the card: {n_params} parameters "
+          f"({w_gib:.2f} GiB) in {time.perf_counter() - t0:.2f} s; "
+          f"reckoned transients: dense MoE [{S}x{cfg.n_experts}x"
+          f"{cfg.moe_d_ff}] bf16 "
+          f"{cfg.n_experts * S * cfg.moe_d_ff * 2 / 2**30:.2f} GiB x 2 plus "
+          f"one relaid expert matrix "
+          f"{cfg.n_experts * cfg.d_model * cfg.moe_d_ff * 2 / 2**30:.2f} GiB;"
+          f" reference scores [{B},{cfg.n_heads},{S},{S}] f32 "
+          f"{B * cfg.n_heads * S * S * 4 / 2**30:.2f} GiB x 3", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    n_attn = cfg.attn_layer_count
+    n_moe = sum(sp.mlp == MLP_MOE for sp in cfg.pattern)
+    n_mamba = sum(sp.kind == MAMBA for sp in cfg.pattern)
+
+    def prefill(rc):
+        return _family_prefill(m, params, {"tokens": tokens}, S + 64, rc,
+                               n_attn, "jamba")
+
+    rc_flash = RunConfig(attention_impl="flash")
+    _, _, wall_warm = prefill(rc_flash)
+    with capture_calls(attention, "apply") as attn_calls, \
+            capture_calls(moe, "apply") as moe_calls:
+        lf, st, wall = prefill(rc_flash)
+    launches = flash_ops.launches           # the main path's prefill
+    lr, _, wall_ref = prefill(RunConfig(attention_impl="reference"))
+    rel, mx, agree = _logit_gap(lf, lr)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # the attention layer on its own input from the main path's prefill,
+    # flash against reference.  The reference init's experts (fan-in E)
+    # add ~1e4 to the residual at each MoE layer; a layer of unit scale
+    # after that is below bf16's spacing there, so the logits cannot see
+    # the attention layer
+    a_args, a_kw, y_flash = attn_calls[0]
+    y_ref = attention.apply(*a_args[:4], RunConfig(attention_impl="reference"),
+                            **a_kw)
+    rel_attn = rel_l2(y_flash, y_ref)
+    moe_max = max(float(y.abs().max()) for _, _, (y, _) in moe_calls)
+    del attn_calls, moe_calls, y_ref, y_flash, a_args
+    print(f"prefill B={B} S={S} bf16 on {card}: flash wall={wall:.3f}s "
+          f"({B * S / wall:.1f} tok/s; first call {wall_warm:.3f}s), "
+          f"reference wall={wall_ref:.3f}s; last-token logits flash vs "
+          f"reference rel_l2={rel:.4e} max_abs={mx:.4e} argmax_agreement="
+          f"{agree} (limit {LOGIT_REL_L2_BF16}); the attention layer's "
+          f"output flash vs reference on its prefill input rel_l2="
+          f"{rel_attn:.4e} (limit {FLASH_REL_L2}); max |MoE layer output| "
+          f"{moe_max:.1f}; peak memory {peak:.2f} GiB", flush=True)
+    check(rel <= LOGIT_REL_L2_BF16, f"jamba prefill logits: flash vs "
+          f"reference relative L2 {rel} > {LOGIT_REL_L2_BF16}")
+    check(rel_attn <= FLASH_REL_L2, f"jamba attention layer: flash vs "
+          f"reference relative L2 {rel_attn} > {FLASH_REL_L2}")
+    check(all(bool(torch.isfinite(t).all()) for p_i, sp in
+              enumerate(cfg.pattern) if sp.kind == MAMBA
+              for t in st.slots[p_i]), "jamba: a non-finite SSM state")
+    del lr, st
+    (_, _, wall_p), by_name = profiled_device_us(lambda: prefill(rc_flash))
+    flash_dev_ms = profile_report(f"jamba prefill B={B} S={S}", wall_p,
+                                  by_name, n_attn)
+
+    toks = torch.randint(1, cfg.vocab_size, (B, JAMBA_TF_PROMPT + TF_STEPS),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    rel_tf, ms_step = _teacher_forced(
+        m, params, toks, JAMBA_TF_PROMPT, rc_flash,
+        lambda: transformer.forward(params, toks, cfg, rc_flash)[0],
+        "jamba", moe_calls=n_moe)
+    del params, lf
+    torch.cuda.empty_cache()
+
+    # one full-width mamba layer in float32: chunked SSD vs the recurrence
+    gen32 = torch.Generator(device="cuda").manual_seed(15)
+    p = ssm.init(gen32, cfg, torch.float32)
+    u = torch.randn((1, MAMBA_LAYER_S, cfg.d_model), generator=gen32,
+                    device="cuda")
+    rc = RunConfig(ssm_chunk=256)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = ssm.apply(p, u, cfg, rc)
+    torch.cuda.synchronize()
+    t_chunk = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = ssm.ssd_reference(p, u, cfg)
+    torch.cuda.synchronize()
+    t_seq = time.perf_counter() - t0
+    # the planted fault: every chunk of 256 without its carried state
+    fault = torch.cat([ssm.apply(p, u[:, i:i + 256], cfg, rc)
+                       for i in range(0, MAMBA_LAYER_S, 256)], dim=1)
+    rel_m, rel_fault = rel_l2(y, want), rel_l2(fault, want)
+    print(f"  one mamba layer, float32, [1,{MAMBA_LAYER_S},{cfg.d_model}], "
+          f"chunk 256 vs the sequential recurrence: rel_l2={rel_m:.4e} "
+          f"(limit {MAMBA_REL_L2}); planted fault (chunks without their "
+          f"carried state) rel_l2={rel_fault:.4e}; chunked {t_chunk:.3f}s, "
+          f"sequential {t_seq:.3f}s", flush=True)
+    check(bool(torch.isfinite(y).all()), "mamba layer: non-finite output")
+    check(rel_m <= MAMBA_REL_L2, f"mamba layer: chunked vs sequential "
+          f"relative L2 {rel_m} > {MAMBA_REL_L2}")
+    check(rel_fault > MAMBA_REL_L2, f"mamba layer: the planted fault's "
+          f"relative L2 {rel_fault} is within {MAMBA_REL_L2}")
+    del p, u, y, want, fault
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall": wall, "tok_s": B * S / wall,
+            "rel_l2": rel, "rel_attn": rel_attn, "moe_max": moe_max,
+            "flash_device_ms": flash_dev_ms, "decode_ms": ms_step,
+            "rel_tf": rel_tf, "peak_gib": peak, "weights_gib": w_gib,
+            "n_params": n_params, "mamba": n_mamba, "moe": n_moe,
+            "rel_mamba": rel_m, "S": S}
+
+
+def families_whisper(card: str):
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.configs import get_config
+    from repro_torch.models import whisper
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import Model
+    from repro_torch.runconfig import RunConfig
+    from repro_torch.serve.engine import Engine
+
+    cfg = get_config("whisper-tiny")
+    B = WHISPER_B
+    print(f"-- whisper-tiny: {cfg.n_encoder_layers} + {cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads (D "
+          f"{cfg.resolved_head_dim}), encoder_seq {cfg.encoder_seq}, vocab "
+          f"{cfg.vocab_size}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    m = Model(cfg, device="cuda")
+    params = m.init(seed=0)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    frames = torch.randn((B, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device="cuda").bfloat16()
+    L = cfg.n_encoder_layers + 2 * cfg.n_layers
+    rc_flash = RunConfig(attention_impl="flash")
+    out = {"n_params": n_params}
+    for S in WHISPER_S:
+        tokens = torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        inputs = {"tokens": tokens, "frames": frames}
+
+        def prefill(rc):
+            return _family_prefill(m, params, inputs,
+                                   S + FAMILY_DECODE_STEPS, rc, L,
+                                   f"whisper S={S}")
+
+        _, _, wall_warm = prefill(rc_flash)
+        lf, st, wall = prefill(rc_flash)
+        if S == WHISPER_S[0]:               # the main path's prefill
+            out["launches"] = flash_ops.launches
+        lr, _, wall_ref = prefill(RunConfig(attention_impl="reference"))
+        rel, mx, agree = _logit_gap(lf, lr)
+        print(f"prefill B={B} S={S} bf16 on {card}: flash wall="
+              f"{wall:.3f}s ({B * S / wall:.1f} tok/s; first call "
+              f"{wall_warm:.3f}s), reference wall={wall_ref:.3f}s; last-"
+              f"token logits flash vs reference rel_l2={rel:.4e} max_abs="
+              f"{mx:.4e} argmax_agreement={agree}; limit "
+              f"{LOGIT_REL_L2_BF16}", flush=True)
+        check(rel <= LOGIT_REL_L2_BF16, f"whisper S={S} prefill logits: "
+              f"flash vs reference relative L2 {rel} > {LOGIT_REL_L2_BF16}")
+        out[f"wall_{S}"], out[f"rel_l2_{S}"] = wall, rel
+        if S == WHISPER_S[0]:
+            # device time of each flash launch, in launch order: 4 encoder
+            # (1500 x 1500), then per decoder layer self (S x S), cross
+            (_, _, wall_p), by_name = profiled_device_us(
+                lambda: prefill(rc_flash))
+            out["flash_device_ms"] = profile_report(
+                f"whisper prefill B={B} S={S}", wall_p, by_name, L)
+            _, us = flash_events(lambda: prefill(rc_flash))
+            check(len(us) == L, f"whisper: {len(us)} flash events, want {L}")
+            ne = cfg.n_encoder_layers
+            out["device_ms"] = {
+                "encoder": statistics.mean(us[:ne]) / 1e3,
+                "self": statistics.mean(us[ne::2]) / 1e3,
+                "cross": statistics.mean(us[ne + 1::2]) / 1e3}
+            print("  flash device ms per launch: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in out["device_ms"].items()),
+                flush=True)
+            tok = lf[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(FAMILY_DECODE_STEPS):
+                logits, st = m.decode_step(params, tok, st, rc_flash)
+                tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            check(bool(torch.isfinite(logits).all()),
+                  "whisper decode: non-finite logits")
+            check(bool((st.pos == S + FAMILY_DECODE_STEPS).all()),
+                  f"whisper decode: pos {st.pos.tolist()}")
+            out["decode_ms"] = dt / FAMILY_DECODE_STEPS * 1e3
+            print(f"  {FAMILY_DECODE_STEPS} greedy decode steps at B={B} "
+                  f"from S={S}: {out['decode_ms']:.3f} ms/step, "
+                  f"{B * FAMILY_DECODE_STEPS / dt:.1f} tok/s", flush=True)
+        del lf, lr, st
+    toks = torch.randint(1, cfg.vocab_size,
+                         (B, WHISPER_TF_PROMPT + FAMILY_DECODE_STEPS),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    out["rel_tf"], _ = _teacher_forced(
+        m, params, toks, WHISPER_TF_PROMPT, rc_flash,
+        lambda: whisper.decode_train(
+            params, toks, whisper.encode(params, frames, cfg, rc_flash), cfg,
+            rc_flash), "whisper", extra={"frames": frames})
+    try:
+        Engine(m, params, RunConfig())
+    except NotImplementedError as e:
+        print(f"  Engine(whisper-tiny) raises NotImplementedError: {e}",
+              flush=True)
+    else:
+        fail("Engine accepted the encoder-decoder whisper-tiny")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  peak memory {out['peak_gib']:.2f} GiB", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(card: str):
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("== phase 12: MoE, Mamba and whisper at full width "
+          f"(memory allocated at the start "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB)", flush=True)
+    t_phase = time.perf_counter()
+    out = {}
+    for name, run in (("flash", families_flash), ("qwen2-moe", families_moe),
+                      ("jamba", families_jamba),
+                      ("whisper", families_whisper)):
+        out[name] = run(card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  memory allocated after {name}: "
+              f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
+    total = time.perf_counter() - t_phase
+    print(f"phase 12 total {total:.1f} s (budget {PHASE12_BUDGET_S:.0f} s)",
+          flush=True)
+    return {**out, "phase_s": total}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2485,6 +3257,8 @@ def main() -> None:
     service = phase_service(card)
     torch.cuda.empty_cache()
     autotune = phase_autotune(card)
+    torch.cuda.empty_cache()
+    families = phase_families(card)
 
     kernels = []
     for kind, shape, svc_shape in (("gram", MAIN_GRAM, SERVICE_GRAM),
@@ -2531,12 +3305,20 @@ def main() -> None:
         "phase10_plain_device_ms": svc_bwd["plain_device_ms"],
         "mtgp_step_us": service["mtgp"]["step_us"],
     })
+    # flash's launches on every main path, each counted from 0: yi-6b's
+    # 4k prefill (phase 6), qwen2-moe's, the jamba cut's and whisper's
+    # (phase 12)
+    by_path = {"yi-6b": serving["launches"],
+               **{k: families[k]["launches"]
+                  for k in ("qwen2-moe", "jamba", "whisper")}}
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",
         "source": FLASH_SOURCE, "fma_source": FLASH_FMA_SOURCE,
         "replaces": FLASH_REPLACES,
-        "launches": serving["launches"],
-        "launches_wgmma": serving["launches_wgmma"],
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "launches_wgmma": serving["launches_wgmma"] + sum(
+            families[k]["launches"] for k in ("qwen2-moe", "jamba",
+                                              "whisper")),
         "launches_fma": serving["launches_fma"],
         f"launches_{serving['long_s'] // 1024}k": serving["launches_long"],
         "max_abs_err": flash["max_abs_err"], "rel_l2": flash["rel_l2"],
@@ -2550,6 +3332,11 @@ def main() -> None:
         "launches_phase11": autotune["launches"]["flash_attention"],
         "tiles_phase11": autotune["tiles"]["flash_attention"],
         "tuned_phase11": autotune["tuned"]["flash_attention"],
+        "phase12_shapes": families["flash"],
+        "phase12_device_ms": {
+            "qwen2-moe": families["qwen2-moe"]["flash_device_ms"],
+            "jamba": families["jamba"]["flash_device_ms"],
+            "whisper": families["whisper"]["device_ms"]},
     })
     kernels.append({
         "name": "mlstm_chunk_fwd", "route": "cuda",

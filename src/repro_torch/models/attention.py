@@ -17,15 +17,16 @@ Decode attends a 1-token query against a KV cache (layout knob bshd/bhsd,
 dtype knob bf16/f32/int8-sim) in plain torch, as the reference computes it
 outside any kernel.  The port updates caches in place, where the reference
 returns new arrays: the returned caches are the buffers it was given.
-The reference's cross-attention and no-rope options (``kv_override``,
-``cross``, ``use_rope``) and query ``offset`` serve only whisper and are
-not ported (ROADMAP queue A, item 14b).
+Whisper's options are the reference's: ``kv_override`` (pre-projected
+cross-attention K/V), ``cross`` / ``cross_len`` (decode against the
+encoder memory, no cache update), ``use_rope=False`` and the query
+``offset`` of the masks.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -60,10 +61,13 @@ def init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
 # core softmax attention paths
 # ---------------------------------------------------------------------------
 
-def _causal_mask(sq: int, sk: int, window: Optional[int], device):
-    """[sq, sk] boolean mask: key j visible to query i when j <= i (and
-    j > i - window)."""
-    qi = torch.arange(sq, device=device)[:, None]
+def _causal_mask(sq: int, sk: int, window: Optional[int], device,
+                 offset: int = 0):
+    """[sq, sk] boolean mask: key j visible to query i when j <= i + offset
+    (and j > i + offset - window).  ``offset`` = absolute position of query
+    row 0 minus that of key column 0 (0 for self-attention over the same
+    range)."""
+    qi = torch.arange(sq, device=device)[:, None] + offset
     ki = torch.arange(sk, device=device)[None, :]
     m = ki <= qi
     if window is not None:
@@ -72,7 +76,7 @@ def _causal_mask(sq: int, sk: int, window: Optional[int], device):
 
 
 def reference_attention(q, k, v, *, causal: bool, window: Optional[int],
-                        softcap: Optional[float]):
+                        softcap: Optional[float], offset: int = 0):
     """q [B,Sq,H,D], k/v [B,Sk,Kh,D] -> [B,Sq,H,D].  Materializes scores.
 
     Scores accumulate in float32 (exact products of the operands, as the
@@ -88,7 +92,7 @@ def reference_attention(q, k, v, *, causal: bool, window: Optional[int],
     scores = common.softcap(scores, softcap)
     if causal or window is not None:
         # a window without causal still masks causally, as in the reference
-        m = _causal_mask(Sq, k.shape[1], window, q.device)
+        m = _causal_mask(Sq, k.shape[1], window, q.device, offset)
         scores = scores.masked_fill(~m[None, None], NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(vr.dtype).float(),
@@ -97,7 +101,7 @@ def reference_attention(q, k, v, *, causal: bool, window: Optional[int],
 
 
 def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
-                      softcap: Optional[float], chunk: int):
+                      softcap: Optional[float], chunk: int, offset: int = 0):
     """Online softmax over KV chunks; O(Sq·chunk) live memory.
 
     Equivalent to reference_attention (tests assert allclose); a Python
@@ -107,7 +111,7 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
     rep = H // Kh
     chunk = min(chunk, Sk)
     qf = q.float() / math.sqrt(D)
-    qidx = torch.arange(Sq, device=q.device)
+    qidx = torch.arange(Sq, device=q.device) + offset
     m_prev = torch.full((B, H, Sq), NEG_INF, device=q.device)
     l_prev = torch.zeros((B, H, Sq), device=q.device)
     acc = torch.zeros((B, Sq, H, D), device=q.device)
@@ -144,7 +148,18 @@ def flash_attention_dispatch(q, k, v, *, causal, window, softcap,
     The kernel runs its route's default tiles: ``rc.flash_block_q``/
     ``flash_block_k`` are the TPU kernel's tile knobs (multiples of 128
     up to 2048), which the card's kernels have no counterpart of, so they
-    are not passed (the card's own tiles are ``kernels.autotune``'s)."""
+    are not passed (the card's own tiles are ``kernels.autotune``'s).
+
+    The kernel takes q, k and v of one dtype.  Cross-attention K/V read
+    from a cache may differ from q (a dequantized int8-sim cache is bf16):
+    all three are promoted to the wider type, as the reference's float32
+    arithmetic reads them, and the output is cast back to q's dtype."""
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        wide = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                   v.dtype)
+        return flash_ops.flash_attention(
+            q.to(wide), k.to(wide), v.to(wide), causal=causal,
+            window=window, softcap=softcap).to(q.dtype)
     return flash_ops.flash_attention(
         q, k, v, causal=causal, window=window, softcap=softcap)
 
@@ -154,22 +169,32 @@ def flash_attention_dispatch(q, k, v, *, causal, window, softcap,
 # ---------------------------------------------------------------------------
 
 def apply(params, x, positions, cfg: ModelConfig, rc: RunConfig, *,
-          causal: bool = True, window: Optional[int] = None):
+          causal: bool = True, window: Optional[int] = None,
+          kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+          use_rope: bool = True):
     """Full-sequence attention (train / prefill).
 
     x [B, S, d_model]; positions [B, S] (or [3,B,S] for M-RoPE).
+    kv_override: (k, v) already-projected [B, Sk, Kh, D] tensors for
+    cross-attention; the flash kernel reads them through their strides,
+    so a view TMA cannot read raises (the caller passes contiguous ones).
     """
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     red = common.reduce_dtype(rc)
     q = dense_apply(params["q"], x, preferred=red) \
         .reshape(B, S, cfg.n_heads, hd)
-    k = dense_apply(params["k"], x, preferred=red) \
-        .reshape(B, S, cfg.n_kv_heads, hd)
-    v = dense_apply(params["v"], x, preferred=red) \
-        .reshape(B, S, cfg.n_kv_heads, hd)
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    if kv_override is None:
+        k = dense_apply(params["k"], x, preferred=red) \
+            .reshape(B, S, cfg.n_kv_heads, hd)
+        v = dense_apply(params["v"], x, preferred=red) \
+            .reshape(B, S, cfg.n_kv_heads, hd)
+        if use_rope:
+            k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        k, v = kv_override
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
 
     impl = rc.attention_impl
     if impl == "reference":
@@ -189,13 +214,16 @@ def apply(params, x, positions, cfg: ModelConfig, rc: RunConfig, *,
     return dense_apply(params["o"], out, preferred=red)
 
 
-def project_kv(params, x, positions, cfg: ModelConfig):
-    """Project and rotate K/V for the cache fill."""
+def project_kv(params, x, positions, cfg: ModelConfig, *,
+               use_rope: bool = True):
+    """Project (and rotate) K/V for the cache fill / cross-attention
+    memory."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     k = dense_apply(params["k"], x).reshape(B, S, cfg.n_kv_heads, hd)
     v = dense_apply(params["v"], x).reshape(B, S, cfg.n_kv_heads, hd)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    if use_rope:
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     return k, v
 
 
@@ -204,7 +232,9 @@ def project_kv(params, x, positions, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def decode_apply(params, x, cache_k, cache_v, pos, cfg: ModelConfig,
-                 rc: RunConfig, *, window: Optional[int] = None):
+                 rc: RunConfig, *, window: Optional[int] = None,
+                 cross: bool = False, cross_len: Optional[int] = None,
+                 use_rope: bool = True):
     """One-token decode.
 
     x        [B, 1, d_model]
@@ -212,6 +242,8 @@ def decode_apply(params, x, cache_k, cache_v, pos, cfg: ModelConfig,
                bshd: [B, S_max, Kh, D]; bhsd: [B, Kh, S_max, D]
     pos      int scalar OR [B] vector — tokens already in each cache row
              (continuous batching runs every slot at its own position).
+    cross    : cross-attention (the cache holds the encoder memory, of
+               which the first ``cross_len`` rows are visible; no update).
     Returns (out [B,1,d_model], cache_k, cache_v); the caches are updated
     in place.
     """
@@ -221,13 +253,19 @@ def decode_apply(params, x, cache_k, cache_v, pos, cfg: ModelConfig,
     pos_vec = pos.reshape(-1).expand(B) if pos.dim() <= 1 else pos
     q = dense_apply(params["q"], x).reshape(B, 1, cfg.n_heads, hd)
     positions = pos_vec[:, None]
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-    k_new = dense_apply(params["k"], x).reshape(B, 1, cfg.n_kv_heads, hd)
-    v_new = dense_apply(params["v"], x).reshape(B, 1, cfg.n_kv_heads, hd)
-    k_new = apply_rope(k_new, positions, cfg.rope_theta, cfg.mrope_sections)
-    _cache_insert(cache_k, k_new, pos_vec, rc)
-    _cache_insert(cache_v, v_new, pos_vec, rc)
-    kv_len = pos_vec + 1                                  # [B]
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+    if not cross:
+        k_new = dense_apply(params["k"], x).reshape(B, 1, cfg.n_kv_heads, hd)
+        v_new = dense_apply(params["v"], x).reshape(B, 1, cfg.n_kv_heads, hd)
+        if use_rope:
+            k_new = apply_rope(k_new, positions, cfg.rope_theta,
+                               cfg.mrope_sections)
+        _cache_insert(cache_k, k_new, pos_vec, rc)
+        _cache_insert(cache_v, v_new, pos_vec, rc)
+        kv_len = pos_vec + 1                              # [B]
+    else:
+        kv_len = torch.full((B,), int(cross_len), device=x.device)
 
     k = _cache_read(cache_k, rc)           # [B, S_max, Kh, D] bf16/f32
     v = _cache_read(cache_v, rc)
@@ -241,7 +279,7 @@ def decode_apply(params, x, cache_k, cache_v, pos, cfg: ModelConfig,
     s = common.softcap(s, cfg.logit_softcap)
     kidx = torch.arange(S_max, device=x.device)
     m = kidx[None, :] < kv_len[:, None]                   # [B, S_max]
-    if window is not None:
+    if window is not None and not cross:
         m &= kidx[None, :] > (kv_len[:, None] - 1 - window)
     s = s.masked_fill(~m[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -312,6 +350,13 @@ def _cache_read(cache, rc: RunConfig):
     if x.dtype == torch.int8:
         x = _dequantize(x)
     return x
+
+
+def read_cache_full(cache, rc: RunConfig):
+    """Whole cache as [B, S, Kh, D] in compute dtype (cross-attention
+    memory): under ``kv_layout="bhsd"`` a transposed view, an int8-sim
+    cache dequantized to bf16."""
+    return _cache_read(cache, rc)
 
 
 def fill_cache(cache, kv, rc: RunConfig):

@@ -1,4 +1,5 @@
-"""Model API over decoder-only LMs (from ``repro.models.model``).
+"""Unified Model API over decoder-only LMs and the encoder-decoder
+(whisper) family (from ``repro.models.model``).
 
 The serving engine and the launchers talk to this facade:
 
@@ -7,13 +8,14 @@ The serving engine and the launchers talk to this facade:
     logits, state     = m.prefill(params, inputs, s_max, rc)
     logits, state     = m.decode_step(params, token, state, rc)
 
-Tensors live on ``m.device``: the card unless the caller asks for the
-CPU, and never a silent fallback.  The decoder-only dense family and the
-xLSTM family (mLSTM / sLSTM blocks; the mLSTM sequence pass in the
-chunkwise CUDA kernel) are ported; their decode states hold attention
-caches or recurrent states, updated in place.  Mamba and MoE blocks, the
-encoder-decoder family (whisper) and the loss/train path are not ported
-yet (ROADMAP queue A, items 14b and 15).
+``inputs`` holds ``"tokens"`` [B, S], and for whisper also ``"frames"``
+[B, T_enc, d_model] (the stub frontend's frame embeddings).  Tensors live
+on ``m.device``: the card unless the caller asks for the CPU, and never a
+silent fallback.  Every family of the reference is served: the dense,
+MoE, hybrid (mamba) and xLSTM decoder stacks (``models/transformer.py``)
+and whisper (``models/whisper.py``); decode states hold attention caches
+or recurrent states, updated in place.  The loss/train path is not ported
+yet (ROADMAP queue A, item 15).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import transformer, whisper
 from repro_torch.models.common import tree_map
 from repro_torch.models.config import ModelConfig
 from repro_torch.runconfig import RunConfig
@@ -39,12 +41,8 @@ def _tensor(a) -> torch.Tensor:
 
 class Model:
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        if cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                f"{cfg.name}: the encoder-decoder family (models/whisper.py)"
-                " is not ported yet: ROADMAP queue A, item 14b")
-        transformer.check_supported(cfg)
         self.cfg = cfg
+        self._ed = cfg.is_encoder_decoder
         self.device = resolve_device(device)
 
     # ---- parameters -------------------------------------------------------
@@ -53,30 +51,55 @@ class Model:
         """Random parameters made on ``self.device`` from a
         ``torch.Generator`` seeded with ``seed``."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return transformer.init(gen, self.cfg, dtype)
+        mod = whisper if self._ed else transformer
+        return mod.init(gen, self.cfg, dtype)
 
     def params_from_numpy(self, tree):
-        """Load a reference parameter tree (``{"embed", "final_norm",
-        "layers": [stacked per pattern position], "head"}``, leaves as
-        numpy arrays, bf16 included) onto ``self.device``, unchanged in
-        layout and dtype (an xLSTM tree keeps its float32 gate and sLSTM
-        bias leaves)."""
+        """Load a reference parameter tree (leaves as numpy arrays, bf16
+        included) onto ``self.device``, unchanged in layout and dtype: a
+        decoder stack's ``{"embed", "final_norm", "layers": [stacked per
+        pattern position], "head"}`` or whisper's ``{"embed", "encoder",
+        "enc_norm", "decoder", "final_norm"}``; float32 leaves (the xLSTM's
+        gates and sLSTM bias, the MoE router, mamba's ``a_log`` and
+        ``d_skip``) stay float32."""
         return tree_map(lambda a: _tensor(a).to(self.device), tree)
 
     # ---- serving ----------------------------------------------------------
 
-    def _tokens(self, tokens) -> torch.Tensor:
-        return torch.as_tensor(tokens, device=self.device)
+    def _on_device(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return _tensor(x).to(self.device)
 
     def prefill(self, params, inputs: Dict[str, object], s_max: int,
                 rc: RunConfig):
-        return transformer.prefill(params, self._tokens(inputs["tokens"]),
-                                   s_max, self.cfg, rc)
+        tokens = self._on_device(inputs["tokens"])
+        if self._ed:
+            # encode + teacher-forced full-sequence decoder pass, caches
+            # filled
+            return whisper.prefill(params, tokens,
+                                   self._on_device(inputs["frames"]), s_max,
+                                   self.cfg, rc)
+        return transformer.prefill(params, tokens, s_max, self.cfg, rc)
 
-    def init_decode_state(self, batch: int, s_max: int, rc: RunConfig):
+    def init_decode_state(self, *args, params=None):
+        """Decode state of ``batch`` slots for ``s_max`` tokens.  The
+        decoder-only call is ``(batch, s_max, rc)``; the reference's
+        ``(inputs, batch, s_max, rc, params)`` serves every family
+        (whisper encodes ``inputs["frames"]`` with ``params``)."""
+        if isinstance(args[0], dict):
+            inputs, batch, s_max, rc, *rest = args
+            params = rest[0] if rest else params
+        else:
+            inputs, (batch, s_max, rc) = {}, args
+        if self._ed:
+            return whisper.init_decode_state(
+                params, self._on_device(inputs["frames"]), batch, s_max,
+                self.cfg, rc)
         return transformer.init_decode_state(batch, s_max, self.cfg, rc,
                                              device=self.device)
 
     def decode_step(self, params, token, state, rc: RunConfig):
-        return transformer.decode_step(params, self._tokens(token), state,
-                                       self.cfg, rc)
+        mod = whisper if self._ed else transformer
+        return mod.decode_step(params, self._on_device(token), state,
+                               self.cfg, rc)

@@ -7,15 +7,17 @@ parameter tree carries across unchanged (``Model.params_from_numpy``).
 The reference's ``lax.scan`` over groups is a Python loop over layers
 here; the remat policy has no counterpart (nothing is differentiated).
 
-Ported: ``ATTN`` blocks with a dense MLP or none, and the xLSTM family's
-``MLSTM`` and ``SLSTM`` blocks (``models/xlstm.py``; ``mlp="none"``).
-Mamba blocks and MoE MLPs raise ``NotImplementedError`` naming their
-ROADMAP item.
+Every block kind of the reference is ported: ``ATTN`` (the flash kernel
+under ``attention_impl="flash"``), ``MAMBA`` (the chunked SSD of
+``models/ssm.py``), and the xLSTM family's ``MLSTM`` and ``SLSTM``
+(``models/xlstm.py``), each with a dense MLP, an MoE MLP
+(``models/moe.py``) or none.  The MoE auxiliary loss is summed over the
+stack by ``forward``; the serving paths drop it, as the reference's do.
 
 Exposes:
     init                   — random parameters on a ``torch.Generator``
-    forward                — full-sequence logits (train / prefill)
-    init_decode_state      — per-position stacked caches
+    forward                — full-sequence logits and MoE aux loss
+    init_decode_state      — per-position stacked caches / states
     prefill                — fill caches from a prompt, return state
     decode_step            — one-token step through the whole stack
 """
@@ -26,33 +28,12 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.models import attention, mlp, xlstm
+from repro_torch.models import attention, mlp, moe, ssm, xlstm
 from repro_torch.models.common import (dense_apply, norm_apply, norm_init,
                                        reduce_dtype, trunc_normal, tree_map)
 from repro_torch.models.config import (ATTN, MAMBA, MLP_DENSE, MLP_MOE,
-                                       MLP_NONE, MLSTM, SLSTM, LayerSpec,
-                                       ModelConfig)
+                                       MLSTM, SLSTM, LayerSpec, ModelConfig)
 from repro_torch.runconfig import RunConfig
-
-_NOT_PORTED = {
-    MAMBA: "mamba blocks (models/ssm.py) are not ported yet: ROADMAP "
-           "queue A, item 14b",
-    MLP_MOE: "MoE MLPs (models/moe.py) are not ported yet: ROADMAP queue "
-             "A, item 14b",
-}
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a block or MLP kind this slice
-    does not port."""
-    for spec in cfg.pattern:
-        for kind in (spec.kind, spec.mlp):
-            if kind in _NOT_PORTED:
-                raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
-        if spec.kind not in (ATTN, MLSTM, SLSTM) \
-                or spec.mlp not in (MLP_DENSE, MLP_NONE):
-            raise ValueError(f"{cfg.name}: unknown layer spec {spec}")
-
 
 # ---------------------------------------------------------------------------
 # init
@@ -65,20 +46,27 @@ def _pos_init(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
                                             device=dev, stack=G)}
     if spec.kind == ATTN:
         p["attn"] = attention.init(gen, cfg, dtype, stack=G)
+    elif spec.kind == MAMBA:
+        p["mamba"] = ssm.init(gen, cfg, dtype, stack=G)
     elif spec.kind == MLSTM:
         p["mlstm"] = xlstm.mlstm_init(gen, cfg, dtype, stack=G)
-    else:
+    elif spec.kind == SLSTM:
         p["slstm"] = xlstm.slstm_init(gen, cfg, dtype, stack=G)
+    else:
+        raise ValueError(spec.kind)
     if spec.mlp == MLP_DENSE:
         p["norm2"] = norm_init(cfg.d_model, cfg.norm, dtype, device=dev,
                                stack=G)
         p["mlp"] = mlp.init(gen, cfg, dtype=dtype, stack=G)
+    elif spec.mlp == MLP_MOE:
+        p["norm2"] = norm_init(cfg.d_model, cfg.norm, dtype, device=dev,
+                               stack=G)
+        p["moe"] = moe.init(gen, cfg, dtype, stack=G)
     return p
 
 
 def init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16):
     """Random parameters on ``gen``'s device, in the reference's tree."""
-    check_supported(cfg)
     params: Dict[str, Any] = {
         "embed": {"tok": trunc_normal(gen, (cfg.vocab_size, cfg.d_model),
                                       1.0, dtype)},
@@ -101,38 +89,57 @@ def _group(stacked, g: int):
 # full-sequence forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _block_forward(spec: LayerSpec, p, x, positions, cfg: ModelConfig,
-                   rc: RunConfig):
-    """One block (pre-norm residual)."""
-    h = norm_apply(p["norm1"], x, kind=cfg.norm, eps=cfg.norm_eps)
+def _mixer(spec: LayerSpec, p, h, positions, cfg: ModelConfig,
+           rc: RunConfig):
+    """The block's sequence mixer on the normed input (full sequence)."""
     if spec.kind == ATTN:
-        h = attention.apply(p["attn"], h, positions, cfg, rc, causal=True,
-                            window=spec.sliding_window)
-    elif spec.kind == MLSTM:
-        h = xlstm.mlstm_apply(p["mlstm"], h, cfg, rc)
-    else:
-        h = xlstm.slstm_apply(p["slstm"], h, cfg, rc)
-    x = x + h
+        return attention.apply(p["attn"], h, positions, cfg, rc,
+                               causal=True, window=spec.sliding_window)
+    if spec.kind == MAMBA:
+        return ssm.apply(p["mamba"], h, cfg, rc)
+    if spec.kind == MLSTM:
+        return xlstm.mlstm_apply(p["mlstm"], h, cfg, rc)
+    return xlstm.slstm_apply(p["slstm"], h, cfg, rc)
+
+
+def _block_mlp(spec: LayerSpec, p, x, cfg: ModelConfig, rc: RunConfig):
+    """The block's MLP half (pre-norm residual).  Returns (x, aux): the
+    MoE auxiliary loss, 0.0 for a dense MLP or none."""
+    aux = 0.0
     if spec.mlp == MLP_DENSE:
         h = norm_apply(p["norm2"], x, kind=cfg.norm, eps=cfg.norm_eps)
         x = x + mlp.apply(p["mlp"], h, cfg, rc)
-    return x
+    elif spec.mlp == MLP_MOE:
+        h = norm_apply(p["norm2"], x, kind=cfg.norm, eps=cfg.norm_eps)
+        y, aux = moe.apply(p["moe"], h, cfg, rc)
+        x = x + y
+    return x, aux
+
+
+def _block_forward(spec: LayerSpec, p, x, positions, cfg: ModelConfig,
+                   rc: RunConfig):
+    """One block (pre-norm residual).  Returns (x, aux_loss)."""
+    h = norm_apply(p["norm1"], x, kind=cfg.norm, eps=cfg.norm_eps)
+    x = x + _mixer(spec, p, h, positions, cfg, rc)
+    return _block_mlp(spec, p, x, cfg, rc)
 
 
 def backbone(params, x, positions, cfg: ModelConfig, rc: RunConfig):
-    """Embedded activations -> final hidden states.  x [B,S,d].  The
-    carried activation is cast to ``rc.activation_dtype`` at every group
-    boundary, as the reference's scan carry is."""
+    """Embedded activations -> (final hidden states, summed aux loss).
+    x [B,S,d].  The carried activation is cast to ``rc.activation_dtype``
+    at every group boundary, as the reference's scan carry is."""
     act_dtype = torch.bfloat16 if rc.activation_dtype == "bfloat16" \
         else torch.float32
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(cfg.n_groups):
         x = x.to(act_dtype)
         for p_i, spec in enumerate(cfg.pattern):
-            x = _block_forward(spec, _group(params["layers"][p_i], g), x,
-                               positions, cfg, rc)
+            x, a = _block_forward(spec, _group(params["layers"][p_i], g), x,
+                                  positions, cfg, rc)
+            aux = aux + a
         x = x.to(act_dtype)
     return norm_apply(params["final_norm"], x, kind=cfg.norm,
-                      eps=cfg.norm_eps)
+                      eps=cfg.norm_eps), aux
 
 
 def embed(params, tokens, cfg: ModelConfig):
@@ -163,14 +170,13 @@ def _default_positions(B: int, S: int, device):
 
 def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
             positions: Optional[torch.Tensor] = None):
-    """tokens [B,S] int -> (logits [B,S,V] f32, aux loss 0)."""
+    """tokens [B,S] int -> (logits [B,S,V] f32, MoE aux loss)."""
     B, S = tokens.shape
     if positions is None:
         positions = _default_positions(B, S, tokens.device)
     x = embed(params, tokens, cfg)
-    x = backbone(params, x, positions, cfg, rc)
-    logits = unembed(params, x, cfg, rc)
-    return logits, torch.zeros((), device=logits.device)
+    x, aux = backbone(params, x, positions, cfg, rc)
+    return unembed(params, x, cfg, rc), aux
 
 
 # ---------------------------------------------------------------------------
@@ -181,8 +187,8 @@ class DecodeState(NamedTuple):
     """Per-pattern-position stacked caches / states + current length."""
     slots: Tuple[Any, ...]      # one entry per pattern position, every
                                 # leaf [n_groups, B, ...]: (k, v) caches
-                                # (layout per rc), an MlstmState or an
-                                # SlstmState
+                                # (layout per rc), an SsmState, an
+                                # MlstmState or an SlstmState
     pos: torch.Tensor           # [B] int32: tokens consumed per slot
 
 
@@ -192,14 +198,17 @@ def _pos_state(spec: LayerSpec, batch: int, s_max: int, cfg: ModelConfig,
     if spec.kind == ATTN:
         return attention.init_cache(batch, s_max, cfg, rc, device=device,
                                     stack=G)
+    if spec.kind == MAMBA:
+        return ssm.init_state(batch, cfg, device=device, stack=G)
     if spec.kind == MLSTM:
         return xlstm.mlstm_init_state(batch, cfg, device=device, stack=G)
-    return xlstm.slstm_init_state(batch, cfg, device=device, stack=G)
+    if spec.kind == SLSTM:
+        return xlstm.slstm_init_state(batch, cfg, device=device, stack=G)
+    raise ValueError(spec.kind)
 
 
 def init_decode_state(batch: int, s_max: int, cfg: ModelConfig,
                       rc: RunConfig, *, device) -> DecodeState:
-    check_supported(cfg)
     slots = tuple(_pos_state(spec, batch, s_max, cfg, rc, device)
                   for spec in cfg.pattern)
     return DecodeState(slots=slots,
@@ -219,15 +228,13 @@ def _block_decode(spec: LayerSpec, p, x, slot, pos, cfg: ModelConfig,
     if spec.kind == ATTN:
         h, _, _ = attention.decode_apply(p["attn"], h, *slot, pos, cfg, rc,
                                          window=spec.sliding_window)
+    elif spec.kind == MAMBA:
+        h, _ = ssm.decode_step(p["mamba"], h, slot, cfg, rc)
     elif spec.kind == MLSTM:
         h, _ = xlstm.mlstm_decode_step(p["mlstm"], h, slot, cfg, rc)
     else:
         h, _ = xlstm.slstm_decode_step(p["slstm"], h, slot, cfg, rc)
-    x = x + h
-    if spec.mlp == MLP_DENSE:
-        h = norm_apply(p["norm2"], x, kind=cfg.norm, eps=cfg.norm_eps)
-        x = x + mlp.apply(p["mlp"], h, cfg, rc)
-    return x
+    return _block_mlp(spec, p, x + h, cfg, rc)[0]
 
 
 def decode_step(params, token, state: DecodeState, cfg: ModelConfig,
@@ -251,10 +258,12 @@ def prefill(params, tokens, s_max: int, cfg: ModelConfig, rc: RunConfig):
 
     Returns (last-token logits [B,1,V], DecodeState at pos=S).
     Full-sequence attention (``rc.attention_impl``; the flash kernel under
-    ``"flash"``) plus a per-layer cache fill, as in the reference; an mLSTM
-    layer's sequence pass is the chunkwise kernel and its final state
-    comes from one product over S; an sLSTM layer's time loop leaves its
-    final state.  The states are written into the slots in place.
+    ``"flash"``) plus a per-layer cache fill, as in the reference; a mamba
+    layer's chunked SSD and its final state from one product over S; an
+    mLSTM layer's sequence pass is the chunkwise kernel and its final
+    state comes from one product over S; an sLSTM layer's time loop
+    leaves its final state.  The states are written into the slots in
+    place; the MoE aux loss is dropped.
     """
     B, S = tokens.shape
     dev = tokens.device
@@ -273,21 +282,38 @@ def prefill(params, tokens, s_max: int, cfg: ModelConfig, rc: RunConfig):
                 y = attention.apply(p["attn"], h, positions, cfg, rc,
                                     causal=True, window=spec.sliding_window)
             else:
-                prefill_fn = _mlstm_prefill if spec.kind == MLSTM \
-                    else _slstm_prefill
+                prefill_fn = {MAMBA: _ssm_prefill, MLSTM: _mlstm_prefill,
+                              SLSTM: _slstm_prefill}[spec.kind]
                 y, final = prefill_fn(p[spec.kind], h, cfg, rc)
                 for dst, src in zip(slot, final):
                     dst.copy_(src)
-            x = x + y
-            if spec.mlp == MLP_DENSE:
-                h = norm_apply(p["norm2"], x, kind=cfg.norm,
-                               eps=cfg.norm_eps)
-                x = x + mlp.apply(p["mlp"], h, cfg, rc)
+            x, _ = _block_mlp(spec, p, x + y, cfg, rc)
     x = norm_apply(params["final_norm"], x, kind=cfg.norm, eps=cfg.norm_eps)
     logits = unembed(params, x[:, -1:], cfg)
     return logits, DecodeState(
         slots=state.slots,
         pos=torch.full((B,), S, dtype=torch.int32, device=dev))
+
+
+def _ssm_prefill(p, h, cfg: ModelConfig, rc: RunConfig):
+    """The chunked SSD sequence pass and its final state."""
+    return ssm.apply(p, h, cfg, rc), _ssm_final_state(p, h, cfg, rc)
+
+
+def _ssm_final_state(p, h, cfg: ModelConfig, rc: RunConfig) -> ssm.SsmState:
+    """(s, conv tail) after the whole prompt: the carried state from one
+    product over S, the last W-1 inputs of the conv in bf16."""
+    B, S, _ = h.shape
+    x, z, di, nh, N, P = ssm._project(p, h, cfg)
+    xc = ssm._conv_act(p, x)
+    Bm = torch.split(dense_apply(p["bc_proj"], xc), N, dim=-1)[0]
+    dt, log_decay = ssm._gates(p, xc, nh)
+    xh = xc.reshape(B, S, nh, P).float() * dt[..., None]
+    cum = torch.cumsum(log_decay, dim=1)                    # [B,S,H]
+    w = torch.exp(cum[:, -1:, :] - cum)                     # [B,S,H]
+    s = torch.einsum("bsn,bshp->bhnp", Bm.float(), xh * w[..., None])
+    conv_tail = x[:, S - (cfg.ssm_conv_width - 1):, :].to(torch.bfloat16)
+    return ssm.SsmState(s=s, conv=conv_tail)
 
 
 def _mlstm_prefill(p, h, cfg: ModelConfig, rc: RunConfig):

@@ -12,7 +12,9 @@ Mechanics (enabled by the model's per-slot position vector):
   attends to exactly its own ``kv_len = pos+1`` prefix, so a recycled slot
   needs no cache zeroing: stale rows sit beyond its kv_len and are masked;
 * admission resets ``pos[slot] = 0`` in place on the device and streams
-  the prompt tokens in as that slot's per-step input;
+  the prompt tokens in as that slot's per-step input; a recurrent slot
+  (mamba, mLSTM, sLSTM) keeps the previous request's state, as in the
+  reference;
 * emission: a slot in the replay phase discards logits until its prompt is
   consumed, then greedy-decodes; finished slots idle on token 0 until
   recycled;
@@ -52,6 +54,10 @@ class Engine:
     def __init__(self, model: Model, params, rc: RunConfig, *,
                  slots: int = 8, s_max: int = 1024, hbm_bytes: float = 16e9,
                  kv_frac: float = 0.3):
+        if model.cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                "engine serves decoder-only stacks; whisper decodes via "
+                "Model.decode_step directly (examples/serve_batched.py)")
         self.model, self.params, self.rc = model, params, rc
         self.slots, self.s_max = slots, s_max
         self.plan = CachePlan.build(model.cfg, rc, hbm_bytes=hbm_bytes,

@@ -59,6 +59,20 @@ WGMMA_CASES = [
 ]
 
 
+# the MoE and whisper paths' shapes (bf16, the wgmma route), as
+# ``chip_smoke.py`` phase 12 drives them: whisper's encoder
+# self-attention (Sk 1500 = 11 key tiles of 128 and a ragged 92, without
+# the causal mask), its cross-attention (Sq 448, Sk 1500) and
+# qwen2-moe's MHA prefill.  Held like phase 5's path shapes: atol 2e-2
+# and relative L2 1e-2 of the whole output, against both plain versions
+PATH_CASES = [
+    (2, 1500, 1500, 6, 6, 64, False),
+    (2, 448, 1500, 6, 6, 64, False),
+    (2, 4096, 4096, 16, 16, 128, True),
+]
+PATH_REL_L2 = 1e-2
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -120,6 +134,28 @@ def test_wgmma_route_edges_match_plain(case, cuda):
     want = reference_attention(q, k, v, causal=causal, window=window,
                                softcap=softcap)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PATH_CASES,
+                         ids=lambda c: "B{}S{}x{}H{}-{}D{}c{}".format(*c))
+def test_moe_and_whisper_path_shapes_match_plain(case, cuda):
+    causal = case[6]
+    q, k, v = _qkv(case, torch.bfloat16, cuda, seed=case[1] + case[2])
+    assert ops.route(q.dtype, q.shape[3]) == "wgmma"
+    got = _check_against_plain(q, k, v, causal=causal).float()
+    for p_dtype in (torch.bfloat16, None):
+        want = reference_attention(q, k, v, causal=causal,
+                                   p_dtype=p_dtype).float()
+        rel = float((got - want).norm() / want.norm())
+        assert rel <= PATH_REL_L2, (p_dtype, rel)
+    # the last key tile's 92 keys count: without them the rows change
+    # by far more than the limit
+    if not causal and case[2] % 128:
+        cut = case[2] - case[2] % 128
+        short = reference_attention(q, k[:, :cut], v[:, :cut], causal=False,
+                                    p_dtype=torch.bfloat16).float()
+        assert float((short - got).norm() / got.norm()) > PATH_REL_L2
 
 
 @pytest.mark.cuda

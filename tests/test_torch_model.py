@@ -1,5 +1,6 @@
-"""The port's dense decoder (``repro_torch.models``) against the JAX
-reference, on the CPU.
+"""The port's model zoo (``repro_torch.models``) against the JAX
+reference, on the CPU: the dense, xLSTM, MoE (grok-1, qwen2-moe), hybrid
+mamba (jamba) and encoder-decoder (whisper) families.
 
 Weights are made by the reference (``Model.init``) and carried across with
 ``Model.params_from_numpy``; inputs come from numpy seeds.  Tolerances:
@@ -15,7 +16,8 @@ Weights are made by the reference (``Model.init``) and carried across with
 in the port and the chunked path in the reference (its off-TPU dispatch).
 xlstm-1.3b's mLSTM layers run the chunkwise kernel's plain version in the
 port and the reference's jnp chunked scan; its smoke config has one group
-of 7 mLSTM + 1 sLSTM layers.
+of 7 mLSTM + 1 sLSTM layers.  jamba's smoke config is one group of its
+8-layer period (mamba everywhere but position 4, MoE on odd positions).
 """
 
 import jax
@@ -26,16 +28,18 @@ import torch
 
 from repro.configs import get_smoke_config as jax_smoke
 from repro.models import transformer as jtf
+from repro.models import whisper as jwhisper
 from repro.models.model import Model as JModel
 from repro.runconfig import RunConfig as JRunConfig
-from repro_torch.configs import get_smoke_config
-from repro_torch.models import common, transformer
+from repro_torch.configs import ARCH_IDS, get_smoke_config
+from repro_torch.models import common, ssm, transformer, whisper
 from repro_torch.models.model import Model
 from repro_torch.runconfig import RunConfig
 
 DENSE = ["yi-6b", "qwen1.5-4b", "mistral-nemo-12b", "codeqwen1.5-7b",
          "qwen2-vl-72b"]
-PORTED = DENSE + ["xlstm-1.3b"]
+PORTED = DENSE + ["xlstm-1.3b", "grok-1-314b", "qwen2-moe-a2.7b",
+                  "jamba-1.5-large-398b", "whisper-tiny"]
 F32 = dict(param_dtype="float32", activation_dtype="float32",
            kv_cache_dtype="float32")
 
@@ -67,6 +71,20 @@ def _tokens(cfg, B, S, seed):
         1, cfg.vocab_size, size=(B, S)).astype(np.int32)
 
 
+def _inputs(cfg, B, S, seed):
+    """Prefill inputs: tokens, and whisper's stub frame embeddings."""
+    inputs = {"tokens": _tokens(cfg, B, S, seed)}
+    if cfg.is_encoder_decoder:
+        inputs["frames"] = np.random.default_rng(seed + 100).standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model), np.float32)
+    return inputs
+
+
+def _first_cache(state):
+    """The first position's first cache or state leaf."""
+    return state.self_k if hasattr(state, "self_k") else state.slots[0][0]
+
+
 # ---------------------------------------------------------------------------
 # the model: forward, prefill, decode_step
 # ---------------------------------------------------------------------------
@@ -86,17 +104,36 @@ def test_param_tree_matches_reference_layout():
 def test_forward_matches_reference(arch):
     jm, jp, tm, tp = _pair(arch)
     toks = _tokens(jm.cfg, 2, 11, seed=1)
+    if jm.cfg.is_encoder_decoder:          # encode, then the decoder pass
+        frames = _inputs(jm.cfg, 2, 11, seed=1)["frames"]
+        jrc, trc = JRunConfig(**F32), RunConfig(**F32)
+        want = jwhisper.decode_train(
+            jp, jnp.asarray(toks),
+            jwhisper.encode(jp, jnp.asarray(frames), jm.cfg, jrc), jm.cfg,
+            jrc)
+        got = whisper.decode_train(
+            tp, torch.from_numpy(toks),
+            whisper.encode(tp, torch.from_numpy(frames), tm.cfg, trc),
+            tm.cfg, trc)
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-4,
+                                   rtol=1e-4)
+        return
     pos = None
     if jm.cfg.mrope_sections is not None:       # distinct (t, h, w) ids
         pos = np.random.default_rng(2).integers(
             0, 11, size=(3, 2, 11)).astype(np.int32)
-    want, _ = jtf.forward(jp, jnp.asarray(toks), jm.cfg, JRunConfig(**F32),
-                          positions=None if pos is None else jnp.asarray(pos))
+    want, jaux = jtf.forward(jp, jnp.asarray(toks), jm.cfg,
+                             JRunConfig(**F32),
+                             positions=None if pos is None
+                             else jnp.asarray(pos))
     got, aux = transformer.forward(tp, torch.from_numpy(toks), tm.cfg,
                                    RunConfig(**F32),
                                    positions=None if pos is None
                                    else torch.from_numpy(pos))
-    assert got.dtype == torch.float32 and float(aux) == 0.0
+    assert got.dtype == torch.float32
+    # the MoE aux loss summed over the stack (0 without MoE layers)
+    assert (float(aux) == 0.0) == (float(jaux) == 0.0)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
     np.testing.assert_allclose(_np(got), _np(want), atol=1e-4, rtol=1e-4)
 
 
@@ -106,13 +143,14 @@ def test_prefill_then_decode_matches_reference(arch, impl):
     jm, jp, tm, tp = _pair(arch)
     kw = dict(F32, attention_impl=impl, flash_block_k=4)
     jrc, trc = JRunConfig(**kw), RunConfig(**kw)
-    toks = _tokens(jm.cfg, 2, 9, seed=3)
-    want, jst = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, 16, jrc)
-    got, tst = tm.prefill(tp, {"tokens": toks}, 16, trc)
+    inputs = _inputs(jm.cfg, 2, 9, seed=3)
+    want, jst = jm.prefill(jp, {k: jnp.asarray(v) for k, v in inputs.items()},
+                           16, jrc)
+    got, tst = tm.prefill(tp, inputs, 16, trc)
     np.testing.assert_allclose(_np(got), _np(want), atol=1e-4, rtol=1e-4)
     np.testing.assert_array_equal(tst.pos.numpy(), np.asarray(jst.pos))
-    np.testing.assert_allclose(_np(tst.slots[0][0]), _np(jst.slots[0][0]),
-                               atol=1e-5)
+    np.testing.assert_allclose(_np(_first_cache(tst)),
+                               _np(_first_cache(jst)), atol=1e-5)
     nxt = _tokens(jm.cfg, 2, 3, seed=4)
     for t in range(3):
         want, jst = jm.decode_step(jp, jnp.asarray(nxt[:, t:t + 1]), jst,
@@ -241,11 +279,79 @@ def test_xlstm_decode_step_updates_states_in_place():
     assert all(not torch.equal(a, b) for a, b in zip(after, before))
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "qwen2-moe-a2.7b",
+# ---------------------------------------------------------------------------
+# the MoE, hybrid and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+def test_every_smoke_config_builds_on_the_cpu():
+    for arch in ARCH_IDS:
+        cfg = get_smoke_config(arch)
+        m = Model(cfg, device="cpu")
+        logits, st = m.prefill(m.init(0), _inputs(cfg, 2, 8, seed=10), 16,
+                               RunConfig())
+        assert logits.shape == (2, 1, cfg.vocab_size), arch
+        logits, st = m.decode_step(m.init(0), np.ones((2, 1), np.int32), st,
+                                   RunConfig())
+        assert bool(torch.isfinite(logits).all()), arch
+        assert st.pos.tolist() == [9, 9], arch
+
+
+def _full_logits(m, params, inputs, rc):
+    cfg = m.cfg
+    toks = torch.from_numpy(inputs["tokens"])
+    if cfg.is_encoder_decoder:
+        mem = whisper.encode(params, torch.from_numpy(inputs["frames"])
+                             .to(params["embed"]["tok"].dtype), cfg, rc)
+        return whisper.decode_train(params, toks, mem, cfg, rc)
+    return transformer.forward(params, toks, cfg, rc)[0]
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, (1e-4, 1e-4)),
+                                        (torch.bfloat16, (0.15, 0.05))],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-1.5-large-398b",
                                   "whisper-tiny"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(get_smoke_config(arch), device="cpu")
+def test_teacher_forced_decode_matches_forward(arch, dtype, tol,
+                                               monkeypatch):
+    """A 4-token prefill, then 8 teacher-forced ``decode_step``s: each
+    step's logits equal the full-sequence forward's at that position.
+
+    Both packages keep the mamba conv tail in bf16, so in float32 jamba's
+    decode reads its conv inputs rounded to bf16 where the forward reads
+    them in float32 (a logit gap of 2.7e-2 on this prompt).  Its float32
+    case keeps the tail in float32 (``ssm.init_state`` and the prefill's
+    final state patched), so the caches and states are held at 1e-4."""
+    cfg = get_smoke_config(arch)
+    m = Model(cfg, device="cpu")
+    params = m.init(0, dtype=dtype)
+    rc = RunConfig(**F32) if dtype == torch.float32 else RunConfig()
+    if arch == "jamba-1.5-large-398b" and dtype == torch.float32:
+        init_state, final_state = ssm.init_state, transformer._ssm_final_state
+
+        def f32_tail(*a, **kw):
+            st = init_state(*a, **kw)
+            return st._replace(conv=st.conv.float())
+
+        def f32_final(p, h, cfg, rc):
+            x = ssm._project(p, h, cfg)[0]
+            return final_state(p, h, cfg, rc)._replace(
+                conv=x[:, h.shape[1] - (cfg.ssm_conv_width - 1):].float())
+
+        monkeypatch.setattr(ssm, "init_state", f32_tail)
+        monkeypatch.setattr(transformer, "_ssm_final_state", f32_final)
+    inputs = _inputs(cfg, 1, 12, seed=11)
+    full = _full_logits(m, params, inputs, rc)
+    pre = dict(inputs, tokens=inputs["tokens"][:, :4])
+    if cfg.is_encoder_decoder:
+        pre["frames"] = torch.from_numpy(inputs["frames"]).to(dtype)
+    logits, state = m.prefill(params, pre, 16, rc)
+    outs = [logits[:, 0]]
+    for t in range(4, 12):
+        logits, state = m.decode_step(params, inputs["tokens"][:, t:t + 1],
+                                      state, rc)
+        outs.append(logits[:, 0])
+    np.testing.assert_allclose(_np(torch.stack(outs, dim=1)),
+                               _np(full[:, 3:]), atol=tol[0], rtol=tol[1])
 
 
 def test_cuda_default_raises_without_a_card(monkeypatch):

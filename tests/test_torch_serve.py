@@ -1,10 +1,12 @@
 """The port's continuous-batching engine, KV-cache plan and serve launcher
 against the JAX reference, on the CPU.
 
-Token parity runs the yi-6b smoke config with the reference's weights
-carried across in float32, with float32 caches and activations: the two
-packages then compute the same logits to float-order noise, and the greedy
-tokens must be equal request for request.
+Token parity runs the smoke configs (yi-6b, xlstm-1.3b, qwen2-moe's MoE
+stack, jamba's hybrid mamba/attention/MoE stack) with the reference's
+weights carried across in float32, with float32 caches and activations:
+the two packages then compute the same logits to float-order noise, and
+the greedy tokens must be equal request for request.  Both engines refuse
+the encoder-decoder family (whisper).
 """
 
 import jax
@@ -165,13 +167,17 @@ def test_launcher_serves_the_default_traffic_on_cpu(knob):
 # xlstm-1.3b: recurrent states in the engine's slots
 # ---------------------------------------------------------------------------
 
-def _xlstm_engines(slots, s_max):
-    jm = JModel(jax_smoke("xlstm-1.3b"))
+def _engines(arch, slots, s_max):
+    jm = JModel(jax_smoke(arch))
     jp = jm.init(jax.random.key(0), dtype=jnp.float32)
-    tm = Model(get_smoke_config("xlstm-1.3b"), device="cpu")
+    tm = Model(get_smoke_config(arch), device="cpu")
     tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp))
     return (JEngine(jm, jp, JRunConfig(**F32), slots=slots, s_max=s_max),
             Engine(tm, tp, RunConfig(**F32), slots=slots, s_max=s_max))
+
+
+def _xlstm_engines(slots, s_max):
+    return _engines("xlstm-1.3b", slots, s_max)
 
 
 def test_xlstm_engine_emits_the_reference_tokens():
@@ -191,30 +197,70 @@ def test_recycled_recurrent_slot_keeps_the_previous_state():
     recurrent slot keeps the previous request's (C, n, m) and (c, n, h, m)
     as the next request's initial state.  Both packages do this, and the
     port keeps the reference's tokens."""
-    jeng, teng = _xlstm_engines(1, 24)
+    _check_recycled_slot(*_xlstm_engines(1, 24))
+
+
+def test_recycled_mamba_slot_keeps_the_previous_state():
+    """The same for jamba's mamba slots: the SSD state and the conv tail
+    of the previous request carry into the next (its attention slot's
+    stale rows are masked)."""
+    _check_recycled_slot(*_engines("jamba-1.5-large-398b", 1, 24))
+
+
+def _check_recycled_slot(jeng, teng):
+    def f32(t):                 # a jax or torch leaf (bf16 conv tails too)
+        return t.float().numpy() if isinstance(t, torch.Tensor) \
+            else np.asarray(jnp.asarray(t).astype(jnp.float32))
+
     first, second = _prompts(jeng.model.cfg, 2, seed=3)
     for eng in (jeng, teng):
         eng.submit(first, 3)
         eng.run()
-    held = [np.array(jnp.asarray(t)) for slot in jeng.state.slots
-            for t in slot]
+    held = [f32(t) for slot in jeng.state.slots for t in slot]
     for eng in (jeng, teng):
         eng.submit(second, 3)
         eng._admit()
         assert int(eng.state.pos[0]) == 0
     for slot_j, slot_t in zip(jeng.state.slots, teng.state.slots):
         for a, b in zip(slot_j, slot_t):
-            np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-4,
-                                       rtol=1e-4)
-    fresh = [np.array(t) for slot in
+            np.testing.assert_allclose(f32(b), f32(a), atol=1e-4, rtol=1e-4)
+    fresh = [f32(t) for slot in
              teng.model.init_decode_state(1, 24, teng.rc).slots
              for t in slot]
-    now = [np.array(jnp.asarray(t)) for slot in jeng.state.slots
-           for t in slot]
+    now = [f32(t) for slot in jeng.state.slots for t in slot]
     assert all(np.array_equal(a, b) for a, b in zip(now, held))
     assert not any(np.array_equal(a, b) for a, b in zip(now, fresh))
     want = jeng.run()[-1].out_tokens
     assert teng.run()[-1].out_tokens == want
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-1.5-large-398b"])
+def test_moe_and_hybrid_engines_emit_the_reference_tokens(arch):
+    jeng, teng = _engines(arch, 3, 24)
+    for prompt in _prompts(jeng.model.cfg, 7, seed=4):
+        jeng.submit(prompt, 5)
+        teng.submit(prompt, 5)
+    want = {r.rid: r.out_tokens for r in jeng.run()}
+    got = {r.rid: r.out_tokens for r in teng.run()}
+    assert got == want and len(got) == 7
+    assert teng.step_count == jeng.step_count
+
+
+def test_engine_refuses_whisper_as_the_reference():
+    tm = Model(get_smoke_config("whisper-tiny"), device="cpu")
+    jm = JModel(jax_smoke("whisper-tiny"))
+    for eng, m in ((Engine, tm), (JEngine, jm)):
+        with pytest.raises(NotImplementedError, match="decoder-only"):
+            eng(m, None, RunConfig(), slots=2, s_max=16)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "qwen2-moe-a2.7b",
+                                  "jamba-1.5-large-398b"])
+def test_launcher_serves_recurrent_and_moe_stacks_on_cpu(arch):
+    res = serve.main(["--arch", arch, "--device", "cpu"])
+    assert res["requests"] == 12
+    assert res["tokens"] == 12 * 16
+    assert all(len(r.out_tokens) == 16 and r.done for r in res["finished"])
 
 
 def test_launcher_serves_xlstm_on_cpu():
