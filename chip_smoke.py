@@ -149,6 +149,31 @@ Phases (any failure exits non-zero before the result line):
    each kind under the profiler), flash vs reference (0.1); 16 greedy
    decode steps; 432 + 16 teacher-forced steps against ``decode_train``
    (0.1); ``Engine`` must refuse it.
+13. training.  The flash backward kernel (``flash_attention_bwd.cu``,
+   through ``flash_attention``'s ``autograd.Function``) against its plain
+   version (``ref.attention_grads``: autograd of the plain forward with P
+   in float32) over ``BWD_CASES``: yi-6b's layer causal bf16 at the train
+   step's microbatch (1,4096,4096,32,4,128) and at B=2, GQA 8/1, a window of 256, soft-cap 30, Sq != Sk, whisper's
+   encoder and cross shapes, and float32 (the FMA route) at D 16/32/64/
+   128; relative L2 of dq, dk, dv within 1e-2 (bf16) and 1e-5 (float32),
+   a planted fault (the D_i term dropped) above each limit, two calls
+   bit-equal; at yi-6b's layer (B=1 and B=2) timed (CUDA events and
+   profiler device time, which must be recorded) beside the plain
+   version and SDPA's backward (``enable_gqa``), with its bound.  Then ``Model(yi-6b full width, 8 of 32 layers)``
+   trained with AdamW (float32 master weights) on ``SyntheticDataset``
+   batches of 2 x 4096 made on the card, microbatch 1 (two accumulation
+   steps), remat ``block``, flash: step 1's loss and gradients,
+   accumulated over its microbatches as the step accumulates them,
+   against reference attention (1e-2, 2e-2 per leaf), exactly 32 wgmma forward
+   launches (8 layers x 2 microbatches x forward and recompute), no FMA
+   launch and 16 backward sets in each of 4 steps (counted from 0 around
+   the steps), step time, tokens/s, peak memory, the profiled step's
+   device shares (flash forward, flash backward, cuBLAS, other; they
+   must be recorded) and idle share, the backward's device time per set; a checkpoint at step 2 restored and step 3 run again,
+   bit-equal to the uninterrupted run.  whisper-tiny at full width
+   (B=2, 1500 frames, S=448), float32 and bf16: gradients against
+   reference attention within the same limits, 4 steps with 12 forward
+   launches and 12 backward sets each.
 
 The kernels are built at the start of phase 2, one ``nvcc`` per source,
 all started together.  The line before the last is ``{"kernels": [...]}`` with each
@@ -415,12 +440,14 @@ def build_all() -> None:
         return src, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         futs = [pool.submit(timed, GRAM_SOURCE, gram_ops.build),
                 pool.submit(timed, FLASH_SOURCE, lambda verbose: flash_ops
                             .build(verbose, which="wgmma")),
                 pool.submit(timed, FLASH_FMA_SOURCE, lambda verbose: flash_ops
                             .build(verbose, which="fma")),
+                pool.submit(timed, FLASH_BWD_SOURCE, lambda verbose: flash_ops
+                            .build(verbose, which="bwd")),
                 pool.submit(timed, MLSTM_SOURCE, lambda verbose: mlstm_ops
                             .build(verbose, which="wgmma")),
                 pool.submit(timed, MLSTM_FMA_SOURCE, lambda verbose: mlstm_ops
@@ -1158,7 +1185,7 @@ def phase_prefill(card: str, flash: dict):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.common import tree_flatten
     from repro_torch.models.model import Model
     from repro_torch.runconfig import RunConfig
 
@@ -1173,7 +1200,7 @@ def phase_prefill(card: str, flash: dict):
     t0 = time.perf_counter()
     params = m.init(seed=0)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
     print(f"random bf16 weights made on the card: {n_params} parameters in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1498,7 +1525,7 @@ def phase_xlstm(card: str):
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.mlstm_chunk import ops
     from repro_torch.models import transformer
-    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.common import tree_flatten
     from repro_torch.models.config import MLSTM, SLSTM
     from repro_torch.models.model import Model
     from repro_torch.runconfig import RunConfig
@@ -1517,7 +1544,7 @@ def phase_xlstm(card: str):
     t0 = time.perf_counter()
     params = m.init(seed=0)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
     print(f"random bf16 weights made on the card: {n_params} parameters in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -2805,7 +2832,7 @@ def families_moe(card: str):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import attention, moe, transformer
-    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.common import tree_flatten
     from repro_torch.models.model import Model
     from repro_torch.runconfig import RunConfig
 
@@ -2822,7 +2849,7 @@ def families_moe(card: str):
     t0 = time.perf_counter()
     params = m.init(seed=0)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
     print(f"random bf16 weights made on the card: {n_params} parameters "
           f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -2966,7 +2993,7 @@ def families_jamba(card: str):
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.configs import get_config
     from repro_torch.models import attention, moe, ssm, transformer
-    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.common import tree_flatten
     from repro_torch.models.config import MAMBA, MLP_MOE
     from repro_torch.models.model import Model
     from repro_torch.runconfig import RunConfig
@@ -2988,7 +3015,7 @@ def families_jamba(card: str):
     t0 = time.perf_counter()
     params = m.init(seed=0)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
     w_gib = torch.cuda.memory_allocated() / 2**30
     print(f"random bf16 weights made on the card: {n_params} parameters "
           f"({w_gib:.2f} GiB) in {time.perf_counter() - t0:.2f} s; "
@@ -3103,7 +3130,7 @@ def families_whisper(card: str):
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.configs import get_config
     from repro_torch.models import whisper
-    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.common import tree_flatten
     from repro_torch.models.model import Model
     from repro_torch.runconfig import RunConfig
     from repro_torch.serve.engine import Engine
@@ -3117,7 +3144,7 @@ def families_whisper(card: str):
     torch.cuda.reset_peak_memory_stats()
     m = Model(cfg, device="cuda")
     params = m.init(seed=0)
-    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
     gen = torch.Generator(device="cuda").manual_seed(16)
     frames = torch.randn((B, cfg.encoder_seq, cfg.d_model), generator=gen,
                          device="cuda").bfloat16()
@@ -3230,6 +3257,661 @@ def phase_families(card: str):
     return {**out, "phase_s": total}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training (the flash backward kernel, yi-6b and whisper-tiny)
+# ---------------------------------------------------------------------------
+
+FLASH_BWD_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention_bwd.cu")
+# B, Sq, Sk, H, Kh, D, causal, window, softcap, dtype: yi-6b's layer at
+# the train step's microbatch of 1 (the path's shape) first, then at
+# B=2, GQA 8/1, a window of 256, grok-1's soft-cap, Sq != Sk without the
+# mask, whisper's encoder (a ragged last tile of 1500 keys) and
+# cross-attention, and the float32 FMA route at every head dim of the
+# models.  The first two are timed.
+BWD_CASES = [
+    (1, 4096, 4096, 32, 4, 128, True, None, None, "bfloat16"),
+    (2, 4096, 4096, 32, 4, 128, True, None, None, "bfloat16"),
+    (1, 512, 512, 8, 1, 128, True, None, None, "bfloat16"),
+    (1, 1024, 1024, 8, 2, 128, True, 256, None, "bfloat16"),
+    (1, 512, 512, 8, 8, 128, True, None, 30.0, "bfloat16"),
+    (1, 300, 700, 4, 2, 64, False, None, None, "bfloat16"),
+    (2, 1500, 1500, 6, 6, 64, False, None, None, "bfloat16"),
+    (2, 448, 1500, 6, 6, 64, False, None, None, "bfloat16"),
+    (1, 333, 333, 4, 2, 16, True, None, None, "float32"),
+    (1, 333, 333, 4, 2, 32, True, 100, None, "float32"),
+    (1, 333, 500, 4, 2, 64, False, None, 30.0, "float32"),
+    (1, 333, 333, 4, 2, 128, True, None, None, "float32"),
+]
+BWD_REL = {"float32": 1e-5, "bfloat16": 1e-2}
+TRAIN_ARCH = "yi-6b"
+TRAIN_LAYERS = 8                 # depth 32 -> 8; full width
+TRAIN_B, TRAIN_S = 2, 4096       # global batch, sequence
+TRAIN_MICRO = 1                  # two accumulation steps
+TRAIN_STEPS = 4
+TRAIN_CKPT_STEP = 2
+TRAIN_LOSS_REL = 1e-2            # flash vs reference attention, step 1
+TRAIN_GRAD_REL = 2e-2            # per leaf
+WHISPER_TRAIN = (2, 448)         # B, S of the decoder; 1500 frames
+WHISPER_STEPS = 4
+TRAIN_SEED = 0
+
+
+def visible_pairs(Sq, Sk, causal, window) -> int:
+    """(query, key) pairs the mask leaves visible (top-left causal)."""
+    import numpy as np
+    i = np.arange(Sq)
+    hi = np.minimum(i if causal else Sk - 1, Sk - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros_like(i)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_bwd_bound(B, Sq, Sk, H, Kh, D, causal, window, itemsize,
+                    flops_per_s):
+    """(bound_ms, bound_by, flops): q, o, dO, dq and k, v, dk, dv each
+    moved once and the log-sum-exp read, at the HBM rate, against the
+    five products of the backward (QK^T again, dO V^T, P^T dO, dS^T Q,
+    dS K) over the visible pairs at the peak rate for the inputs' type."""
+    pairs = visible_pairs(Sq, Sk, causal, window)
+    flops = 10 * D * pairs * B * H
+    nbytes = itemsize * (4 * B * Sq * H * D + 4 * B * Sk * Kh * D) \
+        + 4 * B * H * Sq
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", flops)
+
+
+def bwd_without_di(q, k, v, dout, causal, window, softcap):
+    """A planted fault: the plain backward with dS = P dP (the D_i term
+    dropped), float32, GQA summed over each group."""
+    import torch
+    B, Sq, H, D = q.shape
+    Sk, Kh = k.shape[1], k.shape[2]
+    rep = H // Kh
+    kr = k.float().repeat_interleave(rep, dim=2)
+    vr = v.float().repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) / math.sqrt(D)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    qi = torch.arange(Sq, device=q.device)[:, None]
+    ki = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window:
+        mask &= ki > qi - window
+    p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), vr)
+    ds = p * dp
+    if softcap:
+        ds = ds * (1 - (s / softcap) ** 2)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) / math.sqrt(D)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) / math.sqrt(D)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
+    return (dq, dk.reshape(B, Sk, Kh, rep, D).sum(3),
+            dv.reshape(B, Sk, Kh, rep, D).sum(3))
+
+
+def train_bwd_kernel(card: str) -> dict:
+    """The backward kernel against its plain version over BWD_CASES, the
+    planted fault above each limit, two calls bit-equal; timed at yi-6b's
+    layer shape, B=1 (the train step's) and B=2, beside the plain version
+    and SDPA's backward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    print("ptxas, the backward kernels (flash_bwd_*):\n" + ptxas_summary(
+        ops._LIBS["bwd"].report, "flash_bwd_"), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {"err": {}, "rel_l2": {}}
+    for case in BWD_CASES:
+        B, Sq, Sk, H, Kh, D, causal, window, softcap, name = case
+        dt = getattr(torch, name)
+        q, k, v, do = (torch.randn(s, generator=gen, device=dev).to(dt)
+                       for s in ((B, Sq, H, D), (B, Sk, Kh, D),
+                                 (B, Sk, Kh, D), (B, Sq, H, D)))
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        tag = (f"{name} B={B} Sq={Sq} Sk={Sk} H={H} Kh={Kh} D={D} "
+               f"causal={causal} window={window} softcap={softcap} "
+               f"({ops.route(dt, D)} forward)")
+
+        def grads():
+            qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+            o = ops.flash_attention(qs, ks, vs, **kw)
+            check(o.grad_fn is not None, f"{tag}: no grad_fn")
+            return torch.autograd.grad(o, (qs, ks, vs), do)
+        n_bwd = ops.launches_bwd
+        got = grads()
+        again = grads()
+        torch.cuda.synchronize()
+        check(ops.launches_bwd == n_bwd + 2, f"{tag}: backward launches")
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        want = ref.attention_grads(q, k, v, do, **kw)
+        rels = [rel_l2(g, w) for g, w in zip(got, want)]
+        errs = [float((g.float() - w).abs().max()) for g, w in zip(got, want)]
+        del again
+        fault = bwd_without_di(q, k, v, do, causal, window, softcap)
+        rel_fault = max(rel_l2(f, w) for f, w in zip(fault, want))
+        del fault
+        lim = BWD_REL[name]
+        print(f"  {tag}: rel_l2 dq/dk/dv = {rels[0]:.3e}/{rels[1]:.3e}/"
+              f"{rels[2]:.3e}, max_abs_err {max(errs):.3e}, planted fault "
+              f"(D_i dropped) {rel_fault:.3e}, limit {lim}, two calls "
+              f"bit-equal {same}", flush=True)
+        for g, t in zip(got, (q, k, v)):
+            check(g.dtype == dt and g.shape == t.shape, f"{tag}: dtype/shape")
+            check(bool(torch.isfinite(g).all()), f"{tag}: non-finite")
+        check(max(rels) <= lim, f"{tag}: relative L2 {max(rels)} > {lim}")
+        check(rel_fault > lim, f"{tag}: the planted fault's relative L2 "
+              f"{rel_fault} is within {lim}")
+        check(same, f"{tag}: two calls differ")
+        out["err"][name] = max(out["err"].get(name, 0.0), max(errs))
+        out["rel_l2"][name] = max(out["rel_l2"].get(name, 0.0), max(rels))
+        if case is BWD_CASES[0]:        # the path's shape
+            out.update(train_bwd_timing(card, case, q, k, v, do, kw))
+        elif case is BWD_CASES[1]:
+            out["b2"] = train_bwd_timing(card, case, q, k, v, do, kw)
+        del q, k, v, do, got, want
+        torch.cuda.empty_cache()
+    out["max_abs_err"] = max(out["err"].values())
+    return out
+
+
+def profiler_ms(fn, calls: int, kernels: int, fresh=None):
+    """Device ms per call from ``torch.profiler`` (as ``device_ms``),
+    from the first of three sessions that records all ``kernels`` kernels
+    of each of the ``calls`` calls.  Late in a full run a session has come
+    back with none or only some of them (the device time then reads low),
+    the next one whole; no condition tried alone reproduces it
+    (``tools/profiler_conditions.py``).  After three short sessions,
+    ``fresh()`` measures the same in a new process; fails when that
+    cannot."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, 4):
+        _, by_name = profiled_device_us(lambda: [fn() for _ in range(calls)])
+        busy_us = sum(t for t, _ in by_name.values())
+        n = sum(c for _, c in by_name.values())
+        if n == kernels * calls:
+            if attempt > 1:
+                print(f"  the profiler recorded every kernel at session "
+                      f"{attempt} of 3", flush=True)
+            return busy_us / calls / 1e3
+        print(f"  profiler session {attempt} of 3 recorded {n} of "
+              f"{kernels * calls} kernels ({busy_us:.1f} us)", flush=True)
+    ms = fresh() if fresh is not None else 0.0
+    check(ms > 0, "the profiler recorded no whole session")
+    print(f"  device ms per call measured in a fresh process: {ms:.4f}",
+          flush=True)
+    return ms
+
+
+# the flash backward's profiled device ms per call in a process of its
+# own: argv = case (JSON), the repo's root, its src/
+FRESH_BWD = """
+import json, sys
+sys.path[:0] = sys.argv[2:4]
+import torch
+import chip_smoke
+from repro_torch.kernels.flash_attention import ops
+B, Sq, Sk, H, Kh, D, causal, window, softcap, name = json.loads(sys.argv[1])
+dt = getattr(torch, name)
+gen = torch.Generator(device="cuda").manual_seed(13)
+q, k, v, do = (torch.randn(s, generator=gen, device="cuda").to(dt)
+               for s in ((B, Sq, H, D), (B, Sk, Kh, D), (B, Sk, Kh, D),
+                         (B, Sq, H, D)))
+which = ops.route(dt, D)
+o, lse = ops._forward(q, k, v, causal, window, softcap, which,
+                      ops.DEFAULT_TILES[which], lse=True)
+fn = lambda: ops._backward(q, k, v, o, do, lse, causal, window, softcap)
+fn()
+torch.cuda.synchronize()
+_, by_name = chip_smoke.profiled_device_us(lambda: [fn() for _ in range(4)])
+assert sum(c for _, c in by_name.values()) == 3 * 4, by_name
+print(json.dumps(sum(t for t, _ in by_name.values()) / 4 / 1e3))
+"""
+
+
+def fresh_bwd_device_ms(case) -> float:
+    r = subprocess.run([sys.executable, "-c", FRESH_BWD, json.dumps(case),
+                        str(ROOT), str(SRC)], capture_output=True,
+                       text=True, timeout=300, cwd=ROOT)
+    check(r.returncode == 0, f"the fresh-process profile failed: "
+          f"{r.stderr[-2000:]}")
+    return float(r.stdout.strip().splitlines()[-1])
+
+
+def train_bwd_timing(card, case, q, k, v, do, kw) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    B, Sq, Sk, H, Kh, D = case[:6]
+    which = ops.route(q.dtype, D)
+    o, lse = ops._forward(q, k, v, kw["causal"], kw["window"],
+                          kw["softcap"], which, ops.DEFAULT_TILES[which],
+                          lse=True)
+
+    def kernel():
+        return ops._backward(q, k, v, o, do, lse, kw["causal"],
+                             kw["window"], kw["softcap"])
+
+    def plain():
+        return ref.attention_grads(q, k, v, do, **kw)
+
+    # the library: SDPA's backward on [B, H, S, D] views, GQA inside the
+    # call where this torch has it (enable_gqa), else K/V repeated first
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    try:
+        kt = k.transpose(1, 2).detach().requires_grad_()
+        vt = v.transpose(1, 2).detach().requires_grad_()
+        lo = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+        gqa = "enable_gqa"
+    except TypeError:
+        kt = k.repeat_interleave(H // Kh, 2).transpose(1, 2).detach() \
+            .requires_grad_()
+        vt = v.repeat_interleave(H // Kh, 2).transpose(1, 2).detach() \
+            .requires_grad_()
+        lo = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        gqa = "K/V repeated"
+    dot = do.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(lo, (qt, kt, vt), dot, retain_graph=True)
+    lib_rel = rel_l2(library()[0].transpose(1, 2), kernel()[0])
+    k_ms1 = cuda_ms(kernel, reps=5, inner=2)
+    l_ms1 = cuda_ms(library, reps=5, inner=2)
+    l_ms2 = cuda_ms(library, reps=5, inner=2)
+    k_ms2 = cuda_ms(kernel, reps=5, inner=2)
+    k_ms, l_ms = min(k_ms1, k_ms2), min(l_ms1, l_ms2)
+    dev_ms = profiler_ms(kernel, calls=4, kernels=3,   # D_i, dK/dV, dQ
+                         fresh=lambda: fresh_bwd_device_ms(list(case)))
+    p_ms = cuda_ms(plain, reps=3, inner=1)
+    b_ms, b_by, flops = flash_bwd_bound(B, Sq, Sk, H, Kh, D, True, None, 2,
+                                        BF16_FLOPS_PER_S)
+    print(f"  backward at yi-6b's layer shape {case[:6]} causal bf16"
+          + (" (the train step's microbatch)" if B == TRAIN_MICRO else "")
+          + f" on "
+          f"{card}: kernel_ms={k_ms:.4f} ({k_ms1:.4f}, {k_ms2:.4f}) "
+          f"device_ms={dev_ms:.4f} plain_ms={p_ms:.4f} library_ms="
+          f"{l_ms:.4f} ({l_ms1:.4f}, {l_ms2:.4f}; SDPA backward, {gqa}; "
+          f"its dq vs the kernel's rel_l2 {lib_rel:.3e}) bound_ms="
+          f"{b_ms:.4f} ({b_by}; {flops / 1e9:.1f} GFLOP) achieved="
+          f"{flops / k_ms / 1e9:.2f} TFLOP/s (bound share "
+          f"{b_ms / k_ms:.4f}); kernel / library {k_ms / l_ms:.3f}",
+          flush=True)
+    return {"ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
+            "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "shape": list(case[:6])}
+
+
+def compare_grads(tag, got, want, loss, loss_ref):
+    """Loss within TRAIN_LOSS_REL and each leaf's gradient within
+    TRAIN_GRAD_REL (relative L2) of the reference-attention run.  The
+    keys' bias has a zero gradient in exact arithmetic (softmax is
+    shift-invariant along a row): it is held to 1e-3 of the whole
+    gradient's norm instead."""
+    import torch
+    from repro_torch.models.common import tree_flatten_with_path
+    pairs, w_pairs = (tree_flatten_with_path(t)[0] for t in (got, want))
+    check([p for p, _ in pairs] == [p for p, _ in w_pairs],
+          f"{tag}: the two gradient trees differ")
+    paths = ["/" + "/".join(map(str, p)) for p, _ in pairs]
+    g, w = [x for _, x in pairs], [x for _, x in w_pairs]
+    total = float(torch.sqrt(sum(x.float().pow(2).sum() for x in w)))
+    worst, worst_path, zero_bias = 0.0, "", 0.0
+    for path, a, b in zip(paths, g, w):
+        if path.endswith("/k/b"):
+            zero_bias = max(zero_bias, float((a.float() - b.float()).norm()))
+            continue
+        r = rel_l2(a, b)
+        if r > worst:
+            worst, worst_path = r, path
+    loss_rel = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
+    print(f"  {tag}: loss flash {float(loss):.6f} reference "
+          f"{float(loss_ref):.6f} (rel {loss_rel:.3e}, limit "
+          f"{TRAIN_LOSS_REL}); worst leaf gradient rel_l2 {worst:.3e} at "
+          f"{worst_path} (limit {TRAIN_GRAD_REL}) over {len(g)} leaves"
+          + (f"; keys' bias |diff| {zero_bias:.3e} vs gradient norm "
+             f"{total:.3e}" if zero_bias else ""), flush=True)
+    check(loss_rel <= TRAIN_LOSS_REL, f"{tag}: loss rel {loss_rel}")
+    check(worst <= TRAIN_GRAD_REL, f"{tag}: gradient rel_l2 {worst} at "
+          f"{worst_path}")
+    check(zero_bias <= 1e-3 * total, f"{tag}: keys' bias gradient "
+          f"{zero_bias} vs {total}")
+    return {"loss_rel": loss_rel, "grad_rel_l2": worst}
+
+
+def micro_grads(model, params, batch, rc, n_micro: int):
+    """(loss, gradients) as the train step accumulates them over
+    ``n_micro`` microbatches: float32 sums over ``loss_and_grads`` of
+    each, divided by ``n_micro``."""
+    from repro_torch.models.common import tree_flatten, tree_unflatten
+    from repro_torch.train import train_loop as ttl
+    mbs = ttl._split_micro(batch, n_micro)
+    acc, loss_sum, treedef = None, 0.0, None
+    for j in range(n_micro):
+        loss, _, g = ttl.loss_and_grads(model, params,
+                                        {key: x[j] for key, x in mbs.items()},
+                                        rc)
+        leaves, treedef = tree_flatten(g)
+        del g
+        if acc is None:
+            acc = [x.float() for x in leaves]
+        else:
+            for a, x in zip(acc, leaves):
+                a.add_(x.float())
+        del leaves
+        loss_sum += float(loss)
+    return loss_sum / n_micro, tree_unflatten(
+        treedef, [a.div_(n_micro) for a in acc])
+
+
+def fingerprint(tree) -> list:
+    """An exact per-leaf fingerprint: the bit patterns summed with
+    position weights, in int64 on the device."""
+    import torch
+    from repro_torch.models.common import tree_flatten
+    out = []
+    for t in tree_flatten(tree)[0]:
+        bits = t.detach().reshape(-1)
+        bits = bits.view(torch.int16 if bits.element_size() == 2
+                         else torch.int32).long()
+        w = torch.arange(1, bits.numel() + 1, device=bits.device) % 1000003
+        out.append((int((bits * w).sum()), int(bits.sum())))
+    return out
+
+
+def train_shares(by_name: dict):
+    """({kind: device µs}, {kind: kernels recorded}) by kind: flash
+    forward, flash backward, cuBLAS, other."""
+    kinds = {"flash_fwd": 0.0, "flash_bwd": 0.0, "cublas": 0.0, "other": 0.0}
+    counts = dict.fromkeys(kinds, 0)
+    for name, (us, n) in by_name.items():
+        if "flash_bwd" in name:
+            kind = "flash_bwd"
+        elif "flash_wgmma" in name or "flash_fwd" in name:
+            kind = "flash_fwd"
+        elif any(s in name.lower() for s in ("gemm", "cutlass", "xmma",
+                                             "nvjet", "cublas")):
+            kind = "cublas"
+        else:
+            kind = "other"
+        kinds[kind] += us
+        counts[kind] += n
+    return kinds, counts
+
+
+def train_yi(card: str) -> dict:
+    """yi-6b at full width, 8 layers: the train step on the flash forward
+    and backward kernels, against reference attention, launch counts,
+    step time, memory and shares, checkpoint-resume bit-equal."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.common import tree_flatten, tree_map
+    from repro_torch.models.model import Model
+    from repro_torch.runconfig import RunConfig
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_loop as ttl
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.data import SyntheticDataset
+
+    cfg = get_config(TRAIN_ARCH).scaled(n_layers=TRAIN_LAYERS)
+    rc = RunConfig(microbatch=TRAIN_MICRO, remat_policy="block",
+                   attention_impl="flash")
+    rc_ref = RunConfig(microbatch=TRAIN_MICRO, remat_policy="block",
+                       attention_impl="reference")
+    model = Model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    state = ttl.init_state(model, TRAIN_SEED, rc)
+    n_params = sum(t.numel() for t in tree_flatten(state.params)[0])
+    t0 = time.perf_counter()
+    data = SyntheticDataset(TRAIN_SEED, TRAIN_B, TRAIN_S, cfg.vocab_size,
+                            device="cuda")
+    batches = [next(data) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    print(f"  {TRAIN_ARCH} full width, {TRAIN_LAYERS} of {32} layers: "
+          f"{n_params / 1e9:.3f} B parameters (bf16, AdamW with float32 "
+          f"master weights); {TRAIN_STEPS} batches of {TRAIN_B}x{TRAIN_S} "
+          f"tokens made on the card in {data_s:.2f} s "
+          f"(SyntheticDataset)", flush=True)
+
+    # step 1's gradients, flash against reference attention, accumulated
+    # over the microbatches as the train step accumulates them (the
+    # kernels run at the step's shapes)
+    n_micro = TRAIN_B // TRAIN_MICRO
+    n_bwd = ops.launches_bwd
+    loss, g_flash = micro_grads(model, state.params, batches[0], rc, n_micro)
+    check(ops.launches_bwd - n_bwd == n_micro * TRAIN_LAYERS,
+          f"step-1 gradients: {ops.launches_bwd - n_bwd} backward sets, "
+          f"want {n_micro * TRAIN_LAYERS}")
+    loss_ref, g_ref = micro_grads(model, state.params, batches[0], rc_ref,
+                                  n_micro)
+    cmp = compare_grads(f"{TRAIN_ARCH} step-1 gradients ({n_micro} "
+                        f"microbatches of {TRAIN_MICRO}), flash vs "
+                        f"reference attention", g_flash, g_ref, loss,
+                        loss_ref)
+    del g_flash, g_ref
+    torch.cuda.empty_cache()
+
+    step = ttl.make_train_step(model, rc, donate=True)
+    want = (2 * 2 * TRAIN_LAYERS, 2 * TRAIN_LAYERS)   # micro x (fwd+remat)
+    # the optimizer's share: CUDA events around each step's opt_update
+    real_update, opt_ms = topt.opt_update, []
+
+    def timed_update(*args, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        out = real_update(*args, **kw)
+        end.record()
+        end.synchronize()
+        opt_ms.append(start.elapsed_time(end))
+        return out
+    topt.opt_update = timed_update
+    ops.reset_launch_counts()
+    totals = {"fwd": 0, "bwd": 0}
+    times, metrics = [], []
+    shares = None
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cm = CheckpointManager(str(ckpt_dir))
+    ckpt_s = None
+    profiled = []            # steps run under the profiler
+    for i in range(TRAIN_STEPS):
+        before = (ops.launches, ops.launches_wgmma, ops.launches_fma,
+                  ops.launches_bwd)
+        # step 3 under the profiler for the shares; step 4 as well if
+        # step 3's profile came back without all of the flash kernels
+        under = i == 2 or (i == 3 and shares is None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if under:
+            profiled.append(i)
+            (state, met), by_name = profiled_device_us(
+                lambda: step(state, batches[i]), cpu=False)
+        else:
+            state, met = step(state, batches[i])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = (ops.launches, ops.launches_wgmma, ops.launches_fma,
+                 ops.launches_bwd)
+        d = [a - b for a, b in zip(after, before)]
+        check(d == [want[0], want[0], 0, want[1]],
+              f"{TRAIN_ARCH} step {i + 1}: launches (fwd, wgmma, fma, bwd) "
+              f"{d}, want {want[0]}, {want[0]}, 0, {want[1]}")
+        totals["fwd"] += d[0]
+        totals["bwd"] += d[3]
+        m = {k: float(v) for k, v in met.items()}
+        metrics.append(m)
+        check(all(math.isfinite(v) for v in m.values()),
+              f"step {i + 1}: {m}")
+        times.append(dt)
+        print(f"  step {i + 1}: loss {m['loss']:.4f} gnorm "
+              f"{m['grad_norm']:.3f} lr {m['lr']:.2e}; {dt:.3f} s"
+              + (" (under the profiler)" if under else "")
+              + f"; launches fwd {d[0]} (wgmma {d[1]}, fma {d[2]}), "
+              f"bwd {d[3]}", flush=True)
+        # whole only with every flash kernel of the step: one per forward
+        # launch, three per backward set
+        kinds, counts = train_shares(by_name) if under else ({}, {})
+        if under and counts == {**counts, "flash_fwd": want[0],
+                                "flash_bwd": 3 * want[1]}:
+            busy_s = sum(t for t, _ in by_name.values()) / 1e6
+            shares = {k: v / 1e6 / busy_s for k, v in kinds.items()}
+            shares["idle_profiled"] = max(0.0, 1.0 - busy_s / dt)
+            # the backward's device time per launch set at the step's own
+            # shape (B=TRAIN_MICRO)
+            bwd_set_ms = kinds["flash_bwd"] / 1e3 / want[1]
+        elif under:
+            print(f"  the profile of step {i + 1} recorded {counts} "
+                  f"kernels, want flash_fwd {want[0]} and flash_bwd "
+                  f"{3 * want[1]}", flush=True)
+            check(i < TRAIN_STEPS - 1, "no profiled step recorded the "
+                  "flash kernels")
+        if i == 2:
+            fp_straight = fingerprint(state)
+            straight_metrics = m
+        if i + 1 == TRAIN_CKPT_STEP:
+            t0 = time.perf_counter()
+            cm.save(TRAIN_CKPT_STEP, state)
+            ckpt_s = time.perf_counter() - t0
+    topt.opt_update = real_update
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # resume: restore step 2's checkpoint and run step 3 again
+    template = tree_map(lambda t: t.to("meta"), state)
+    del state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    restored, at = cm.restore(template, device="cuda")
+    restore_s = time.perf_counter() - t0
+    check(at == TRAIN_CKPT_STEP, f"restored step {at}")
+    restored, met = step(restored, batches[TRAIN_CKPT_STEP])
+    resumed = {k: float(v) for k, v in met.items()}
+    same = fingerprint(restored) == fp_straight and \
+        resumed == straight_metrics
+    print(f"  checkpoint at step {TRAIN_CKPT_STEP}: save {ckpt_s:.1f} s, "
+          f"restore {restore_s:.1f} s ({sum(p.stat().st_size for p in ckpt_dir.rglob('*') if p.is_file()) / 2**30:.2f} GiB); step "
+          f"{TRAIN_CKPT_STEP + 1} resumed bit-equal to the uninterrupted "
+          f"run: {same}", flush=True)
+    check(same, "checkpoint resume: step 3 differs from the uninterrupted run")
+    del restored
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    plain_steps = [j for j in range(1, TRAIN_STEPS) if j not in profiled]
+    step_s = statistics.median([times[j] for j in plain_steps])
+    # the idle share against an unprofiled step's wall (the profiler
+    # stretches the step it records)
+    shares["idle"] = max(0.0, 1.0 - busy_s / step_s)
+    shares["busy_s"] = busy_s
+    opt_step_ms = statistics.median([opt_ms[j] for j in plain_steps])
+    shares["optimizer_of_step"] = opt_step_ms / 1e3 / step_s
+    tokens = TRAIN_B * TRAIN_S
+    print(f"  {TRAIN_ARCH} train step (B={TRAIN_B}, S={TRAIN_S}, microbatch "
+          f"{TRAIN_MICRO}, remat block, flash) on {card}: step_s={step_s:.4f}"
+          f" (steps {', '.join(f'{t:.4f}' for t in times)}), tokens/s="
+          f"{tokens / step_s:.1f}, peak memory {peak:.2f} GiB; device "
+          f"shares of busy time (profiled step {profiled[-1] + 1}; idle "
+          f"against the unprofiled steps): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in shares.items())
+          + f"; flash backward {bwd_set_ms:.4f} ms of device time a set "
+          f"(B={TRAIN_MICRO}), {want[1]} x {bwd_set_ms:.4f} = "
+          f"{want[1] * bwd_set_ms / 1e3:.4f} s of the step"
+          + f"; the optimizer (AdamW over {n_params / 1e9:.3f} B "
+          f"parameters, CUDA events) {opt_step_ms:.2f} ms a step (steps "
+          + ", ".join(f"{t:.2f}" for t in opt_ms) + ")"
+          + f"; launches per step fwd {want[0]}, bwd sets {want[1]}",
+          flush=True)
+    return {"launches_fwd": totals["fwd"], "launches_bwd": totals["bwd"],
+            "step_s": step_s, "tokens_per_s": tokens / step_s,
+            "optimizer_ms": opt_step_ms,
+            "peak_gib": peak, "shares": shares, "steps_s": times,
+            "bwd_set_device_ms": bwd_set_ms,
+            "loss": [m["loss"] for m in metrics], **cmp,
+            "ckpt_save_s": ckpt_s, "ckpt_restore_s": restore_s}
+
+
+def train_whisper(card: str) -> dict:
+    """whisper-tiny at full width: flash forward and backward on every
+    attention layer (4 encoder, 4 decoder self, 4 cross), float32 and
+    bf16, against reference attention; then WHISPER_STEPS steps."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.model import Model
+    from repro_torch.runconfig import RunConfig
+    from repro_torch.train import train_loop as ttl
+    from repro_torch.train.data import batch_at
+
+    cfg = get_config("whisper-tiny")
+    B, S = WHISPER_TRAIN
+    out = {"launches_fwd": 0, "launches_bwd": 0}
+    layers = cfg.n_encoder_layers + 2 * cfg.n_layers
+    for name in ("float32", "bfloat16"):
+        dt = getattr(torch, name)
+        kw = dict(param_dtype=name, activation_dtype=name,
+                  kv_cache_dtype=name)
+        rc = RunConfig(attention_impl="flash", **kw)
+        rc_ref = RunConfig(attention_impl="reference", **kw)
+        model = Model(cfg, device="cuda")
+        state = ttl.init_state(model, TRAIN_SEED, rc,
+                               params=model.init(TRAIN_SEED, dtype=dt))
+        gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+        batch = batch_at(TRAIN_SEED, 0, global_batch=B, seq_len=S,
+                         vocab_size=cfg.vocab_size, device="cuda")
+        batch["frames"] = torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                      generator=gen, device="cuda").to(dt)
+        loss, _, g = ttl.loss_and_grads(model, state.params, batch, rc)
+        loss_ref, _, g_ref = ttl.loss_and_grads(model, state.params, batch,
+                                                rc_ref)
+        cmp = compare_grads(f"whisper-tiny {name} gradients, flash vs "
+                            f"reference attention", g, g_ref, loss,
+                            loss_ref)
+        del g, g_ref
+        step = ttl.make_train_step(model, rc)
+        losses = []
+        for i in range(WHISPER_STEPS):
+            before = (ops.launches, ops.launches_bwd)
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            d = (ops.launches - before[0], ops.launches_bwd - before[1])
+            check(d == (layers, layers), f"whisper-tiny {name} step "
+                  f"{i + 1}: launches (fwd, bwd) {d}, want {layers} each")
+            out["launches_fwd"] += d[0]
+            out["launches_bwd"] += d[1]
+            losses.append(float(met["loss"]))
+            check(math.isfinite(losses[-1]), f"whisper {name}: loss")
+        print(f"  whisper-tiny {name} (B={B}, {cfg.encoder_seq} frames, "
+              f"S={S}, {ops.route(dt, cfg.resolved_head_dim)} forward): "
+              f"{WHISPER_STEPS} steps, losses "
+              + ", ".join(f"{x:.4f}" for x in losses)
+              + f"; {layers} forward launches and {layers} backward sets "
+              f"per step", flush=True)
+        out[name] = {**cmp, "losses": losses}
+        del state, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(card: str) -> dict:
+    import torch
+    print("== phase 13: training: the flash backward kernel, yi-6b (8 "
+          "layers, full width) and whisper-tiny train steps", flush=True)
+    t0 = time.perf_counter()
+    bwd = train_bwd_kernel(card)
+    torch.cuda.empty_cache()
+    yi = train_yi(card)
+    torch.cuda.empty_cache()
+    wh = train_whisper(card)
+    print(f"phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"bwd": bwd, "yi": yi, "whisper": wh}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3259,6 +3941,8 @@ def main() -> None:
     autotune = phase_autotune(card)
     torch.cuda.empty_cache()
     families = phase_families(card)
+    torch.cuda.empty_cache()
+    train = phase_train(card)
 
     kernels = []
     for kind, shape, svc_shape in (("gram", MAIN_GRAM, SERVICE_GRAM),
@@ -3310,7 +3994,9 @@ def main() -> None:
     # (phase 12)
     by_path = {"yi-6b": serving["launches"],
                **{k: families[k]["launches"]
-                  for k in ("qwen2-moe", "jamba", "whisper")}}
+                  for k in ("qwen2-moe", "jamba", "whisper")},
+               "train-yi-6b": train["yi"]["launches_fwd"],
+               "train-whisper": train["whisper"]["launches_fwd"]}
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",
         "source": FLASH_SOURCE, "fma_source": FLASH_FMA_SOURCE,
@@ -3318,7 +4004,8 @@ def main() -> None:
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "launches_wgmma": serving["launches_wgmma"] + sum(
             families[k]["launches"] for k in ("qwen2-moe", "jamba",
-                                              "whisper")),
+                                              "whisper"))
+        + train["yi"]["launches_fwd"],
         "launches_fma": serving["launches_fma"],
         f"launches_{serving['long_s'] // 1024}k": serving["launches_long"],
         "max_abs_err": flash["max_abs_err"], "rel_l2": flash["rel_l2"],
@@ -3358,6 +4045,26 @@ def main() -> None:
         "launches_phase11": autotune["launches"]["mlstm_chunk"],
         "tiles_phase11": autotune["tiles"]["mlstm_chunk"],
         "tuned_phase11": autotune["tuned"]["mlstm_chunk"],
+    })
+    bwd, yi = train["bwd"], train["yi"]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": FLASH_BWD_SOURCE, "replaces": FLASH_REPLACES,
+        "launches": yi["launches_bwd"],
+        "launches_by_path": {"train-yi-6b": yi["launches_bwd"],
+                             "train-whisper":
+                             train["whisper"]["launches_bwd"]},
+        "max_abs_err": bwd["max_abs_err"], "rel_l2": bwd["rel_l2"],
+        "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+        "library_ms": bwd["library_ms"], "shape": bwd["shape"],
+        "device_ms": bwd["device_ms"],
+        "step_device_ms": yi["bwd_set_device_ms"],
+        "b2": bwd["b2"],
+        "max_abs_err_cases": bwd["err"],
+        "train_step_s": yi["step_s"], "train_tokens_per_s":
+        yi["tokens_per_s"], "train_peak_gib": yi["peak_gib"],
+        "train_shares": yi["shares"],
     })
     print(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

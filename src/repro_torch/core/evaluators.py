@@ -63,11 +63,30 @@ def _key_data(seed: int) -> np.ndarray:
     return np.array([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
 
 
+_M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _rotl(v: np.ndarray, r: int) -> np.ndarray:
-    return (v << np.uint32(r)) | (v >> np.uint32(32 - r))
+def _rotl(v, r: int):
+    return ((v << r) | (v >> (32 - r))) & _M32
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """threefry2x32 (20 rounds) of the counters (x0, x1) under the key
+    (k0, k1): uint32 words held in int64 numpy arrays or torch tensors
+    (or Python ints for the key), masked to 32 bits, so the same code
+    serves the evaluator's host draws and the data stream's on a
+    device."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
 
 
 def threefry_bits(keys: np.ndarray) -> np.ndarray:
@@ -75,19 +94,10 @@ def threefry_bits(keys: np.ndarray) -> np.ndarray:
     scalar from each raw key ``keys[i] = [k0, k1]`` (threefry2x32, 20
     rounds, counter (0, 0) under partitionable threefry; the two output
     words are xor-folded)."""
-    keys = np.asarray(keys, np.uint32).reshape(-1, 2)
-    k0, k1 = keys[:, 0], keys[:, 1]
-    ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
-    with np.errstate(over="ignore"):
-        x0 = np.zeros_like(k0) + ks[0]
-        x1 = np.zeros_like(k1) + ks[1]
-        for i in range(5):
-            for r in _ROTATIONS[i % 2]:
-                x0 = x0 + x1
-                x1 = _rotl(x1, r) ^ x0
-            x0 = x0 + ks[(i + 1) % 3]
-            x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
-    return x0 ^ x1
+    keys = np.asarray(keys, np.uint32).reshape(-1, 2).astype(np.int64)
+    zero = np.zeros(len(keys), np.int64)
+    x0, x1 = threefry2x32(keys[:, 0], keys[:, 1], zero, zero)
+    return (x0 ^ x1).astype(np.uint32)
 
 
 _NORMAL_LO = np.nextafter(np.float32(-1.0), np.float32(0.0))

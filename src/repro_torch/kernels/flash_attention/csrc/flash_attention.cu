@@ -103,6 +103,7 @@ struct Params {
   int window;                      // <= 0: no window
   float softcap;                   // <= 0: no soft-cap
   float scale;                     // 1 / sqrt(D)
+  float* lse;                      // [B, H, Sq] log-sum-exp, or null
 };
 
 template <int D, int BQ, int BK>
@@ -129,7 +130,7 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-template <typename T, int D, int BQ, int BK, int NW>
+template <typename T, int D, int BQ, int BK, int NW, bool kLse>
 __global__ void __launch_bounds__(32 * NW, D <= 128 ? 2 : 1)
 flash_fwd_kernel(const Params p) {
   using L = Tile<BQ, BK, NW>;
@@ -274,6 +275,12 @@ flash_fwd_kernel(const Params p) {
   for (int i = 0; i < kRows; ++i) {
     const int qi = q0 + ty + kTY * i;
     if (qi >= p.Sq) continue;
+    // the row's log-sum-exp for the backward (-inf: nothing visible)
+    if constexpr (kLse) {
+      if (tx == 0)
+        p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + qi] =
+            m[i] + logf(l[i]);
+    }
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < kOC; ++c)
@@ -281,13 +288,13 @@ flash_fwd_kernel(const Params p) {
   }
 }
 
-template <typename T, int D, int BQ, int BK, int NW>
+template <typename T, int D, int BQ, int BK, int NW, bool kLse = false>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D, BQ, BK>();
   if constexpr (bytes > kSmemLimit) {
     return cudaErrorInvalidValue;
   } else {
-    auto kernel = flash_fwd_kernel<T, D, BQ, BK, NW>;
+    auto kernel = flash_fwd_kernel<T, D, BQ, BK, NW, kLse>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
@@ -308,7 +315,9 @@ template <typename T, int D>
 cudaError_t launch_tile(const Params& p, int batch, int bq, int bk, int nw,
                         cudaStream_t stream) {
   if (bq == 64 && bk == 64 && nw == 8)
-    return launch<T, D, 64, 64, 8>(p, batch, stream);
+    return p.lse != nullptr ? launch<T, D, 64, 64, 8, true>(p, batch, stream)
+                            : launch<T, D, 64, 64, 8>(p, batch, stream);
+  if (p.lse != nullptr) return cudaErrorInvalidValue;  // the default tile only
   if constexpr (std::is_same<T, float>::value && (D == 64 || D == 128)) {
 #define FLASH_FMA_CASE(BQ, BK, NW)                                      \
     if (bq == BQ && bk == BK && nw == NW)                               \
@@ -339,13 +348,17 @@ cudaError_t launch_dim(const Params& p, int batch, int d, int bq, int bk,
 // o_h} in `strides` (host memory) and unit stride along D.  dtype 0 is
 // float32, 1 bfloat16.  window <= 0 and softcap <= 0 mean none.  The tile
 // is block_q x block_k with 32 num_warps threads (64, 64, 8 by default;
-// cudaErrorInvalidValue for one without an instantiation).  Launches on
-// `stream` and returns cudaGetLastError().
+// cudaErrorInvalidValue for one without an instantiation).  A non-null
+// `lse` (float32 [B, H, Sq]) receives each row's log-sum-exp of its scaled,
+// soft-capped scores for the backward (flash_attention_bwd.cu), from an
+// instantiation of its own (the default tile only); null launches the
+// kernel as it was before the pointer.  Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int H, int Kh, int Sq, int Sk, int D, const long long* strides,
     int causal, int window, float softcap, float scale, int block_q,
-    int block_k, int num_warps, cudaStream_t stream) {
+    int block_k, int num_warps, float* lse, cudaStream_t stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -363,6 +376,7 @@ extern "C" int flash_attention_launch(
   p.window = window;
   p.softcap = softcap;
   p.scale = scale;
+  p.lse = lse;
   cudaError_t err;
   if (dtype == 0)
     err = launch_dim<float>(p, B, D, block_q, block_k, num_warps, stream);

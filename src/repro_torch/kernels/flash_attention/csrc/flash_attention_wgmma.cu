@@ -84,6 +84,8 @@ struct Params {
   float softcap;                   // <= 0: no soft-cap
   float cap_in;                    // scale / softcap: raw score -> tanh argument
   float fac;                       // log2(e) per unit of the softmax's score
+  float* lse;                      // [B, H, Sq] log-sum-exp, or null
+  float lse_fac;                   // natural-log units per unit of score
 };
 
 // Q (the block's NC * 64 rows) and a ring of `stages` K/V tiles of BN
@@ -347,6 +349,16 @@ __device__ __forceinline__ void consume(const Smem<D, NC, BN>& sm,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
+  // the rows' log-sum-exp for the backward (-inf: nothing visible)
+  if (p.lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < p.Sq)
+        p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + row] =
+            m[r] * p.lse_fac + logf(l[r]);
+    }
+  }
   __nv_bfloat16* ob =
       static_cast<__nv_bfloat16*>(p.o) + b * p.os_b + h * p.os_h;
 #pragma unroll
@@ -478,7 +490,10 @@ cudaError_t launch_tile(const CUtensorMap& tq, const CUtensorMap& tk,
 // 16-byte aligned with strides a multiple of 8 elements (TMA).  D is 64 or
 // 128.  window <= 0 and softcap <= 0 mean none.  The tile: block_q (64
 // or 128) q rows, block_k (64 or 128) keys, a ring of `stages` (1 to 4,
-// within 227 KB) K/V tiles; 128, 128, 2 by default.  Launches on `stream`;
+// within 227 KB) K/V tiles; 128, 128, 2 by default.  A non-null `lse`
+// (float32 [B, H, Sq]) receives each row's log-sum-exp of its scaled,
+// soft-capped scores for the backward (flash_attention_bwd.cu); null
+// writes nothing more.  Launches on `stream`;
 // returns 0, a cudaError_t (cudaErrorInvalidValue for a tile outside that
 // set), or -CUresult when a tensor map cannot be encoded (-1000: the
 // CUDA driver has no cuTensorMapEncodeTiled).
@@ -486,7 +501,7 @@ extern "C" int flash_attention_wgmma_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int Kh, int Sq, int Sk, int D, const long long* strides, int causal,
     int window, float softcap, float scale, int block_q, int block_k,
-    int stages, cudaStream_t stream) {
+    int stages, float* lse, cudaStream_t stream) {
   if ((D != 64 && D != 128) || (block_q != 64 && block_q != 128) ||
       (block_k != 64 && block_k != 128))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -514,6 +529,8 @@ extern "C" int flash_attention_wgmma_launch(
   p.softcap = softcap;
   p.cap_in = softcap > 0.f ? scale / softcap : 0.f;
   p.fac = softcap > 0.f ? kLog2e : scale * kLog2e;
+  p.lse = lse;
+  p.lse_fac = softcap > 0.f ? 1.f : scale;
   cudaError_t err;
   if (D == 128)
     err = launch_tile<128>(tq, tk, tv, p, B, block_q, block_k, stages,

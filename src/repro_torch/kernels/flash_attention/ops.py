@@ -22,6 +22,21 @@ A failed build or launch raises; nothing retries on the other route.
 Both kernels read the inputs in place through their strides and mask
 their ragged edges, so no padded or transposed copy is made.
 
+Gradients.  When grad is enabled and q, k or v requires grad, a CUDA call
+goes through an ``autograd.Function``: the forward kernel also writes
+each row's log-sum-exp (float32 [B, H, Sq], an optional pointer of both
+forwards; null on every other call, which then launches exactly as
+before; on the FMA route the default tile alone has that store), and
+the backward kernel (``csrc/flash_attention_bwd.cu``: a
+``rowsum(dO * O)`` pre-pass, dK/dV summed over each KV head's group, dQ;
+deterministic, float32 math on float32 or bf16 inputs) gives dq, dk, dv
+in q's dtype.  It recomputes P in float32 from the log-sum-exp, so on the
+wgmma route it is the straight-through gradient of the forward's P
+rounding; its plain version is ``ref.attention_grads`` (autograd of the
+plain version with P in float32).  A row with nothing visible gets zero
+gradient.  On CPU tensors ordinary autograd differentiates the plain
+version.
+
 The tile knobs (``block_q``, ``block_k``, ``num_warps``, ``pipeline``, the
 reference's) pick one of the route's instantiations on CUDA tensors
 (:func:`resolve_tiles`; the sets are :func:`supported_tiles`) or raise
@@ -34,8 +49,9 @@ the warps of a warpgroup; ``pipeline`` 1 on the FMA route, which stages
 one KV tile at a time).  On CPU tensors the plain version has no tiles
 and takes any positive knob.  :func:`autotune_space` and
 :func:`autotune_bench` are the reference's autotune hooks.
-``launches`` counts kernel launches, ``launches_wgmma`` and
-``launches_fma`` those of each route.
+``launches`` counts forward kernel launches, ``launches_wgmma`` and
+``launches_fma`` those of each route, and ``launches_bwd`` the backward's
+launch sets (three kernels each).
 
 The libraries are built with ``nvcc`` into ``build/flash_attention/`` at
 first use (``kernels/build.py``).
@@ -60,16 +76,22 @@ from repro_torch.kernels.tma import check_tma, tma_strides
 CSRC = Path(__file__).resolve().parent / "csrc"
 WGMMA_SOURCE = CSRC / "flash_attention_wgmma.cu"
 FMA_SOURCE = CSRC / "flash_attention.cu"
+BWD_SOURCE = CSRC / "flash_attention_bwd.cu"
 _LIBS = {
     "wgmma": NvccLibrary("flash_attention", WGMMA_SOURCE, {
         "flash_attention_wgmma_launch": [ctypes.c_void_p] * 4
         + [ctypes.c_int] * 6
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-           ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]}),
+           ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2}),
     "fma": NvccLibrary("flash_attention", FMA_SOURCE, {
         "flash_attention_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-           ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]}),
+           ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2}),
+    "bwd": NvccLibrary("flash_attention", BWD_SOURCE, {
+        "flash_attention_bwd_launch": [ctypes.c_void_p] * 10
+        + [ctypes.c_int] * 7
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+           ctypes.c_float, ctypes.c_void_p]}),
 }
 HEAD_DIMS = (16, 32, 64, 128, 256)          # compiled into the FMA kernel
 WGMMA_HEAD_DIMS = (64, 128)                 # compiled into the wgmma kernel
@@ -91,13 +113,14 @@ WGMMA_STAGES = (1, 2, 3, 4)
 launches = 0
 launches_wgmma = 0
 launches_fma = 0
+launches_bwd = 0
 _lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    global launches, launches_wgmma, launches_fma
+    global launches, launches_wgmma, launches_fma, launches_bwd
     with _lock:
-        launches = launches_wgmma = launches_fma = 0
+        launches = launches_wgmma = launches_fma = launches_bwd = 0
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -183,9 +206,9 @@ def resolve_tiles(route: str, dtype: torch.dtype, head_dim: int, sq: int,
 
 
 def build(verbose: bool = False, which: Optional[str] = None):
-    """Compile the kernel libraries (``which``: one route's only) if these
-    sources have not been built yet; returns the paths (``verbose``
-    prints ptxas's report)."""
+    """Compile the kernel libraries (``which``: ``"wgmma"``, ``"fma"`` or
+    ``"bwd"`` only) if these sources have not been built yet; returns the
+    paths (``verbose`` prints ptxas's report)."""
     names = [which] if which is not None else list(_LIBS)
     return [_LIBS[n].build(verbose) for n in names]
 
@@ -255,14 +278,52 @@ def flash_attention(q, k, v, *, causal: bool = True,
     which = route(q.dtype, q.shape[3])
     tiles = resolve_tiles(which, q.dtype, q.shape[3], q.shape[1],
                           k.shape[1], block_q, block_k, num_warps, pipeline)
-    if which == "wgmma":
-        return _wgmma(q, k, v, causal, window, softcap, tiles)
-    return _fma(q, k, v, causal, window, softcap, tiles)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if which == "fma" and tiles != DEFAULT_TILES["fma"]:
+            raise ValueError(
+                f"flash_attention (fma): a call that asks for a gradient "
+                f"launches the default tile {DEFAULT_TILES['fma']}, the "
+                f"only one compiled with the log-sum-exp store; got {tiles}")
+        return _Flash.apply(q, k, v, causal, window, softcap, which, tiles)
+    return _forward(q, k, v, causal, window, softcap, which, tiles)[0]
+
+
+def _forward(q, k, v, causal, window, softcap, which, tiles, lse=False):
+    """(out, lse or None): one launch of route ``which``; ``lse`` asks the
+    kernel for the rows' log-sum-exp, float32 [B, H, Sq]."""
+    B, Sq, H, _ = q.shape
+    lse_t = torch.empty((B, H, Sq), dtype=torch.float32,
+                        device=q.device) if lse else None
+    launch = _wgmma if which == "wgmma" else _fma
+    return launch(q, k, v, causal, window, softcap, tiles, lse_t), lse_t
+
+
+class _Flash(torch.autograd.Function):
+    """The forward kernel of the route, with each row's log-sum-exp
+    saved, differentiated by the backward kernel (``_backward``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, which, tiles):
+        out, lse = _forward(q, k, v, causal, window, softcap, which, tiles,
+                            lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, out, dout, lse, *ctx.mask)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _count(which: str) -> None:
-    global launches, launches_wgmma, launches_fma
+    global launches, launches_wgmma, launches_fma, launches_bwd
     with _lock:
+        if which == "bwd":
+            launches_bwd += 1
+            return
         launches += 1
         if which == "wgmma":
             launches_wgmma += 1
@@ -271,7 +332,7 @@ def _count(which: str) -> None:
 
 
 def _wgmma(q, k, v, causal, window, softcap,
-           tiles=DEFAULT_TILES["wgmma"]):
+           tiles=DEFAULT_TILES["wgmma"], lse=None):
     B, Sq, H, D = q.shape
     Sk, Kh = k.shape[1], k.shape[2]
     bq, bk, _, stages = tiles
@@ -282,6 +343,8 @@ def _wgmma(q, k, v, causal, window, softcap,
     if out.numel() == 0:
         return out
     if Sk == 0:                  # nothing visible: zeros, as the kernel writes
+        if lse is not None:
+            lse.fill_(-math.inf)
         return out.zero_()
     strides = (ctypes.c_longlong * 12)(
         *tma_strides(q), *tma_strides(k), *tma_strides(v),
@@ -294,7 +357,8 @@ def _wgmma(q, k, v, causal, window, softcap,
             B, H, Kh, Sq, Sk, D, strides, int(causal),
             0 if window is None else int(window),
             0.0 if softcap is None else float(softcap),
-            1.0 / math.sqrt(D), bq, bk, stages, stream)
+            1.0 / math.sqrt(D), bq, bk, stages,
+            None if lse is None else lse.data_ptr(), stream)
     if err < 0:
         raise RuntimeError(f"flash_attention (wgmma): TMA tensor map "
                            f"encoding failed (CUresult {-err})")
@@ -305,7 +369,8 @@ def _wgmma(q, k, v, causal, window, softcap,
     return out
 
 
-def _fma(q, k, v, causal, window, softcap, tiles=DEFAULT_TILES["fma"]):
+def _fma(q, k, v, causal, window, softcap, tiles=DEFAULT_TILES["fma"],
+         lse=None):
     B, Sq, H, D = q.shape
     bq, bk, nw, _ = tiles
     Sk, Kh = k.shape[1], k.shape[2]
@@ -326,12 +391,52 @@ def _fma(q, k, v, causal, window, softcap, tiles=DEFAULT_TILES["fma"]):
             _DTYPES[q.dtype], B, H, Kh, Sq, Sk, D, strides, int(causal),
             0 if window is None else int(window),
             0.0 if softcap is None else float(softcap),
-            1.0 / math.sqrt(D), bq, bk, nw, stream)
+            1.0 / math.sqrt(D), bq, bk, nw,
+            None if lse is None else lse.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention (fma) kernel launch failed: "
                            f"CUDA error {err}")
     _count("fma")
     return out
+
+
+def _backward(q, k, v, out, dout, lse, causal, window, softcap):
+    """(dq, dk, dv) in q's dtype from one launch set of the backward
+    kernel (``csrc/flash_attention_bwd.cu``: the D_i pre-pass, dK/dV,
+    dQ); ``lse`` is the forward's float32 [B, H, Sq]."""
+    B, Sq, H, D = q.shape
+    Sk, Kh = k.shape[1], k.shape[2]
+    if B * H > _MAX_GRID_Y:
+        raise ValueError(f"B*H = {B * H} exceeds the backward kernel's "
+                         f"grid ({_MAX_GRID_Y})")
+    dout = dout.to(q.dtype)
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, Kh, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if Sq == 0 or Sk == 0 or B == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    di = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(
+        *(st for t in (q, k, v, out, dout, dq, dk, dv)
+          for st in t.stride()[:3]))
+    lib = _LIBS["bwd"].load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], B, H, Kh, Sq,
+            Sk, D, strides, int(causal),
+            0 if window is None else int(window),
+            0.0 if softcap is None else float(softcap),
+            1.0 / math.sqrt(D), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch "
+                           f"failed: CUDA error {err}")
+    _count("bwd")
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,11 @@ the sum of bf16(p) v is divided by it.  The kernel takes m as the running
 max of the tiles seen so far and this version the row's max, so both
 round the same values, scaled by different powers of e (roundings of the
 same size, not the same bits).
+
+``attention_grads`` is the plain version of the backward kernel: autograd
+of ``reference_attention`` with P in float32, on float32 copies of the
+inputs.  On the bf16 route that is the straight-through gradient of the
+forward's P rounding, which the kernel computes too.
 """
 
 from __future__ import annotations
@@ -55,3 +60,16 @@ def reference_attention(q, k, v, *, causal: bool = True,
     rowsum = e.sum(dim=-1)                               # [B,H,Sq], f32
     o = torch.einsum("bhqk,bkhd->bqhd", e.to(p_dtype).float(), vr)
     return (o / rowsum.transpose(1, 2)[..., None]).to(q.dtype)
+
+
+def attention_grads(q, k, v, dout, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None):
+    """(dq, dk, dv) in float32: ``torch.autograd.grad`` of
+    ``reference_attention(..., p_dtype=None)`` at float32 copies of q, k,
+    v against the cotangent ``dout``."""
+    qf, kf, vf = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+    with torch.enable_grad():
+        o = reference_attention(qf, kf, vf, causal=causal, window=window,
+                                softcap=softcap)
+        return torch.autograd.grad(o, (qf, kf, vf), dout.float())

@@ -22,7 +22,11 @@ launches the kernel on the current stream or raises:
   float32 scratch of B*H*S*chunk elements for the chunks' q k^T.
 
 A failed build or launch raises; nothing retries on the other route.
-Both kernels read the inputs in place through their strides.
+Both kernels read the inputs in place through their strides.  Neither has
+a backward yet (ROADMAP queue A, item 15b): a call on tensors off the CPU
+with grad enabled and an input that requires grad raises ``ValueError``
+instead of returning an output without a gradient.  On CPU tensors
+autograd differentiates the plain version.
 
 The reference's scheduling knobs ``num_warps``/``pipeline`` pick, on CUDA
 tensors, one of the route's launches (:func:`resolve_tiles`; the sets
@@ -234,6 +238,13 @@ def mlstm_chunk(q, k, v, logi, logf, *, chunk: int = 256,
     if q.device.type == "cpu":
         check_positive("mlstm_chunk", num_warps=num_warps, pipeline=pipeline)
         return plain_version(q, k, v, logi, logf, c)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, logi, logf)):
+        raise ValueError(
+            "mlstm_chunk on CUDA has no backward kernel yet (ROADMAP queue "
+            "A, item 15b): its output would carry no gradient, so an input "
+            "that requires grad is refused; run under torch.no_grad() or "
+            "on CPU tensors")
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_chunk runs on cpu or cuda, not {q.device}")
     which = route(q.dtype, P, c)

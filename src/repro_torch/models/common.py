@@ -1,12 +1,15 @@
 """Parameter helpers, norms and activations shared by the model zoo
-(from ``repro.models.common``, forward only).
+(from ``repro.models.common``).
 
 Parameters are plain dicts of tensors with the reference's names and
 layout: a dense layer is ``{"w": [in, out], "b": [out]}``, and the
 transformer stacks each pattern position's leaves over groups.  Random
 initialisers draw from a ``torch.Generator`` on the parameters' device;
 they do not reproduce ``jax.random``'s numbers (tests carry weights across
-with ``Model.params_from_numpy``).
+with ``Model.params_from_numpy``).  Everything here is differentiable by
+autograd; the bf16-reduce matmul carries the reference's custom VJP
+(``MatmulBf16``).  ``tree_flatten`` orders leaves as ``jax.tree``
+does, so a checkpoint's leaves line up across the two packages.
 """
 
 from __future__ import annotations
@@ -56,13 +59,61 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
     return p
 
 
+def _matmul(x, w):
+    """``x @ w``; operands of two types are promoted to the wider one
+    first, as ``jnp.matmul`` does."""
+    if w.dtype != x.dtype:
+        wide = torch.promote_types(x.dtype, w.dtype)
+        return torch.matmul(x.to(wide), w.to(wide))
+    return torch.matmul(x, w)
+
+
+def _matmul_to(a, b, out_dtype: torch.dtype):
+    """``jnp.matmul(a, b, preferred_element_type=out_dtype)``: operands of
+    two types are both converted to ``out_dtype`` first; the products are
+    accumulated in float32 and the result rounded to ``out_dtype``."""
+    if a.dtype != b.dtype:
+        a, b = a.to(out_dtype), b.to(out_dtype)
+    if a.dtype == torch.bfloat16 and out_dtype != torch.bfloat16:
+        a, b = a.float(), b.float()
+    return torch.matmul(a, b).to(out_dtype)
+
+
+class MatmulBf16(torch.autograd.Function):
+    """``jnp.matmul(x, w, preferred_element_type=bfloat16)`` and its VJP:
+    the product rounded to bf16; backward, the cotangent cast to bf16 and
+    dx a bf16 product rounded to bf16, dw in ``wgrad_dtype``.  float32 is
+    the reference's custom VJP (``repro.models.common._mm_bf16_reduce``,
+    the bf16-reduce projections: the narrowed dgrad all-reduce, wgrad
+    accumulated in float32; on one card there is nothing to narrow, the
+    roundings are the reference's all the same); bf16 is JAX's own VJP of
+    a bf16-output dot (the MoE's bf16-reduce down-projection).  Operands
+    are converted as ``jnp.matmul`` converts them (``_matmul_to``: a bf16
+    cotangent times a float32 weight runs in bf16)."""
+
+    @staticmethod
+    def forward(ctx, x, w, wgrad_dtype=torch.float32):
+        ctx.save_for_backward(x, w)
+        ctx.wgrad_dtype = wgrad_dtype
+        return _matmul_to(x, w, torch.bfloat16)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gb = g.to(torch.bfloat16)
+        dx = _matmul_to(gb, w.T, torch.bfloat16)
+        dw = _matmul_to(x.reshape(-1, x.shape[-1]).T,
+                        gb.reshape(-1, gb.shape[-1]), ctx.wgrad_dtype)
+        return dx.to(x.dtype), dw.to(w.dtype), None
+
+
 def dense_apply(p, x, *, preferred: Optional[torch.dtype] = None):
     """``x @ w (+ b)`` in x's dtype.
 
     ``preferred`` is the reference's accumulation/partial-sum dtype.  With
     ``torch.bfloat16`` the product is rounded to bf16 before the bias is
-    added (``_mm_bf16_reduce``, forward only; on one card there is no
-    cross-shard combine to narrow).  Otherwise the bias is added in
+    added (``MatmulBf16``, with the reference's custom VJP; on one card
+    there is no cross-shard combine to narrow).  Otherwise the bias is added in
     float32: in float32 that is the reference's arithmetic, and on bf16
     operands the product (float32-accumulated by the matmul) is rounded
     once to bf16 before the float32 bias add.  The reference's
@@ -71,17 +122,12 @@ def dense_apply(p, x, *, preferred: Optional[torch.dtype] = None):
     Operands of two types (bf16 activations into the xLSTM's float32 gate
     weights) are promoted to the wider one first, as ``jnp.matmul`` does.
     """
-    w = p["w"]
-    if w.dtype != x.dtype:
-        wide = torch.promote_types(x.dtype, w.dtype)
-        y = torch.matmul(x.to(wide), w.to(wide))
-    else:
-        y = torch.matmul(x, w)
     if preferred == torch.bfloat16:
-        y = y.to(torch.bfloat16)
+        y = MatmulBf16.apply(x, p["w"])
         if "b" in p:
             y = y + p["b"]
         return y.to(x.dtype)
+    y = _matmul(x, p["w"])
     if "b" in p:
         y = y.float() + p["b"].float()
     return y.to(x.dtype)
@@ -140,17 +186,6 @@ def softcap(x, cap: Optional[float]):
     return cap * torch.tanh(x / cap)
 
 
-def tree_leaves(tree):
-    """Tensors of a nested dict/list/tuple parameter tree, in order."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, dict):
-        return [t for k in tree for t in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [t for x in tree for t in tree_leaves(x)]
-    return []
-
-
 def tree_map(fn, tree):
     """Apply ``fn`` to every tensor of a nested dict/list/tuple tree."""
     if isinstance(tree, dict):
@@ -160,3 +195,67 @@ def tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def tree_flatten_with_path(tree):
+    """([(path, leaf)], treedef): ``tree_flatten``'s leaves in its order,
+    each with its path (a tuple of dict keys, sequence indices and
+    NamedTuple field names)."""
+    pairs = []
+
+    def walk(t, path):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return (dict, tuple((k, walk(t[k], path + (k,)))
+                                for k in sorted(t)))
+        if _is_namedtuple(t):
+            return (type(t), tuple(walk(v, path + (f,))
+                                   for f, v in zip(t._fields, t)))
+        if isinstance(t, (list, tuple)):
+            return (type(t), tuple(walk(v, path + (i,))
+                                   for i, v in enumerate(t)))
+        pairs.append((path, t))
+        return _LEAF
+
+    treedef = walk(tree, ())
+    return pairs, treedef
+
+
+def tree_flatten(tree):
+    """(leaves, treedef) in ``jax.tree.flatten``'s order: dict keys
+    sorted, list / tuple / NamedTuple entries in order, ``None`` an empty
+    node; anything else is a leaf.  ``tree_unflatten(treedef, leaves)``
+    rebuilds the tree."""
+    pairs, treedef = tree_flatten_with_path(tree)
+    return [leaf for _, leaf in pairs], treedef
+
+
+_LEAF = object()
+
+
+def tree_unflatten(treedef, leaves):
+    """The tree ``tree_flatten`` described by ``treedef``, with
+    ``leaves`` (in that order) in place of its leaves."""
+    it = iter(leaves)
+
+    def build(d):
+        if d is None:
+            return None
+        if d is _LEAF:
+            return next(it)
+        kind, children = d
+        if kind is dict:
+            return {k: build(c) for k, c in children}
+        if kind in (list, tuple):
+            return kind(build(c) for c in children)
+        return kind(*(build(c) for c in children))
+
+    out = build(treedef)
+    if next(it, _LEAF) is not _LEAF:
+        raise ValueError("more leaves than the tree has")
+    return out

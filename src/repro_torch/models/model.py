@@ -5,6 +5,7 @@ The serving engine and the launchers talk to this facade:
 
     m = Model(cfg, device="cuda")
     params            = m.init(seed)                  # or params_from_numpy
+    loss, metrics     = m.loss(params, batch, rc)
     logits, state     = m.prefill(params, inputs, s_max, rc)
     logits, state     = m.decode_step(params, token, state, rc)
 
@@ -14,8 +15,10 @@ on ``m.device``: the card unless the caller asks for the CPU, and never a
 silent fallback.  Every family of the reference is served: the dense,
 MoE, hybrid (mamba) and xLSTM decoder stacks (``models/transformer.py``)
 and whisper (``models/whisper.py``); decode states hold attention caches
-or recurrent states, updated in place.  The loss/train path is not ported
-yet (ROADMAP queue A, item 15).
+or recurrent states, updated in place.  ``loss`` is the training
+objective (``train/train_loop.py`` differentiates it with autograd): the
+decoder stacks' next-token cross-entropy plus the MoE aux loss, whisper's
+teacher-forced cross-entropy over its encoder.
 """
 
 from __future__ import annotations
@@ -64,12 +67,22 @@ class Model:
         ``d_skip``) stay float32."""
         return tree_map(lambda a: _tensor(a).to(self.device), tree)
 
-    # ---- serving ----------------------------------------------------------
-
     def _on_device(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
             return x.to(self.device)
         return _tensor(x).to(self.device)
+
+    # ---- training ---------------------------------------------------------
+
+    def loss(self, params, batch: Dict[str, object], rc: RunConfig):
+        """(loss, {"nll", "aux"}) of a batch: tokens and labels [B, S],
+        ``positions`` [3, B, S] for M-RoPE, whisper's ``frames``
+        [B, T_enc, d_model]; numpy leaves are moved to ``self.device``."""
+        batch = {k: self._on_device(v) for k, v in batch.items()}
+        mod = whisper if self._ed else transformer
+        return mod.loss_fn(params, batch, self.cfg, rc)
+
+    # ---- serving ----------------------------------------------------------
 
     def prefill(self, params, inputs: Dict[str, object], s_max: int,
                 rc: RunConfig):

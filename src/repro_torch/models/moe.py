@@ -1,6 +1,7 @@
 """Mixture-of-Experts MLP with shared experts and top-k routing (from
-``repro.models.moe``, forward only; ``axes`` is mesh-only and has no
-counterpart).
+``repro.models.moe``; ``axes`` is mesh-only and has no counterpart).
+Autograd differentiates it for training; the bf16-reduce down-projection
+carries JAX's VJP of a bf16-output dot (``common.MatmulBf16``).
 
 Covers grok-1 (8e top-2, gelu), qwen2-moe (60e top-4 + 4 shared, silu) and
 jamba (16e top-2).  Expert weights keep the reference's layout:
@@ -32,7 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import mlp
-from repro_torch.models.common import activation, reduce_dtype, trunc_normal
+from repro_torch.models.common import (MatmulBf16, activation, reduce_dtype,
+                                       trunc_normal)
 from repro_torch.models.config import ModelConfig
 from repro_torch.runconfig import RunConfig
 
@@ -120,9 +122,11 @@ def _dense(ep, xt, weights, act_name: str, rc: RunConfig):
     # the routing scale BEFORE the (e, f) joint contraction, as the
     # reference orders it: one [T, d] sum instead of [E, T, d] partials
     z.view(T, E, f).mul_(weights.to(z.dtype)[:, :, None])
-    y = torch.matmul(z, ep["down"].reshape(E * f, d))
+    down = ep["down"].reshape(E * f, d)
     if reduce_dtype(rc) == torch.bfloat16:
-        y = y.to(torch.bfloat16)
+        y = MatmulBf16.apply(z, down, torch.bfloat16)
+    else:
+        y = torch.matmul(z, down)
     return y.to(xt.dtype)
 
 

@@ -1,6 +1,6 @@
 """Mamba block in the chunked state-space-dual form (from
-``repro.models.ssm``, forward only; ``axes`` and ``state_axes`` are
-mesh-only and have no counterpart).
+``repro.models.ssm``; ``axes`` and ``state_axes`` are mesh-only and
+have no counterpart).  Autograd differentiates it for training.
 
 Mamba-2 / SSD (arXiv:2405.21060): per-head scalar decay, intra-chunk
 attention-like products under a decay mask, and an inter-chunk carried

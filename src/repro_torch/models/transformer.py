@@ -1,11 +1,12 @@
 """Composable decoder LM over the repeating block pattern (from
-``repro.models.transformer``), forward only.
+``repro.models.transformer``).
 
 Parameters keep the reference's layout: each position of the repeating
 pattern stacks its leaves over groups (``[n_groups, ...]``), so a JAX
 parameter tree carries across unchanged (``Model.params_from_numpy``).
-The reference's ``lax.scan`` over groups is a Python loop over layers
-here; the remat policy has no counterpart (nothing is differentiated).
+The reference's ``lax.scan`` over groups is a Python loop over groups
+here, and its remat policy (``rc.remat_policy``) wraps each group in
+``torch.utils.checkpoint`` (non-reentrant; ``_remat_wrap``).
 
 Every block kind of the reference is ported: ``ATTN`` (the flash kernel
 under ``attention_impl="flash"``), ``MAMBA`` (the chunked SSD of
@@ -17,6 +18,7 @@ stack by ``forward``; the serving paths drop it, as the reference's do.
 Exposes:
     init                   — random parameters on a ``torch.Generator``
     forward                — full-sequence logits and MoE aux loss
+    loss_fn                — next-token cross-entropy (+ MoE aux)
     init_decode_state      — per-position stacked caches / states
     prefill                — fill caches from a prompt, return state
     decode_step            — one-token step through the whole stack
@@ -24,9 +26,11 @@ Exposes:
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.models import attention, mlp, moe, ssm, xlstm
 from repro_torch.models.common import (dense_apply, norm_apply, norm_init,
@@ -124,20 +128,64 @@ def _block_forward(spec: LayerSpec, p, x, positions, cfg: ModelConfig,
     return _block_mlp(spec, p, x, cfg, rc)
 
 
+# matmuls without batch dims (weight products: ``torch.matmul`` of
+# [..., in] by [in, out] dispatches to ``mm``); attention's einsums are
+# batched (``bmm``) and recomputed, as under the reference's
+# ``checkpoint_dots_with_no_batch_dims``
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return _ckpt.CheckpointPolicy.MUST_SAVE if op in _DOT_OPS \
+        else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, rc: RunConfig):
+    """The reference's remat policy around one group's body.
+
+    ``none``: no wrapper.  ``full`` and ``block``: the group is recomputed
+    in the backward and only its input (the bf16 carry, the reference's
+    ``block_input``) is kept; a checkpointed function's inputs are its
+    only residuals in torch, as the scan carry is under the reference's
+    ``nothing_saveable``.  ``dots``: a selective checkpoint that also
+    keeps every matmul output without batch dims.  Without grad the body
+    runs as it is."""
+    policy = rc.remat_policy
+    if policy not in ("none", "full", "block", "dots"):
+        raise ValueError(policy)
+    if policy == "none":
+        return fn
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
+
+
 def backbone(params, x, positions, cfg: ModelConfig, rc: RunConfig):
     """Embedded activations -> (final hidden states, summed aux loss).
     x [B,S,d].  The carried activation is cast to ``rc.activation_dtype``
-    at every group boundary, as the reference's scan carry is."""
+    at every group boundary, as the reference's scan carry is; each group
+    runs under ``rc.remat_policy``."""
     act_dtype = torch.bfloat16 if rc.activation_dtype == "bfloat16" \
         else torch.float32
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g in range(cfg.n_groups):
-        x = x.to(act_dtype)
+
+    def group_body(x, aux, g: int):
         for p_i, spec in enumerate(cfg.pattern):
             x, a = _block_forward(spec, _group(params["layers"][p_i], g), x,
                                   positions, cfg, rc)
             aux = aux + a
-        x = x.to(act_dtype)
+        return x.to(act_dtype), aux
+
+    body = _remat_wrap(group_body, rc)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(cfg.n_groups):
+        x, aux = body(x.to(act_dtype), aux, g)
     return norm_apply(params["final_norm"], x, kind=cfg.norm,
                       eps=cfg.norm_eps), aux
 
@@ -177,6 +225,27 @@ def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
     x = embed(params, tokens, cfg)
     x, aux = backbone(params, x, positions, cfg, rc)
     return unembed(params, x, cfg, rc), aux
+
+
+def xent(logits, labels):
+    """Mean next-token cross-entropy of float32 logits [B,S,V]: logsumexp
+    minus the label's logit.  The reference contracts with a one-hot (it
+    partial-sums over vocab shards); a gather gives the same value
+    exactly without the [B,S,V] one-hot."""
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None]).squeeze(-1)
+    return torch.mean(logz - ll)
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            rc: RunConfig):
+    """Next-token cross-entropy plus the MoE aux loss.  batch: tokens
+    [B,S], labels [B,S], and ``positions`` [3,B,S] for M-RoPE.  Returns
+    (loss, {"nll", "aux"})."""
+    logits, aux = forward(params, batch["tokens"], cfg, rc,
+                          positions=batch.get("positions"))
+    nll = xent(logits, batch["labels"])
+    return nll + aux, {"nll": nll, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

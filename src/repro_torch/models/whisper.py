@@ -1,7 +1,7 @@
 """Whisper-tiny backbone: encoder-decoder transformer (from
-``repro.models.whisper``, forward only; ``axes`` is mesh-only and has no
-counterpart, and ``loss_fn`` comes with training, ROADMAP queue A, item
-15).
+``repro.models.whisper``; ``axes`` is mesh-only and has no counterpart).
+``loss_fn`` is the teacher-forced cross-entropy the train step
+differentiates.
 
 The conv/mel frontend is a stub, as in the reference: the caller provides
 precomputed frame embeddings [B, 1500, d_model] (what the two conv layers
@@ -150,6 +150,18 @@ class WhisperDecodeState(NamedTuple):
     cross_k: torch.Tensor   # [L, B, T_enc, Kh, D]
     cross_v: torch.Tensor
     pos: torch.Tensor       # [B] int32
+
+
+def loss_fn(params, batch, cfg: ModelConfig, rc: RunConfig):
+    """Teacher-forced cross-entropy over ``encode`` + ``decode_train``.
+    batch: frames [B, T_enc, d], tokens and labels [B, S].  Returns (nll,
+    {"nll", "aux" = 0})."""
+    memory = encode(params, batch["frames"], cfg, rc)
+    logits = decode_train(params, batch["tokens"], memory, cfg, rc)
+    nll = transformer.xent(logits, batch["labels"])
+    return nll, {"nll": nll,
+                 "aux": torch.zeros((), dtype=torch.float32,
+                                    device=nll.device)}
 
 
 def init_decode_state(params, frames, batch: int, s_max: int,

@@ -1,6 +1,8 @@
 """xLSTM blocks: mLSTM (matrix memory) and sLSTM (scalar memory), from
-``repro.models.xlstm`` (forward only; the ``*_axes`` functions are
-mesh-only and have no counterpart).
+``repro.models.xlstm`` (the ``*_axes`` functions are mesh-only and have
+no counterpart).  Autograd differentiates it on CPU tensors; on the card
+the mLSTM kernel has no backward yet and refuses a gradient (ROADMAP
+queue A, item 15b).
 
 arXiv:2405.04517.  The 1.3B config interleaves 7 mLSTM : 1 sLSTM.
 

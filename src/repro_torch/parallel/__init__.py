@@ -6,6 +6,7 @@ from repro_torch.parallel.sharding import (  # noqa: F401
     DEFAULT_RULES,
     POOL_AXIS,
     ShardConfig,
+    data_parallel_size,
     pool_devices,
     shard_config_from_knobs,
     spare_device,

@@ -8,7 +8,8 @@ so knob dicts round-trip, and nothing reads them to place a tensor.
 ``ShardConfig.resolve(mesh)``, ``shard_activation`` and
 ``gather_weights_for_compute`` act only on a mesh and are not ported; off
 a mesh the reference's two helpers are no-ops, and the port calls nothing
-in their place.
+in their place.  :func:`data_parallel_size` is the train step's data-
+parallel world: 1 for the port's single process.
 
 The proposer's side is ported: the candidate pool of
 ``gp.select_batch_sharded`` shards over an ordered tuple of devices
@@ -134,3 +135,18 @@ def shard_config_from_knobs(knobs: Dict[str, object]) -> ShardConfig:
         shard_kv_seq_for_decode=bool(knobs.get("shard_kv_seq", False)),
         pod_in_batch=bool(knobs.get("pod_in_batch", True)),
     )
+
+
+def data_parallel_size(shard_cfg: ShardConfig,
+                       mesh: Optional[Dict[str, int]] = None) -> int:
+    """The data-parallel world size the train step splits its batch over
+    (the reference reads its ambient mesh): 1 off a mesh, as for the
+    port's single process; with ``mesh`` (axis name -> size, e.g.
+    ``launch.mesh.make_host_mesh().shape``) the ``data`` axis, times
+    ``pod`` when ``shard_cfg.pod_in_batch``."""
+    if mesh is None:
+        return 1
+    dp = mesh.get("data", 1)
+    if "pod" in mesh and shard_cfg.pod_in_batch:
+        dp *= mesh["pod"]
+    return dp

@@ -54,7 +54,11 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.service.__main__", "repro_torch.service.cache",
                 "repro_torch.service.shardlog", "repro_torch.service.pool",
                 "repro_torch.service.session", "repro_torch.service.server",
-                "repro_torch.service.wire", "repro_torch.service.client"):
+                "repro_torch.service.wire", "repro_torch.service.client",
+                "repro_torch.train", "repro_torch.train.optimizer",
+                "repro_torch.train.train_loop", "repro_torch.train.data",
+                "repro_torch.train.checkpoint", "repro_torch.train.elastic",
+                "repro_torch.launch.train", "repro_torch.launch.mesh"):
         assert mod in res["modules"]
     assert res["bad"] == []
 

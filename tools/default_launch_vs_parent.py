@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
-"""The default launches of the Gram forward and of the flash-attention and
-mLSTM tensor-core kernels against an earlier version of their sources, on
-the card: the same bits, and the device time of each in turns (old, new,
-new, old).  The tile knobs must leave the default launches as they were.
+"""The default launches of the Gram forward, of both flash-attention
+forwards and of the mLSTM tensor-core kernel against an earlier version of
+their sources, on the card: the same bits, and the device time of each in
+turns (old, new, new, old).  The serving launches (the flash forwards
+with a null log-sum-exp pointer) must stay as they were.
 
     git archive <commit> src/repro_torch/kernels | tar -x -C build/parent
     python3 tools/default_launch_vs_parent.py build/parent
 
 The earlier sources (``<dir>/src/repro_torch/kernels/gp_gram/csrc/
 gp_gram.cu``, ``.../flash_attention/csrc/flash_attention_wgmma.cu`` and
-``.../mlstm_chunk/csrc/mlstm_chunk_wgmma.cu``) must export the interfaces
-from before the tile knobs; each is built as its own library under
-``build/``.  Shapes: the Gram forward at the tuner's [64, 16] and
-[2384, 16] x [64, 16] and the daemon's [64, 327] and [3939, 327] x
-[64, 327]; flash at yi-6b's bf16 prefill (B 2, S 4096, H 32, Kh 4, D 128,
-causal); mLSTM at xlstm-1.3b's bf16 layer (B 2, S 4096, H 4, P 1024,
-chunk 256).  Device time per call from ``torch.profiler`` (200 calls of
-the Gram, 20 of the others; an mLSTM call is its four passes).  Prints
-the card's name and power limit first; exits non-zero without a GPU or
-when the bits differ.  Imports nothing of JAX.
+``flash_attention.cu``, ``.../mlstm_chunk/csrc/mlstm_chunk_wgmma.cu``)
+must export the interfaces with the tile knobs and without the flash
+forwards' log-sum-exp pointer (the tree of commit 9346a95); each is built
+as its own library under ``build/``.  Shapes: the Gram forward at the
+tuner's [64, 16] and [2384, 16] x [64, 16] and the daemon's [64, 327] and
+[3939, 327] x [64, 327]; flash at yi-6b's bf16 prefill (B 2, S 4096, H
+32, Kh 4, D 128, causal) on the wgmma route and in float32 on the FMA
+route (B 1, S 2048, same heads); mLSTM at xlstm-1.3b's bf16 layer (B 2,
+S 4096, H 4, P 1024, chunk 256).  Device time per call from
+``torch.profiler`` (200 calls of the Gram, 20 of the others; an mLSTM
+call is its four passes).  Prints the card's name and power limit first;
+exits non-zero without a GPU or when the bits differ.  Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ ROOT = Path(__file__).resolve().parents[1]
 GRAM_SHAPES = ((64, 64, 16), (2384, 64, 16), (64, 64, 327),
                (3939, 64, 327))
 FLASH_SHAPE = (2, 4096, 32, 4, 128)      # B, S, H, Kh, D
+FLASH_FMA_SHAPE = (1, 2048, 32, 4, 128)  # float32, the FMA route
 MLSTM_SHAPE = (2, 4096, 4, 1024, 256)    # B, S, H, P, chunk
 
 
@@ -73,23 +78,27 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    vp = ctypes.c_void_p
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     old_gram = NvccLibrary(
         "gp_gram_parent", parent / "gp_gram" / "csrc" / "gp_gram.cu",
-        {"matern52_launch": [vp] * 5 + [ctypes.c_int] * 3 + [vp]})
+        gram_ops._LIB.functions)
     old_flash = NvccLibrary(
         "flash_attention_parent",
         parent / "flash_attention" / "csrc" / "flash_attention_wgmma.cu",
-        {"flash_attention_wgmma_launch": [vp] * 4 + [ctypes.c_int] * 6
-         + [vp, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            vp]})
+        {"flash_attention_wgmma_launch": [vp] * 4 + [ci] * 6
+         + [vp, ci, ci, cf, cf] + [ci] * 3 + [vp]})
+    old_fma = NvccLibrary(
+        "flash_attention_fma_parent",
+        parent / "flash_attention" / "csrc" / "flash_attention.cu",
+        {"flash_attention_launch": [vp] * 4 + [ci] * 7
+         + [vp, ci, ci, cf, cf] + [ci] * 3 + [vp]})
     old_mlstm = NvccLibrary(
         "mlstm_chunk_parent",
         parent / "mlstm_chunk" / "csrc" / "mlstm_chunk_wgmma.cu",
-        {"mlstm_chunk_wgmma_launch": [vp] * 10 + [ctypes.c_int] * 5
-         + [vp, vp]})
+        mlstm_ops._LIBS["wgmma"].functions)
     old_g, new_g = old_gram.load(), gram_ops._LIB.load()
     old_f, new_f = old_flash.load(), flash_ops._LIBS["wgmma"].load()
+    old_a, new_a = old_fma.load(), flash_ops._LIBS["fma"].load()
     old_m, new_m = old_mlstm.load(), mlstm_ops._LIBS["wgmma"].load()
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
@@ -103,11 +112,10 @@ def main() -> None:
                 for key in ("old", "new")}
         args = [xa.data_ptr(), xb.data_ptr(), ls.data_ptr(), sv.data_ptr()]
         ok &= _turns(f"gp_gram [{n},{d}]x[{m},{d}]", {
-            "old": lambda: old_g.matern52_launch(
-                *args, outs["old"].data_ptr(), n, m, d, stream),
-            "new": lambda: new_g.matern52_launch(
-                *args, outs["new"].data_ptr(), n, m, d,
-                *gram_ops.DEFAULT_TILES, stream)}, outs, 200)
+            key: (lambda lib, key: lambda: lib.matern52_launch(
+                *args, outs[key].data_ptr(), n, m, d,
+                *gram_ops.DEFAULT_TILES, stream))(lib, key)
+            for key, lib in (("old", old_g), ("new", new_g))}, outs, 200)
 
     B, S, H, Kh, D = FLASH_SHAPE
     q, k, v = (torch.randn(s, generator=gen, device="cuda").bfloat16()
@@ -121,10 +129,27 @@ def main() -> None:
     ok &= _turns(f"flash wgmma [{B},{S},{H},{D}] Kh {Kh}", {
         "old": lambda: old_f.flash_attention_wgmma_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), outs["old"].data_ptr(),
-            *common, stream),
+            *common, bq, bk, stages, stream),
         "new": lambda: new_f.flash_attention_wgmma_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), outs["new"].data_ptr(),
-            *common, bq, bk, stages, stream)}, outs, 20)
+            *common, bq, bk, stages, None, stream)}, outs, 20)
+
+    B, S, H, Kh, D = FLASH_FMA_SHAPE
+    q, k, v = (torch.randn(s, generator=gen, device="cuda")
+               for s in ((B, S, H, D), (B, S, Kh, D), (B, S, Kh, D)))
+    outs = {key: torch.empty_like(q) for key in ("old", "new")}
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *outs["old"].stride()[:3])
+    common = (0, B, H, Kh, S, S, D, strides, 1, 0, 0.0, 1.0 / math.sqrt(D),
+              *flash_ops.DEFAULT_TILES["fma"][:3])
+    ok &= _turns(f"flash fma float32 [{B},{S},{H},{D}] Kh {Kh}", {
+        "old": lambda: old_a.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), outs["old"].data_ptr(),
+            *common, stream),
+        "new": lambda: new_a.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), outs["new"].data_ptr(),
+            *common, None, stream)}, outs, 20)
 
     B, S, H, P, c = MLSTM_SHAPE
     q, k, v = (torch.randn((B, S, H, P), generator=gen, device="cuda")
@@ -152,8 +177,8 @@ def main() -> None:
             *(t.data_ptr() for t in scratch[key]), B, S, H, P, c, strides,
             *knobs, stream)
     ok &= _turns(f"mlstm wgmma [{B},{S},{H},{P}] chunk {c}", {
-        "old": mlstm(old_m, "old"), "new": mlstm(new_m, "new", st, nw // 4)},
-        outs, 20)
+        "old": mlstm(old_m, "old", st, nw // 4),
+        "new": mlstm(new_m, "new", st, nw // 4)}, outs, 20)
     if not ok:
         sys.exit("a default launch's bits moved")
 
