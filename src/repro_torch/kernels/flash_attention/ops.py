@@ -26,16 +26,29 @@ Gradients.  When grad is enabled and q, k or v requires grad, a CUDA call
 goes through an ``autograd.Function``: the forward kernel also writes
 each row's log-sum-exp (float32 [B, H, Sq], an optional pointer of both
 forwards; null on every other call, which then launches exactly as
-before; on the FMA route the default tile alone has that store), and
-the backward kernel (``csrc/flash_attention_bwd.cu``: a
-``rowsum(dO * O)`` pre-pass, dK/dV summed over each KV head's group, dQ;
-deterministic, float32 math on float32 or bf16 inputs) gives dq, dk, dv
-in q's dtype.  It recomputes P in float32 from the log-sum-exp, so on the
-wgmma route it is the straight-through gradient of the forward's P
-rounding; its plain version is ``ref.attention_grads`` (autograd of the
-plain version with P in float32).  A row with nothing visible gets zero
-gradient.  On CPU tensors ordinary autograd differentiates the plain
-version.
+before; on the FMA route the default tile alone has that store), and a
+backward kernel of the same route gives dq, dk, dv in q's dtype.  Both
+recompute P from the log-sum-exp, are deterministic (no atomics; two
+calls give the same bits) and give a row with nothing visible zero
+gradient:
+
+* ``"wgmma"`` (``csrc/flash_attention_bwd_wgmma.cu``): a ``rowsum(dO *
+  O)`` pre-pass, dQ, dK/dV per q head and a fixed-order sum over each KV
+  head's group, every product on the tensor cores.  Their operands are
+  bf16, so it rounds P to bf16 before P^T.dO and dS to bf16 before
+  dS^T.Q and dS.K, and nowhere else; its plain version is
+  ``ref.attention_grads(..., operand_dtype=torch.bfloat16)``, which
+  rounds at those two places.  TMA reads q, k, v and dO in place: q, k,
+  v or o that break the 16-byte rule raise ``ValueError`` (as in the
+  forward); dO is autograd's cotangent, whose layout the caller does not
+  choose, so a dO view that breaks it (or is broadcast, a stride of 0)
+  is copied to a contiguous tensor first.
+* ``"fma"`` (``csrc/flash_attention_bwd.cu``): the same three steps in
+  float32 FMAs on float32 or bf16 inputs (P and dS stay float32); its
+  plain version is ``ref.attention_grads`` (autograd of the plain
+  version with P in float32), which the float32 path holds to 1e-5.
+
+On CPU tensors ordinary autograd differentiates the plain version.
 
 The tile knobs (``block_q``, ``block_k``, ``num_warps``, ``pipeline``, the
 reference's) pick one of the route's instantiations on CUDA tensors
@@ -50,8 +63,9 @@ one KV tile at a time).  On CPU tensors the plain version has no tiles
 and takes any positive knob.  :func:`autotune_space` and
 :func:`autotune_bench` are the reference's autotune hooks.
 ``launches`` counts forward kernel launches, ``launches_wgmma`` and
-``launches_fma`` those of each route, and ``launches_bwd`` the backward's
-launch sets (three kernels each).
+``launches_fma`` those of each route, ``launches_bwd`` the backward's
+launch sets, and ``launches_bwd_wgmma`` and ``launches_bwd_fma`` those of
+each route (``BWD_KERNELS`` kernels a set).
 
 The libraries are built with ``nvcc`` into ``build/flash_attention/`` at
 first use (``kernels/build.py``).
@@ -77,6 +91,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 WGMMA_SOURCE = CSRC / "flash_attention_wgmma.cu"
 FMA_SOURCE = CSRC / "flash_attention.cu"
 BWD_SOURCE = CSRC / "flash_attention_bwd.cu"
+BWD_WGMMA_SOURCE = CSRC / "flash_attention_bwd_wgmma.cu"
 _LIBS = {
     "wgmma": NvccLibrary("flash_attention", WGMMA_SOURCE, {
         "flash_attention_wgmma_launch": [ctypes.c_void_p] * 4
@@ -92,12 +107,21 @@ _LIBS = {
         + [ctypes.c_int] * 7
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
            ctypes.c_float, ctypes.c_void_p]}),
+    "bwd_wgmma": NvccLibrary("flash_attention", BWD_WGMMA_SOURCE, {
+        "flash_attention_bwd_wgmma_launch": [ctypes.c_void_p] * 12
+        + [ctypes.c_int] * 6
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+           ctypes.c_float, ctypes.c_void_p]}),
 }
 HEAD_DIMS = (16, 32, 64, 128, 256)          # compiled into the FMA kernel
 WGMMA_HEAD_DIMS = (64, 128)                 # compiled into the wgmma kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
 _SMEM_LIMIT = 232448            # a block's shared memory on sm_90
+# kernels a backward launch set runs: the D_i pre-pass, dQ, dK/dV and
+# (wgmma) the sum over each KV head's group
+BWD_KERNELS = {"wgmma": 4, "fma": 3}
+_BWD_PAD_ROWS = 128             # the wgmma backward's row statistics' padding
 
 # (block_q, block_k, num_warps, pipeline) of each route's default launch
 DEFAULT_TILES = {"wgmma": (128, 128, 4, 2), "fma": (64, 64, 8, 1)}
@@ -114,13 +138,17 @@ launches = 0
 launches_wgmma = 0
 launches_fma = 0
 launches_bwd = 0
+launches_bwd_wgmma = 0
+launches_bwd_fma = 0
 _lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    global launches, launches_wgmma, launches_fma, launches_bwd
+    global launches, launches_wgmma, launches_fma
+    global launches_bwd, launches_bwd_wgmma, launches_bwd_fma
     with _lock:
-        launches = launches_wgmma = launches_fma = launches_bwd = 0
+        launches = launches_wgmma = launches_fma = 0
+        launches_bwd = launches_bwd_wgmma = launches_bwd_fma = 0
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -206,9 +234,9 @@ def resolve_tiles(route: str, dtype: torch.dtype, head_dim: int, sq: int,
 
 
 def build(verbose: bool = False, which: Optional[str] = None):
-    """Compile the kernel libraries (``which``: ``"wgmma"``, ``"fma"`` or
-    ``"bwd"`` only) if these sources have not been built yet; returns the
-    paths (``verbose`` prints ptxas's report)."""
+    """Compile the kernel libraries (``which``: ``"wgmma"``, ``"fma"``,
+    ``"bwd"`` or ``"bwd_wgmma"`` only) if these sources have not been
+    built yet; returns the paths (``verbose`` prints ptxas's report)."""
     names = [which] if which is not None else list(_LIBS)
     return [_LIBS[n].build(verbose) for n in names]
 
@@ -319,10 +347,15 @@ class _Flash(torch.autograd.Function):
 
 
 def _count(which: str) -> None:
-    global launches, launches_wgmma, launches_fma, launches_bwd
+    global launches, launches_wgmma, launches_fma
+    global launches_bwd, launches_bwd_wgmma, launches_bwd_fma
     with _lock:
-        if which == "bwd":
+        if which.startswith("bwd"):
             launches_bwd += 1
+            if which == "bwd_wgmma":
+                launches_bwd_wgmma += 1
+            else:
+                launches_bwd_fma += 1
             return
         launches += 1
         if which == "wgmma":
@@ -402,8 +435,75 @@ def _fma(q, k, v, causal, window, softcap, tiles=DEFAULT_TILES["fma"],
 
 def _backward(q, k, v, out, dout, lse, causal, window, softcap):
     """(dq, dk, dv) in q's dtype from one launch set of the backward
-    kernel (``csrc/flash_attention_bwd.cu``: the D_i pre-pass, dK/dV,
-    dQ); ``lse`` is the forward's float32 [B, H, Sq]."""
+    kernel of ``route(q.dtype, D)``; ``lse`` is the forward's float32
+    [B, H, Sq]."""
+    if route(q.dtype, q.shape[3]) == "wgmma":
+        return _backward_wgmma(q, k, v, out, dout, lse, causal, window,
+                               softcap)
+    return _backward_fma(q, k, v, out, dout, lse, causal, window, softcap)
+
+
+def _tma_readable(t) -> bool:
+    """Whether TMA can read ``t`` in place: unit stride along D,
+    ``check_tma``'s rule, and no broadcast dim."""
+    try:
+        check_tma(t)
+    except ValueError:
+        return False
+    return t.stride(-1) == 1 and all(
+        st != 0 for n, st in zip(t.shape, t.stride()) if n > 1)
+
+
+def _backward_wgmma(q, k, v, out, dout, lse, causal, window, softcap):
+    """The tensor-core route (``csrc/flash_attention_bwd_wgmma.cu``: the
+    D_i pre-pass, dQ, dK/dV per q head, the group sum).  A dout view that
+    TMA cannot read in place is copied to a contiguous tensor; q, k, v
+    and out that it cannot read raise ``ValueError``."""
+    B, Sq, H, D = q.shape
+    Sk, Kh = k.shape[1], k.shape[2]
+    check_tma(q, k, v, out)
+    dout = dout.to(q.dtype)
+    if not _tma_readable(dout):
+        dout = dout.contiguous()
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, Kh, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if Sq == 0 or Sk == 0 or B == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    sq_pad = -(-Sq // _BWD_PAD_ROWS) * _BWD_PAD_ROWS
+    stats = torch.empty((B, H, sq_pad, 2), dtype=torch.float32,
+                        device=q.device)
+    dk_part = torch.empty((B, Sk, H, D), dtype=torch.float32,
+                          device=q.device)
+    dv_part = torch.empty_like(dk_part)
+    strides = (ctypes.c_longlong * 24)(
+        *tma_strides(q), *tma_strides(k), *tma_strides(v),
+        *tma_strides(dout),
+        *(st for t in (out, dq, dk, dv) for st in t.stride()[:3]))
+    lib = _LIBS["bwd_wgmma"].load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_bwd_wgmma_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), stats.data_ptr(),
+            dk_part.data_ptr(), dv_part.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, Kh, Sq, Sk, D, strides,
+            int(causal), 0 if window is None else int(window),
+            0.0 if softcap is None else float(softcap), 1.0 / math.sqrt(D),
+            stream)
+    if err < 0:
+        raise RuntimeError(f"flash_attention backward (wgmma): TMA tensor "
+                           f"map encoding failed (CUresult {-err})")
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward (wgmma) kernel "
+                           f"launch failed: CUDA error {err}")
+    _count("bwd_wgmma")
+    return dq, dk, dv
+
+
+def _backward_fma(q, k, v, out, dout, lse, causal, window, softcap):
+    """The FMA route (``csrc/flash_attention_bwd.cu``: the D_i pre-pass,
+    dK/dV summed over each KV head's group, dQ)."""
     B, Sq, H, D = q.shape
     Sk, Kh = k.shape[1], k.shape[2]
     if B * H > _MAX_GRID_Y:
@@ -433,9 +533,9 @@ def _backward(q, k, v, out, dout, lse, causal, window, softcap):
             0.0 if softcap is None else float(softcap),
             1.0 / math.sqrt(D), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention backward kernel launch "
-                           f"failed: CUDA error {err}")
-    _count("bwd")
+        raise RuntimeError(f"flash_attention backward (fma) kernel "
+                           f"launch failed: CUDA error {err}")
+    _count("bwd_fma")
     return dq, dk, dv
 
 

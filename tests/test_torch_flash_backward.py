@@ -4,13 +4,21 @@ differentiates it; its gradients agree with ``jax.grad`` of the
 reference's off-TPU flash path (``repro.models.attention.
 chunked_attention``) at the reference's ``FLASH_CASES``
 (``tests/test_kernels.py``), in float32, within relative L2 1e-5.
-``ref.attention_grads`` (the backward kernel's plain version on the card)
-is the same gradient.  The CUDA kernels are held against these on the
-card (``tests/test_torch_flash_backward_cuda.py``, ``chip_smoke.py``).
+``ref.attention_grads`` (the FMA backward kernel's plain version on the
+card) is the same gradient.  ``attention_grads(operand_dtype=bfloat16)``,
+the tensor-core backward's plain version, rounds P and dS to bf16 where
+they enter the products and nowhere else (held against a product built
+by hand from autograd's P and dS that rounds only there), and stays
+within relative L2 1e-2 of ``jax.grad`` of ``chunked_attention`` at the
+bf16 cases of ``FLASH_CASES``.  The CUDA kernels are held against these
+on the card (``tests/test_torch_flash_backward_cuda.py``,
+``chip_smoke.py``).
 
 The mLSTM kernel has no backward yet: off the CPU, a call with grad
 enabled and an input that requires grad raises (checked on the ``meta``
 device, which reaches the same branch as a CUDA tensor)."""
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -80,10 +88,12 @@ def test_plain_gradients_match_reference(case):
 
 
 def test_bf16_plain_version_is_the_straight_through_gradient():
-    """On the bf16 wgmma route the plain version rounds P to bf16 before
-    P.V; autograd passes straight through that rounding, so its gradient
-    is within bf16 rounding of the float32-P gradient the backward kernel
-    computes (``ref.attention_grads``)."""
+    """On CPU tensors the bf16 wgmma route's plain forward rounds P to
+    bf16 before P.V and autograd passes straight through that rounding,
+    so its gradient is within bf16 rounding of the float32-P gradient
+    (``ref.attention_grads``).  The card's bf16 backward instead rounds P
+    and dS where they enter its products
+    (``attention_grads(operand_dtype=bfloat16)``, tested below)."""
     case = FLASH_CASES[0]
     q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
                    for x in _inputs(case))
@@ -96,10 +106,109 @@ def test_bf16_plain_version_is_the_straight_through_gradient():
         assert _rel(g.float().numpy(), w.numpy()) <= 1e-2
 
 
+def _hand_rounded(q, k, v, do, causal, window, softcap, dtype):
+    """The gradient built from autograd's P and dS (the gradient at the
+    pre-cap scores) with only those two rounded to ``dtype`` before the
+    three products that take them."""
+    B, Sq, H, D = q.shape
+    Sk, Kh = k.shape[1], k.shape[2]
+    rep = H // Kh
+    kr, vr = (t.float().repeat_interleave(rep, 2) for t in (k, v))
+    x = (torch.einsum("bqhd,bkhd->bhqk", q.float(), kr)
+         / math.sqrt(D)).requires_grad_()
+    s = softcap * torch.tanh(x / softcap) if softcap else x
+    mask = ref.visible_mask(Sq, Sk, causal, window)
+    p = torch.softmax(torch.where(mask, s, ref.NEG_INF), dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vr)
+    ds, = torch.autograd.grad(o, x, do.float())
+    p, ds = p.detach().to(dtype).float(), ds.to(dtype).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) / math.sqrt(D)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) / math.sqrt(D)
+    return (dq, dk.reshape(B, Sk, Kh, rep, D).sum(3),
+            dv.reshape(B, Sk, Kh, rep, D).sum(3))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: f"B{c[0]}S{c[1]}x{c[2]}H{c[3]}-{c[4]}"
+                                       f"D{c[5]}")
+def test_rounded_grads_round_at_the_kernel_places(case):
+    """The plain version of the tensor-core backward rounds at exactly P
+    (before P^T dO) and dS (before dS^T q, dS k): within 2e-4 of the hand
+    product that rounds only there (two float32 roads to P and dS may
+    round an element apart), and at least 5e-4 from the unrounded
+    gradient, which it departs from by ~1.7e-3 (bf16's spacing)."""
+    causal, window, softcap = case[6:9]
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _inputs(case))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = ref.attention_grads(q, k, v, do, operand_dtype=torch.bfloat16,
+                              **kw)
+    hand = _hand_rounded(q, k, v, do, causal, window, softcap,
+                         torch.bfloat16)
+    exact = ref.attention_grads(q, k, v, do, **kw)
+    for g, h, e in zip(got, hand, exact):
+        assert g.dtype == torch.float32
+        assert _rel(g.numpy(), h.numpy()) <= 2e-4
+        assert _rel(g.numpy(), e.numpy()) >= 5e-4
+
+
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: f"B{c[0]}S{c[1]}x{c[2]}H{c[3]}-{c[4]}"
+                                       f"D{c[5]}")
+def test_rounded_grads_match_reference_in_bf16(case):
+    """At the bf16 cases (inputs and cotangent in bf16) the rounded plain
+    version is within relative L2 1e-2 of ``jax.grad`` of the reference's
+    ``chunked_attention``."""
+    B, Sq, Sk, H, Kh, D, causal, window, softcap, bk = case
+    q, k, v, do = (x.astype(jnp.bfloat16) for x in _inputs(case))
+
+    def f(q, k, v):
+        o = chunked_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap, chunk=bk)
+        return jnp.sum(o.astype(jnp.float32) * do.astype(jnp.float32))
+    want = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(q, k, v)
+    t = [torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+         for x in (q, k, v, do)]
+    got = ref.attention_grads(*t, causal=causal, window=window,
+                              softcap=softcap, operand_dtype=torch.bfloat16)
+    for g, w in zip(got, want):
+        assert _rel(g.numpy(), np.asarray(w, np.float32)) <= 1e-2
+
+
+def test_rounded_grads_default_is_autograd():
+    """``operand_dtype=None`` keeps the function as it was: autograd of the
+    float32-P plain forward, bit for bit."""
+    case = FLASH_CASES[1]
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(case))
+    kw = dict(causal=True, softcap=30.0)
+    qf, kf, vf = (t.clone().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(ref.reference_attention(qf, kf, vf, **kw),
+                               (qf, kf, vf), do)
+    got = ref.attention_grads(q, k, v, do, operand_dtype=None, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def test_backward_counter_is_reset():
     ops.launches_bwd = 3
+    ops.launches_bwd_wgmma = 2
+    ops.launches_bwd_fma = 1
     ops.reset_launch_counts()
     assert ops.launches_bwd == ops.launches == 0
+    assert ops.launches_bwd_wgmma == ops.launches_bwd_fma == 0
+
+
+def test_misaligned_cotangent_is_copied_for_tma():
+    """The wgmma backward reads dO by TMA: a view with a stride off the
+    16-byte rule, or broadcast (stride 0), is copied first
+    (``ops._tma_readable`` decides; a pure function of the view)."""
+    base = torch.zeros((1, 8, 2, 72), dtype=torch.bfloat16)
+    assert ops._tma_readable(base[..., :64])         # 144-byte head stride
+    assert not ops._tma_readable(base[..., 4:68])    # 8-byte offset
+    odd = torch.zeros((1, 8, 2, 68), dtype=torch.bfloat16)
+    assert not ops._tma_readable(odd[..., :64])      # 136-byte head stride
+    assert not ops._tma_readable(base[:, :, :1].expand(1, 8, 2, 72))
+    assert ops._tma_readable(base[:, :, :1])         # one head: no stride
 
 
 def test_mlstm_refuses_a_gradient_off_the_cpu():

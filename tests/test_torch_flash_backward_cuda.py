@@ -6,10 +6,15 @@ without one.  Imports nothing of JAX:
 
 A CUDA call that asks for a gradient goes through the ``autograd.
 Function`` (the forward kernel writes each row's log-sum-exp; the
-backward kernel's three launches give dq, dk, dv).  The plain version is
-``ref.attention_grads`` (autograd of the plain forward with P in
-float32).  Limits: relative L2 of each of dq, dk, dv 1e-2 in bf16, 1e-5
-in float32; two calls bit-equal.
+backward kernel of the route gives dq, dk, dv): bf16 at D 64/128 takes
+the tensor-core backward (``flash_attention_bwd_wgmma.cu``), float32 and
+the other head dims the FMA one (``flash_attention_bwd.cu``).  Plain
+versions: ``ref.attention_grads`` (autograd of the plain forward with P
+in float32) for both routes, and for the tensor-core route also
+``ref.attention_grads(operand_dtype=torch.bfloat16)``, which rounds P
+and dS where the kernel does.  Limits: relative L2 of each of dq, dk, dv
+1e-2 in bf16 and 1e-5 in float32 against the first, 5e-3 against the
+second; two calls bit-equal.
 """
 
 import numpy as np
@@ -20,6 +25,7 @@ from repro_torch.kernels.flash_attention import ops, ref
 from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
 
 REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+REL_ROUNDED = 5e-3          # the wgmma route against its rounded plain version
 # (B, Sq, Sk, H, Kh, D, causal, window, softcap, dtype): the reference's
 # FLASH_CASES on both routes, GQA 8/1, window, soft-cap, Sq != Sk both
 # ways, ragged tiles, every head dim of the FMA route, whisper's shapes
@@ -78,14 +84,23 @@ def test_backward_kernel_matches_plain(case, cuda):
     causal, window, softcap, dtype = case[6:]
     q, k, v, do = _inputs(case, cuda)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    n, n_bwd = ops.launches, ops.launches_bwd
+    wgmma = ops.route(dtype, case[5]) == "wgmma"
+    n = (ops.launches, ops.launches_bwd, ops.launches_bwd_wgmma,
+         ops.launches_bwd_fma)
     got = _grads(q, k, v, do, **kw)
     torch.cuda.synchronize()
-    assert (ops.launches, ops.launches_bwd) == (n + 1, n_bwd + 1)
+    assert (ops.launches, ops.launches_bwd, ops.launches_bwd_wgmma,
+            ops.launches_bwd_fma) == (n[0] + 1, n[1] + 1, n[2] + wgmma,
+                                      n[3] + (not wgmma))
     want = ref.attention_grads(q, k, v, do, **kw)
     for g, w, t in zip(got, want, (q, k, v)):
         assert g.dtype == dtype and g.shape == t.shape
         assert _rel(g, w) <= REL[dtype]
+    if wgmma:
+        rounded = ref.attention_grads(q, k, v, do,
+                                      operand_dtype=torch.bfloat16, **kw)
+        for g, w in zip(got, rounded):
+            assert _rel(g, w) <= REL_ROUNDED
     again = _grads(q, k, v, do, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
@@ -104,6 +119,32 @@ def test_rows_with_nothing_visible_get_zero_gradient(dtype, cuda):
                                      causal=False, window=8)
     assert _rel(dq[:, :107], wq) <= REL[dtype]
     assert _rel(dk, wk) <= REL[dtype] and _rel(dv, wv) <= REL[dtype]
+
+
+@pytest.mark.cuda
+def test_misaligned_cotangent_is_copied(cuda):
+    """dO is autograd's cotangent: a view TMA cannot read (a 136-byte head
+    stride, or broadcast) is copied, not refused, and gives the bits of
+    the contiguous cotangent; a q view TMA cannot read raises, as in the
+    forward."""
+    case = (1, 128, 128, 2, 1, 64, True, None, None, torch.bfloat16)
+    q, k, v, do = _inputs(case, cuda, seed=5)
+    want = _grads(q, k, v, do)
+    odd = torch.zeros((1, 128, 2, 68), dtype=torch.bfloat16, device=cuda)
+    odd[..., :64] = do
+    assert not ops._tma_readable(odd[..., :64])
+    n = ops.launches_bwd_wgmma
+    got = _grads(q, k, v, odd[..., :64])
+    assert ops.launches_bwd_wgmma == n + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    flat = do[:, :, :1, :1].expand_as(do)
+    got = _grads(q, k, v, flat)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, _grads(q, k, v, flat.contiguous())))
+    qodd = torch.zeros((1, 128, 2, 68), dtype=torch.bfloat16, device=cuda,
+                       requires_grad=True)
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.flash_attention(qodd[..., :64], k, v)
 
 
 @pytest.mark.cuda

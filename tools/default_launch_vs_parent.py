@@ -11,9 +11,10 @@ with a null log-sum-exp pointer) must stay as they were.
 The earlier sources (``<dir>/src/repro_torch/kernels/gp_gram/csrc/
 gp_gram.cu``, ``.../flash_attention/csrc/flash_attention_wgmma.cu`` and
 ``flash_attention.cu``, ``.../mlstm_chunk/csrc/mlstm_chunk_wgmma.cu``)
-must export the interfaces with the tile knobs and without the flash
-forwards' log-sum-exp pointer (the tree of commit 9346a95); each is built
-as its own library under ``build/``.  Shapes: the Gram forward at the
+must export this tree's interfaces: the tile knobs and the flash
+forwards' log-sum-exp pointer, which the serving launches leave null
+(the tree of commit 1130823 on); each is built as its own library under
+``build/``.  Shapes: the Gram forward at the
 tuner's [64, 16] and [2384, 16] x [64, 16] and the daemon's [64, 327] and
 [3939, 327] x [64, 327]; flash at yi-6b's bf16 prefill (B 2, S 4096, H
 32, Kh 4, D 128, causal) on the wgmma route and in float32 on the FMA
@@ -78,20 +79,17 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     old_gram = NvccLibrary(
         "gp_gram_parent", parent / "gp_gram" / "csrc" / "gp_gram.cu",
         gram_ops._LIB.functions)
     old_flash = NvccLibrary(
         "flash_attention_parent",
         parent / "flash_attention" / "csrc" / "flash_attention_wgmma.cu",
-        {"flash_attention_wgmma_launch": [vp] * 4 + [ci] * 6
-         + [vp, ci, ci, cf, cf] + [ci] * 3 + [vp]})
+        flash_ops._LIBS["wgmma"].functions)
     old_fma = NvccLibrary(
         "flash_attention_fma_parent",
         parent / "flash_attention" / "csrc" / "flash_attention.cu",
-        {"flash_attention_launch": [vp] * 4 + [ci] * 7
-         + [vp, ci, ci, cf, cf] + [ci] * 3 + [vp]})
+        flash_ops._LIBS["fma"].functions)
     old_mlstm = NvccLibrary(
         "mlstm_chunk_parent",
         parent / "mlstm_chunk" / "csrc" / "mlstm_chunk_wgmma.cu",
@@ -129,7 +127,7 @@ def main() -> None:
     ok &= _turns(f"flash wgmma [{B},{S},{H},{D}] Kh {Kh}", {
         "old": lambda: old_f.flash_attention_wgmma_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), outs["old"].data_ptr(),
-            *common, bq, bk, stages, stream),
+            *common, bq, bk, stages, None, stream),
         "new": lambda: new_f.flash_attention_wgmma_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), outs["new"].data_ptr(),
             *common, bq, bk, stages, None, stream)}, outs, 20)
@@ -146,7 +144,7 @@ def main() -> None:
     ok &= _turns(f"flash fma float32 [{B},{S},{H},{D}] Kh {Kh}", {
         "old": lambda: old_a.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), outs["old"].data_ptr(),
-            *common, stream),
+            *common, None, stream),
         "new": lambda: new_a.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), outs["new"].data_ptr(),
             *common, None, stream)}, outs, 20)

@@ -6,7 +6,8 @@ each condition a long ``chip_smoke.py`` run goes through?
 
 Each condition runs in a process of its own (the profiler's state is per
 process), set up first and then three profiler sessions over three
-launch sets of the backward at (1, 512, 512, 8, 2, 128) causal bf16:
+launch sets of the backward at (1, 512, 512, 8, 2, 128) causal bf16 (the
+wgmma route, ``ops.BWD_KERNELS["wgmma"]`` kernels a set):
 
 * ``none``: nothing first;
 * ``graph``: a CUDA graph captured and replayed (the GP fits' graphs);
@@ -16,7 +17,7 @@ launch sets of the backward at (1, 512, 512, 8, 2, 128) causal bf16:
   tuning daemon's clients).
 
 Prints the card's name and power limit first, then per condition and
-session the backward's kernels recorded (of 9) and their device µs;
+session the backward's kernels recorded (of 12) and their device µs;
 exits non-zero without a GPU, or when a session missed one of them.
 Imports nothing of JAX.
 """
@@ -87,10 +88,11 @@ def run_condition(condition: str) -> bool:
         bwd = {re.search(r"flash_bwd_\w+?_kernel", name).group(): (us, n)
                for name, (us, n) in by_name.items() if "flash_bwd" in name}
         n_bwd = sum(n for _, n in bwd.values())
-        ok &= n_bwd == 3 * 3                  # three kernels, three sets
+        want = ops.BWD_KERNELS["wgmma"] * 3     # three sets
+        ok &= n_bwd == want
         other = sum(t for t, _ in by_name.values()) \
             - sum(us for us, _ in bwd.values())
-        print(f"{condition} session {session}: {n_bwd} of 9 backward "
+        print(f"{condition} session {session}: {n_bwd} of {want} backward "
               f"kernels, device us "
               + ", ".join(f"{name} {us:.1f}"
                           for name, (us, _) in sorted(bwd.items()))
@@ -112,7 +114,7 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     ops.build(which="wgmma")
-    ops.build(which="bwd")
+    ops.build(which="bwd_wgmma")
     failed = []
     for condition in CONDITIONS:
         r = subprocess.run([sys.executable, __file__, condition],
