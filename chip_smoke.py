@@ -188,6 +188,32 @@ Phases (any failure exits non-zero before the result line):
    reference attention within the same limits, 4 steps with 12 forward
    launches and 12 backward sets each (bf16 on the wgmma backward,
    float32 on the FMA one).
+   The mLSTM backward kernel (``mlstm_chunk_bwd.cu``, through
+   ``mlstm_chunk``'s ``autograd.Function``) over ``MLSTM_BWD_CASES``:
+   xlstm-1.3b's layer at the train step's microbatch (1,4096,4,1024),
+   chunk 256, bf16 (after the wgmma forward), smaller bf16 cases on both
+   forward routes and float32 ones; relative L2 of dq, dk, dv, d logi, d
+   logf within 1e-2 (bf16) and 1e-5 (float32) of
+   ``ref.mlstm_chunkwise_grads`` and, after the wgmma forward, within 5e-3
+   of ``mlstm_chunkwise_grads(operand_dtype=bfloat16)``; a planted fault
+   (d logf one row off) above each limit; two calls bit-equal; one launch
+   a call.  At the layer shape it is timed once (CUDA events, profiler
+   device time) beside its plain version, with its bound.  Then
+   ``Model(xlstm-1.3b full width, 8 of 48 layers: 7 mLSTM, 1 sLSTM)``
+   trained as yi-6b (AdamW, 2 x 4096 tokens, microbatch 1, remat
+   ``block``, chunk 256), the sLSTM's recurrent weights x0.1: exactly 28
+   wgmma forward launches (7 x 2 microbatches x forward and recompute),
+   no FMA one and 14 backward launches in each of 2 steps; step 1's loss
+   within 1e-2 of the same step's with the mLSTM's plain version
+   (``ref.mlstm_chunkwise`` through autograd on the card), and each of
+   its 14 backward launches on its own inputs within 1e-2 / 5e-3 of the
+   plain versions; step 2's time, tokens/s, peak memory, a profiled
+   microbatch's device shares (mLSTM forward, mLSTM backward, cuBLAS,
+   other) with every mLSTM kernel recorded, the idle share.  A microbatch
+   of the same cell in float32 (FMA forward): loss and every gradient
+   within 1e-2 and 2e-2 of the plain mLSTM's (in bf16 the stack's
+   gradient moves ~100x a forward perturbation, so no model-level
+   gradient limit holds there: ``tools/xlstm_grad_sensitivity.py``).
 
 Every device time read from ``torch.profiler`` in phases 2-13 comes
 from a session that recorded the window whole (``whole_profile``: the
@@ -385,7 +411,13 @@ def profiled_device_us(fn, cpu: bool = True, warm=None, pad: float = 0.0):
     first launches from a library, the same number again on a retry (1-4
     of 20 Gram kernels, and every kernel of a session; PERF §7), as if
     tracing a library began some launches after its first in the
-    session: the warm-up takes that loss outside the window."""
+    session: the warm-up takes that loss outside the window.
+
+    The device events are read from the profiler's raw trace (each
+    event's duration, as ``FunctionEvent.device_time`` is), not through
+    ``prof.events()``: building those objects took the profiler ~2
+    minutes for the ~870k kernels of an xlstm microbatch and its
+    warm-up."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CUDA]
     if cpu:
@@ -398,16 +430,17 @@ def profiled_device_us(fn, cpu: bool = True, warm=None, pad: float = 0.0):
             torch.cuda._sleep(1000)
         out = fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_hidden_event", lambda: False)()]
     if warm is not None:
-        ends = [e.time_range.end for e in events if MARKER in e.name]
-        start = ends[-1] if ends else math.inf
-        events = [e for e in events if e.time_range.start >= start]
+        ends = [e.end_ns() for e in events if MARKER in e.name()]
+        start = max(ends) if ends else math.inf
+        events = [e for e in events if e.start_ns() >= start]
     by_name = {}
     for e in events:
-        acc = by_name.setdefault(e.name, [0.0, 0])
-        acc[0] += e.device_time
+        acc = by_name.setdefault(e.name(), [0.0, 0])
+        acc[0] += e.duration_ns() / 1e3
         acc[1] += 1
     return out, by_name
 
@@ -426,7 +459,7 @@ PROFILE_PADS = (0.0, 0.2, 1.0)
 
 def whole_profile(fn, counted=(), cpu: bool = True, what: str = "",
                   sessions: int = 3, required: bool = True,
-                  resets: bool = False):
+                  resets: bool = False, warm=None):
     """(result of ``fn()``, {kernel name: [µs, count]}) from the first
     profiler session (``profiled_device_us``) over one call of ``fn`` that
     recorded the window whole.  Late in a full run a session has come
@@ -443,9 +476,12 @@ def whole_profile(fn, counted=(), cpu: bool = True, what: str = "",
     nothing counted); a retry, or a session with nothing counted, first
     runs ``fn`` once inside the session as a warm-up, outside the window
     (``profiled_device_us``'s ``warm``, with ``PROFILE_PADS`` of sleep
-    after it on a retry).  Then fails, or returns None when ``required``
-    is false (the caller measures in a fresh process).  A partial
-    session is never returned."""
+    after it on a retry).  ``warm``: a cheap call that launches the
+    counted kernels, run inside the first session as its warm-up (a long
+    window's retry, warmed by ``fn``, costs two windows more).  Then
+    fails, or returns None when ``required`` is false (the caller
+    measures in a fresh process).  A partial session is never
+    returned."""
     last = None
     tries = sessions + (0 if counted else 1)
     before = []
@@ -457,7 +493,7 @@ def whole_profile(fn, counted=(), cpu: bool = True, what: str = "",
         retry = attempt - 1 if counted else max(attempt - 2, 0)
         pad = PROFILE_PADS[min(retry, len(PROFILE_PADS) - 1)]
         out, by_name = profiled_device_us(
-            window, cpu=cpu, warm=fn if retry or not counted else None,
+            window, cpu=cpu, warm=fn if retry or not counted else warm,
             pad=pad)
         got = [sum(n for k, (_, n) in by_name.items() if name in k)
                for name, _, _ in counted]
@@ -622,7 +658,7 @@ def build_all() -> None:
         return src, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(8) as pool:
         futs = [pool.submit(timed, GRAM_SOURCE, gram_ops.build),
                 pool.submit(timed, FLASH_SOURCE, lambda verbose: flash_ops
                             .build(verbose, which="wgmma")),
@@ -635,7 +671,9 @@ def build_all() -> None:
                 pool.submit(timed, MLSTM_SOURCE, lambda verbose: mlstm_ops
                             .build(verbose, which="wgmma")),
                 pool.submit(timed, MLSTM_FMA_SOURCE, lambda verbose: mlstm_ops
-                            .build(verbose, which="fma"))]
+                            .build(verbose, which="fma")),
+                pool.submit(timed, MLSTM_BWD_SOURCE, lambda verbose: mlstm_ops
+                            .build(verbose, which="bwd"))]
         for f in futs:
             src, dt = f.result()
             print(f"nvcc build of {src}: {dt:.2f} s", flush=True)
@@ -3525,6 +3563,24 @@ TRAIN_GRAD_REL = 2e-2            # per leaf
 WHISPER_TRAIN = (2, 448)         # B, S of the decoder; 1500 frames
 WHISPER_STEPS = 4
 TRAIN_SEED = 0
+MLSTM_BWD_SOURCE = ("src/repro_torch/kernels/mlstm_chunk/csrc/"
+                    "mlstm_chunk_bwd.cu")
+# B, S, H, P, chunk, dtype: xlstm-1.3b's layer at the train step's
+# microbatch (the path's shape, timed) first; bf16 after the wgmma forward
+# at P 128 and at chunk 1024, after the FMA forward (chunk 64); float32 at
+# P 16 with a chunk that is no power of two and at P 1024
+MLSTM_BWD_CASES = [
+    (1, 4096, 4, 1024, 256, "bfloat16"),
+    (1, 512, 2, 128, 128, "bfloat16"),
+    (1, 2048, 1, 64, 1024, "bfloat16"),
+    (1, 256, 2, 64, 64, "bfloat16"),
+    (1, 300, 2, 16, 60, "float32"),
+    (1, 256, 1, 1024, 64, "float32"),
+]
+MLSTM_BWD_REL = {"float32": 1e-5, "bfloat16": 1e-2}
+MLSTM_BWD_REL_ROUNDED = 5e-3     # against the wgmma route's rounded version
+XLSTM_TRAIN_LAYERS = 8           # one period of xLSTM[7:1]: 7 mLSTM, 1 sLSTM
+XLSTM_TRAIN_STEPS = 2           # step 1 pays first-use costs; step 2 is timed
 
 
 def visible_pairs(Sq, Sk, causal, window) -> int:
@@ -3793,12 +3849,12 @@ def train_bwd_timing(card, case, q, k, v, do, kw, fma=False) -> dict:
             **({"fma_ms": fma_ms} if fma else {})}
 
 
-def compare_grads(tag, got, want, loss, loss_ref):
+def compare_grads(tag, got, want, loss, loss_ref, what="flash"):
     """Loss within TRAIN_LOSS_REL and each leaf's gradient within
-    TRAIN_GRAD_REL (relative L2) of the reference-attention run.  The
-    keys' bias has a zero gradient in exact arithmetic (softmax is
-    shift-invariant along a row): it is held to 1e-3 of the whole
-    gradient's norm instead."""
+    TRAIN_GRAD_REL (relative L2) of the reference run (``what``: the
+    kernel run's name).  The attention keys' bias has a zero gradient in
+    exact arithmetic (softmax is shift-invariant along a row): it is held
+    to 1e-3 of the whole gradient's norm instead."""
     import torch
     from repro_torch.models.common import tree_flatten_with_path
     pairs, w_pairs = (tree_flatten_with_path(t)[0] for t in (got, want))
@@ -3816,7 +3872,7 @@ def compare_grads(tag, got, want, loss, loss_ref):
         if r > worst:
             worst, worst_path = r, path
     loss_rel = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
-    print(f"  {tag}: loss flash {float(loss):.6f} reference "
+    print(f"  {tag}: loss {what} {float(loss):.6f} reference "
           f"{float(loss_ref):.6f} (rel {loss_rel:.3e}, limit "
           f"{TRAIN_LOSS_REL}); worst leaf gradient rel_l2 {worst:.3e} at "
           f"{worst_path} (limit {TRAIN_GRAD_REL}) over {len(g)} leaves"
@@ -3870,21 +3926,24 @@ def fingerprint(tree) -> list:
     return out
 
 
-def train_shares(by_name: dict):
-    """({kind: device µs}, {kind: kernels recorded}) by kind: flash
-    forward, flash backward, cuBLAS, other."""
-    kinds = {"flash_fwd": 0.0, "flash_bwd": 0.0, "cublas": 0.0, "other": 0.0}
+FLASH_KINDS = (("flash_bwd", ("flash_bwd",)),
+               ("flash_fwd", ("flash_wgmma", "flash_fwd")))
+MLSTM_KINDS = (("mlstm_bwd", ("mlstm_bwd_",)),
+               ("mlstm_fwd", ("mlstm_chunk_",)))
+
+
+def train_shares(by_name: dict, named=FLASH_KINDS):
+    """({kind: device µs}, {kind: kernels recorded}) by kind: each of
+    ``named`` (kind, substrings of its kernels' names), in order, then
+    cuBLAS, then other."""
+    kinds = {**{k: 0.0 for k, _ in named}, "cublas": 0.0, "other": 0.0}
     counts = dict.fromkeys(kinds, 0)
     for name, (us, n) in by_name.items():
-        if "flash_bwd" in name:
-            kind = "flash_bwd"
-        elif "flash_wgmma" in name or "flash_fwd" in name:
-            kind = "flash_fwd"
-        elif any(s in name.lower() for s in ("gemm", "cutlass", "xmma",
-                                             "nvjet", "cublas")):
-            kind = "cublas"
-        else:
-            kind = "other"
+        kind = next((k for k, subs in named
+                     if any(sub in name for sub in subs)), None)
+        if kind is None:
+            kind = "cublas" if any(s in name.lower() for s in (
+                "gemm", "cutlass", "xmma", "nvjet", "cublas")) else "other"
         kinds[kind] += us
         counts[kind] += n
     return kinds, counts
@@ -4173,18 +4232,459 @@ def train_whisper(card: str) -> dict:
     return out
 
 
+def mlstm_bwd_bound(B, S, H, P, chunk, itemsize, flops_per_s):
+    """(bound_ms, bound_by, flops) of the mLSTM backward: q, k, v, h, dh
+    read once and dq, dk, dv written once (the two float32 gates read and
+    their gradients written once) at the HBM rate, against the products
+    its design computes on these inputs at the peak rate for their type.
+    Per head: for each chunk but one, the two carries (C~ entering and G
+    leaving, P x (P+1) x chunk each), C~ dnum~ and G v~ (the same size;
+    the first chunk's C~ and the last chunk's G are zero) and G_C^T (k o
+    wk) (P x P x chunk); per chunk, five causal products of chunk(chunk+1)/2
+    pairs x P (S and dh v^T, dS k, dS^T q, A^T dnum).  The row and gate
+    terms, O(chunk^2) per chunk, are not counted."""
+    n = S // chunk
+    pairs = chunk * (chunk + 1) // 2
+    macs = B * H * (max(n - 1, 0) * chunk * (4 * P * (P + 1) + P * P)
+                    + n * 5 * pairs * P)
+    flops = 2 * macs
+    nbytes = itemsize * 8 * B * S * H * P + 4 * 4 * B * S * H
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", flops)
+
+
+def mlstm_bwd_inputs(B, S, H, P, dt, gen):
+    """q (rows scaled by 0.05 or 3 at random, so both branches of the
+    denominator are taken), k ~ 2 N / sqrt(P), v ~ N, the gates and dh,
+    made on the card from ``gen``; q, k, v, dh in ``dt``."""
+    import torch
+    dev = gen.device
+
+    def n(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    scale = torch.where(torch.rand((B, S, H, 1), generator=gen,
+                                   device=dev) < 0.5, 0.05, 3.0)
+    q, k, v = n(B, S, H, P) * scale, n(B, S, H, P) * 2.0 / P ** 0.5, \
+        n(B, S, H, P)
+    logi = n(B, S, H)
+    logf = -torch.nn.functional.softplus(-(n(B, S, H) * 2.0 + 2.0))
+    return [q.to(dt), k.to(dt), v.to(dt), logi, logf], n(B, S, H, P).to(dt)
+
+
+def mlstm_bwd_fault(want):
+    """A planted fault: d logf of each row written to the next one."""
+    import torch
+    dlf = torch.roll(want[4], 1, dims=1)
+    dlf[:, 0] = 0
+    return (*want[:4], dlf)
+
+
+def mlstm_bwd_counted():
+    """``whole_profile``'s count of the mLSTM backward: its kernels (names
+    holding ``mlstm_bwd_``) per launch."""
+    from repro_torch.kernels.mlstm_chunk import ops
+    return (("mlstm_bwd_", lambda: ops.launches_bwd, ops.BWD_KERNELS),)
+
+
+def train_mlstm_bwd(card: str) -> dict:
+    """The mLSTM backward kernel against its plain versions over
+    MLSTM_BWD_CASES (after the wgmma forward also against the rounded
+    one), the planted fault above each limit, two calls bit-equal, one
+    launch a call; timed once at the path's shape (the first case)."""
+    import torch
+    from repro_torch.kernels.mlstm_chunk import ops, ref
+    print("ptxas, the mLSTM backward's kernels (mlstm_bwd_*):\n"
+          + ptxas_summary(ops._LIBS["bwd"].report, "mlstm_bwd_"), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    out = {"err": {}, "rel_l2": {}}
+    for case in MLSTM_BWD_CASES:
+        B, S, H, P, chunk, name = case
+        dt = getattr(torch, name)
+        args, dh = mlstm_bwd_inputs(B, S, H, P, dt, gen)
+        which = ops.route(dt, P, min(chunk, S))
+        tag = f"{name} B={B} S={S} H={H} P={P} chunk={chunk} ({which} forward)"
+
+        def grads():
+            ins = [t.clone().requires_grad_() for t in args]
+            h = ops.mlstm_chunk(*ins, chunk=chunk)
+            check(h.grad_fn is not None, f"{tag}: no grad_fn")
+            return h.detach(), torch.autograd.grad(h, ins, dh)
+        n_bwd = ops.launches_bwd
+        h, got = grads()
+        again = grads()[1]
+        torch.cuda.synchronize()
+        check(ops.launches_bwd - n_bwd == 2,
+              f"{tag}: {ops.launches_bwd - n_bwd} backward launches, want 2")
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        for g, t in zip(got, args):
+            check(g.dtype == t.dtype and g.shape == t.shape,
+                  f"{tag}: dtype/shape")
+            check(bool(torch.isfinite(g.float()).all()), f"{tag}: non-finite")
+        plains = [("float32", ref.mlstm_chunkwise_grads(*args, h, dh, chunk),
+                   MLSTM_BWD_REL[name])]
+        if which == "wgmma":
+            plains.append(("rounded", ref.mlstm_chunkwise_grads(
+                *args, h, dh, chunk, operand_dtype=torch.bfloat16),
+                MLSTM_BWD_REL_ROUNDED))
+        for pname, want, lim in plains:
+            rels = [rel_l2(g, w) for g, w in zip(got, want)]
+            errs = [float((g.float() - w).abs().max())
+                    for g, w in zip(got, want)]
+            rel_fault = max(rel_l2(f, w) for f, w in
+                            zip(mlstm_bwd_fault(want), want))
+            print(f"  {tag} vs the {pname} plain version: rel_l2 dq/dk/dv/"
+                  f"dlogi/dlogf = " + "/".join(f"{r:.3e}" for r in rels)
+                  + f", max_abs_err {max(errs):.3e}, planted fault (d logf "
+                  f"one row off) {rel_fault:.3e}, limit {lim}", flush=True)
+            check(max(rels) <= lim, f"{tag} vs the {pname} plain version: "
+                  f"relative L2 {max(rels)} > {lim}")
+            check(rel_fault > lim, f"{tag}: the planted fault's relative L2 "
+                  f"{rel_fault} is within {lim} of the {pname} plain version")
+            key = name if pname == "float32" else f"{name}_rounded"
+            out["err"][key] = max(out["err"].get(key, 0.0), max(errs))
+            out["rel_l2"][key] = max(out["rel_l2"].get(key, 0.0), max(rels))
+        print(f"  {tag}: two calls bit-equal {same}", flush=True)
+        check(same, f"{tag}: two calls differ")
+        del plains
+        if case is MLSTM_BWD_CASES[0]:
+            out.update(mlstm_bwd_timing(card, case, args, h, dh))
+        del args, h, dh, got
+        torch.cuda.empty_cache()
+    out["max_abs_err"] = max(out["err"].values())
+    return out
+
+
+def mlstm_bwd_timing(card, case, args, h, dh) -> dict:
+    """The backward launch (``ops._backward``) timed with CUDA events and
+    the profiler, its plain version (with the route's roundings) with CUDA
+    events, and the bound."""
+    import torch
+    from repro_torch.kernels.mlstm_chunk import ops, ref
+    B, S, H, P, chunk, name = case
+    rounded = ops.route(args[0].dtype, P, chunk) == "wgmma"
+
+    def kernel():
+        return ops._backward(*args, h, dh, chunk, rounded)
+
+    def plain():
+        return ref.mlstm_chunkwise_grads(
+            *args, h, dh, chunk,
+            operand_dtype=torch.bfloat16 if rounded else None)
+    k_ms = cuda_ms(kernel, reps=5, inner=2)
+    dev_ms = device_ms(kernel, calls=4, counted=mlstm_bwd_counted(),
+                       what=f"mLSTM backward {case[:5]}", detail=True)
+    p_ms = cuda_ms(plain, reps=3, inner=1)
+    b_ms, b_by, flops = mlstm_bwd_bound(B, S, H, P, chunk, 2,
+                                        BF16_FLOPS_PER_S)
+    print(f"  mLSTM backward at xlstm-1.3b's layer {case[:5]} {name} (the "
+          f"train step's microbatch) on {card}: kernel_ms={k_ms:.4f} "
+          f"device_ms={dev_ms:.4f} plain_ms={p_ms:.4f} library_ms=None (no "
+          f"one PyTorch call computes it) bound_ms={b_ms:.4f} ({b_by}; "
+          f"{flops / 1e9:.1f} GFLOP) achieved={flops / k_ms / 1e9:.2f} "
+          f"TFLOP/s (bound share {b_ms / k_ms:.4f}; the fp32 FMA peak would "
+          f"allow {flops / FP32_FLOPS_PER_S * 1e3:.4f} ms)", flush=True)
+    return {"ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "shape": list(case[:5]), "gflop": flops / 1e9}
+
+
+def xlstm_train_model(dtype: str, layers: int = XLSTM_TRAIN_LAYERS):
+    """(model, params, rc, n_mlstm): xlstm-1.3b at full width, the first
+    ``layers`` positions of its pattern (one period by default), ``dtype``
+    weights and activations, the sLSTM's recurrent weights x
+    XLSTM_WREC_SCALE."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.runconfig import RunConfig
+    full = get_config("xlstm-1.3b")
+    cfg = full.scaled(n_layers=layers, pattern=full.pattern[:layers])
+    kinds = [cfg.pattern[i % len(cfg.pattern)].kind
+             for i in range(cfg.n_layers)]
+    rc = RunConfig(microbatch=TRAIN_MICRO, remat_policy="block",
+                   param_dtype=dtype, activation_dtype=dtype)
+    model = Model(cfg, device="cuda")
+    params = model.init(TRAIN_SEED, dtype=getattr(torch, dtype))
+    for p in params["layers"]:
+        if "slstm" in p:
+            p["slstm"]["w_rec"].mul_(XLSTM_WREC_SCALE)
+    return model, params, rc, kinds.count("mlstm")
+
+
+@contextlib.contextmanager
+def plain_mlstm():
+    """The model's mLSTM runs its plain version (``ref.mlstm_chunkwise``,
+    float32, no rounding) through autograd on the card: the reference."""
+    from types import SimpleNamespace
+    from repro_torch.kernels.mlstm_chunk import ops, ref
+    from repro_torch.models import xlstm
+
+    def plain(q, k, v, logi, logf, *, chunk):
+        return ref.mlstm_chunkwise(q, k, v, logi, logf, min(chunk, q.shape[1]))
+    kernel_ops, n0 = xlstm.mlstm_ops, (ops.launches, ops.launches_bwd)
+    xlstm.mlstm_ops = SimpleNamespace(mlstm_chunk=plain)
+    try:
+        yield
+    finally:
+        xlstm.mlstm_ops = kernel_ops
+    check((ops.launches, ops.launches_bwd) == n0,
+          "the plain-version reference launched an mLSTM kernel")
+
+
+def xlstm_float32_grads(card: str) -> dict:
+    """A microbatch of step 1 (1 x 4096 tokens) of the same cell in
+    float32 (the FMA forward, the backward without roundings): loss and
+    gradients of the kernels against the plain mLSTM through autograd
+    (TRAIN_LOSS_REL, TRAIN_GRAD_REL)."""
+    import torch
+    from repro_torch.kernels.mlstm_chunk import ops
+    from repro_torch.train.data import batch_at
+    model, params, rc, n_mlstm = xlstm_train_model("float32")
+    batch = batch_at(TRAIN_SEED, 0, global_batch=TRAIN_MICRO,
+                     seq_len=TRAIN_S, vocab_size=model.cfg.vocab_size,
+                     device="cuda")
+    n_micro = 1
+    before = (ops.launches_fma, ops.launches_bwd)
+    t0 = time.perf_counter()
+    loss, g = micro_grads(model, params, batch, rc, n_micro)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    d = (ops.launches_fma - before[0], ops.launches_bwd - before[1])
+    check(d == (2 * n_micro * n_mlstm, n_micro * n_mlstm),
+          f"xlstm float32 step 1: (FMA forward, backward) launches {d}")
+    with plain_mlstm():
+        loss_ref, g_ref = micro_grads(model, params, batch, rc, n_micro)
+    torch.cuda.synchronize()
+    cmp = compare_grads(
+        f"xlstm-1.3b float32 gradients of a microbatch of {TRAIN_MICRO}x"
+        f"{TRAIN_S} (kernels {t1 - t0:.1f} s, reference "
+        f"{time.perf_counter() - t1:.1f} s; {d[0]} FMA forward and {d[1]} "
+        f"backward launches)", g, g_ref, loss, loss_ref, what="kernels")
+    del g, g_ref, params, model
+    torch.cuda.empty_cache()
+    return cmp
+
+
+def train_xlstm(card: str) -> dict:
+    """xlstm-1.3b at full width, one period of its pattern (7 mLSTM, 1
+    sLSTM), bf16: XLSTM_TRAIN_STEPS train steps on the mLSTM forward and
+    backward kernels with exact launch counts, step time (the last step)
+    and memory; step 1's loss against the plain mLSTM's, and each of its
+    backward launches held on its own inputs against the plain versions;
+    the device shares of one microbatch's forward and backward under the
+    profiler (half a step: the sLSTM loop's ~420k kernels; a whole step's
+    ~875k took the profiler ~2 minutes to read).  Then a microbatch in
+    float32 against the plain mLSTM, loss and every gradient
+    (``xlstm_float32_grads``).  The bf16 step's gradients are not
+    compared with the plain mLSTM's at the model level: the stack's
+    gradient moves ~100x any perturbation of its forward, so the rounded
+    plain version is itself ~0.3 (relative L2) from the unrounded one
+    there (``tools/xlstm_grad_sensitivity.py``)."""
+    import torch
+    from repro_torch.kernels.mlstm_chunk import ops, ref
+    from repro_torch.models.common import tree_flatten
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_loop as ttl
+    from repro_torch.train.data import SyntheticDataset
+
+    torch.cuda.reset_peak_memory_stats()
+    model, params, rc, n_mlstm = xlstm_train_model("bfloat16")
+    cfg = model.cfg
+    state = ttl.init_state(model, TRAIN_SEED, rc, params=params)
+    del params
+    n_params = sum(t.numel() for t in tree_flatten(state.params)[0])
+    data = SyntheticDataset(TRAIN_SEED, TRAIN_B, TRAIN_S, cfg.vocab_size,
+                            device="cuda")
+    batches = [next(data) for _ in range(XLSTM_TRAIN_STEPS)]
+    n_micro = TRAIN_B // TRAIN_MICRO
+    print(f"  xlstm-1.3b full width, {cfg.n_layers} of 48 layers ({n_mlstm} "
+          f"mLSTM, {cfg.n_layers - n_mlstm} sLSTM; sLSTM recurrent weights "
+          f"x{XLSTM_WREC_SCALE}): {n_params / 1e9:.3f} B parameters (bf16, "
+          f"AdamW with float32 master weights); {XLSTM_TRAIN_STEPS} batches "
+          f"of {TRAIN_B}x{TRAIN_S} tokens, microbatch {TRAIN_MICRO}, remat "
+          f"block, chunk {rc.mlstm_chunk}", flush=True)
+    # the reference loss: step 1's batch through the plain mLSTM (forward)
+    mbs = ttl._split_micro(batches[0], n_micro)
+    with plain_mlstm(), torch.no_grad():
+        loss_ref = sum(float(model.loss(state.params, {k: x[j] for k, x in
+                                                       mbs.items()}, rc)[0])
+                       for j in range(n_micro)) / n_micro
+
+    step = ttl.make_train_step(model, rc, donate=True)
+    want = (2 * n_micro * n_mlstm, n_micro * n_mlstm)  # fwd (+ remat), bwd
+    real_update, real_backward, opt_ms = topt.opt_update, ops._backward, []
+    launches_seen = []         # step 1's backward launches: inputs, outputs
+
+    def timed_update(*args, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        out = real_update(*args, **kw)
+        end.record()
+        end.synchronize()
+        opt_ms.append(start.elapsed_time(end))
+        return out
+
+    def recording_backward(*args):
+        out = real_backward(*args)
+        launches_seen.append((args, out))
+        return out
+
+    def counters():
+        return (ops.launches, ops.launches_wgmma, ops.launches_fma,
+                ops.launches_bwd)
+    calls = []                 # (launch deltas, wall s, metrics, optimizer ms)
+
+    def one(i):
+        nonlocal state
+        before = counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batches[i])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        d = [a - b for a, b in zip(counters(), before)]
+        check(d == [want[0], want[0], 0, want[1]],
+              f"xlstm step {i + 1}: launches (fwd, wgmma, fma, bwd) {d}, "
+              f"want {want[0]}, {want[0]}, 0, {want[1]}")
+        calls.append((d, dt, {k: float(v) for k, v in met.items()},
+                      opt_ms[-1]))
+    topt.opt_update = timed_update
+    ops.reset_launch_counts()
+    times, metrics, step_opt_ms = [], [], []
+    t_steps = time.perf_counter()
+    try:
+        for i in range(XLSTM_TRAIN_STEPS):
+            ops._backward = recording_backward if i == 0 else real_backward
+            one(i)
+            d, dt, m, o = calls[-1]
+            times.append(dt)
+            metrics.append(m)
+            step_opt_ms.append(o)
+            check(all(math.isfinite(v) for v in m.values()),
+                  f"xlstm step {i + 1}: {m}")
+            print(f"  step {i + 1}: loss {m['loss']:.4f} gnorm "
+                  f"{m['grad_norm']:.3f} lr {m['lr']:.2e}; {dt:.3f} s"
+                  + f"; launches fwd {d[0]} (wgmma {d[1]}, fma {d[2]}), "
+                  f"bwd {d[3]}", flush=True)
+    finally:
+        topt.opt_update, ops._backward = real_update, real_backward
+    t_steps = time.perf_counter() - t_steps
+    # the device shares: one microbatch of the next batch, every mLSTM
+    # kernel recorded (else retried)
+    counted = (("mlstm_chunk_", lambda: ops.launches_wgmma,
+                len(MLSTM_PASSES)),) + mlstm_bwd_counted()
+    mb = {k: x[0] for k, x in ttl._split_micro(batches[-1], n_micro).items()}
+    small, small_dh = mlstm_bwd_inputs(1, rc.mlstm_chunk, 1, 1024,
+                                       torch.bfloat16, torch.Generator(
+                                           device="cuda").manual_seed(0))
+
+    def warm():                # one forward and backward launch, small
+        ins = [t.clone().requires_grad_() for t in small]
+        torch.autograd.grad(ops.mlstm_chunk(*ins, chunk=rc.mlstm_chunk),
+                            ins, small_dh)
+    t0 = time.perf_counter()
+    _, by_name = whole_profile(
+        lambda: ttl.loss_and_grads(model, state.params, mb, rc), counted,
+        cpu=False, what="xlstm microbatch", sessions=2, warm=warm)
+    t_prof = time.perf_counter() - t0
+    kinds_us, counts = train_shares(by_name, MLSTM_KINDS)
+    busy_s = sum(t for t, _ in by_name.values()) / 1e6
+    prof = {"shares": {k: v / 1e6 / busy_s for k, v in kinds_us.items()},
+            "counts": counts,
+            "bwd_ms": kinds_us["mlstm_bwd"] / 1e3 / (want[1] // n_micro),
+            "fwd_ms": kinds_us["mlstm_fwd"] / 1e3 / (want[0] // n_micro)}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    torch.cuda.empty_cache()
+    loss_rel = abs(metrics[0]["loss"] - loss_ref) / abs(loss_ref)
+    # step 1's backward launches, each on its own inputs
+    check(len(launches_seen) == want[1], f"step 1 recorded "
+          f"{len(launches_seen)} backward launches, want {want[1]}")
+    worst = {"float32": 0.0, "rounded": 0.0}
+    for args, got in launches_seen:
+        q, k, v, logi, logf, h, dh, c, rounded = args
+        check(rounded, "a step-1 backward launch without the wgmma route's "
+              "roundings")
+        for key, od, lim in (("float32", None, MLSTM_BWD_REL["bfloat16"]),
+                             ("rounded", torch.bfloat16,
+                              MLSTM_BWD_REL_ROUNDED)):
+            want_g = ref.mlstm_chunkwise_grads(q, k, v, logi, logf, h, dh, c,
+                                               operand_dtype=od)
+            r = max(rel_l2(g, w) for g, w in zip(got, want_g))
+            worst[key] = max(worst[key], r)
+            check(r <= lim, f"xlstm step 1, a backward launch on its own "
+                  f"inputs vs the {key} plain version: relative L2 {r} > "
+                  f"{lim}")
+    del launches_seen
+    torch.cuda.empty_cache()
+    print(f"  xlstm-1.3b bf16 step 1: loss kernels {metrics[0]['loss']:.6f} "
+          f"plain mLSTM {loss_ref:.6f} (rel {loss_rel:.3e}, limit "
+          f"{TRAIN_LOSS_REL}); its {want[1]} backward launches on their own "
+          f"inputs: worst relative L2 {worst['float32']:.3e} vs the float32 "
+          f"plain version (limit {MLSTM_BWD_REL['bfloat16']}), "
+          f"{worst['rounded']:.3e} vs the rounded one (limit "
+          f"{MLSTM_BWD_REL_ROUNDED})", flush=True)
+    check(loss_rel <= TRAIN_LOSS_REL, f"xlstm step 1: loss rel {loss_rel}")
+    t0 = time.perf_counter()
+    f32 = xlstm_float32_grads(card)
+    t_f32 = time.perf_counter() - t0
+    step_s, opt_step_ms = times[-1], step_opt_ms[-1]
+    # the step's device busy time: its microbatches' as profiled, and the
+    # optimizer's (CUDA events)
+    busy_s = n_micro * busy_s + opt_step_ms / 1e3
+    shares = dict(prof["shares"])
+    shares["idle"] = max(0.0, 1.0 - busy_s / step_s)
+    shares["busy_s"] = busy_s
+    tokens = TRAIN_B * TRAIN_S
+    print(f"  xlstm-1.3b train step (B={TRAIN_B}, S={TRAIN_S}, microbatch "
+          f"{TRAIN_MICRO}, remat block, chunk {rc.mlstm_chunk}) on {card}: "
+          f"step_s={step_s:.4f} (step {XLSTM_TRAIN_STEPS}; steps "
+          + ", ".join(f"{t:.4f}" for t in times) + f"), tokens/s="
+          f"{tokens / step_s:.1f}, peak memory {peak:.2f} GiB; device "
+          f"shares of busy time (a profiled microbatch; idle against the "
+          f"step, busy = {n_micro} microbatches + the optimizer): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in shares.items())
+          + f"; kernels recorded {prof['counts']}; mLSTM backward "
+          f"{prof['bwd_ms']:.4f} ms of device time a launch, forward "
+          f"{prof['fwd_ms']:.4f} ms ({want[1]} and {want[0]} a step); the "
+          f"optimizer {opt_step_ms:.2f} ms a step (CUDA events); steps "
+          f"{t_steps:.1f} s, profiled microbatch {t_prof:.1f} s, float32 "
+          f"check {t_f32:.1f} s", flush=True)
+    return {"launches_fwd": sum(c[0][0] for c in calls),
+            "launches_bwd": sum(c[0][3] for c in calls),
+            "per_step": {"fwd_wgmma": want[0], "fwd_fma": 0, "bwd": want[1]},
+            "step_s": step_s, "tokens_per_s": tokens / step_s,
+            "optimizer_ms": opt_step_ms, "peak_gib": peak, "shares": shares,
+            "steps_s": times, "bwd_step_device_ms": prof["bwd_ms"],
+            "fwd_step_device_ms": prof["fwd_ms"],
+            "loss": [m["loss"] for m in metrics], "loss_rel": loss_rel,
+            "launch_rel_l2": worst, "float32": f32}
+
+
 def phase_train(card: str) -> dict:
     import torch
-    print("== phase 13: training: the flash backward kernel, yi-6b (8 "
-          "layers, full width) and whisper-tiny train steps", flush=True)
+    print("== phase 13: training: the flash and mLSTM backward kernels, "
+          "yi-6b and xlstm-1.3b (8 layers, full width) and whisper-tiny "
+          "train steps", flush=True)
     t0 = time.perf_counter()
     bwd = train_bwd_kernel(card)
     torch.cuda.empty_cache()
     yi = train_yi(card)
     torch.cuda.empty_cache()
     wh = train_whisper(card)
-    print(f"phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
-    return {"bwd": bwd, "yi": yi, "whisper": wh}
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    mlstm_bwd = train_mlstm_bwd(card)
+    torch.cuda.empty_cache()
+    xl = train_xlstm(card)
+    t2 = time.perf_counter()
+    print(f"phase 13 took {t2 - t0:.1f} s (the mLSTM backward and xlstm "
+          f"training {t2 - t1:.1f} s of it)", flush=True)
+    return {"bwd": bwd, "yi": yi, "whisper": wh, "mlstm_bwd": mlstm_bwd,
+            "xlstm": xl}
 
 
 def main() -> None:
@@ -4300,12 +4800,15 @@ def main() -> None:
             "jamba": families["jamba"]["flash_device_ms"],
             "whisper": families["whisper"]["device_ms"]},
     })
+    xl, mbwd = train["xlstm"], train["mlstm_bwd"]
     kernels.append({
         "name": "mlstm_chunk_fwd", "route": "cuda",
         "source": MLSTM_SOURCE, "fma_source": MLSTM_FMA_SOURCE,
         "replaces": MLSTM_REPLACES,
-        "launches": xlstm["launches"],
-        "launches_wgmma": xlstm["launches_wgmma"],
+        "launches": xlstm["launches"] + xl["launches_fwd"],
+        "launches_by_path": {"xlstm-1.3b": xlstm["launches"],
+                             "train-xlstm-1.3b": xl["launches_fwd"]},
+        "launches_wgmma": xlstm["launches_wgmma"] + xl["launches_fwd"],
         "launches_fma": xlstm["launches_fma"],
         "max_abs_err": mlstm["max_abs_err"], "rel_l2": mlstm["rel_l2"],
         "ms": mlstm["ms"], "plain_ms": mlstm["plain_ms"],
@@ -4343,6 +4846,26 @@ def main() -> None:
         "train_step_s": yi["step_s"], "train_tokens_per_s":
         yi["tokens_per_s"], "train_peak_gib": yi["peak_gib"],
         "train_shares": yi["shares"],
+    })
+    kernels.append({
+        "name": "mlstm_chunk_bwd", "route": "cuda",
+        "source": MLSTM_BWD_SOURCE, "replaces": MLSTM_REPLACES,
+        "launches": xl["launches_bwd"],
+        "launches_by_path": {"train-xlstm-1.3b": xl["launches_bwd"]},
+        "launches_per_step": xl["per_step"],
+        "max_abs_err": mbwd["max_abs_err"], "rel_l2": mbwd["rel_l2"],
+        "ms": mbwd["ms"], "plain_ms": mbwd["plain_ms"],
+        "bound_ms": mbwd["bound_ms"], "bound_by": mbwd["bound_by"],
+        "library_ms": None, "shape": mbwd["shape"],
+        "device_ms": mbwd["device_ms"],
+        "step_device_ms": xl["bwd_step_device_ms"],
+        "max_abs_err_cases": mbwd["err"],
+        "train_step_s": xl["step_s"],
+        "train_tokens_per_s": xl["tokens_per_s"],
+        "train_peak_gib": xl["peak_gib"], "train_shares": xl["shares"],
+        "train_loss_rel": xl["loss_rel"],
+        "train_launch_rel_l2": xl["launch_rel_l2"],
+        "train_float32": xl["float32"],
     })
     print(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -22,11 +22,25 @@ launches the kernel on the current stream or raises:
   float32 scratch of B*H*S*chunk elements for the chunks' q k^T.
 
 A failed build or launch raises; nothing retries on the other route.
-Both kernels read the inputs in place through their strides.  Neither has
-a backward yet (ROADMAP queue A, item 15b): a call on tensors off the CPU
-with grad enabled and an input that requires grad raises ``ValueError``
-instead of returning an output without a gradient.  On CPU tensors
-autograd differentiates the plain version.
+Both kernels read the inputs in place through their strides.
+
+Gradients.  When grad is enabled and an input requires grad, a CUDA call
+goes through an ``autograd.Function``: its forward is the routed launch
+above, unchanged, and its backward launches ``csrc/mlstm_chunk_bwd.cu``
+(fp32 FMAs on float32 or bf16 inputs; every P of ``HEAD_DIMS``, chunks
+up to ``BWD_MAX_CHUNK``, else ``ValueError``), which gives dq, dk, dv in
+q's dtype and d logi, d logf in float32 from q, k, v, the gates, the
+forward's output and its cotangent.  It holds the stabilisers constant (h
+does not depend on them) and is deterministic (no atomics; two calls give
+the same bits).  After the wgmma route's forward it makes that route's
+bf16 roundings (``round``), so its plain version is
+``ref.mlstm_chunkwise_grads(..., operand_dtype=torch.bfloat16)``; after
+the FMA route's, ``ref.mlstm_chunkwise_grads``.  It needs float32
+scratch of about 2 B*H*S*P^2/chunk (the carries C~ = [C, n] entering and
+G leaving each chunk, [B*H, S/chunk, P, P+1] each: 269 MB each at
+xlstm-1.3b's layer at B=1, chunk 256) and 3 B*H*S*chunk (the chunks'
+score matrices), which the wrapper allocates.  On CPU tensors autograd
+differentiates the plain version.
 
 The reference's scheduling knobs ``num_warps``/``pipeline`` pick, on CUDA
 tensors, one of the route's launches (:func:`resolve_tiles`; the sets
@@ -40,8 +54,9 @@ takes only 1: that kernel stages one tile at a time.  ``chunk`` is the
 third knob.  On CPU tensors the plain version takes any positive knob.
 :func:`autotune_space` and :func:`autotune_bench` are the reference's
 autotune hooks.
-``launches`` counts kernel launches (one per call, whatever the passes),
-``launches_wgmma`` and ``launches_fma`` those of each route.
+``launches`` counts forward kernel launches (one per call, whatever the
+passes), ``launches_wgmma`` and ``launches_fma`` those of each route,
+``launches_bwd`` the backward's (one per call, ``BWD_KERNELS`` kernels).
 
 The libraries are built with ``nvcc`` into ``build/mlstm_chunk/`` at
 first use (``kernels/build.py``).
@@ -65,6 +80,7 @@ from repro_torch.kernels.tma import check_tma, tma_strides
 CSRC = Path(__file__).resolve().parent / "csrc"
 WGMMA_SOURCE = CSRC / "mlstm_chunk_wgmma.cu"
 FMA_SOURCE = CSRC / "mlstm_chunk.cu"
+BWD_SOURCE = CSRC / "mlstm_chunk_bwd.cu"
 _LIBS = {
     "wgmma": NvccLibrary("mlstm_chunk", WGMMA_SOURCE, {
         "mlstm_chunk_wgmma_launch": [ctypes.c_void_p] * 10
@@ -73,11 +89,19 @@ _LIBS = {
     "fma": NvccLibrary("mlstm_chunk", FMA_SOURCE, {
         "mlstm_chunk_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]}),
+    "bwd": NvccLibrary("mlstm_chunk", BWD_SOURCE, {
+        "mlstm_chunk_bwd_launch": [ctypes.c_void_p] * 21
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int,
+                                ctypes.c_void_p]}),
 }
 HEAD_DIMS = (16, 32, 64, 128, 256, 512, 1024)   # compiled into the FMA kernel
 WGMMA_HEAD_DIMS = (64, 128, 256, 512, 1024)     # and into the wgmma kernel
 WGMMA_CHUNKS = (128, 256, 512, 1024)
 MAX_CHUNK = 2048                # the mlstm_chunk knob's upper end
+BWD_MAX_CHUNK = 1024            # the backward kernel's largest chunk
+BWD_KERNELS = 10                # kernels of one backward launch
+_BWD_ROWS = 8                   # csrc: kRowArrays
+_TILE = 64                      # csrc: kTile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID = 65535               # grid.y / grid.z limit
 _SMEM_LIMIT = 232448            # a block's shared memory on sm_90
@@ -87,13 +111,14 @@ STATE_STAGES = (1, 2, 3, 4)     # the wgmma state pass's ring depths
 launches = 0
 launches_wgmma = 0
 launches_fma = 0
+launches_bwd = 0
 _lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    global launches, launches_wgmma, launches_fma
+    global launches, launches_wgmma, launches_fma, launches_bwd
     with _lock:
-        launches = launches_wgmma = launches_fma = 0
+        launches = launches_wgmma = launches_fma = launches_bwd = 0
 
 
 def route(dtype: torch.dtype, head_dim: int, chunk: int) -> str:
@@ -176,9 +201,9 @@ def resolve_tiles(which: str, head_dim: int, chunk: int, num_warps=None,
 
 
 def build(verbose: bool = False, which: Optional[str] = None):
-    """Compile the kernel libraries (``which``: one route's only) if these
-    sources have not been built yet; returns the paths (``verbose``
-    prints ptxas's report)."""
+    """Compile the kernel libraries (``which``: ``"wgmma"``, ``"fma"`` or
+    ``"bwd"`` only) if these sources have not been built yet; returns the
+    paths (``verbose`` prints ptxas's report)."""
     names = [which] if which is not None else list(_LIBS)
     return [_LIBS[n].build(verbose) for n in names]
 
@@ -238,26 +263,51 @@ def mlstm_chunk(q, k, v, logi, logf, *, chunk: int = 256,
     if q.device.type == "cpu":
         check_positive("mlstm_chunk", num_warps=num_warps, pipeline=pipeline)
         return plain_version(q, k, v, logi, logf, c)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v, logi, logf)):
-        raise ValueError(
-            "mlstm_chunk on CUDA has no backward kernel yet (ROADMAP queue "
-            "A, item 15b): its output would carry no gradient, so an input "
-            "that requires grad is refused; run under torch.no_grad() or "
-            "on CPU tensors")
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_chunk runs on cpu or cuda, not {q.device}")
     which = route(q.dtype, P, c)
-    if which == "wgmma":
-        return _wgmma(q, k, v, logi, logf, c,
-                      tiles=resolve_tiles(which, P, c, num_warps, pipeline))
-    return _fma(q, k, v, logi, logf, c,
-                tiles=resolve_tiles(which, P, c, num_warps, pipeline))
+    tiles = resolve_tiles(which, P, c, num_warps, pipeline)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, logi, logf)):
+        if c > BWD_MAX_CHUNK:
+            raise ValueError(
+                f"mlstm_chunk: the backward kernel takes chunks 1 to "
+                f"{BWD_MAX_CHUNK} that divide S; a call that asks for a "
+                f"gradient at chunk {c} is refused")
+        return _MlstmChunk.apply(q, k, v, logi, logf, c, which, tiles)
+    return _forward(q, k, v, logi, logf, c, which, tiles)
+
+
+def _forward(q, k, v, logi, logf, c, which, tiles):
+    launch = _wgmma if which == "wgmma" else _fma
+    return launch(q, k, v, logi, logf, c, tiles=tiles)
+
+
+class _MlstmChunk(torch.autograd.Function):
+    """The routed forward launch, differentiated by the backward kernel
+    (``_backward``) with the route's roundings."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, logi, logf, c, which, tiles):
+        out = _forward(q, k, v, logi, logf, c, which, tiles)
+        ctx.save_for_backward(q, k, v, logi, logf, out)
+        ctx.chunk, ctx.rounded = c, which == "wgmma"
+        return out
+
+    @staticmethod
+    def backward(ctx, dh):
+        q, k, v, logi, logf, out = ctx.saved_tensors
+        grads = _backward(q, k, v, logi, logf, out, dh, ctx.chunk,
+                          ctx.rounded)
+        return (*grads, None, None, None)
 
 
 def _count(which: str) -> None:
-    global launches, launches_wgmma, launches_fma
+    global launches, launches_wgmma, launches_fma, launches_bwd
     with _lock:
+        if which == "bwd":
+            launches_bwd += 1
+            return
         launches += 1
         if which == "wgmma":
             launches_wgmma += 1
@@ -340,6 +390,54 @@ def _fma(q, k, v, logi, logf, c, tiles: Optional[tuple] = None):
                            f"error {err}")
     _count("fma")
     return out
+
+
+def _backward(q, k, v, logi, logf, h, dh, c, rounded: bool):
+    """(dq, dk, dv, dlogi, dlogf) from one launch of the backward kernel
+    (module docstring): q, k, v, the gates and the forward's output ``h``
+    read in place, the cotangent ``dh`` copied to a contiguous tensor only
+    if it has no unit stride along P or is broadcast; ``rounded``: the
+    wgmma route's roundings."""
+    B, S, H, P = q.shape
+    if B * H > _MAX_GRID:
+        raise ValueError(f"B*H = {B * H} exceeds the kernel's grid "
+                         f"({_MAX_GRID})")
+    if dh.stride(-1) != 1 or 0 in dh.stride():
+        dh = dh.contiguous()
+    dq, dk, dv = (torch.empty((B, S, H, P), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dli, dlf = (torch.empty((B, S, H), **f32) for _ in range(2))
+    if dq.numel() == 0:
+        return dq, dk, dv, dli.zero_(), dlf.zero_()
+    n, bh = S // c, B * H
+    npt, nct = -(-P // _TILE), -(-(P + 1) // _TILE)
+    rows = torch.empty((bh, _BWD_ROWS, S), **f32)
+    chunks = torch.empty((bh, 3, n), **f32)
+    states = torch.empty((bh, n, P, P + 1), **f32)
+    grads = torch.empty((bh, n, P, P + 1), **f32)
+    sc, dsc, ec = (torch.empty((bh, S, c), **f32) for _ in range(3))
+    part = torch.empty((bh, 2, npt, S), **f32)
+    dpart = torch.empty((bh, n, npt * nct), **f32)
+    strides = (ctypes.c_longlong * 21)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *h.stride()[:3],
+        *dh.stride()[:3], *_gate_strides(logi, logf))
+    lib = _LIBS["bwd"].load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mlstm_chunk_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), h.data_ptr(),
+            dh.data_ptr(), logi.data_ptr(), logf.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dli.data_ptr(), dlf.data_ptr(),
+            rows.data_ptr(), chunks.data_ptr(), states.data_ptr(),
+            grads.data_ptr(), sc.data_ptr(), dsc.data_ptr(), ec.data_ptr(),
+            part.data_ptr(), dpart.data_ptr(), _DTYPES[q.dtype], B, S, H, P,
+            c, strides, int(rounded), stream)
+    if err != 0:
+        raise RuntimeError(f"mlstm_chunk backward kernel launch failed: "
+                           f"CUDA error {err}")
+    _count("bwd")
+    return dq, dk, dv, dli, dlf
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """xLSTM blocks: mLSTM (matrix memory) and sLSTM (scalar memory), from
 ``repro.models.xlstm`` (the ``*_axes`` functions are mesh-only and have
-no counterpart).  Autograd differentiates it on CPU tensors; on the card
-the mLSTM kernel has no backward yet and refuses a gradient (ROADMAP
-queue A, item 15b).
+no counterpart).  Autograd differentiates it: on the card the mLSTM
+sequence pass through its backward kernel (``ops.mlstm_chunk``'s
+``autograd.Function``), on CPU tensors through the plain version.
 
 arXiv:2405.04517.  The 1.3B config interleaves 7 mLSTM : 1 sLSTM.
 
@@ -213,19 +213,31 @@ def slstm_init_state(batch: int, cfg: ModelConfig, *, device,
                       m=torch.full(shape, NEG_INF, **f32))
 
 
+def _rec_weight(params):
+    """The recurrent weights [4, nb, bs, bs] in float32, laid out for the
+    cell's batched product: [nb, bs, 4 bs], block n's four gates side by
+    side."""
+    w = params["w_rec"].float()
+    g, nb, bs, _ = w.shape
+    return w.permute(1, 2, 0, 3).reshape(nb, bs, g * bs)
+
+
 def _slstm_cell(params, x_t, state: SlstmState, cfg: ModelConfig,
                 w_rec=None):
     """One sLSTM step.  x_t [B, 4d] (pre-projected input gates).
-    ``w_rec`` is ``params["w_rec"]`` in float32, cast once by a caller
-    that loops over time."""
+    ``w_rec`` is ``_rec_weight(params)``, laid out once by a caller that
+    loops over time: an einsum against ``params["w_rec"]`` copies the
+    permuted weight at every step, and autograd keeps every copy (16 MB a
+    step at xlstm-1.3b's width, 64 GB over 4096 steps)."""
     d = cfg.d_model
     nb = N_SLSTM_BLOCKS
     bs = d // nb
     B = state.h.shape[0]
     if w_rec is None:
-        w_rec = params["w_rec"].float()
-    hb = state.h.reshape(B, nb, bs)
-    rec = torch.einsum("bnk,gnkl->bgnl", hb.float(), w_rec).reshape(B, 4 * d)
+        w_rec = _rec_weight(params)
+    hb = state.h.float().reshape(B, nb, bs).transpose(0, 1)   # [nb, B, bs]
+    rec = torch.bmm(hb, w_rec).reshape(nb, B, 4, bs)          # n b g l
+    rec = rec.permute(1, 2, 0, 3).reshape(B, 4 * d)           # b (g n l)
     g = x_t.float() + rec + params["bias"]
     gi, gf, gz, go = torch.split(g, d, dim=-1)
     log_f = -F.softplus(-gf)                          # log sigmoid(f)
@@ -242,7 +254,7 @@ def slstm_scan(params, u, cfg: ModelConfig):
     """The time loop.  u [B,S,d] -> (h [B,S,d] float32, final state)."""
     B, S, _ = u.shape
     x_gates = dense_apply({"w": params["w_in"]}, u)      # [B,S,4d]
-    w_rec = params["w_rec"].float()                      # hoisted
+    w_rec = _rec_weight(params)                          # hoisted
     state = slstm_init_state(B, cfg, device=u.device)
     hs = []
     for t in range(S):

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops, ref
 from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
+from repro_torch.kernels.mlstm_chunk import ref as mlstm_ref
 
 REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 REL_ROUNDED = 5e-3          # the wgmma route against its rounded plain version
@@ -173,12 +174,19 @@ def test_gradient_path_on_the_fma_route_takes_the_default_tile(cuda):
 
 
 @pytest.mark.cuda
-def test_mlstm_refuses_a_gradient_on_the_card(cuda):
+def test_mlstm_gives_a_gradient_on_the_card(cuda):
+    """The mLSTM kernel's backward (``tests/test_torch_mlstm_backward_cuda.py``
+    holds it in full): a call with a gradient asked returns dq equal to the
+    plain version's within 1e-5."""
     shape = (1, 64, 2, 32)
-    q = torch.randn(shape, device=cuda, requires_grad=True)
-    k = torch.randn(shape, device=cuda)
-    g = torch.randn(shape[:3], device=cuda)
-    with pytest.raises(ValueError, match="15b"):
-        mlstm_ops.mlstm_chunk(q, k, k, g, -g.abs(), chunk=64)
-    with torch.no_grad():
-        mlstm_ops.mlstm_chunk(q, k, k, g, -g.abs(), chunk=64)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(shape, device=cuda, generator=gen, requires_grad=True)
+    k = torch.randn(shape, device=cuda, generator=gen) / 32 ** 0.5
+    g = torch.randn(shape[:3], device=cuda, generator=gen)
+    lf = -torch.nn.functional.softplus(-g)
+    h = mlstm_ops.mlstm_chunk(q, k, k, g, lf, chunk=64)
+    dh = torch.randn(shape, device=cuda, generator=gen)
+    (dq,) = torch.autograd.grad(h, q, dh)
+    want = mlstm_ref.mlstm_chunkwise_grads(q.detach(), k, k, g, lf,
+                                           h.detach(), dh, 64)[0]
+    assert float((dq - want).norm() / want.norm()) <= 1e-5
