@@ -18,7 +18,10 @@ Phases (any failure exits non-zero before the result line):
    its plain version and of that formula in float64, and at the cases
    with n = m of autograd through the plain Matérn (recorded elsewhere);
    a planted fault (the formula without its (1+s) factor) above each
-   limit; two calls bit-equal; timed at the fit's Gram [64,16].
+   limit; two calls bit-equal; timed at the fit's Gram [64,16], a daemon
+   session's [64,327] and the multi-task prior's [128,327] (the forward
+   and cross there too), with their bounds; at [64,327] the backward's
+   device time must be below its plain version's.
 3. main path: ``Sapphire(arch="yi-6b", shape="train_4k").tune()`` at the
    paper's budgets with ``batch_size`` 1 and 8; the kernel launch counters
    (forward, cross and backward) are zeroed before each run and must have
@@ -95,7 +98,8 @@ Phases (any failure exits non-zero before the result line):
    sessions repeat each other's probes, recorded beside the fit's
    sensitivity to one ulp of its inputs); an xlstm-1.3b one
    (another space signature) gets no corpus.  One GP round at d = 327
-   under the profiler.  ``benchmarks/perf_transfer.py``'s full folds
+   under the profiler: wall, device busy, idle share, and the Gram
+   forward's and backward's shares of the device time.  ``benchmarks/perf_transfer.py``'s full folds
    through the port (no-corpus identity; every fold at 0.99 of the scratch
    best within 60 % of the budget of 16).  A BO session at 20 % transient
    faults (``FaultInjectingService``) bit-identical to the fault-free one.
@@ -343,6 +347,7 @@ MAIN_GRAM = (64, 64, 16)
 MAIN_CROSS = (2384, 64, 16)
 SERVICE_GRAM = (64, 64, 327)
 SERVICE_CROSS = (3939, 64, 327)
+MTGP_GRAM = (128, 128, 327)   # the multi-task prior: two tasks of 64 rows
 
 # phase 10: the tuning daemon, as benchmarks/perf_tuning_service.py sets
 # it up (8 clients, two workloads, one recipe per workload) at BOConfig's
@@ -747,7 +752,7 @@ def phase_kernels(card: str):
             b_ms, b_by = gram_bound(*shape, gram=kind == "gram")
             dev_ms = {}
             if shape in (MAIN_GRAM, MAIN_CROSS, SERVICE_GRAM,
-                         SERVICE_CROSS):
+                         SERVICE_CROSS, MTGP_GRAM):
                 dev_ms = {"device_ms": gram_device_ms(kind, fn, args,
                                                       shape),
                           "plain_device_ms": gram_device_ms(
@@ -812,7 +817,9 @@ def phase_kernels(card: str):
 def phase_gram_bwd(gen, dev):
     """The backward kernel at every case's Gram against its plain version,
     that formula in float64 and autograd through the plain Matérn, with a
-    planted fault; two calls bit-equal; timed at the fit's Gram."""
+    planted fault; two calls bit-equal; timed at the fit's Gram, a daemon
+    session's and the multi-task prior's, where a daemon session's device
+    time must be below its plain version's."""
     import torch
     from repro_torch.kernels.gp_gram import ops, ref
 
@@ -865,7 +872,7 @@ def phase_gram_bwd(gen, dev):
         check(min(f_plain, f_exact, f_auto) > GRAM_BWD_REL,
               f"gram_bwd n={n} d={d}: the planted fault reads "
               f"{f_plain} / {f_exact} / {f_auto}, within the limit")
-        if (n, n, d) in (MAIN_GRAM, SERVICE_GRAM):
+        if (n, n, d) in (MAIN_GRAM, SERVICE_GRAM, MTGP_GRAM):
             k_ms = cuda_ms(lambda: ops.matern52_gram_bwd(*args))
             p_ms = cuda_ms(lambda: ref.matern52_gram_bwd(*args))
             b_ms, b_by = gram_bwd_bound(n, d)
@@ -879,7 +886,7 @@ def phase_gram_bwd(gen, dev):
             if (n, n, d) == MAIN_GRAM:
                 out.update(t)
             else:
-                out["service"] = t
+                out["service" if (n, n, d) == SERVICE_GRAM else "mtgp"] = t
             print(f"  gram_bwd n={n:5d} d={d:3d}: kernel_ms={k_ms:.5f} "
                   f"plain_ms={p_ms:.5f} bound_ms={b_ms:.7f} ({b_by}) "
                   f"library_ms=none device_ms={t['device_ms']:.7f} "
@@ -888,6 +895,10 @@ def phase_gram_bwd(gen, dev):
     out["rel_l2"], out["max_abs_err"] = worst, worst_abs
     print(f"  gram_bwd max |kernel - plain| over the cases: {worst_abs:.3e}",
           flush=True)
+    svc = out["service"]
+    check(svc["device_ms"] < svc["plain_device_ms"],
+          f"gram_bwd {SERVICE_GRAM}: device ms {svc['device_ms']} not below "
+          f"the plain version's {svc['plain_device_ms']}")
     return out
 
 
@@ -2117,10 +2128,14 @@ def chaos_arm(device: str, plan):
 def gp_round_327(card: str):
     """One GP round of a daemon session at d = 327 (a 150-step fit at 56
     observations padded to 64, then the q = 1 pick over 2048 + 256 + 5·327
-    candidates) under ``torch.profiler``: wall, device busy, idle share."""
+    candidates) under ``torch.profiler`` (a session that recorded every
+    backward launch, ``whole_profile``): wall, device busy, idle share,
+    and the Gram forward's (``matern52_kernel``: the fit's Gram and the
+    pick's cross-Gram) and backward's shares of the device time."""
     import numpy as np
     import torch
     from repro_torch.core import gp
+    from repro_torch.kernels.gp_gram import ops
     n, d = 56, SERVICE_GRAM[2]
     rng = np.random.default_rng(1)
     x = rng.random((n, d))
@@ -2142,23 +2157,42 @@ def gp_round_327(card: str):
     round_()
     torch.cuda.synchronize()
     wall_unprofiled = (time.perf_counter() - t0) * 1e3
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    walls, rises = [], []
+
+    def timed():
+        before = (ops.gram_launches, ops.cross_launches,
+                  ops.gram_bwd_launches)
         t0 = time.perf_counter()
         round_()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.device_time for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        walls.append((time.perf_counter() - t0) * 1e3)
+        rises.append((ops.gram_launches - before[0],
+                      ops.cross_launches - before[1],
+                      ops.gram_bwd_launches - before[2]))
+    _, by_name = whole_profile(
+        timed, (("matern52_gram_bwd_kernel", lambda: ops.gram_bwd_launches,
+                 1),), what=f"GP round at d={d}")
+    busy = sum(us for us, _ in by_name.values()) / 1e3
     check(busy > 0, "GP round at d=327: no device time profiled")
+    wall = walls[-1]
     idle = 1 - busy / wall
+    share = {kind: sum(us for name, (us, _) in by_name.items()
+                       if key in name) / 1e3 / busy
+             for kind, key in (("forward", "matern52_kernel"),
+                               ("backward", "matern52_gram_bwd"))}
+    gram, cross, bwd = rises[-1]
     print(f"GP round at d={d} (fit 150 steps [64,{d}], q=1 over "
           f"{SERVICE_CROSS[0]} candidates) on {card}: unprofiled wall "
           f"{wall_unprofiled:.3f} ms; profiled wall {wall:.3f} ms, device "
-          f"busy {busy:.3f} ms, idle share {idle:.4f}", flush=True)
+          f"busy {busy:.3f} ms, idle share {idle:.4f}; Gram forward "
+          f"(matern52_kernel: {gram} Gram + {cross} cross launches) "
+          f"{share['forward']:.4f} and backward ({bwd} launches) "
+          f"{share['backward']:.4f} of the device time", flush=True)
     return {"wall_ms": wall_unprofiled, "profiled_wall_ms": wall,
-            "busy_ms": busy, "idle_share": idle}
+            "busy_ms": busy, "idle_share": idle,
+            "forward_share": share["forward"],
+            "backward_share": share["backward"],
+            "launches": {"gram": gram, "cross": cross, "gram_bwd": bwd}}
 
 
 def mtgp_fits(p0, x, tasks, y, extra, steps: int):
@@ -4724,6 +4758,7 @@ def main() -> None:
                                    ("cross", MAIN_CROSS, SERVICE_CROSS)):
         k_ms, p_ms, b_ms, b_by, dev_ms = timing[(kind, shape)]
         s_ms, s_p_ms, s_b_ms, s_b_by, s_dev = timing[(kind, svc_shape)]
+        m_ms, m_p_ms, m_b_ms, m_b_by, m_dev = timing[(kind, MTGP_GRAM)]
         kernels.append({
             "name": f"matern52_{kind}", "route": "cuda",
             "source": GRAM_SOURCE, "replaces": GRAM_REPLACES,
@@ -4737,6 +4772,10 @@ def main() -> None:
             "phase10_bound_by": s_b_by,
             "phase10_device_ms": s_dev["device_ms"],
             "phase10_plain_device_ms": s_dev["plain_device_ms"],
+            "mtgp_shape": list(MTGP_GRAM), "mtgp_ms": m_ms,
+            "mtgp_plain_ms": m_p_ms, "mtgp_bound_ms": m_b_ms,
+            "mtgp_bound_by": m_b_by, "mtgp_device_ms": m_dev["device_ms"],
+            "mtgp_plain_device_ms": m_dev["plain_device_ms"],
             "launches_phase11": autotune["launches"]["gp_gram"],
             "tiles_phase11": autotune["tiles"]["gp_gram"],
             "tuned_phase11": autotune["tuned"]["gp_gram"],
@@ -4762,7 +4801,10 @@ def main() -> None:
         "phase10_bound_by": svc_bwd["bound_by"],
         "phase10_device_ms": svc_bwd["device_ms"],
         "phase10_plain_device_ms": svc_bwd["plain_device_ms"],
+        "mtgp_shape": [MTGP_GRAM[0], MTGP_GRAM[2]],
+        **{f"mtgp_{k}": v for k, v in bwd["mtgp"].items()},
         "mtgp_step_us": service["mtgp"]["step_us"],
+        "gp_round_327": service["round327"],
     })
     # flash's launches on every main path, each counted from 0: yi-6b's
     # 4k prefill (phase 6), qwen2-moe's, the jamba cut's and whisper's

@@ -54,7 +54,15 @@ _LIB = NvccLibrary("gp_gram", SOURCE, {
     "matern52_gram_bwd_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
     + [ctypes.c_void_p]})
 _MAX_GRID_Y = 65535             # grid.y limit: rows / block_n tiles
-_BWD_ROWS = 64                  # rows of i per block of the backward kernel
+# the backward's launch (csrc: matern52_gram_bwd_launch): up to
+# EXPANDED_MAX_D features and beyond _WIDE_MAX_D one block per _BWD_ROWS
+# rows of i; in between the wide kernel, pair tiles of _WIDE_TILE in
+# clusters of _WIDE_CLUSTER blocks, at most _WIDE_MAX_CLUSTERS of them
+_BWD_ROWS = 64                  # kBwdRows
+_WIDE_MAX_D = 512               # kWideMaxD
+_WIDE_TILE = (16, 16)           # kWideRows, kWideCols
+_WIDE_CLUSTER = 16              # kWideCluster
+_WIDE_MAX_CLUSTERS = 16         # kWideMaxClusters
 
 # the forward's instantiations: (block_n, block_m, num_warps), each with a
 # cp.async ring of 1 to 4 d chunks (pipeline); the default launch first
@@ -186,6 +194,23 @@ def resolve_tiles(block=None, block_m=None, num_warps=None,
     return bn, bm, nw, st
 
 
+def bwd_grid(n: int, d: int) -> tuple:
+    """(blocks, partial rows) of the backward kernel's launch for x [n, d]:
+    the grid the CUDA launcher takes, and the rows of its [rows, d + 1]
+    scratch (0: none, one launch; else a second, one-block launch adds
+    them in order).  A pure function of the shape (no device is
+    touched)."""
+    if n <= 0:
+        return 0, 0
+    if ref.EXPANDED_MAX_D < d <= _WIDE_MAX_D:
+        rows, cols = _WIDE_TILE
+        tiles = -(-n // rows) * -(-n // cols)
+        clusters = min(-(-tiles // _WIDE_CLUSTER), _WIDE_MAX_CLUSTERS)
+        return clusters * _WIDE_CLUSTER, clusters if clusters > 1 else 0
+    tiles = -(-n // _BWD_ROWS)
+    return tiles, tiles if tiles > 1 else 0
+
+
 def _launch(xa, xb, lengthscale, signal_var, kind: str,
             tiles: tuple = DEFAULT_TILES):
     """The forward kernel on checked CUDA tensors: [n, m]."""
@@ -219,9 +244,9 @@ def _launch_bwd(x, lengthscale, signal_var, g):
     out = torch.empty((d + 1,), dtype=torch.float32, device=x.device)
     if n == 0:
         return out.zero_()
-    tiles = (n + _BWD_ROWS - 1) // _BWD_ROWS
-    partial = (torch.empty((tiles, d + 1), dtype=torch.float32,
-                           device=x.device) if tiles > 1 else None)
+    rows = bwd_grid(n, d)[1]
+    partial = (torch.empty((rows, d + 1), dtype=torch.float32,
+                           device=x.device) if rows else None)
     sv = _sv_tensor(signal_var, x.device)
     lib = _LIB.load()
     with torch.cuda.device(x.device):

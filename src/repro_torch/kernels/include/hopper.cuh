@@ -2,8 +2,9 @@
 // loads, wgmma shared-memory descriptors, the wgmma products and their
 // fences, and register reallocation between warpgroups; on the host, the
 // TMA tensor maps of bf16 tensors.  Shared by the port's tensor-core
-// kernels (flash_attention_wgmma.cu, mlstm_chunk_wgmma.cu), which
-// kernels/build.py compiles with this directory on the include path.
+// kernels (flash_attention_wgmma.cu, mlstm_chunk_wgmma.cu) and the Gram's
+// staging of wide rows (gp_gram.cu), which kernels/build.py compiles with
+// this directory on the include path.
 #pragma once
 
 #include <cstdint>
@@ -67,6 +68,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(tmap)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// copies `bytes` (a multiple of 16) of contiguous global memory at `src`
+// into shared memory at `dst`, both 16-byte aligned; completion is counted
+// on `bar` in bytes
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -199,3 +199,47 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     with pytest.raises((TypeError, ValueError)):
         ops.matern52_cross(x, torch.rand((5, 4)) if bad != "width" else x,
                            ls, sv)
+
+
+# ops.bwd_grid(n, d): (blocks, partial rows) of the backward's launch.  Up
+# to 64 features (and beyond the wide kernel's 512) one block per 64 rows
+# of i, whose partials a second launch adds when there are two or more;
+# from 65 to 512 features the wide kernel: 16 x 16 pair tiles shared out
+# over clusters of 16 blocks, at most 16 clusters, whose partials a second
+# launch adds when there are two or more
+BWD_GRID = {
+    **{(n, d): grid for d in (16, 64) for n, grid in (
+        (1, (1, 0)), (8, (1, 0)), (56, (1, 0)), (64, (1, 0)),
+        (65, (2, 2)), (128, (2, 2)), (300, (5, 5)))},
+    **{(n, d): grid for d in (65, 327, 332) for n, grid in (
+        (1, (16, 0)), (8, (16, 0)), (56, (16, 0)), (64, (16, 0)),
+        (65, (32, 2)), (128, (64, 4)), (300, (256, 16)))},
+}
+
+
+@pytest.mark.parametrize("n, d", sorted(BWD_GRID), ids=lambda v: str(v))
+def test_backward_grid_and_scratch(n, d):
+    assert ops.bwd_grid(n, d) == BWD_GRID[n, d]
+
+
+def test_backward_grid_beyond_the_wide_kernel_and_empty():
+    assert ops.bwd_grid(64, 512) == (16, 0)
+    assert ops.bwd_grid(64, 513) == (1, 0)
+    assert ops.bwd_grid(130, 600) == (3, 3)
+    assert ops.bwd_grid(0, 327) == (0, 0)
+
+
+def test_backward_grid_mirrors_the_cuda_source():
+    """The launcher's constants in ``gp_gram.cu`` are the ones
+    :func:`ops.bwd_grid` sizes the scratch by."""
+    import re
+    src = ops.SOURCE.read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert const("kBwdRows") == ops._BWD_ROWS
+    assert const("kExpandedMaxD") == tref.EXPANDED_MAX_D
+    assert const("kWideMaxD") == ops._WIDE_MAX_D
+    assert (const("kWideRows"), const("kWideCols")) == ops._WIDE_TILE
+    assert const("kWideCluster") == ops._WIDE_CLUSTER
+    assert const("kWideMaxClusters") == ops._WIDE_MAX_CLUSTERS

@@ -15,6 +15,11 @@ backward kernel's (dL/dlengthscale, dL/dsignal_var) is held to relative
 L2 1e-3 of its plain version and of that formula in float64 at every
 case, and of autograd through the plain Matérn at the cases with n = m,
 as ``chip_smoke.py`` holds it, and must give the same bits twice.
+Beyond 64 features the backward is the wide kernel (pair tiles over a
+cluster of blocks): held the same way at the tuning daemon's shapes (56
+observations padded to 64, the multi-task prior's 128 rows, a ragged 65),
+where a planted fault (w without its (1 + s)) must land above the limit;
+and every forward tiling stays bit-equal to the default launch there.
 Autograd differentiates the expanded |a|²+|b|²−2a·b: with repeated rows
 its gradient of a zero distance is rounding noise, which read 1.2e-2
 against the kernel at n = 300, d = 40 (NVIDIA H100 80GB HBM3), where the
@@ -196,3 +201,66 @@ def test_gram_autograd_runs_the_backward_kernel(cuda):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     with pytest.raises(ValueError):
         ops.matern52_gram(x.clone().requires_grad_(True), ls_, sv_)
+
+
+def _without_one_plus_s(x, ls, sv, g):
+    """A planted fault: the plain backward with w missing its (1 + s)."""
+    d2 = tref.sqdist(x, x, 1.0 / ls)
+    pos = d2 > 1e-12
+    s = tref.SQRT5 * torch.where(pos, torch.sqrt(torch.where(pos, d2, 1.0)),
+                                 0.0)
+    e = torch.exp(-s)
+    w = torch.where(pos, g * (5.0 / 3.0) * sv * e, 0.0)
+    diff = x[:, None, :] - x[None, :, :]
+    dls = torch.einsum("ij,ijk->k", w, diff * diff) / ls ** 3
+    return dls, torch.sum(g * (1.0 + s + s * s / 3.0) * e)
+
+
+# the tuning daemon's backward shapes (n, d): a session's fit (56
+# observations padded to 64 with pad rows, at 327 and 332 knobs), the
+# multi-task prior's two 64-row tasks, and a ragged edge
+DAEMON_BWD = [(64, 327), (64, 332), (128, 327), (65, 327)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DAEMON_BWD, ids=lambda c: f"n{c[0]}d{c[1]}")
+def test_wide_backward_matches_plain_and_float64(case, cuda):
+    n, d = case
+    x, ls, sv, g = _grad_inputs(n, d, 7 * n + d, cuda)
+    assert bool((x[-8:] == 0.5).all())            # the fit's pad rows
+    before = ops.gram_bwd_launches
+    got = ops.matern52_gram_bwd(x, ls, sv, g)
+    again = ops.matern52_gram_bwd(x, ls, sv, g)
+    plain = tref.matern52_gram_bwd(x, ls, sv, g)
+    exact = tref.matern52_gram_bwd(*(t.double() for t in (x, ls, sv, g)))
+    fault = _without_one_plus_s(x, ls, sv, g)
+    torch.cuda.synchronize()
+    assert ops.gram_bwd_launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for w in (plain, exact):
+        assert _rel(got[0], w[0]) <= GRAD_REL
+        assert _rel(got[1], w[1]) <= GRAD_REL
+        assert _rel(fault[0], w[0]) > GRAD_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, m", [(64, 64), (3939, 64)],
+                         ids=lambda v: str(v))
+def test_every_forward_tiling_is_bit_equal_at_the_daemons_width(n, m, cuda):
+    d = 327
+    xa, xb, ls = _inputs(n, m, d, n + m, cuda)
+    xb[:3] = xa[:3]                               # r = 0 entries
+    sv = torch.tensor(1.3, device=cuda)
+    base = ops.matern52_cross(xa, xb, ls, sv)
+    gbase = ops.matern52_gram(xb, ls, sv)
+    tiles = ops.supported_tiles()
+    for bn in tiles["block_n"]:
+        for bm in tiles["block_m"]:
+            for nw in tiles["num_warps"]:
+                for st in tiles["pipeline"]:
+                    kw = dict(block=bn, block_m=bm, num_warps=nw,
+                              pipeline=st)
+                    assert torch.equal(
+                        ops.matern52_cross(xa, xb, ls, sv, **kw), base), kw
+                    assert torch.equal(
+                        ops.matern52_gram(xb, ls, sv, **kw), gbase), kw

@@ -14,16 +14,19 @@ gp_gram.cu``, ``.../flash_attention/csrc/flash_attention_wgmma.cu`` and
 must export this tree's interfaces: the tile knobs and the flash
 forwards' log-sum-exp pointer, which the serving launches leave null
 (the tree of commit 1130823 on); each is built as its own library under
-``build/``.  Shapes: the Gram forward at the
+``build/``, all at once.  Shapes: the Gram forward at the
 tuner's [64, 16] and [2384, 16] x [64, 16] and the daemon's [64, 327] and
-[3939, 327] x [64, 327]; flash at yi-6b's bf16 prefill (B 2, S 4096, H
+[3939, 327] x [64, 327]; the Gram's backward at the fit's [64, 16] (the
+same bits) and the daemon's [64, 327] (timed only: its bits may differ
+from an earlier tree's, so the relative L2 between the two is printed);
+flash at yi-6b's bf16 prefill (B 2, S 4096, H
 32, Kh 4, D 128, causal) on the wgmma route and in float32 on the FMA
 route (B 1, S 2048, same heads); mLSTM at xlstm-1.3b's bf16 layer (B 2,
 S 4096, H 4, P 1024, chunk 256).  Device time per call from
 ``torch.profiler`` (200 calls of the Gram, 20 of the others; an mLSTM
 call is its four passes).  Prints the card's name and power limit first;
-exits non-zero without a GPU or when the bits differ.  Imports nothing of
-JAX.
+exits non-zero without a GPU or when the bits differ where they must
+not.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -32,19 +35,24 @@ import ctypes
 import math
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 GRAM_SHAPES = ((64, 64, 16), (2384, 64, 16), (64, 64, 327),
                (3939, 64, 327))
+# the backward's shapes (n, d), and whether its bits must equal the
+# earlier tree's
+GRAM_BWD_SHAPES = (((64, 16), True), ((64, 327), False))
 FLASH_SHAPE = (2, 4096, 32, 4, 128)      # B, S, H, Kh, D
 FLASH_FMA_SHAPE = (1, 2048, 32, 4, 128)  # float32, the FMA route
 MLSTM_SHAPE = (2, 4096, 4, 1024, 256)    # B, S, H, P, chunk
 
 
-def _turns(label, launch, outs, calls):
+def _turns(label, launch, outs, calls, exact=True):
     """Device µs per launch of launch["old"] / ["new"] in turns, and
-    whether their outputs are bit-equal."""
+    whether their outputs are bit-equal (``exact``; else the relative L2
+    between them is printed and the check passes)."""
     import torch
     import chip_smoke
     launch["old"]()
@@ -55,10 +63,12 @@ def _turns(label, launch, outs, calls):
     for name in ("old", "new", "new", "old"):
         us[name].append(chip_smoke.device_ms(launch[name], calls=calls)
                         * 1e3)
+    rel = chip_smoke.rel_l2(outs["new"], outs["old"])
     print(f"{label} default launch, device us per launch: earlier "
-          f"{us['old']}, this tree {us['new']}; bit-equal {same}",
+          f"{us['old']}, this tree {us['new']}; bit-equal {same}"
+          + ("" if exact else f", relative L2 {rel:.3e} (timed only)"),
           flush=True)
-    return same
+    return same or not exact
 
 
 def main() -> None:
@@ -94,10 +104,15 @@ def main() -> None:
         "mlstm_chunk_parent",
         parent / "mlstm_chunk" / "csrc" / "mlstm_chunk_wgmma.cu",
         mlstm_ops._LIBS["wgmma"].functions)
-    old_g, new_g = old_gram.load(), gram_ops._LIB.load()
-    old_f, new_f = old_flash.load(), flash_ops._LIBS["wgmma"].load()
-    old_a, new_a = old_fma.load(), flash_ops._LIBS["fma"].load()
-    old_m, new_m = old_mlstm.load(), mlstm_ops._LIBS["wgmma"].load()
+    pairs = [(old_gram, gram_ops._LIB),
+             (old_flash, flash_ops._LIBS["wgmma"]),
+             (old_fma, flash_ops._LIBS["fma"]),
+             (old_mlstm, mlstm_ops._LIBS["wgmma"])]
+    with ThreadPoolExecutor(2 * len(pairs)) as pool:
+        list(pool.map(lambda lib: lib.build(),
+                      [lib for pair in pairs for lib in pair]))
+    (old_g, new_g), (old_f, new_f), (old_a, new_a), (old_m, new_m) = (
+        (old.load(), new.load()) for old, new in pairs)
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
     ok = True
@@ -114,6 +129,26 @@ def main() -> None:
                 *args, outs[key].data_ptr(), n, m, d,
                 *gram_ops.DEFAULT_TILES, stream))(lib, key)
             for key, lib in (("old", old_g), ("new", new_g))}, outs, 200)
+
+    for (n, d), exact in GRAM_BWD_SHAPES:
+        x = torch.rand((n, d), generator=gen, device="cuda")
+        x[-8:] = 0.5                      # the fit's pad rows
+        ls = 0.1 + 0.9 * torch.rand((d,), generator=gen, device="cuda")
+        sv = torch.full((1,), 1.7, device="cuda")
+        g = torch.randn((n, n), generator=gen, device="cuda")
+        # scratch for either tree's launch (an earlier tree: ceil(n / 64)
+        # rows when n > 64)
+        rows = max(1, -(-n // 64), gram_ops.bwd_grid(n, d)[1])
+        partial = torch.empty((rows, d + 1), device="cuda")
+        outs = {key: torch.empty((d + 1,), device="cuda")
+                for key in ("old", "new")}
+        args = [x.data_ptr(), ls.data_ptr(), sv.data_ptr(), g.data_ptr(),
+                partial.data_ptr()]
+        ok &= _turns(f"gp_gram backward [{n},{d}]", {
+            key: (lambda lib, key: lambda: lib.matern52_gram_bwd_launch(
+                *args, outs[key].data_ptr(), n, d, stream))(lib, key)
+            for key, lib in (("old", old_g), ("new", new_g))}, outs, 200,
+            exact=exact)
 
     B, S, H, Kh, D = FLASH_SHAPE
     q, k, v = (torch.randn(s, generator=gen, device="cuda").bfloat16()
