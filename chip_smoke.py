@@ -192,29 +192,36 @@ Phases (any failure exits non-zero before the result line):
    reference attention within the same limits, 4 steps with 12 forward
    launches and 12 backward sets each (bf16 on the wgmma backward,
    float32 on the FMA one).
-   The mLSTM backward kernel (``mlstm_chunk_bwd.cu``, through
-   ``mlstm_chunk``'s ``autograd.Function``) over ``MLSTM_BWD_CASES``:
-   xlstm-1.3b's layer at the train step's microbatch (1,4096,4,1024),
-   chunk 256, bf16 (after the wgmma forward), smaller bf16 cases on both
-   forward routes and float32 ones; relative L2 of dq, dk, dv, d logi, d
-   logf within 1e-2 (bf16) and 1e-5 (float32) of
-   ``ref.mlstm_chunkwise_grads`` and, after the wgmma forward, within 5e-3
-   of ``mlstm_chunkwise_grads(operand_dtype=bfloat16)``; a planted fault
-   (d logf one row off) above each limit; two calls bit-equal; one launch
-   a call.  At the layer shape it is timed once (CUDA events, profiler
-   device time) beside its plain version, with its bound.  Then
+   The mLSTM backward kernels (through ``mlstm_chunk``'s
+   ``autograd.Function``, which takes the forward's route) over
+   ``MLSTM_BWD_CASES``: xlstm-1.3b's layer at the train step's microbatch
+   (1,4096,4,1024), chunk 256, and smaller bf16 cases after the wgmma
+   forward (``mlstm_chunk_bwd_wgmma.cu``, the tensor cores), bf16 after
+   the FMA forward and float32 (``mlstm_chunk_bwd.cu``, fp32 FMAs);
+   relative L2 of dq, dk, dv, d logi, d logf within 1e-2 (bf16) and 1e-5
+   (float32) of ``ref.mlstm_chunkwise_grads`` and, on the wgmma route,
+   within 5e-3 of ``mlstm_chunkwise_grads(operand_dtype=bfloat16,
+   grad_operand_dtype=bfloat16)``; at the wgmma cases the FMA backward
+   too, called directly with the forward's roundings, within 1e-2 and
+   5e-3 of ``operand_dtype=bfloat16``; a planted fault (d logf one row
+   off) above each limit; two calls bit-equal; each route's launch
+   counter; ptxas must report no spill in the wgmma backward.  At the
+   layer shape both routes are timed in turns (CUDA events; profiler
+   device time, kernel by kernel) beside the plain version, with the
+   bound.  Then
    ``Model(xlstm-1.3b full width, 8 of 48 layers: 7 mLSTM, 1 sLSTM)``
    trained as yi-6b (AdamW, 2 x 4096 tokens, microbatch 1, remat
    ``block``, chunk 256), the sLSTM's recurrent weights x0.1: exactly 28
    wgmma forward launches (7 x 2 microbatches x forward and recompute),
-   no FMA one and 14 backward launches in each of 2 steps; step 1's loss
-   within 1e-2 of the same step's with the mLSTM's plain version
-   (``ref.mlstm_chunkwise`` through autograd on the card), and each of
-   its 14 backward launches on its own inputs within 1e-2 / 5e-3 of the
-   plain versions; step 2's time, tokens/s, peak memory, a profiled
-   microbatch's device shares (mLSTM forward, mLSTM backward, cuBLAS,
-   other) with every mLSTM kernel recorded, the idle share.  A microbatch
-   of the same cell in float32 (FMA forward): loss and every gradient
+   no FMA one and 14 wgmma backward launches (no FMA one) in each of 2
+   steps; step 1's loss within 1e-2 of the same step's with the mLSTM's
+   plain version (``ref.mlstm_chunkwise`` through autograd on the card),
+   and each of its 14 backward launches on its own inputs within 1e-2 /
+   5e-3 of the plain versions (the latter with both keywords); step 2's
+   time, tokens/s, peak memory, a profiled microbatch's device shares
+   (mLSTM forward, mLSTM backward, cuBLAS, other) with every mLSTM kernel
+   recorded, the idle share.  A microbatch of the same cell in float32
+   (FMA forward and backward): loss and every gradient
    within 1e-2 and 2e-2 of the plain mLSTM's (in bf16 the stack's
    gradient moves ~100x a forward perturbation, so no model-level
    gradient limit holds there: ``tools/xlstm_grad_sensitivity.py``).
@@ -525,7 +532,7 @@ def whole_profile(fn, counted=(), cpu: bool = True, what: str = "",
 
 
 def device_ms(fn, calls: int = 20, counted=(), what: str = "device_ms",
-              fresh=None, detail: bool = False):
+              fresh=None, detail: bool = False, breakdown=None):
     """Mean device time per call, in ms: the summed duration of the CUDA
     kernels ``fn`` launches, from ``torch.profiler`` (host time excluded),
     over a session that recorded them all (``whole_profile``: ``counted``
@@ -533,7 +540,8 @@ def device_ms(fn, calls: int = 20, counted=(), what: str = "device_ms",
     no session is whole, ``fresh()`` measures the same in a new process
     (a session there has recorded the same window whole where this
     process's did not, PERF §7); fails when neither can.  ``detail``
-    prints each kernel's device ms per call."""
+    prints each kernel's device ms per call; ``breakdown`` (a dict) gets
+    them by kernel name."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -545,6 +553,9 @@ def device_ms(fn, calls: int = 20, counted=(), what: str = "device_ms",
                                         key=lambda kv: -kv[1][0]):
                 print(f"    {us / calls / 1e3:.4f} ms a call ({n} "
                       f"launches) {name[:90]}", flush=True)
+        if breakdown is not None:
+            breakdown.update({name: us / calls / 1e3
+                              for name, (us, _) in got[1].items()})
         return sum(t for t, _ in got[1].values()) / calls / 1e3
     ms = fresh()
     check(ms > 0, f"{what}: the profiler recorded no whole session")
@@ -678,7 +689,9 @@ def build_all() -> None:
                 pool.submit(timed, MLSTM_FMA_SOURCE, lambda verbose: mlstm_ops
                             .build(verbose, which="fma")),
                 pool.submit(timed, MLSTM_BWD_SOURCE, lambda verbose: mlstm_ops
-                            .build(verbose, which="bwd"))]
+                            .build(verbose, which="bwd_wgmma")),
+                pool.submit(timed, MLSTM_BWD_FMA_SOURCE, lambda verbose:
+                            mlstm_ops.build(verbose, which="bwd"))]
         for f in futs:
             src, dt = f.result()
             print(f"nvcc build of {src}: {dt:.2f} s", flush=True)
@@ -3598,7 +3611,9 @@ WHISPER_TRAIN = (2, 448)         # B, S of the decoder; 1500 frames
 WHISPER_STEPS = 4
 TRAIN_SEED = 0
 MLSTM_BWD_SOURCE = ("src/repro_torch/kernels/mlstm_chunk/csrc/"
-                    "mlstm_chunk_bwd.cu")
+                    "mlstm_chunk_bwd_wgmma.cu")
+MLSTM_BWD_FMA_SOURCE = ("src/repro_torch/kernels/mlstm_chunk/csrc/"
+                        "mlstm_chunk_bwd.cu")
 # B, S, H, P, chunk, dtype: xlstm-1.3b's layer at the train step's
 # microbatch (the path's shape, timed) first; bf16 after the wgmma forward
 # at P 128 and at chunk 1024, after the FMA forward (chunk 64); float32 at
@@ -4314,112 +4329,172 @@ def mlstm_bwd_fault(want):
     return (*want[:4], dlf)
 
 
-def mlstm_bwd_counted():
-    """``whole_profile``'s count of the mLSTM backward: its kernels (names
-    holding ``mlstm_bwd_``) per launch."""
+def mlstm_bwd_counted(which: str = "wgmma"):
+    """``whole_profile``'s count of the mLSTM backward on route ``which``:
+    its kernels (names holding ``mlstm_bwd_``) per launch of that route
+    (a window runs one route's backward only)."""
     from repro_torch.kernels.mlstm_chunk import ops
-    return (("mlstm_bwd_", lambda: ops.launches_bwd, ops.BWD_KERNELS),)
+    counter = {"wgmma": lambda: ops.launches_bwd_wgmma,
+               "fma": lambda: ops.launches_bwd_fma}[which]
+    return (("mlstm_bwd_", counter, ops.BWD_KERNELS[which]),)
 
 
 def train_mlstm_bwd(card: str) -> dict:
-    """The mLSTM backward kernel against its plain versions over
-    MLSTM_BWD_CASES (after the wgmma forward also against the rounded
-    one), the planted fault above each limit, two calls bit-equal, one
-    launch a call; timed once at the path's shape (the first case)."""
+    """The mLSTM backward kernels against their plain versions over
+    MLSTM_BWD_CASES: through ``mlstm_chunk``'s autograd each case takes
+    its route (the wgmma backward after the wgmma forward, held also
+    against the rounded plain version with both keywords; the FMA one
+    otherwise), and at the wgmma cases the FMA backward runs too, called
+    directly with the forward's roundings (``ops._backward(..., True)``)
+    and held against ``operand_dtype=bfloat16``; the planted fault above
+    each limit, two calls bit-equal, each route's counter; timed at the
+    path's shape (the first case), both routes in turns."""
     import torch
     from repro_torch.kernels.mlstm_chunk import ops, ref
-    print("ptxas, the mLSTM backward's kernels (mlstm_bwd_*):\n"
-          + ptxas_summary(ops._LIBS["bwd"].report, "mlstm_bwd_"), flush=True)
+    print("ptxas, the wgmma backward's kernels (mlstm_bwd_wgmma_*):\n"
+          + ptxas_summary(ops._LIBS["bwd_wgmma"].report, "mlstm_bwd_")
+          + "\nptxas, the FMA backward's kernels (mlstm_bwd_*):\n"
+          + ptxas_summary(ops._LIBS["bwd"].report, "mlstm_bwd_"),
+          flush=True)
+    for line in ops._LIBS["bwd_wgmma"].report.splitlines():
+        if "spill" in line:
+            check(" 0 bytes spill stores, 0 bytes spill loads" in line,
+                  f"the mLSTM wgmma backward spills: {line.strip()}")
     gen = torch.Generator(device="cuda").manual_seed(17)
     out = {"err": {}, "rel_l2": {}}
+    both = dict(operand_dtype=torch.bfloat16,
+                grad_operand_dtype=torch.bfloat16)
+
+    def hold(tag, pname, got, want, lim, key):
+        rels = [rel_l2(g, w) for g, w in zip(got, want)]
+        errs = [float((g.float() - w).abs().max()) for g, w in zip(got, want)]
+        rel_fault = max(rel_l2(f, w) for f, w in
+                        zip(mlstm_bwd_fault(want), want))
+        print(f"  {tag} vs the {pname} plain version: rel_l2 dq/dk/dv/"
+              f"dlogi/dlogf = " + "/".join(f"{r:.3e}" for r in rels)
+              + f", max_abs_err {max(errs):.3e}, planted fault (d logf "
+              f"one row off) {rel_fault:.3e}, limit {lim}", flush=True)
+        check(max(rels) <= lim, f"{tag} vs the {pname} plain version: "
+              f"relative L2 {max(rels)} > {lim}")
+        check(rel_fault > lim, f"{tag}: the planted fault's relative L2 "
+              f"{rel_fault} is within {lim} of the {pname} plain version")
+        out["err"][key] = max(out["err"].get(key, 0.0), max(errs))
+        out["rel_l2"][key] = max(out["rel_l2"].get(key, 0.0), max(rels))
+
     for case in MLSTM_BWD_CASES:
         B, S, H, P, chunk, name = case
         dt = getattr(torch, name)
         args, dh = mlstm_bwd_inputs(B, S, H, P, dt, gen)
         which = ops.route(dt, P, min(chunk, S))
-        tag = f"{name} B={B} S={S} H={H} P={P} chunk={chunk} ({which} forward)"
+        tag = f"{name} B={B} S={S} H={H} P={P} chunk={chunk} ({which} route)"
 
         def grads():
             ins = [t.clone().requires_grad_() for t in args]
             h = ops.mlstm_chunk(*ins, chunk=chunk)
             check(h.grad_fn is not None, f"{tag}: no grad_fn")
             return h.detach(), torch.autograd.grad(h, ins, dh)
-        n_bwd = ops.launches_bwd
+        n_bwd = (ops.launches_bwd, ops.launches_bwd_wgmma,
+                 ops.launches_bwd_fma)
         h, got = grads()
         again = grads()[1]
         torch.cuda.synchronize()
-        check(ops.launches_bwd - n_bwd == 2,
-              f"{tag}: {ops.launches_bwd - n_bwd} backward launches, want 2")
+        d = (ops.launches_bwd - n_bwd[0], ops.launches_bwd_wgmma - n_bwd[1],
+             ops.launches_bwd_fma - n_bwd[2])
+        want_d = (2, 2 * (which == "wgmma"), 2 * (which == "fma"))
+        check(d == want_d, f"{tag}: backward launches (all, wgmma, fma) {d}, "
+              f"want {want_d}")
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         del again
         for g, t in zip(got, args):
             check(g.dtype == t.dtype and g.shape == t.shape,
                   f"{tag}: dtype/shape")
             check(bool(torch.isfinite(g.float()).all()), f"{tag}: non-finite")
-        plains = [("float32", ref.mlstm_chunkwise_grads(*args, h, dh, chunk),
-                   MLSTM_BWD_REL[name])]
+        f32 = ref.mlstm_chunkwise_grads(*args, h, dh, chunk)
+        hold(tag, "float32", got, f32, MLSTM_BWD_REL[name], name)
         if which == "wgmma":
-            plains.append(("rounded", ref.mlstm_chunkwise_grads(
+            hold(tag, "rounded (both keywords)", got,
+                 ref.mlstm_chunkwise_grads(*args, h, dh, chunk, **both),
+                 MLSTM_BWD_REL_ROUNDED, f"{name}_rounded")
+            # the FMA backward at the same case, with the forward's
+            # roundings only
+            n_fma = ops.launches_bwd_fma
+            fma = ops._backward(*args, h, dh, chunk, True)
+            check(ops.launches_bwd_fma - n_fma == 1,
+                  f"{tag}: the FMA backward did not launch once")
+            ftag = f"{name} B={B} S={S} H={H} P={P} chunk={chunk} (FMA " \
+                   f"backward, the forward's roundings)"
+            hold(ftag, "float32", fma, f32, MLSTM_BWD_REL[name],
+                 f"{name}_fma")
+            hold(ftag, "forward-rounded", fma, ref.mlstm_chunkwise_grads(
                 *args, h, dh, chunk, operand_dtype=torch.bfloat16),
-                MLSTM_BWD_REL_ROUNDED))
-        for pname, want, lim in plains:
-            rels = [rel_l2(g, w) for g, w in zip(got, want)]
-            errs = [float((g.float() - w).abs().max())
-                    for g, w in zip(got, want)]
-            rel_fault = max(rel_l2(f, w) for f, w in
-                            zip(mlstm_bwd_fault(want), want))
-            print(f"  {tag} vs the {pname} plain version: rel_l2 dq/dk/dv/"
-                  f"dlogi/dlogf = " + "/".join(f"{r:.3e}" for r in rels)
-                  + f", max_abs_err {max(errs):.3e}, planted fault (d logf "
-                  f"one row off) {rel_fault:.3e}, limit {lim}", flush=True)
-            check(max(rels) <= lim, f"{tag} vs the {pname} plain version: "
-                  f"relative L2 {max(rels)} > {lim}")
-            check(rel_fault > lim, f"{tag}: the planted fault's relative L2 "
-                  f"{rel_fault} is within {lim} of the {pname} plain version")
-            key = name if pname == "float32" else f"{name}_rounded"
-            out["err"][key] = max(out["err"].get(key, 0.0), max(errs))
-            out["rel_l2"][key] = max(out["rel_l2"].get(key, 0.0), max(rels))
+                MLSTM_BWD_REL_ROUNDED, f"{name}_fma_rounded")
+            del fma
+        del f32
         print(f"  {tag}: two calls bit-equal {same}", flush=True)
         check(same, f"{tag}: two calls differ")
-        del plains
         if case is MLSTM_BWD_CASES[0]:
             out.update(mlstm_bwd_timing(card, case, args, h, dh))
         del args, h, dh, got
         torch.cuda.empty_cache()
-    out["max_abs_err"] = max(out["err"].values())
+    out["max_abs_err"] = max(v for k, v in out["err"].items()
+                             if "fma" not in k)
     return out
 
 
 def mlstm_bwd_timing(card, case, args, h, dh) -> dict:
-    """The backward launch (``ops._backward``) timed with CUDA events and
-    the profiler, its plain version (with the route's roundings) with CUDA
-    events, and the bound."""
+    """The wgmma backward launch (``ops._backward_wgmma``) and the FMA
+    backward (``ops._backward`` with the forward's roundings) timed in
+    turns with CUDA events (wgmma, FMA, FMA, wgmma), each one's device time
+    and per-kernel device times under the profiler, the plain version
+    (both keywords) with CUDA events, the bound and the workspace."""
     import torch
     from repro_torch.kernels.mlstm_chunk import ops, ref
     B, S, H, P, chunk, name = case
-    rounded = ops.route(args[0].dtype, P, chunk) == "wgmma"
+    check(ops.route(args[0].dtype, P, chunk) == "wgmma",
+          f"the timed case {case} is not on the wgmma route")
 
     def kernel():
-        return ops._backward(*args, h, dh, chunk, rounded)
+        return ops._backward_wgmma(*args, h, dh, chunk)
+
+    def fma():
+        return ops._backward(*args, h, dh, chunk, True)
 
     def plain():
         return ref.mlstm_chunkwise_grads(
-            *args, h, dh, chunk,
-            operand_dtype=torch.bfloat16 if rounded else None)
-    k_ms = cuda_ms(kernel, reps=5, inner=2)
-    dev_ms = device_ms(kernel, calls=4, counted=mlstm_bwd_counted(),
-                       what=f"mLSTM backward {case[:5]}", detail=True)
+            *args, h, dh, chunk, operand_dtype=torch.bfloat16,
+            grad_operand_dtype=torch.bfloat16)
+    turns = {"wgmma": [], "fma": []}
+    for which in ("wgmma", "fma", "fma", "wgmma"):
+        turns[which].append(cuda_ms(kernel if which == "wgmma" else fma,
+                                    reps=5, inner=2 if which == "fma"
+                                    else 10))
+    k_ms, f_ms = (statistics.median(turns[w]) for w in ("wgmma", "fma"))
+    per_kernel = {}
+    dev_ms = device_ms(kernel, calls=4, counted=mlstm_bwd_counted("wgmma"),
+                       what=f"mLSTM wgmma backward {case[:5]}", detail=True,
+                       breakdown=per_kernel)
+    fma_kernels = {}
+    fma_dev_ms = device_ms(fma, calls=2, counted=mlstm_bwd_counted("fma"),
+                           what=f"mLSTM FMA backward {case[:5]}",
+                           detail=True, breakdown=fma_kernels)
     p_ms = cuda_ms(plain, reps=3, inner=1)
     b_ms, b_by, flops = mlstm_bwd_bound(B, S, H, P, chunk, 2,
                                         BF16_FLOPS_PER_S)
+    work = ops.wgmma_workspace_bytes(B, S, H, P, chunk)
     print(f"  mLSTM backward at xlstm-1.3b's layer {case[:5]} {name} (the "
-          f"train step's microbatch) on {card}: kernel_ms={k_ms:.4f} "
-          f"device_ms={dev_ms:.4f} plain_ms={p_ms:.4f} library_ms=None (no "
-          f"one PyTorch call computes it) bound_ms={b_ms:.4f} ({b_by}; "
+          f"train step's microbatch) on {card}: wgmma kernel_ms={k_ms:.4f} "
+          f"(turns {', '.join(f'{x:.4f}' for x in turns['wgmma'])}) "
+          f"device_ms={dev_ms:.4f}; FMA backward kernel_ms={f_ms:.4f} "
+          f"(turns {', '.join(f'{x:.4f}' for x in turns['fma'])}) "
+          f"device_ms={fma_dev_ms:.4f}; plain_ms={p_ms:.4f} library_ms=None "
+          f"(no one PyTorch call computes it) bound_ms={b_ms:.4f} ({b_by}; "
           f"{flops / 1e9:.1f} GFLOP) achieved={flops / k_ms / 1e9:.2f} "
-          f"TFLOP/s (bound share {b_ms / k_ms:.4f}; the fp32 FMA peak would "
-          f"allow {flops / FP32_FLOPS_PER_S * 1e3:.4f} ms)", flush=True)
+          f"TFLOP/s (bound share {b_ms / k_ms:.4f}, FMA {b_ms / f_ms:.4f}); "
+          f"wgmma workspace {work / 1e6:.1f} MB", flush=True)
     return {"ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
+            "fma_ms": f_ms, "fma_device_ms": fma_dev_ms,
+            "turns_ms": turns, "kernel_device_ms": per_kernel,
+            "fma_kernel_device_ms": fma_kernels, "workspace_mb": work / 1e6,
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
             "shape": list(case[:5]), "gflop": flops / 1e9}
 
@@ -4480,22 +4555,25 @@ def xlstm_float32_grads(card: str) -> dict:
                      seq_len=TRAIN_S, vocab_size=model.cfg.vocab_size,
                      device="cuda")
     n_micro = 1
-    before = (ops.launches_fma, ops.launches_bwd)
+    before = (ops.launches_fma, ops.launches_bwd, ops.launches_bwd_fma,
+              ops.launches_bwd_wgmma)
     t0 = time.perf_counter()
     loss, g = micro_grads(model, params, batch, rc, n_micro)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    d = (ops.launches_fma - before[0], ops.launches_bwd - before[1])
-    check(d == (2 * n_micro * n_mlstm, n_micro * n_mlstm),
-          f"xlstm float32 step 1: (FMA forward, backward) launches {d}")
+    d = (ops.launches_fma - before[0], ops.launches_bwd - before[1],
+         ops.launches_bwd_fma - before[2], ops.launches_bwd_wgmma - before[3])
+    check(d == (2 * n_micro * n_mlstm, n_micro * n_mlstm, n_micro * n_mlstm,
+                0), f"xlstm float32 step 1: (FMA forward, backward, FMA "
+          f"backward, wgmma backward) launches {d}")
     with plain_mlstm():
         loss_ref, g_ref = micro_grads(model, params, batch, rc, n_micro)
     torch.cuda.synchronize()
     cmp = compare_grads(
         f"xlstm-1.3b float32 gradients of a microbatch of {TRAIN_MICRO}x"
         f"{TRAIN_S} (kernels {t1 - t0:.1f} s, reference "
-        f"{time.perf_counter() - t1:.1f} s; {d[0]} FMA forward and {d[1]} "
-        f"backward launches)", g, g_ref, loss, loss_ref, what="kernels")
+        f"{time.perf_counter() - t1:.1f} s; {d[0]} FMA forward and {d[2]} "
+        f"FMA backward launches)", g, g_ref, loss, loss_ref, what="kernels")
     del g, g_ref, params, model
     torch.cuda.empty_cache()
     return cmp
@@ -4548,7 +4626,8 @@ def train_xlstm(card: str) -> dict:
 
     step = ttl.make_train_step(model, rc, donate=True)
     want = (2 * n_micro * n_mlstm, n_micro * n_mlstm)  # fwd (+ remat), bwd
-    real_update, real_backward, opt_ms = topt.opt_update, ops._backward, []
+    real_update, real_backward, opt_ms = (topt.opt_update,
+                                          ops._backward_wgmma, [])
     launches_seen = []         # step 1's backward launches: inputs, outputs
 
     def timed_update(*args, **kw):
@@ -4568,7 +4647,8 @@ def train_xlstm(card: str) -> dict:
 
     def counters():
         return (ops.launches, ops.launches_wgmma, ops.launches_fma,
-                ops.launches_bwd)
+                ops.launches_bwd, ops.launches_bwd_wgmma,
+                ops.launches_bwd_fma)
     calls = []                 # (launch deltas, wall s, metrics, optimizer ms)
 
     def one(i):
@@ -4580,9 +4660,10 @@ def train_xlstm(card: str) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         d = [a - b for a, b in zip(counters(), before)]
-        check(d == [want[0], want[0], 0, want[1]],
-              f"xlstm step {i + 1}: launches (fwd, wgmma, fma, bwd) {d}, "
-              f"want {want[0]}, {want[0]}, 0, {want[1]}")
+        check(d == [want[0], want[0], 0, want[1], want[1], 0],
+              f"xlstm step {i + 1}: launches (fwd, wgmma, fma, bwd, bwd "
+              f"wgmma, bwd fma) {d}, want {want[0]}, {want[0]}, 0, "
+              f"{want[1]}, {want[1]}, 0")
         calls.append((d, dt, {k: float(v) for k, v in met.items()},
                       opt_ms[-1]))
     topt.opt_update = timed_update
@@ -4591,7 +4672,8 @@ def train_xlstm(card: str) -> dict:
     t_steps = time.perf_counter()
     try:
         for i in range(XLSTM_TRAIN_STEPS):
-            ops._backward = recording_backward if i == 0 else real_backward
+            ops._backward_wgmma = (recording_backward if i == 0
+                                   else real_backward)
             one(i)
             d, dt, m, o = calls[-1]
             times.append(dt)
@@ -4602,20 +4684,21 @@ def train_xlstm(card: str) -> dict:
             print(f"  step {i + 1}: loss {m['loss']:.4f} gnorm "
                   f"{m['grad_norm']:.3f} lr {m['lr']:.2e}; {dt:.3f} s"
                   + f"; launches fwd {d[0]} (wgmma {d[1]}, fma {d[2]}), "
-                  f"bwd {d[3]}", flush=True)
+                  f"bwd {d[3]} (wgmma {d[4]}, fma {d[5]})", flush=True)
     finally:
-        topt.opt_update, ops._backward = real_update, real_backward
+        topt.opt_update, ops._backward_wgmma = real_update, real_backward
     t_steps = time.perf_counter() - t_steps
     # the device shares: one microbatch of the next batch, every mLSTM
     # kernel recorded (else retried)
     counted = (("mlstm_chunk_", lambda: ops.launches_wgmma,
-                len(MLSTM_PASSES)),) + mlstm_bwd_counted()
+                len(MLSTM_PASSES)),) + mlstm_bwd_counted("wgmma")
     mb = {k: x[0] for k, x in ttl._split_micro(batches[-1], n_micro).items()}
-    small, small_dh = mlstm_bwd_inputs(1, rc.mlstm_chunk, 1, 1024,
+    small, small_dh = mlstm_bwd_inputs(1, 2 * rc.mlstm_chunk, 1, 1024,
                                        torch.bfloat16, torch.Generator(
                                            device="cuda").manual_seed(0))
 
-    def warm():                # one forward and backward launch, small
+    def warm():                # one forward and backward launch, small (two
+        # chunks: the backward's carries run too)
         ins = [t.clone().requires_grad_() for t in small]
         torch.autograd.grad(ops.mlstm_chunk(*ins, chunk=rc.mlstm_chunk),
                             ins, small_dh)
@@ -4639,14 +4722,13 @@ def train_xlstm(card: str) -> dict:
           f"{len(launches_seen)} backward launches, want {want[1]}")
     worst = {"float32": 0.0, "rounded": 0.0}
     for args, got in launches_seen:
-        q, k, v, logi, logf, h, dh, c, rounded = args
-        check(rounded, "a step-1 backward launch without the wgmma route's "
-              "roundings")
+        q, k, v, logi, logf, h, dh, c = args
         for key, od, lim in (("float32", None, MLSTM_BWD_REL["bfloat16"]),
                              ("rounded", torch.bfloat16,
                               MLSTM_BWD_REL_ROUNDED)):
             want_g = ref.mlstm_chunkwise_grads(q, k, v, logi, logf, h, dh, c,
-                                               operand_dtype=od)
+                                               operand_dtype=od,
+                                               grad_operand_dtype=od)
             r = max(rel_l2(g, w) for g, w in zip(got, want_g))
             worst[key] = max(worst[key], r)
             check(r <= lim, f"xlstm step 1, a backward launch on its own "
@@ -4689,7 +4771,10 @@ def train_xlstm(card: str) -> dict:
           f"check {t_f32:.1f} s", flush=True)
     return {"launches_fwd": sum(c[0][0] for c in calls),
             "launches_bwd": sum(c[0][3] for c in calls),
-            "per_step": {"fwd_wgmma": want[0], "fwd_fma": 0, "bwd": want[1]},
+            "launches_bwd_wgmma": sum(c[0][4] for c in calls),
+            "launches_bwd_fma": sum(c[0][5] for c in calls),
+            "per_step": {"fwd_wgmma": want[0], "fwd_fma": 0,
+                         "bwd_wgmma": want[1], "bwd_fma": 0},
             "step_s": step_s, "tokens_per_s": tokens / step_s,
             "optimizer_ms": opt_step_ms, "peak_gib": peak, "shares": shares,
             "steps_s": times, "bwd_step_device_ms": prof["bwd_ms"],
@@ -4891,12 +4976,19 @@ def main() -> None:
     })
     kernels.append({
         "name": "mlstm_chunk_bwd", "route": "cuda",
-        "source": MLSTM_BWD_SOURCE, "replaces": MLSTM_REPLACES,
+        "source": MLSTM_BWD_SOURCE, "fma_source": MLSTM_BWD_FMA_SOURCE,
+        "replaces": MLSTM_REPLACES,
         "launches": xl["launches_bwd"],
+        "launches_wgmma": xl["launches_bwd_wgmma"],
+        "launches_fma": xl["launches_bwd_fma"],
         "launches_by_path": {"train-xlstm-1.3b": xl["launches_bwd"]},
         "launches_per_step": xl["per_step"],
         "max_abs_err": mbwd["max_abs_err"], "rel_l2": mbwd["rel_l2"],
         "ms": mbwd["ms"], "plain_ms": mbwd["plain_ms"],
+        "fma_ms": mbwd["fma_ms"], "fma_device_ms": mbwd["fma_device_ms"],
+        "turns_ms": mbwd["turns_ms"],
+        "kernel_device_ms": mbwd["kernel_device_ms"],
+        "workspace_mb": mbwd["workspace_mb"],
         "bound_ms": mbwd["bound_ms"], "bound_by": mbwd["bound_by"],
         "library_ms": None, "shape": mbwd["shape"],
         "device_ms": mbwd["device_ms"],

@@ -26,21 +26,43 @@ Both kernels read the inputs in place through their strides.
 
 Gradients.  When grad is enabled and an input requires grad, a CUDA call
 goes through an ``autograd.Function``: its forward is the routed launch
-above, unchanged, and its backward launches ``csrc/mlstm_chunk_bwd.cu``
-(fp32 FMAs on float32 or bf16 inputs; every P of ``HEAD_DIMS``, chunks
-up to ``BWD_MAX_CHUNK``, else ``ValueError``), which gives dq, dk, dv in
+above, unchanged, and its backward launches the same route's backward,
+chosen with the forward and before any launch.  Each gives dq, dk, dv in
 q's dtype and d logi, d logf in float32 from q, k, v, the gates, the
-forward's output and its cotangent.  It holds the stabilisers constant (h
+forward's output and its cotangent, holds the stabilisers constant (h
 does not depend on them) and is deterministic (no atomics; two calls give
-the same bits).  After the wgmma route's forward it makes that route's
-bf16 roundings (``round``), so its plain version is
-``ref.mlstm_chunkwise_grads(..., operand_dtype=torch.bfloat16)``; after
-the FMA route's, ``ref.mlstm_chunkwise_grads``.  It needs float32
-scratch of about 2 B*H*S*P^2/chunk (the carries C~ = [C, n] entering and
-G leaving each chunk, [B*H, S/chunk, P, P+1] each: 269 MB each at
-xlstm-1.3b's layer at B=1, chunk 256) and 3 B*H*S*chunk (the chunks'
-score matrices), which the wrapper allocates.  On CPU tensors autograd
-differentiates the plain version.
+the same bits).  A failed build or launch raises; nothing retries on the
+other route.
+
+* ``"wgmma"``: ``csrc/mlstm_chunk_bwd_wgmma.cu`` (``_backward_wgmma``):
+  every P x P product (the forward carry (k o wk)^T v, the reverse carry
+  (scale_in q)^T dnum, C dnum, G_C v, G_C^T (k o wk)) and every causal
+  chunk product (q k^T, dh v^T, dS k, dS^T q, A^T dnum) on wgmma with
+  float32 accumulators; the rank-one terms of the augmented carries (n,
+  G_n, beta, the ones-column of v~) in float32 beside them.  Besides the
+  forward's roundings (S o W in A^T dnum, k o wk in the carry and in
+  G_C^T (k o wk), the carried C in C dnum) it rounds to bf16, where a
+  product reads them and nowhere else: dnum = dh / den (the reverse
+  carry, C dnum, A^T dnum), scale_in o q (the reverse carry), dS (dS k,
+  dS^T q) and G_C (G_C v, G_C^T (k o wk)).  Its plain version is
+  ``ref.mlstm_chunkwise_grads(..., operand_dtype=torch.bfloat16,
+  grad_operand_dtype=torch.bfloat16)``.  Its workspace is about 3
+  B*H*S*P^2/chunk bf16 (C entering and G_C leaving each chunk, C as two
+  slabs hi = bf16(C) and lo = bf16(C - hi)), 3 B*H*S*P bf16 (k o wk,
+  scale_in q, dnum) and B*H*S*chunk x 12 bytes (S and dh v^T in float32,
+  A and dS in bf16): 533.5 MB at xlstm-1.3b's layer at B=1, chunk 256
+  (``wgmma_workspace_bytes``), against the FMA backward's 590 MB.
+* ``"fma"``: ``csrc/mlstm_chunk_bwd.cu`` (``_backward``, fp32 FMAs on
+  float32 or bf16 inputs; every P of ``HEAD_DIMS``, chunks up to
+  ``BWD_MAX_CHUNK``, else ``ValueError``), without roundings: its plain
+  version is ``ref.mlstm_chunkwise_grads``.  (Its ``rounded`` flag makes
+  the wgmma forward's bf16 roundings, for a call made directly.)  It
+  needs float32 scratch of about 2 B*H*S*P^2/chunk (the carries C~ = [C,
+  n] entering and G leaving each chunk, [B*H, S/chunk, P, P+1] each: 269
+  MB each at xlstm-1.3b's layer at B=1, chunk 256) and 3 B*H*S*chunk (the
+  chunks' score matrices), which the wrapper allocates.
+
+On CPU tensors autograd differentiates the plain version.
 
 The reference's scheduling knobs ``num_warps``/``pipeline`` pick, on CUDA
 tensors, one of the route's launches (:func:`resolve_tiles`; the sets
@@ -56,7 +78,9 @@ third knob.  On CPU tensors the plain version takes any positive knob.
 autotune hooks.
 ``launches`` counts forward kernel launches (one per call, whatever the
 passes), ``launches_wgmma`` and ``launches_fma`` those of each route,
-``launches_bwd`` the backward's (one per call, ``BWD_KERNELS`` kernels).
+``launches_bwd`` the backward's (one per call, ``BWD_KERNELS[route]``
+kernels), ``launches_bwd_wgmma`` and ``launches_bwd_fma`` those of each
+route.
 
 The libraries are built with ``nvcc`` into ``build/mlstm_chunk/`` at
 first use (``kernels/build.py``).
@@ -81,6 +105,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 WGMMA_SOURCE = CSRC / "mlstm_chunk_wgmma.cu"
 FMA_SOURCE = CSRC / "mlstm_chunk.cu"
 BWD_SOURCE = CSRC / "mlstm_chunk_bwd.cu"
+BWD_WGMMA_SOURCE = CSRC / "mlstm_chunk_bwd_wgmma.cu"
 _LIBS = {
     "wgmma": NvccLibrary("mlstm_chunk", WGMMA_SOURCE, {
         "mlstm_chunk_wgmma_launch": [ctypes.c_void_p] * 10
@@ -93,13 +118,20 @@ _LIBS = {
         "mlstm_chunk_bwd_launch": [ctypes.c_void_p] * 21
         + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int,
                                 ctypes.c_void_p]}),
+    "bwd_wgmma": NvccLibrary("mlstm_chunk", BWD_WGMMA_SOURCE, {
+        "mlstm_chunk_bwd_wgmma_launch": [ctypes.c_void_p] * 13
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2,
+        "mlstm_chunk_bwd_wgmma_workspace": [ctypes.c_int] * 5
+        + [ctypes.c_void_p]}),
 }
 HEAD_DIMS = (16, 32, 64, 128, 256, 512, 1024)   # compiled into the FMA kernel
 WGMMA_HEAD_DIMS = (64, 128, 256, 512, 1024)     # and into the wgmma kernel
 WGMMA_CHUNKS = (128, 256, 512, 1024)
 MAX_CHUNK = 2048                # the mlstm_chunk knob's upper end
 BWD_MAX_CHUNK = 1024            # the backward kernel's largest chunk
-BWD_KERNELS = 10                # kernels of one backward launch
+# kernels of one backward launch by route (the wgmma route's at two or
+# more chunks; 11 at one chunk, which has no carry)
+BWD_KERNELS = {"wgmma": 13, "fma": 10}
 _BWD_ROWS = 8                   # csrc: kRowArrays
 _TILE = 64                      # csrc: kTile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -112,13 +144,17 @@ launches = 0
 launches_wgmma = 0
 launches_fma = 0
 launches_bwd = 0
+launches_bwd_wgmma = 0
+launches_bwd_fma = 0
 _lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    global launches, launches_wgmma, launches_fma, launches_bwd
+    global launches, launches_wgmma, launches_fma, launches_bwd, \
+        launches_bwd_wgmma, launches_bwd_fma
     with _lock:
         launches = launches_wgmma = launches_fma = launches_bwd = 0
+        launches_bwd_wgmma = launches_bwd_fma = 0
 
 
 def route(dtype: torch.dtype, head_dim: int, chunk: int) -> str:
@@ -201,8 +237,8 @@ def resolve_tiles(which: str, head_dim: int, chunk: int, num_warps=None,
 
 
 def build(verbose: bool = False, which: Optional[str] = None):
-    """Compile the kernel libraries (``which``: ``"wgmma"``, ``"fma"`` or
-    ``"bwd"`` only) if these sources have not been built yet; returns the
+    """Compile the kernel libraries (``which``: ``"wgmma"``, ``"fma"``,
+    ``"bwd"`` or ``"bwd_wgmma"`` only) if these sources have not been built yet; returns the
     paths (``verbose`` prints ptxas's report)."""
     names = [which] if which is not None else list(_LIBS)
     return [_LIBS[n].build(verbose) for n in names]
@@ -284,29 +320,36 @@ def _forward(q, k, v, logi, logf, c, which, tiles):
 
 
 class _MlstmChunk(torch.autograd.Function):
-    """The routed forward launch, differentiated by the backward kernel
-    (``_backward``) with the route's roundings."""
+    """The routed forward launch, differentiated by the same route's
+    backward (``_backward_wgmma`` or ``_backward``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, logi, logf, c, which, tiles):
         out = _forward(q, k, v, logi, logf, c, which, tiles)
         ctx.save_for_backward(q, k, v, logi, logf, out)
-        ctx.chunk, ctx.rounded = c, which == "wgmma"
+        ctx.chunk, ctx.which = c, which
         return out
 
     @staticmethod
     def backward(ctx, dh):
         q, k, v, logi, logf, out = ctx.saved_tensors
-        grads = _backward(q, k, v, logi, logf, out, dh, ctx.chunk,
-                          ctx.rounded)
+        if ctx.which == "wgmma":
+            grads = _backward_wgmma(q, k, v, logi, logf, out, dh, ctx.chunk)
+        else:
+            grads = _backward(q, k, v, logi, logf, out, dh, ctx.chunk, False)
         return (*grads, None, None, None)
 
 
 def _count(which: str) -> None:
-    global launches, launches_wgmma, launches_fma, launches_bwd
+    global launches, launches_wgmma, launches_fma, launches_bwd, \
+        launches_bwd_wgmma, launches_bwd_fma
     with _lock:
-        if which == "bwd":
+        if which in ("bwd_wgmma", "bwd_fma"):
             launches_bwd += 1
+            if which == "bwd_wgmma":
+                launches_bwd_wgmma += 1
+            else:
+                launches_bwd_fma += 1
             return
         launches += 1
         if which == "wgmma":
@@ -436,7 +479,73 @@ def _backward(q, k, v, logi, logf, h, dh, c, rounded: bool):
     if err != 0:
         raise RuntimeError(f"mlstm_chunk backward kernel launch failed: "
                            f"CUDA error {err}")
-    _count("bwd")
+    _count("bwd_fma")
+    return dq, dk, dv, dli, dlf
+
+
+def wgmma_workspace_bytes(B: int, S: int, H: int, P: int, c: int,
+                          library: Optional[NvccLibrary] = None) -> int:
+    """Bytes of the wgmma backward's workspace at this shape (the
+    library's own count; builds and loads it)."""
+    size = ctypes.c_longlong(0)
+    lib = (_LIBS["bwd_wgmma"] if library is None else library).load()
+    err = lib.mlstm_chunk_bwd_wgmma_workspace(B, S, H, P, c,
+                                              ctypes.byref(size))
+    if err != 0:
+        raise ValueError(f"mlstm_chunk backward (wgmma): no launch for "
+                         f"[B, S, H, P] = {[B, S, H, P]}, chunk {c}")
+    return size.value
+
+
+def _backward_wgmma(q, k, v, logi, logf, h, dh, c,
+                    library: Optional[NvccLibrary] = None):
+    """(dq, dk, dv, dlogi, dlogf) from one launch of the wgmma backward
+    (module docstring): q, k, v (TMA) and the gates read in place, the
+    forward's output ``h`` and the cotangent ``dh`` too unless their rows
+    are not 16-byte aligned runs (then copied to contiguous tensors; dh
+    also when broadcast).  ``library``: one built from a variant of
+    ``BWD_WGMMA_SOURCE`` with the same entry points (the route's own by
+    default)."""
+    B, S, H, P = q.shape
+    if route(q.dtype, P, c) != "wgmma" or q.dtype != dh.dtype:
+        raise ValueError(f"mlstm_chunk backward (wgmma) takes bf16 at P in "
+                         f"{WGMMA_HEAD_DIMS} and chunks in {WGMMA_CHUNKS}; "
+                         f"got {q.dtype} (dh {dh.dtype}), P {P}, chunk {c}")
+    check_tma(q, k, v)
+
+    def aligned_rows(t):                 # TMA and 16-byte loads read rows
+        return not (0 in t.stride() or t.stride(-1) != 1
+                    or t.data_ptr() % 16
+                    or any(t.shape[d] > 1 and t.stride(d) % 8
+                           for d in range(3)))
+    h, dh = (t if aligned_rows(t) else t.contiguous() for t in (h, dh))
+    dq, dk, dv = (torch.empty((B, S, H, P), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dli, dlf = (torch.empty((B, S, H), **f32) for _ in range(2))
+    if dq.numel() == 0:
+        return dq, dk, dv, dli.zero_(), dlf.zero_()
+    lib = (_LIBS["bwd_wgmma"] if library is None else library).load()
+    work = torch.empty(wgmma_workspace_bytes(B, S, H, P, c, library) + 1024,
+                       dtype=torch.uint8, device=q.device)
+    skew = (-work.data_ptr()) % 1024         # the pieces 1024-byte aligned
+    strides = (ctypes.c_longlong * 21)(
+        *tma_strides(q), *tma_strides(k), *tma_strides(v), *h.stride()[:3],
+        *tma_strides(dh), *_gate_strides(logi, logf))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mlstm_chunk_bwd_wgmma_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), h.data_ptr(),
+            dh.data_ptr(), logi.data_ptr(), logf.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dli.data_ptr(), dlf.data_ptr(),
+            work.data_ptr() + skew, B, S, H, P, c, strides, stream)
+    if err < 0:
+        raise RuntimeError(f"mlstm_chunk backward (wgmma): TMA tensor map "
+                           f"encoding failed (CUresult {-err})")
+    if err != 0:
+        raise RuntimeError(f"mlstm_chunk backward (wgmma) kernel launch "
+                           f"failed: CUDA error {err}")
+    _count("bwd_wgmma")
     return dq, dk, dv, dli, dlf
 
 

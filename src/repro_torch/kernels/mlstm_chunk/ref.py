@@ -187,7 +187,7 @@ def mlstm_gates(logi, logf, chunk: int) -> MlstmGates:
 
 
 def mlstm_chunkwise_grads(q, k, v, logi, logf, h, dh, chunk: int, *,
-                          operand_dtype=None):
+                          operand_dtype=None, grad_operand_dtype=None):
     """(dq, dk, dv, dlogi, dlogf) of ``mlstm_chunkwise`` against the
     cotangent ``dh``, in float32 (float64 for float64 inputs); ``h`` is
     the forward's output.  The backward kernel's plain version, in its
@@ -210,7 +210,16 @@ def mlstm_chunkwise_grads(q, k, v, logi, logf, h, dh, chunk: int, *,
     ``operand_dtype`` (``torch.bfloat16``): the forward's roundings (the
     wgmma route's), where its values enter a product: S o W into the
     product with dnum, k o wk into the carry and into G_C^T (k o wk), and
-    the carried C (not n) into C~ dnum~."""
+    the carried C (not n) into C~ dnum~.
+
+    ``grad_operand_dtype`` (``torch.bfloat16``): the wgmma backward's own
+    roundings, each where a product reads the operand and nowhere else:
+    dnum = dh / den in the reverse carry, in C dnum and in A^T dnum;
+    scale_in o q (the product, rounded) in the reverse carry; dS in dS k
+    and dS^T q; G_C in G_C v and G_C^T (k o wk).  n, G_n, beta, the
+    rank-one terms, d decay (with the unrounded G_C) and every sum stay
+    unrounded.  None rounds nothing, and the function is then what it was
+    without the keyword, bit for bit."""
     B, S, H, P = q.shape
     c = min(chunk, S)
     if c < 1 or S % c:
@@ -219,6 +228,11 @@ def mlstm_chunkwise_grads(q, k, v, logi, logf, h, dh, chunk: int, *,
 
     def rnd(t):
         return t if operand_dtype is None else t.to(operand_dtype).to(ct)
+
+    def rg(t):
+        if grad_operand_dtype is None:
+            return t
+        return t.to(grad_operand_dtype).to(ct)
 
     def chunks(t):
         return t.to(ct).reshape((B, n, c) + tuple(t.shape[2:]))
@@ -267,15 +281,17 @@ def mlstm_chunkwise_grads(q, k, v, logi, logf, h, dh, chunk: int, *,
         d_a = torch.where(mask[None, :, :, None], d_a, 0.0)
         d_s = d_a * w
         e = d_a * a_mat
-        x = torch.einsum("bhpr,bihr->bihp", rnd(c_in[t]), g) \
+        x = torch.einsum("bhpr,bihr->bihp", rnd(c_in[t]), rg(g)) \
             + n_in[t][:, None] * beta[..., None]              # C~ dnum~
-        dq[:, t] = torch.einsum("bijh,bjhp->bihp", d_s, ki) \
+        dq[:, t] = torch.einsum("bijh,bjhp->bihp", rg(d_s), ki) \
             + sc[..., None] * x
-        y = torch.einsum("bhpr,bjhr->bjhp", g_c, vi) + g_n[:, None]  # G v~
-        dk[:, t] = torch.einsum("bijh,bihp->bjhp", d_s, qi) \
+        y = torch.einsum("bhpr,bjhr->bjhp", rg(g_c), vi) \
+            + g_n[:, None]                                    # G v~
+        dk[:, t] = torch.einsum("bijh,bihp->bjhp", rg(d_s), qi) \
             + wkt[..., None] * y
-        dv[:, t] = torch.einsum("bijh,bihr->bjhr", rnd(a_mat), g) \
-            + torch.einsum("bjhp,bhpr->bjhr", rnd(ki * wkt[..., None]), g_c)
+        dv[:, t] = torch.einsum("bijh,bihr->bjhr", rnd(a_mat), rg(g)) \
+            + torch.einsum("bjhp,bhpr->bjhr", rnd(ki * wkt[..., None]),
+                           rg(g_c))
         d_decay = (g_c * c_in[t]).sum((-2, -1)) + (g_n * n_in[t]).sum(-1)
         f = (ki * y).sum(-1) * wkt                            # dwk o wk
         e_col = e.sum(dim=1)
@@ -284,8 +300,12 @@ def mlstm_chunkwise_grads(q, k, v, logi, logf, h, dh, chunk: int, *,
         d_cum[:, -1] += f.sum(dim=1) + d_decay * decay[:, t]  # d total
         dlf[:, t] = torch.flip(torch.cumsum(torch.flip(d_cum, (1,)), 1),
                                (1,))
-        g_c = g_c * decay[:, t, :, None, None] + torch.einsum(
-            "bih,bihp,bihr->bhpr", sc, qi, g)
+        if grad_operand_dtype is None:
+            dg_c = torch.einsum("bih,bihp,bihr->bhpr", sc, qi, g)
+        else:
+            dg_c = torch.einsum("bihp,bihr->bhpr", rg(sc[..., None] * qi),
+                                rg(g))
+        g_c = g_c * decay[:, t, :, None, None] + dg_c
         g_n = g_n * decay[:, t, :, None] + torch.einsum(
             "bih,bihp,bih->bhp", sc, qi, beta)
     flat = lambda t: t.reshape((B, S) + tuple(t.shape[3:]))   # noqa: E731

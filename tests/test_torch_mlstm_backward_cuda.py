@@ -1,19 +1,22 @@
-"""The hand-written CUDA mLSTM backward (``csrc/mlstm_chunk_bwd.cu``)
-against its plain version, on the card.  Needs an NVIDIA GPU (``cuda``
+"""The hand-written CUDA mLSTM backwards (``csrc/mlstm_chunk_bwd_wgmma.cu``
+on the tensor cores, ``csrc/mlstm_chunk_bwd.cu`` on fp32 FMAs) against
+their plain versions, on the card.  Needs an NVIDIA GPU (``cuda``
 marker); skips without one.  Imports nothing of JAX:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_mlstm_backward_cuda.py
 
 A CUDA call of ``ops.mlstm_chunk`` that asks for a gradient goes through
-the ``autograd.Function``: the routed forward, then the backward kernel.
-Plain versions: ``ref.mlstm_chunkwise_grads`` (float32, no rounding) for
-every route, and after the wgmma route's forward also
-``ref.mlstm_chunkwise_grads(..., operand_dtype=torch.bfloat16)``, which
-rounds where that route rounds.  Limits: relative L2 of each of dq, dk,
-dv, d logi, d logf 1e-5 (float32) and 1e-2 (bf16) against the first,
-5e-3 against the second; a planted fault (d logf written one row off)
-lands above each; two calls bit-equal.  The inputs put
-rows on both branches of the denominator (q scaled row by row).
+the ``autograd.Function``: the routed forward, then the same route's
+backward.  Plain versions: ``ref.mlstm_chunkwise_grads`` (float32, no
+rounding) for every route, and on the wgmma route also
+``ref.mlstm_chunkwise_grads(..., operand_dtype=torch.bfloat16,
+grad_operand_dtype=torch.bfloat16)``, which rounds where that route's
+forward and backward round.  Limits: relative L2 of each of dq, dk, dv,
+d logi, d logf 1e-5 (float32) and 1e-2 (bf16) against the first, 5e-3
+against the second; a planted fault (d logf written one row off) lands
+above each; two calls bit-equal; each route's counter moves once a call
+and the other's not at all.  The inputs put rows on both branches of the
+denominator (q scaled row by row).
 """
 
 import numpy as np
@@ -25,6 +28,8 @@ from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunkwise_grads
 
 REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 REL_ROUNDED = 5e-3          # the wgmma route against its rounded plain version
+ROUNDED = dict(operand_dtype=torch.bfloat16,
+               grad_operand_dtype=torch.bfloat16)
 F32, BF16 = torch.float32, torch.bfloat16
 # (B, S, H, P, chunk, dtype): every P of the FMA forward in float32, a
 # chunk that is no power of two, chunk 1 and 5, one chunk (chunk = S); bf16
@@ -92,24 +97,29 @@ def _fault(want):
     return (*want[:4], dlf)
 
 
+def _counts():
+    return (ops.launches_bwd, ops.launches_bwd_wgmma, ops.launches_bwd_fma,
+            ops.launches_wgmma, ops.launches_fma)
+
+
 def _check(args, dh, chunk, dtype):
     B, S, H, P = args[0].shape
     which = ops.route(dtype, P, min(chunk, S))
-    before = (ops.launches_bwd, ops.launches_wgmma, ops.launches_fma)
+    before = _counts()
     h, got = _grads(args, dh, chunk)
     again = _grads(args, dh, chunk)[1]
     torch.cuda.synchronize()
-    assert (ops.launches_bwd - before[0], ops.launches_wgmma - before[1],
-            ops.launches_fma - before[2]) == (
-        2, 2 * (which == "wgmma"), 2 * (which == "fma"))
+    wg, fm = 2 * (which == "wgmma"), 2 * (which == "fma")
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (
+        2, wg, fm, wg, fm)
     for g, t in zip(got, args):
         assert g.dtype == t.dtype and g.shape == t.shape
         assert bool(torch.isfinite(g.float()).all())
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     plains = [(mlstm_chunkwise_grads(*args, h, dh, chunk), REL[dtype])]
     if which == "wgmma":
-        plains.append((mlstm_chunkwise_grads(
-            *args, h, dh, chunk, operand_dtype=torch.bfloat16), REL_ROUNDED))
+        plains.append((mlstm_chunkwise_grads(*args, h, dh, chunk, **ROUNDED),
+                       REL_ROUNDED))
     for want, limit in plains:
         rels = [_rel(g, w) for g, w in zip(got, want)]
         assert max(rels) <= limit, rels
@@ -150,18 +160,55 @@ def test_a_call_without_a_gradient_launches_no_backward(cuda):
 
 
 @pytest.mark.cuda
-def test_strided_inputs_are_read_in_place(cuda):
-    """q/k/v as head slices of one [B,S,3H,P] tensor and the gates as
-    columns of a wider one: the same gradients, bit for bit."""
-    B, S, H, P = 1, 128, 2, 64
-    args, dh = _inputs(B, S, H, P, cuda, F32, seed=3)
+@pytest.mark.parametrize("dtype, P, chunk", [(F32, 64, 32), (BF16, 64, 128),
+                                            (BF16, 128, 256)],
+                         ids=["fma-f32", "wgmma-P64", "wgmma-P128"])
+def test_strided_inputs_are_read_in_place(cuda, dtype, P, chunk):
+    """q/k/v as head slices of one [B,S,3H,P] tensor, the gates as columns
+    of a wider one and dh as a head slice: the same gradients, bit for
+    bit, on either route."""
+    B, S, H = 1, 512, 2
+    args, dh = _inputs(B, S, H, P, cuda, dtype, seed=3)
     qkv = torch.cat(args[:3], dim=2)
     gates = torch.cat(args[3:], dim=2)
     views = [qkv[:, :, :H], qkv[:, :, H:2 * H], qkv[:, :, 2 * H:],
              gates[..., :H], gates[..., H:]]
-    got = _grads(views, dh, 32)[1]
-    want = _grads(args, dh, 32)[1]
+    dh_view = torch.cat([dh, dh], dim=2)[:, :, H:]
+    got = _grads(views, dh_view, chunk)[1]
+    want = _grads(args, dh, chunk)[1]
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_float32_stays_on_the_fma_backward(cuda):
+    """A float32 call at the wgmma route's shape runs the FMA forward and
+    the FMA backward, bit-equal to ``ops._backward`` called directly
+    without roundings."""
+    args, dh = _inputs(1, 512, 2, 128, cuda, F32, seed=9)
+    assert ops.route(F32, 128, 256) == "fma"
+    before = _counts()
+    h, got = _grads(args, dh, 256)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (1, 0, 1, 0, 1)
+    want = ops._backward(*args, h, dh, 256, False)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_wgmma_backward_called_directly_matches_autograd(cuda):
+    """``ops._backward_wgmma`` on the forward's output gives autograd's
+    bits, counts one wgmma backward launch and no FMA one; it refuses a
+    float32 input."""
+    args, dh = _inputs(1, 512, 2, 128, cuda, BF16, seed=4)
+    h, want = _grads(args, dh, 256)
+    before = _counts()
+    got = ops._backward_wgmma(*args, h, dh, 256)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (1, 1, 0, 0, 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="bf16"):
+        ops._backward_wgmma(*(t.float() if t.dtype == BF16 else t
+                              for t in args), h.float(), dh.float(), 256)
 
 
 @pytest.mark.cuda
