@@ -225,6 +225,33 @@ Phases (any failure exits non-zero before the result line):
    within 1e-2 and 2e-2 of the plain mLSTM's (in bf16 the stack's
    gradient moves ~100x a forward perturbation, so no model-level
    gradient limit holds there: ``tools/xlstm_grad_sensitivity.py``).
+14. the product cluster: ``CompiledEvaluator(yi-6b full width, 4 of 32
+   layers, train_4k, device="cuda")`` runs each probe's train step on
+   the card at one data-parallel replica's share of the cell (16 x 4096
+   tokens on the 16 x 16 production mesh): a counted warm-up step (FLOPs,
+   bytes, the kernels' own work) and 2 timed steps.  Probes: the space's
+   default (``space.project(space.default_config())``), it with
+   ``attention_impl="flash"``, ``remat_policy`` ``"dots"`` and
+   ``"full"``, ``optimizer="adafactor"``, ``grad_allreduce_dtype=
+   "bfloat16"``, phase 3's batch-8 recommendation and
+   ``expert_manual_config``; then one default probe each of
+   ``prefill_32k`` (2 x 32768) and ``decode_32k`` (8 against a 32k
+   cache).  Each prints the knobs it changed, the measured step,
+   tokens/s, peak memory, ``mfu``, the roofline terms, its step-1 loss,
+   or that it ran out of the card's memory (an infeasible probe, not a
+   failure); then the measured speedups default/recommended and
+   default/expert beside ``tune()``'s analytic ones (a finding, not a
+   gate).  Gates: the flash, ``dots``, ``full``, Adafactor and bf16
+   all-reduce probes fit; every step-1 loss within 1e-2 (relative) of
+   the default's; the ``dots``, ``full``, Adafactor and bf16 probes'
+   step-1 gradient norm within 1e-2 of the default's; the loss's drop
+   over the timed steps (the one update the warm-up's lr 0 leaves) of
+   the ``dots``, ``full`` and bf16 probes within 0.1 of the default's,
+   and the default's and Adafactor's drop above 0; the repeated default
+   is a cache hit; the flash probe
+   launches exactly (warm-up + timed steps) x microbatches x layers
+   wgmma forwards (twice under a recomputing remat policy) and as many
+   wgmma backward sets, counted from 0 around it.
 
 Every device time read from ``torch.profiler`` in phases 2-13 comes
 from a session that recorded the window whole (``whole_profile``: the
@@ -593,8 +620,9 @@ print(json.dumps(chip_smoke.device_ms(lambda: fn(*args), counted=counted,
 
 
 def fresh_device_ms(script: str, arg) -> float:
-    """Run ``script`` (FRESH_GRAM, FRESH_BWD) in a new process with the
-    JSON of ``arg``; its last line is the device ms per call."""
+    """Run ``script`` (FRESH_GRAM, FRESH_BWD, FRESH_MLSTM_BWD) in a new
+    process with the JSON of ``arg``; its last line is the device ms per
+    call."""
     r = subprocess.run([sys.executable, "-c", script, json.dumps(arg),
                         str(ROOT), str(SRC)], capture_output=True,
                        text=True, timeout=300, cwd=ROOT)
@@ -1084,7 +1112,13 @@ def phase_main_path(card: str):
     print(f"  top-16 (cpu):  {rk_cpu.top(16)}", flush=True)
     check(set(rk_cpu.top(16)) == set(rk.top(16)),
           "CPU and CUDA rank stages picked different top-16 sets")
-    return launches
+    # the batch-8 recommendation and its analytic values, which phase 14
+    # runs on the card
+    r8 = results[8]
+    tuned = {"best_config": dict(r8.best_config),
+             "default_value": r8.default_value,
+             "best_value": r8.best_value, "expert_value": r8.expert_value}
+    return launches, tuned
 
 
 def phase_profile(card: str):
@@ -1198,22 +1232,21 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def flash_bound(B, Sq, Sk, H, Kh, D, causal, itemsize, flops_per_s):
-    """(bound_ms, bound_by, flops): q, k, v read once and o written once
-    at the HBM rate, against the two products QK^T and PV over the
-    (query, key) pairs the mask leaves visible, at the peak rate for the
-    inputs' type.  The softmax's exp/max/sum (about 1/(2D) of those
-    operations) are not counted."""
-    if causal:       # row i sees keys 0..min(i, Sk-1) (top-left aligned)
-        full = max(Sq - Sk, 0)
-        pairs = min(Sq, Sk) * (min(Sq, Sk) + 1) // 2 + full * Sk
-    else:
-        pairs = Sq * Sk
-    flops = 4 * D * pairs * B * H
-    nbytes = itemsize * (2 * B * Sq * H * D + 2 * B * Sk * Kh * D)
+def _bound(flops, nbytes, flops_per_s):
+    """(bound_ms, bound_by, flops): the larger of ``nbytes`` at the HBM
+    rate and ``flops`` at ``flops_per_s``."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", flops)
+
+
+def flash_bound(B, Sq, Sk, H, Kh, D, causal, itemsize, flops_per_s):
+    """(bound_ms, bound_by, flops) of a flash forward launch from the
+    wrapper's own count (``ops.fwd_work``: q, k, v read and o written
+    once; QK^T and PV over the visible pairs)."""
+    from repro_torch.kernels.flash_attention import ops
+    return _bound(*ops.fwd_work(B, Sq, Sk, H, Kh, D, causal, None,
+                                itemsize), flops_per_s)
 
 
 def ptxas_summary(report: str, kernel: str) -> str:
@@ -1600,23 +1633,10 @@ def phase_engine(card: str):
 
 
 def mlstm_bound(B, S, H, P, chunk, itemsize, flops_per_s):
-    """(bound_ms, bound_by, flops): q, k, v read once and h written once
-    (and the two float32 gates read once) at the HBM rate, against the
-    products the function needs at the peak rate for the inputs' type.
-    Per (chunk, head): the causal half of q k^T and of ((q k^T) o W) v,
-    C(C+1)/2 pairs at 2P operations each.  Per head, for each chunk but
-    one, 2 C P^2 each for the inter-chunk product q C_prev (the first
-    chunk's state is zero) and the carry update k^T v (the last chunk's
-    carry is not returned).  The gate terms, O(C^2) per chunk, are not
-    counted."""
-    n = S // chunk
-    pairs = chunk * (chunk + 1) // 2
-    flops = B * H * (n * 2 * 2 * P * pairs
-                     + max(n - 1, 0) * 2 * 2 * chunk * P * P)
-    nbytes = itemsize * 4 * B * S * H * P + 4 * 2 * B * S * H
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", flops)
+    """(bound_ms, bound_by, flops) of an mLSTM forward launch from the
+    wrapper's own count (``ops.fwd_work``)."""
+    from repro_torch.kernels.mlstm_chunk import ops
+    return _bound(*ops.fwd_work(B, S, H, P, chunk, itemsize), flops_per_s)
 
 
 def phase_mlstm(card: str):
@@ -3632,28 +3652,14 @@ XLSTM_TRAIN_LAYERS = 8           # one period of xLSTM[7:1]: 7 mLSTM, 1 sLSTM
 XLSTM_TRAIN_STEPS = 2           # step 1 pays first-use costs; step 2 is timed
 
 
-def visible_pairs(Sq, Sk, causal, window) -> int:
-    """(query, key) pairs the mask leaves visible (top-left causal)."""
-    import numpy as np
-    i = np.arange(Sq)
-    hi = np.minimum(i if causal else Sk - 1, Sk - 1)
-    lo = np.maximum(i - window + 1, 0) if window else np.zeros_like(i)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def flash_bwd_bound(B, Sq, Sk, H, Kh, D, causal, window, itemsize,
                     flops_per_s):
-    """(bound_ms, bound_by, flops): q, o, dO, dq and k, v, dk, dv each
-    moved once and the log-sum-exp read, at the HBM rate, against the
-    five products of the backward (QK^T again, dO V^T, P^T dO, dS^T Q,
-    dS K) over the visible pairs at the peak rate for the inputs' type."""
-    pairs = visible_pairs(Sq, Sk, causal, window)
-    flops = 10 * D * pairs * B * H
-    nbytes = itemsize * (4 * B * Sq * H * D + 4 * B * Sk * Kh * D) \
-        + 4 * B * H * Sq
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", flops)
+    """(bound_ms, bound_by, flops) of a flash backward launch set from the
+    wrapper's own count (``ops.bwd_work``: the five products over the
+    visible pairs; q, o, dO, dq, k, v, dk, dv moved once)."""
+    from repro_torch.kernels.flash_attention import ops
+    return _bound(*ops.bwd_work(B, Sq, Sk, H, Kh, D, causal, window,
+                                itemsize), flops_per_s)
 
 
 def bwd_without_di(q, k, v, dout, causal, window, softcap):
@@ -4282,25 +4288,10 @@ def train_whisper(card: str) -> dict:
 
 
 def mlstm_bwd_bound(B, S, H, P, chunk, itemsize, flops_per_s):
-    """(bound_ms, bound_by, flops) of the mLSTM backward: q, k, v, h, dh
-    read once and dq, dk, dv written once (the two float32 gates read and
-    their gradients written once) at the HBM rate, against the products
-    its design computes on these inputs at the peak rate for their type.
-    Per head: for each chunk but one, the two carries (C~ entering and G
-    leaving, P x (P+1) x chunk each), C~ dnum~ and G v~ (the same size;
-    the first chunk's C~ and the last chunk's G are zero) and G_C^T (k o
-    wk) (P x P x chunk); per chunk, five causal products of chunk(chunk+1)/2
-    pairs x P (S and dh v^T, dS k, dS^T q, A^T dnum).  The row and gate
-    terms, O(chunk^2) per chunk, are not counted."""
-    n = S // chunk
-    pairs = chunk * (chunk + 1) // 2
-    macs = B * H * (max(n - 1, 0) * chunk * (4 * P * (P + 1) + P * P)
-                    + n * 5 * pairs * P)
-    flops = 2 * macs
-    nbytes = itemsize * 8 * B * S * H * P + 4 * 4 * B * S * H
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", flops)
+    """(bound_ms, bound_by, flops) of the mLSTM backward from the
+    wrapper's own count (``ops.bwd_work``)."""
+    from repro_torch.kernels.mlstm_chunk import ops
+    return _bound(*ops.bwd_work(B, S, H, P, chunk, itemsize), flops_per_s)
 
 
 def mlstm_bwd_inputs(B, S, H, P, dt, gen):
@@ -4441,6 +4432,26 @@ def train_mlstm_bwd(card: str) -> dict:
     return out
 
 
+# the mLSTM backward's profiled device ms per call in a process of its
+# own: argv = case + route (JSON), the repo's root, its src/
+FRESH_MLSTM_BWD = """
+import json, sys
+sys.path[:0] = sys.argv[2:4]
+import torch
+import chip_smoke
+from repro_torch.kernels.mlstm_chunk import ops
+B, S, H, P, chunk, name, which = json.loads(sys.argv[1])
+gen = torch.Generator(device="cuda").manual_seed(17)
+args, dh = chip_smoke.mlstm_bwd_inputs(B, S, H, P, getattr(torch, name), gen)
+h = ops.mlstm_chunk(*args, chunk=chunk)
+fn = (lambda: ops._backward_wgmma(*args, h, dh, chunk)) if which == "wgmma" \
+    else (lambda: ops._backward(*args, h, dh, chunk, True))
+print(json.dumps(chip_smoke.device_ms(
+    fn, 4 if which == "wgmma" else 2, chip_smoke.mlstm_bwd_counted(which),
+    what=f"fresh mLSTM {which} backward")))
+"""
+
+
 def mlstm_bwd_timing(card, case, args, h, dh) -> dict:
     """The wgmma backward launch (``ops._backward_wgmma``) and the FMA
     backward (``ops._backward`` with the forward's roundings) timed in
@@ -4472,11 +4483,14 @@ def mlstm_bwd_timing(card, case, args, h, dh) -> dict:
     per_kernel = {}
     dev_ms = device_ms(kernel, calls=4, counted=mlstm_bwd_counted("wgmma"),
                        what=f"mLSTM wgmma backward {case[:5]}", detail=True,
-                       breakdown=per_kernel)
+                       breakdown=per_kernel, fresh=lambda: fresh_device_ms(
+                           FRESH_MLSTM_BWD, [*case, "wgmma"]))
     fma_kernels = {}
     fma_dev_ms = device_ms(fma, calls=2, counted=mlstm_bwd_counted("fma"),
                            what=f"mLSTM FMA backward {case[:5]}",
-                           detail=True, breakdown=fma_kernels)
+                           detail=True, breakdown=fma_kernels,
+                           fresh=lambda: fresh_device_ms(
+                               FRESH_MLSTM_BWD, [*case, "fma"]))
     p_ms = cuda_ms(plain, reps=3, inner=1)
     b_ms, b_by, flops = mlstm_bwd_bound(B, S, H, P, chunk, 2,
                                         BF16_FLOPS_PER_S)
@@ -4806,6 +4820,223 @@ def phase_train(card: str) -> dict:
             "xlstm": xl}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the product cluster (CompiledEvaluator on the card)
+# ---------------------------------------------------------------------------
+
+PRODUCT_ARCH = "yi-6b"
+PRODUCT_LAYERS = 4               # depth 32 -> 4; full width
+PRODUCT_STEPS = 2                # timed steps after the counted warm-up
+PRODUCT_LOSS_REL = 1e-2          # each probe's step-1 loss vs the default's
+# step 1's gradient norm vs the default's, for the probes whose gradient is
+# the default's (remat recomputes it, Adafactor only updates with it) or
+# its bf16 rounding (the reduction dtype)
+PRODUCT_GRAD_REL = 1e-2
+PRODUCT_SAME_GRAD = ("remat-dots", "remat-full", "adafactor",
+                     "bf16-allreduce")
+# the loss's drop over the timed steps (the batch is the same every step,
+# and step 1 is the schedule's lr 0, so the drop is the second step's
+# update) vs the default's, for the probes whose update is AdamW's on that
+# gradient; Adafactor's update differs and must only lower the loss
+PRODUCT_DROP_REL = 0.1
+PRODUCT_SAME_UPDATE = ("remat-dots", "remat-full", "bf16-allreduce")
+PRODUCT_BUDGET_S = 150.0
+# probes of train_4k: (name, knobs over the space's default); "recommended"
+# and "expert" are filled in from phase 3 and the expert rule
+PRODUCT_KNOBS = (("flash", {"attention_impl": "flash"}),
+                 ("remat-dots", {"remat_policy": "dots"}),
+                 ("remat-full", {"remat_policy": "full"}),
+                 ("adafactor", {"optimizer": "adafactor"}),
+                 ("bf16-allreduce", {"grad_allreduce_dtype": "bfloat16"}))
+PRODUCT_MUST_FIT = {name for name, _ in PRODUCT_KNOBS}
+PRODUCT_SERVING = ("prefill_32k", "decode_32k")   # one default probe each
+
+
+def product_probe(ev, name: str, knobs: dict, base: dict) -> dict:
+    """One ``CompiledEvaluator`` probe with flash's launches counted from
+    0 around it; prints what it changed and what the card measured.  An
+    out-of-memory step is an infeasible probe, not a failure."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    changed = {k: v for k, v in knobs.items() if base.get(k) != v}
+    fops.reset_launch_counts()
+    calls = ev.calls
+    try:
+        step_s = ev(knobs)
+    except torch.cuda.OutOfMemoryError as e:
+        step_s, oom = None, str(e).splitlines()[0][:160]
+    launches = {"fwd": fops.launches, "fwd_wgmma": fops.launches_wgmma,
+                "fwd_fma": fops.launches_fma, "bwd": fops.launches_bwd,
+                "bwd_wgmma": fops.launches_bwd_wgmma}
+    if step_s is None:
+        print(f"  {name}: OOM ({oom}); changed {changed}", flush=True)
+        return {"name": name, "feasible": False, "changed": changed,
+                "launches": launches}
+    rec = ev.records[ev._key(knobs)]
+    r = rec["roofline"]
+    loss = rec["step1_loss"]
+    print(f"  {name}: measured_step_s={step_s:.6f} "
+          f"tokens/s={rec['tokens_per_s']:.1f} "
+          f"peak={rec['memory']['max_memory_allocated_gb']:.2f} GiB "
+          f"mfu={rec['mfu']:.4f} roofline step={r['step_s']:.6f} "
+          f"(compute {r['compute_s']:.6f}, memory {r['memory_s']:.6f}, "
+          f"collective {r['collective_s']:.1f}; {r['dominant']}; kernels "
+          f"{r['kernel_flops']:.4g} flop, {r['kernel_bytes']:.4g} B) "
+          f"feasible step1_loss={'-' if loss is None else f'{loss:.6f}'} "
+          f"step_losses={rec['step_losses']} "
+          f"step1_grad_norm={rec['step1_grad_norm']} "
+          f"compile_s={rec['compile_s']:.2f} steps={rec['step_times_s']} "
+          f"calls {calls}->{ev.calls}", flush=True)
+    print(f"    changed {changed}; runconfig {rec['runconfig']}; "
+          f"{rec['batch']} x {rec['seq_len']} tokens, reduced "
+          f"{rec['reduced']}; flash launches {launches}", flush=True)
+    return {"name": name, "feasible": True, "changed": changed,
+            "step_s": step_s, "record": rec, "launches": launches}
+
+
+def phase_product(card: str, tuned: dict) -> dict:
+    """Phase 14: the config probes of yi-6b's train_4k replica share and
+    the serving cells' defaults, run on the card by ``CompiledEvaluator``;
+    the measured speedups beside the analytic ones of phase 3."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.costmodel import SINGLE_POD
+    from repro_torch.core.evaluators import CompiledEvaluator
+    from repro_torch.core.knobs import clean_space
+    from repro_torch.core.tuner import expert_manual_config
+    from repro_torch.models.config import SHAPES_BY_NAME
+
+    cfg = get_config(PRODUCT_ARCH)
+    cell = SHAPES_BY_NAME["train_4k"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"== phase 14: the product cluster: CompiledEvaluator on "
+          f"{PRODUCT_ARCH} (full width, {PRODUCT_LAYERS} of {cfg.n_layers} "
+          f"layers) at train_4k's replica share, 1 warm-up + "
+          f"{PRODUCT_STEPS} timed steps a probe (memory allocated at the "
+          f"start {torch.cuda.memory_allocated() / 2**30:.3f} GiB)",
+          flush=True)
+    t0 = time.perf_counter()
+    space, _, _ = clean_space(cfg, cell, SINGLE_POD)
+    default = space.project(space.default_config())
+    probes = [("default", default)]
+    probes += [(name, space.project({**default, **kn}))
+               for name, kn in PRODUCT_KNOBS]
+    probes += [("recommended", dict(tuned["best_config"])),
+               ("expert", expert_manual_config(space))]
+    ev = CompiledEvaluator(cfg, cell, device="cuda",
+                           n_layers=PRODUCT_LAYERS, steps=PRODUCT_STEPS)
+    out = {}
+    for name, knobs in probes:
+        out[name] = product_probe(ev, name, knobs, default)
+        torch.cuda.empty_cache()
+    d = out["default"]
+    check(d["feasible"], "phase 14: the default train_4k probe ran out of "
+          "the card's memory")
+    for name in PRODUCT_MUST_FIT:
+        check(out[name]["feasible"], f"phase 14: the {name} probe ran out "
+              f"of the card's memory")
+    for name, p in out.items():
+        if p["feasible"]:
+            rel = abs(p["record"]["step1_loss"] - d["record"]["step1_loss"]) \
+                / abs(d["record"]["step1_loss"])
+            p["loss_rel"] = rel
+            check(rel <= PRODUCT_LOSS_REL, f"phase 14: {name}'s step-1 loss "
+                  f"is {rel:.3e} from the default's (limit "
+                  f"{PRODUCT_LOSS_REL})")
+
+    # what the step-1 loss cannot see: the gradient and the update
+    def drop(p):
+        losses = p["record"]["step_losses"]
+        return losses[0] - losses[-1]
+    d_norm, d_drop = d["record"]["step1_grad_norm"], drop(d)
+    check(d_drop > 0, f"phase 14: the default's loss did not drop over its "
+          f"timed steps ({d['record']['step_losses']})")
+    for name, p in out.items():
+        if not p["feasible"] or name == "default":
+            continue
+        g_rel = abs(p["record"]["step1_grad_norm"] - d_norm) / d_norm
+        u_rel = abs(drop(p) - d_drop) / d_drop
+        p["grad_norm_rel"], p["drop_rel"] = g_rel, u_rel
+        print(f"  {name}: step-1 gradient norm {g_rel:.3e} from the "
+              f"default's, loss drop {drop(p):.6g} ({u_rel:.3e} from the "
+              f"default's {d_drop:.6g})", flush=True)
+        if name in PRODUCT_SAME_GRAD:
+            check(g_rel <= PRODUCT_GRAD_REL, f"phase 14: {name}'s step-1 "
+                  f"gradient norm is {g_rel:.3e} from the default's (limit "
+                  f"{PRODUCT_GRAD_REL})")
+        if name in PRODUCT_SAME_UPDATE:
+            check(u_rel <= PRODUCT_DROP_REL, f"phase 14: {name}'s loss drop "
+                  f"is {u_rel:.3e} from the default's (limit "
+                  f"{PRODUCT_DROP_REL})")
+    check(drop(out["adafactor"]) > 0, f"phase 14: Adafactor's loss did not "
+          f"drop ({out['adafactor']['record']['step_losses']})")
+
+    # the repeat is the cache's: no new measurement
+    calls = ev.calls
+    again = ev(default)
+    check(again == d["step_s"] and ev.calls == calls,
+          f"phase 14: the repeated default was not a cache hit "
+          f"({again} vs {d['step_s']}, calls {calls} -> {ev.calls})")
+    print(f"  default again: {again:.6f} s, a cache hit (calls {ev.calls})",
+          flush=True)
+
+    # flash's launches: per step, microbatches x layers forward (twice
+    # where the remat policy recomputes the group) and as many backward
+    # sets, over the warm-up and the timed steps
+    f = out["flash"]
+    rec = f["record"]
+    micro = rec["runconfig"]["microbatch"] or rec["batch"]
+    n_micro = rec["batch"] // min(micro, rec["batch"])
+    again_fwd = 1 if rec["runconfig"]["remat_policy"] == "none" else 2
+    steps = 1 + PRODUCT_STEPS
+    want_fwd = steps * n_micro * PRODUCT_LAYERS * again_fwd
+    want_bwd = steps * n_micro * PRODUCT_LAYERS
+    got = f["launches"]
+    check(got["fwd"] == got["fwd_wgmma"] == want_fwd and got["fwd_fma"] == 0
+          and got["bwd"] == got["bwd_wgmma"] == want_bwd,
+          f"phase 14: flash launches {got}, want {want_fwd} wgmma forward "
+          f"and {want_bwd} wgmma backward sets")
+    fwd_total = sum(p["launches"]["fwd"] for p in out.values())
+    bwd_total = sum(p["launches"]["bwd"] for p in out.values())
+
+    def speedup(name):
+        p = out[name]
+        return d["step_s"] / p["step_s"] if p["feasible"] else None
+
+    a_best = tuned["default_value"] / tuned["best_value"]
+    a_expert = tuned["default_value"] / tuned["expert_value"]
+    m_best, m_expert = speedup("recommended"), speedup("expert")
+
+    def show(x):
+        return "OOM" if x is None else f"{x:.4f}x"
+    print(f"  transfer on {card}: default/recommended measured "
+          f"{show(m_best)}, analytic (tune, batch 8) {a_best:.4f}x; "
+          f"default/expert measured {show(m_expert)}, analytic "
+          f"{a_expert:.4f}x", flush=True)
+
+    serving = {}
+    for shape in PRODUCT_SERVING:
+        sev = CompiledEvaluator(cfg, SHAPES_BY_NAME[shape], device="cuda",
+                                n_layers=PRODUCT_LAYERS, steps=PRODUCT_STEPS)
+        serving[shape] = product_probe(sev, f"{shape} default", {}, {})
+        if serving[shape]["feasible"]:
+            check(serving[shape]["record"]["outputs_finite"],
+                  f"phase 14: {shape}'s logits are not finite")
+        torch.cuda.empty_cache()
+    total = time.perf_counter() - t0
+    print(f"phase 14 total {total:.1f} s (budget {PRODUCT_BUDGET_S:.0f} s)",
+          flush=True)
+    return {"probes": out, "serving": serving, "launches_fwd": fwd_total,
+            "launches_bwd": bwd_total, "measured_speedup": m_best,
+            "measured_expert_speedup": m_expert,
+            "analytic_speedup": a_best, "analytic_expert_speedup": a_expert,
+            "seconds": total}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4817,7 +5048,7 @@ def main() -> None:
     t_all = time.perf_counter()
     card = phase_device()
     err, timing = phase_kernels(card)
-    launches = phase_main_path(card)
+    launches, tuned = phase_main_path(card)
     gp_round = phase_profile(card)
     torch.cuda.empty_cache()
     flash = phase_flash(card)
@@ -4837,6 +5068,8 @@ def main() -> None:
     families = phase_families(card)
     torch.cuda.empty_cache()
     train = phase_train(card)
+    torch.cuda.empty_cache()
+    product = phase_product(card, tuned)
 
     kernels = []
     for kind, shape, svc_shape in (("gram", MAIN_GRAM, SERVICE_GRAM),
@@ -4898,7 +5131,8 @@ def main() -> None:
                **{k: families[k]["launches"]
                   for k in ("qwen2-moe", "jamba", "whisper")},
                "train-yi-6b": train["yi"]["launches_fwd"],
-               "train-whisper": train["whisper"]["launches_fwd"]}
+               "train-whisper": train["whisper"]["launches_fwd"],
+               "product-yi-6b": product["launches_fwd"]}
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",
         "source": FLASH_SOURCE, "fma_source": FLASH_FMA_SOURCE,
@@ -4907,7 +5141,7 @@ def main() -> None:
         "launches_wgmma": serving["launches_wgmma"] + sum(
             families[k]["launches"] for k in ("qwen2-moe", "jamba",
                                               "whisper"))
-        + train["yi"]["launches_fwd"],
+        + train["yi"]["launches_fwd"] + product["launches_fwd"],
         "launches_fma": serving["launches_fma"],
         f"launches_{serving['long_s'] // 1024}k": serving["launches_long"],
         "max_abs_err": flash["max_abs_err"], "rel_l2": flash["rel_l2"],
@@ -4956,11 +5190,13 @@ def main() -> None:
         "name": "flash_attention_bwd", "route": "cuda",
         "source": FLASH_BWD_SOURCE, "fma_source": FLASH_BWD_FMA_SOURCE,
         "replaces": FLASH_REPLACES,
-        "launches": yi["launches_bwd"],
-        "launches_wgmma": yi["launches_bwd"] + wh["launches_bwd_wgmma"],
+        "launches": yi["launches_bwd"] + product["launches_bwd"],
+        "launches_wgmma": yi["launches_bwd"] + wh["launches_bwd_wgmma"]
+        + product["launches_bwd"],
         "launches_fma": wh["launches_bwd_fma"],
         "launches_by_path": {"train-yi-6b": yi["launches_bwd"],
-                             "train-whisper": wh["launches_bwd"]},
+                             "train-whisper": wh["launches_bwd"],
+                             "product-yi-6b": product["launches_bwd"]},
         "fma_ms": bwd["fma_ms"],
         "max_abs_err": bwd["max_abs_err"], "rel_l2": bwd["rel_l2"],
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],

@@ -1,31 +1,41 @@
-"""Experiment Unit backend (paper §3.1/§3.4): the analytic *test cluster*.
+"""Experiment Unit backends (paper §3.1/§3.4).
 
-:class:`AnalyticEvaluator` is the closed-form cost model corrupted with
-multiplicative log-normal noise (σ = 2.5 %, the paper's measured benchmark
-deviation).  Milliseconds per call; used for the 300-sample ranking phase
-and every optimizer comparison.  It returns *step seconds* (lower is
-better).
+* :class:`AnalyticEvaluator` — the *test cluster*: the closed-form cost
+  model corrupted with multiplicative log-normal noise (σ = 2.5 %, the
+  paper's measured benchmark deviation).  Milliseconds per call; used for
+  the 300-sample ranking phase and every optimizer comparison.
+* :class:`CompiledEvaluator` — the *product cluster*: applies the config
+  to the real step and runs it on the card (``launch.dryrun.compile_cell``:
+  one replica's share of the cell, a warm-up step, then timed steps),
+  scoring the measured step's median.  Seconds per call; validates
+  recommendations (the paper's Fig. 5 transfer).  The reference compiles
+  the step on a forced 512-device CPU mesh and scores the roofline terms
+  of its HLO instead; PyTorch has no HLO, and the port has a card.
 
-The noise is host work, like the cost model it corrupts, and reproduces
-the JAX reference's stream: one standard normal per evaluation, drawn by
-``jax.random.normal`` from raw threefry key words built from a blake2s
-digest of (config, salt).  :func:`threefry_bits` and :func:`std_normal`
+Both return *step seconds* (lower is better).
+
+The analytic noise is host work, like the cost model it corrupts, and
+reproduces the JAX reference's stream: one standard normal per
+evaluation, drawn by ``jax.random.normal`` from raw threefry key words
+built from a blake2s digest of (config, salt).  :func:`threefry_bits` and :func:`std_normal`
 rebuild that draw in numpy (threefry2x32 with 20 rounds, the
 bits→uniform→normal transform), so every seeded ``(config, seed)`` probe
 matches the reference to float32 rounding.
 
 Batch protocol: ``evaluate_batch(configs) -> np.ndarray`` scores n configs
-at once with per-row noise keys, reproducing n sequential ``__call__``\\ s.
-The product-cluster ``CompiledEvaluator`` of the reference is not ported
-yet.
+at once; the analytic evaluator with per-row noise keys, reproducing n
+sequential ``__call__``\\ s, the compiled one measuring what its cache
+lacks one config after another (one card times one step at a time:
+every measurement holds :data:`CARD_LOCK`).
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import threading
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 from scipy.special import erfinv
@@ -195,6 +205,122 @@ class AnalyticEvaluator:
 
     def evaluate_batch(self, configs: Sequence[Config]) -> np.ndarray:
         return self.evaluate_batch_detailed(configs)[0]
+
+
+# One card times one step at a time: every CompiledEvaluator measurement
+# in the process runs under this lock, whichever thread or service worker
+# asks for it.
+CARD_LOCK = threading.Lock()
+
+
+@dataclass
+class CompiledEvaluator:
+    """Scores a config by running the real step on the card.
+
+    Lazy-imports the launch layer so ``repro_torch.core`` stays light.
+    Thread-safe: every ``calls``/``history``/``_cache`` update happens
+    under ``_lock``; the measurement itself holds the module's
+    :data:`CARD_LOCK` (one step on the card at a time, so the threads of
+    a ``max_workers`` worker pool queue for it).  ``service_kind =
+    "pool"`` tells :func:`repro_torch.core.service.as_service` to wrap
+    this evaluator in a persistent worker pool.
+
+    A measured step is not deterministic: repeated probes of a config are
+    equal only through the cache (first writer wins).  A config that runs
+    out of the card's memory raises ``torch.cuda.OutOfMemoryError`` (a
+    failed evaluation for the service layer); it is not cached, never
+    retried smaller and never moved to the CPU.  ``records`` keeps each
+    measured config's full ``compile_cell`` record by cache key.
+    """
+    model_cfg: ModelConfig
+    cell: ShapeCell
+    multi_pod: bool = False
+    max_workers: int = 4               # worker-pool width (as_service)
+    history_cap: Optional[int] = None  # keep-all by default; see Analytic
+    device: str = "cuda"
+    n_layers: Optional[int] = None     # depth cut (None: the cell's
+                                       # dryrun.cell_depth, knob-free)
+    steps: int = 2                     # timed steps after the warm-up
+    calls: int = 0
+    history: list = field(default_factory=list)
+    records: Dict[str, dict] = field(default_factory=dict)
+    _cache: Dict[str, float] = field(default_factory=dict)
+    _lock: threading.Lock = field(default_factory=threading.Lock,
+                                  repr=False, compare=False)
+
+    service_kind = "pool"
+
+    def __post_init__(self):
+        from repro_torch.device import resolve_device
+        resolve_device(self.device)         # raises without CUDA
+
+    @staticmethod
+    def _key(knobs: Config) -> str:
+        return json.dumps({k: str(v) for k, v in sorted(knobs.items())},
+                          sort_keys=True)
+
+    def _compile(self, knobs: Config) -> float:
+        from repro_torch.launch.dryrun import compile_cell  # lazy
+        rec = compile_cell(self.model_cfg, self.cell, knobs,
+                           multi_pod=self.multi_pod, device=self.device,
+                           n_layers=self.n_layers, steps=self.steps)
+        with self._lock:
+            self.records[self._key(knobs)] = rec
+        return rec["measured_step_s"]
+
+    def _measure(self, knobs: Config) -> float:
+        with CARD_LOCK:
+            return self._compile(knobs)
+
+    def _store(self, key: str, knobs: Config, step: float) -> float:
+        """Record a finished measurement; first writer wins on a
+        duplicate (two workers may race to measure the same config — the
+        cache keeps one value, so the duplicate is dropped, not
+        double-counted)."""
+        with self._lock:
+            if key not in self._cache:
+                self.calls += 1
+                self.history.append({"knobs": dict(knobs), "step_s": step})
+                _trim_history(self.history, self.history_cap)
+                self._cache[key] = step
+            return self._cache[key]
+
+    def __call__(self, knobs: Config) -> float:
+        key = self._key(knobs)
+        with self._lock:
+            if key in self._cache:
+                return self._cache[key]
+        step = self._measure(knobs)      # slow path: outside the lock
+        return self._store(key, knobs, step)
+
+    def true_step(self, knobs: Config) -> float:
+        """The product cluster's objective: ``__call__`` (cache-served on
+        repeats).  Exists so both fidelities expose the same validation
+        interface."""
+        return self(knobs)
+
+    def evaluate_batch(self, configs: Sequence[Config]) -> np.ndarray:
+        """Cache hits and duplicate configs within the batch are measured
+        once; the rest one after another, since the card times one step
+        at a time.  Every finished measurement is stored; the first
+        failure is raised after all have ended."""
+        cfgs = list(configs)
+        keys = [self._key(c) for c in cfgs]
+        with self._lock:
+            missing: Dict[str, Config] = {}
+            for k, c in zip(keys, cfgs):
+                if k not in self._cache and k not in missing:
+                    missing[k] = c
+        failed = []
+        for k, c in missing.items():
+            try:
+                self._store(k, c, self._measure(c))
+            except Exception as e:          # noqa: BLE001 -- raised below
+                failed.append(e)
+        if failed:
+            raise failed[0]
+        with self._lock:
+            return np.asarray([self._cache[k] for k in keys], np.float64)
 
 
 def evaluate_many(evaluate, configs: Sequence[Config]) -> List[float]:

@@ -17,6 +17,46 @@ a ``ValueError`` naming the set the kernel has.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
+# [operations, bytes] of the kernel launches made while a step is counted
+# (``counting_work``); None otherwise
+_work = None
+_work_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def counting_work():
+    """Tally the work of every kernel launch made inside the block (on
+    any thread: autograd runs the backward on its own) into the yielded
+    list ``[operations, bytes]``; one tally at a time."""
+    global _work
+    tally = [0, 0]
+    with _work_lock:
+        if _work is not None:
+            raise RuntimeError("kernel work is already being counted")
+        _work = tally
+    try:
+        yield tally
+    finally:
+        with _work_lock:
+            _work = None
+
+
+def add_work(formula, *args) -> None:
+    """Add one launch's ``formula(*args)`` = (operations, bytes) to the
+    open tally; nothing (the formula is not evaluated) outside
+    ``counting_work``.  Each wrapper calls it where it counts a launch."""
+    if _work is None:
+        return
+    flops, nbytes = formula(*args)
+    with _work_lock:
+        if _work is not None:
+            _work[0] += flops
+            _work[1] += nbytes
+
+
 def check_positive(kernel: str, **knobs) -> None:
     """Raise ``ValueError`` unless every knob is ``None`` or a positive
     int: what a CPU call (the plain version, no tiles) accepts."""

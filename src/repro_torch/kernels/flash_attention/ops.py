@@ -65,7 +65,9 @@ and takes any positive knob.  :func:`autotune_space` and
 ``launches`` counts forward kernel launches, ``launches_wgmma`` and
 ``launches_fma`` those of each route, ``launches_bwd`` the backward's
 launch sets, and ``launches_bwd_wgmma`` and ``launches_bwd_fma`` those of
-each route (``BWD_KERNELS`` kernels a set).
+each route (``BWD_KERNELS`` kernels a set).  :func:`fwd_work` and
+:func:`bwd_work` give a launch's operations and bytes (its bound); each
+launch adds them to ``kernels.add_work``'s tally while a step is counted.
 
 The libraries are built with ``nvcc`` into ``build/flash_attention/`` at
 first use (``kernels/build.py``).
@@ -80,9 +82,10 @@ import threading
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import check_positive
+from repro_torch.kernels import add_work, check_positive
 from repro_torch.kernels.build import NvccLibrary
 from repro_torch.kernels.flash_attention.ref import reference_attention
 from repro_torch.kernels.tma import check_tma, tma_strides
@@ -399,6 +402,7 @@ def _wgmma(q, k, v, causal, window, softcap,
         raise RuntimeError(f"flash_attention (wgmma) kernel launch failed: "
                            f"CUDA error {err}")
     _count("wgmma")
+    _add_work(fwd_work, q, k, causal, window)
     return out
 
 
@@ -430,6 +434,7 @@ def _fma(q, k, v, causal, window, softcap, tiles=DEFAULT_TILES["fma"],
         raise RuntimeError(f"flash_attention (fma) kernel launch failed: "
                            f"CUDA error {err}")
     _count("fma")
+    _add_work(fwd_work, q, k, causal, window)
     return out
 
 
@@ -498,6 +503,7 @@ def _backward_wgmma(q, k, v, out, dout, lse, causal, window, softcap):
         raise RuntimeError(f"flash_attention backward (wgmma) kernel "
                            f"launch failed: CUDA error {err}")
     _count("bwd_wgmma")
+    _add_work(bwd_work, q, k, causal, window)
     return dq, dk, dv
 
 
@@ -536,7 +542,54 @@ def _backward_fma(q, k, v, out, dout, lse, causal, window, softcap):
         raise RuntimeError(f"flash_attention backward (fma) kernel "
                            f"launch failed: CUDA error {err}")
     _count("bwd_fma")
+    _add_work(bwd_work, q, k, causal, window)
     return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# the work of one launch: the bounds ``chip_smoke.py`` holds the kernels
+# to, and what ``launch.roofline.count_step`` adds for each launch
+# ---------------------------------------------------------------------------
+
+def visible_pairs(Sq: int, Sk: int, causal: bool,
+                  window: Optional[int]) -> int:
+    """(query, key) pairs the mask leaves visible (top-left causal)."""
+    if window is None:
+        if not causal:
+            return Sq * Sk
+        full = max(Sq - Sk, 0)                # rows that see every key
+        return min(Sq, Sk) * (min(Sq, Sk) + 1) // 2 + full * Sk
+    i = np.arange(Sq)
+    hi = np.minimum(i if causal else Sk - 1, Sk - 1)
+    lo = np.maximum(i - window + 1, 0)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def fwd_work(B, Sq, Sk, H, Kh, D, causal, window, itemsize):
+    """(operations, bytes) of a forward launch: the two products QK^T and
+    PV over the visible pairs; q, k, v read once and o written once.  The
+    softmax's exp/max/sum (about 1/(2D) of the operations) and the
+    log-sum-exp store are not counted."""
+    flops = 4 * D * visible_pairs(Sq, Sk, causal, window) * B * H
+    nbytes = itemsize * (2 * B * Sq * H * D + 2 * B * Sk * Kh * D)
+    return flops, nbytes
+
+
+def bwd_work(B, Sq, Sk, H, Kh, D, causal, window, itemsize):
+    """(operations, bytes) of a backward launch set: the five products
+    (QK^T again, dO V^T, P^T dO, dS^T Q, dS K) over the visible pairs; q,
+    o, dO, dq and k, v, dk, dv each moved once and the float32
+    log-sum-exp read."""
+    flops = 10 * D * visible_pairs(Sq, Sk, causal, window) * B * H
+    nbytes = itemsize * (4 * B * Sq * H * D + 4 * B * Sk * Kh * D) \
+        + 4 * B * H * Sq
+    return flops, nbytes
+
+
+def _add_work(formula, q, k, causal, window):
+    B, Sq, H, D = q.shape
+    add_work(formula, B, Sq, k.shape[1], H, k.shape[2], D, causal, window,
+             q.element_size())
 
 
 # ---------------------------------------------------------------------------

@@ -80,7 +80,9 @@ autotune hooks.
 passes), ``launches_wgmma`` and ``launches_fma`` those of each route,
 ``launches_bwd`` the backward's (one per call, ``BWD_KERNELS[route]``
 kernels), ``launches_bwd_wgmma`` and ``launches_bwd_fma`` those of each
-route.
+route.  :func:`fwd_work` and :func:`bwd_work` give a launch's operations
+and bytes (its bound); each launch adds them to ``kernels.add_work``'s
+tally while a step is counted.
 
 The libraries are built with ``nvcc`` into ``build/mlstm_chunk/`` at
 first use (``kernels/build.py``).
@@ -96,7 +98,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import check_positive
+from repro_torch.kernels import add_work, check_positive
 from repro_torch.kernels.build import NvccLibrary
 from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunkwise
 from repro_torch.kernels.tma import check_tma, tma_strides
@@ -403,6 +405,7 @@ def _wgmma(q, k, v, logi, logf, c, library: Optional[NvccLibrary] = None,
         raise RuntimeError(f"mlstm_chunk (wgmma) kernel launch failed: "
                            f"CUDA error {err}")
     _count("wgmma")
+    add_work(fwd_work, B, S, H, P, c, q.element_size())
     return out
 
 
@@ -432,6 +435,7 @@ def _fma(q, k, v, logi, logf, c, tiles: Optional[tuple] = None):
         raise RuntimeError(f"mlstm_chunk (fma) kernel launch failed: CUDA "
                            f"error {err}")
     _count("fma")
+    add_work(fwd_work, B, S, H, P, c, q.element_size())
     return out
 
 
@@ -480,6 +484,7 @@ def _backward(q, k, v, logi, logf, h, dh, c, rounded: bool):
         raise RuntimeError(f"mlstm_chunk backward kernel launch failed: "
                            f"CUDA error {err}")
     _count("bwd_fma")
+    add_work(bwd_work, B, S, H, P, c, q.element_size())
     return dq, dk, dv, dli, dlf
 
 
@@ -546,7 +551,47 @@ def _backward_wgmma(q, k, v, logi, logf, h, dh, c,
         raise RuntimeError(f"mlstm_chunk backward (wgmma) kernel launch "
                            f"failed: CUDA error {err}")
     _count("bwd_wgmma")
+    add_work(bwd_work, B, S, H, P, c, q.element_size())
     return dq, dk, dv, dli, dlf
+
+
+# ---------------------------------------------------------------------------
+# the work of one launch: the bounds ``chip_smoke.py`` holds the kernels
+# to, and what ``launch.roofline.count_step`` adds for each launch
+# ---------------------------------------------------------------------------
+
+def fwd_work(B, S, H, P, chunk, itemsize):
+    """(operations, bytes) of a forward launch.  Bytes: q, k, v read once
+    and h written once, and the two float32 gates read once.  Operations,
+    per (chunk, head): the causal half of q k^T and of ((q k^T) o W) v,
+    C(C+1)/2 pairs at 2P each; per head, for each chunk but one, 2 C P^2
+    each for the inter-chunk product q C_prev (the first chunk's state is
+    zero) and the carry update k^T v (the last chunk's carry is not
+    returned).  The gate terms, O(C^2) per chunk, are not counted."""
+    n = S // chunk
+    pairs = chunk * (chunk + 1) // 2
+    flops = B * H * (n * 2 * 2 * P * pairs
+                     + max(n - 1, 0) * 2 * 2 * chunk * P * P)
+    nbytes = itemsize * 4 * B * S * H * P + 4 * 2 * B * S * H
+    return flops, nbytes
+
+
+def bwd_work(B, S, H, P, chunk, itemsize):
+    """(operations, bytes) of a backward launch.  Bytes: q, k, v, h, dh
+    read once and dq, dk, dv written once (the two float32 gates read and
+    their gradients written once).  Operations, the products the design
+    computes: per head, for each chunk but one, the two carries (C~
+    entering and G leaving, P x (P+1) x chunk each), C~ dnum~ and G v~
+    (the same size; the first chunk's C~ and the last chunk's G are zero)
+    and G_C^T (k o wk) (P x P x chunk); per chunk, five causal products of
+    chunk(chunk+1)/2 pairs x P (S and dh v^T, dS k, dS^T q, A^T dnum).
+    The row and gate terms, O(chunk^2) per chunk, are not counted."""
+    n = S // chunk
+    pairs = chunk * (chunk + 1) // 2
+    macs = B * H * (max(n - 1, 0) * chunk * (4 * P * (P + 1) + P * P)
+                    + n * 5 * pairs * P)
+    nbytes = itemsize * 8 * B * S * H * P + 4 * 4 * B * S * H
+    return 2 * macs, nbytes
 
 
 # ---------------------------------------------------------------------------

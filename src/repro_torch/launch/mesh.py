@@ -1,10 +1,15 @@
-"""The host's device layout for the train launcher (from
-``repro.launch.mesh``; ``make_production_mesh``, a multi-host mesh, is not
-ported yet: ROADMAP queue A, item 16).
+"""Device layouts (from ``repro.launch.mesh``).
+
+``make_production_mesh`` names the reference's production mesh, 16 x 16
+chips (``("data", "model")``) or 2 x 16 x 16 (``("pod", "data",
+"model")``), as axis sizes and no devices: the port has one card, not 256
+chips.  Its one use is to fix how much work that card does, one
+data-parallel replica's share of a cell (``launch.dryrun``).
 
 The port runs one process: the mesh it trains on is a tuple of devices
-with axes ``("data", "model")``, one device on the data axis.  Nothing
-here touches a device when the module is imported.
+with axes ``("data", "model")``, one device on the data axis
+(``make_host_mesh``).  Nothing here touches a device when the module is
+imported.
 """
 
 from __future__ import annotations
@@ -15,6 +20,14 @@ from typing import Dict, Tuple, Union
 import torch
 
 from repro_torch.device import resolve_device
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Dict[str, int]:
+    """Axis name -> size of the reference's production mesh (its
+    ``jax.make_mesh(...).shape``), in its axis order."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
 
 
 @dataclass(frozen=True)

@@ -58,7 +58,8 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.train", "repro_torch.train.optimizer",
                 "repro_torch.train.train_loop", "repro_torch.train.data",
                 "repro_torch.train.checkpoint", "repro_torch.train.elastic",
-                "repro_torch.launch.train", "repro_torch.launch.mesh"):
+                "repro_torch.launch.train", "repro_torch.launch.mesh",
+                "repro_torch.launch.dryrun", "repro_torch.launch.roofline"):
         assert mod in res["modules"]
     assert res["bad"] == []
 
