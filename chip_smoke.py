@@ -158,7 +158,9 @@ Phases (any failure exits non-zero before the result line):
    (0.1); ``Engine`` must refuse it.
 13. training.  The flash backward kernels (through ``flash_attention``'s
    ``autograd.Function``) over ``BWD_CASES``: yi-6b's layer causal bf16 at
-   the train step's microbatch (1,4096,4096,32,4,128) and at B=2, GQA 8/1,
+   the train step's microbatch (1,4096,4096,32,4,128) and at B=2, the MoE
+   and hybrid steps' layers (qwen2-moe's MHA (1,4096,4096,16,16,128) and
+   jamba's (1,4096,4096,64,8,128), timed as yi-6b's), GQA 8/1,
    a window of 256, soft-cap 30, Sq != Sk, whisper's encoder and cross
    shapes (bf16 at D 64/128: ``flash_attention_bwd_wgmma.cu``, the tensor
    cores), and float32 at D 16/32/64/128 (``flash_attention_bwd.cu``, the
@@ -225,6 +227,27 @@ Phases (any failure exits non-zero before the result line):
    within 1e-2 and 2e-2 of the plain mLSTM's (in bf16 the stack's
    gradient moves ~100x a forward perturbation, so no model-level
    gradient limit holds there: ``tools/xlstm_grad_sensitivity.py``).
+   Then the MoE and hybrid train steps at full width (both within 90 s):
+   ``Model(qwen2-moe-a2.7b)`` at the depth ``launch.dryrun.fit_depth``
+   gives for yi-6b's step RunConfig at 2 x 4096 (3 of 24 layers; AdamW,
+   float32 masters, microbatch 1, remat ``block``, flash, dense MoE) and
+   jamba-1.5-large-398b cut to pattern positions 0 and 4 (mamba + dense,
+   attention + dense; its family's Adafactor without masters, remat
+   ``full``, microbatch 1): step 1's loss and every leaf's gradient,
+   accumulated over the microbatches, flash against reference attention
+   (1e-2, 2e-2; the MoE's routing recorded in the flash run and its top-k
+   indices replayed into the reference run, the gate weights and aux loss
+   keeping their gradient), qwen2-moe's router gradient finite and
+   nonzero; 4 steps on one ``SyntheticDataset`` batch with exactly
+   microbatches x attention layers x 2 wgmma forward launches (forward and
+   recompute), as many wgmma backward sets and none on the FMA routes, in
+   each; the loss's drop from step 1 to step 4; jamba's Adafactor update
+   at step 2 against ``train/optimizer.py`` on the host on the same
+   gradients and state (each leaf of the new parameters and moments
+   within 1e-5); step time, tokens/s, peak memory, the MoE or mamba
+   layers' share of a step's device span (CUDA events in their forward,
+   recompute and backward), the optimizer's, and the profiled step's
+   kernel shares and idle share.
 14. the product cluster: ``CompiledEvaluator(yi-6b full width, 4 of 32
    layers, train_4k, device="cuda")`` runs each probe's train step on
    the card at one data-parallel replica's share of the cell (16 x 4096
@@ -2891,20 +2914,54 @@ def flash_events(fn):
 
 
 @contextlib.contextmanager
-def module_timers(targets):
-    """Wrap ``(module, attr, key)`` functions with CUDA events; yields
-    {key: [(start, end), ...]} (read after a sync)."""
+def layer_spans(targets):
+    """Wrap ``(module, attr, key)`` layer functions (``fn(params, x, ...)``
+    whose output, or its first item, is the layer's output) with CUDA
+    events; yields {key: [(start, end), ...]} (read after a sync): each
+    call's forward (the remat recompute too) and, under autograd, its
+    backward, from the output's gradient arriving (after the recompute
+    that gradient sets off: the marker saves its input, whose unpacking
+    runs the recompute first) to the input's gradient leaving."""
     import torch
     spans = {key: [] for _, _, key in targets}
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
 
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    class Mark(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, box, end):
+            ctx.box, ctx.end = box, end
+            if not end:
+                ctx.save_for_backward(x)
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            if ctx.end:
+                ctx.box["out"].append((ctx.box.pop("start"), event()))
+            else:
+                ctx.saved_tensors            # the recompute runs here
+                ctx.box["start"] = event()
+            return g, None, None
+
     def timed(fn, key):
-        def run(*a, **k):
-            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            s.record()
-            out = fn(*a, **k)
-            e.record()
-            spans[key].append((s, e))
+        def run(params, x, *a, **k):
+            box = {"out": spans[key]}
+            grad = torch.is_grad_enabled() and x.requires_grad
+            if grad:
+                x = Mark.apply(x, box, True)
+            s = event()
+            out = fn(params, x, *a, **k)
+            spans[key].append((s, event()))
+            if grad:
+                if isinstance(out, tuple):
+                    out = (Mark.apply(out[0], box, False),) + out[1:]
+                else:
+                    out = Mark.apply(out, box, False)
             return out
         return run
 
@@ -3024,8 +3081,10 @@ def routing_replay(plan=None):
     """With ``plan`` None, record: yields the list of each
     ``moe._routing`` call's top-k indices [T, K].  Otherwise replay: the
     i-th call routes to ``plan(i)`` instead, its weights renormalised from
-    its own float32 probabilities at those experts; the yielded list then
-    holds, per call, the number of tokens whose own top-k set differed.
+    its own float32 probabilities at those experts and its aux loss formed
+    from them (only the indices are replayed: the gate weights and the aux
+    loss keep their gradient); the yielded list then holds, per call, the
+    number of tokens whose own top-k set differed.
 
     A random-weight MoE model in bf16 is chaotic as initialised: a
     rounding difference flips a routing near-tie, and the flipped expert's
@@ -3047,8 +3106,11 @@ def routing_replay(plan=None):
             x.float(), params["router"]["w"].float()), dim=-1)
         topv = probs.gather(-1, want)
         topv = topv / topv.sum(dim=-1, keepdim=True)
-        return torch.zeros_like(probs).scatter(-1, want, topv), aux, want, \
-            topv
+        w = torch.zeros_like(probs).scatter(-1, want, topv)
+        # the aux loss of the replayed routing, as moe._routing forms it
+        aux = cfg.n_experts * torch.sum((w > 0).float().mean(dim=0)
+                                        * probs.mean(dim=0))
+        return w, aux, want, topv
 
     moe._routing = patched
     try:
@@ -3256,7 +3318,7 @@ def families_moe(card: str):
     # in one prefill, then the device's busy share and flash's under the
     # profiler in another
     torch.cuda.synchronize()
-    with module_timers([(moe, "apply", "moe"),
+    with layer_spans([(moe, "apply", "moe"),
                         (attention, "apply", "attention")]) as spans:
         s0, s1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         s0.record()
@@ -3593,16 +3655,23 @@ FLASH_BWD_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                     "flash_attention_bwd_wgmma.cu")
 FLASH_BWD_FMA_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                         "flash_attention_bwd.cu")
+# the layers of the MoE and hybrid train steps at their microbatch of 1:
+# qwen2-moe's MHA (Kh = H) and jamba's 64 heads over 8
+BWD_LAYER_CASES = {
+    "qwen2-moe": (1, 4096, 4096, 16, 16, 128, True, None, None, "bfloat16"),
+    "jamba": (1, 4096, 4096, 64, 8, 128, True, None, None, "bfloat16"),
+}
 # B, Sq, Sk, H, Kh, D, causal, window, softcap, dtype: yi-6b's layer at
 # the train step's microbatch of 1 (the path's shape) first, then at
-# B=2, GQA 8/1, a window of 256, grok-1's soft-cap, Sq != Sk without the
-# mask, whisper's encoder (a ragged last tile of 1500 keys) and
-# cross-attention, and the float32 FMA route at every head dim of the
-# models.  The first two are timed.  bf16 at D 64/128 takes the wgmma
-# backward, float32 the FMA one.
+# B=2, the MoE and hybrid steps' layers, GQA 8/1, a window of 256,
+# grok-1's soft-cap, Sq != Sk without the mask, whisper's encoder (a
+# ragged last tile of 1500 keys) and cross-attention, and the float32 FMA
+# route at every head dim of the models.  The first four are timed.  bf16
+# at D 64/128 takes the wgmma backward, float32 the FMA one.
 BWD_CASES = [
     (1, 4096, 4096, 32, 4, 128, True, None, None, "bfloat16"),
     (2, 4096, 4096, 32, 4, 128, True, None, None, "bfloat16"),
+    *BWD_LAYER_CASES.values(),
     (1, 512, 512, 8, 1, 128, True, None, None, "bfloat16"),
     (1, 1024, 1024, 8, 2, 128, True, 256, None, "bfloat16"),
     (1, 512, 512, 8, 8, 128, True, None, 30.0, "bfloat16"),
@@ -3779,6 +3848,10 @@ def train_bwd_kernel(card: str) -> dict:
                                         fma=True))
         elif case is BWD_CASES[1]:
             out["b2"] = train_bwd_timing(card, case, q, k, v, do, kw)
+        for arch, layer in BWD_LAYER_CASES.items():
+            if case is layer:
+                out.setdefault("layers", {})[arch] = train_bwd_timing(
+                    card, case, q, k, v, do, kw, what=f"{arch}'s layer")
         del q, k, v, do, got
         torch.cuda.empty_cache()
     out["max_abs_err"] = max(out["err"].values())
@@ -3822,11 +3895,13 @@ def bwd_counted(which: str):
     return (("flash_bwd", lambda: ops.launches_bwd, ops.BWD_KERNELS[which]),)
 
 
-def train_bwd_timing(card, case, q, k, v, do, kw, fma=False) -> dict:
+def train_bwd_timing(card, case, q, k, v, do, kw, fma=False,
+                     what="yi-6b's layer") -> dict:
     """The route's backward launch set (``ops._backward``) timed with CUDA
     events and the profiler beside SDPA's backward (in turns), the plain
     version and the bound; ``fma`` also times the FMA backward once at the
-    same inputs (the earlier kernel's row in PERF)."""
+    same inputs (the earlier kernel's row in PERF).  ``what`` names the
+    shape's layer."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
@@ -3884,7 +3959,7 @@ def train_bwd_timing(card, case, q, k, v, do, kw, fma=False) -> dict:
         check(ops.launches_bwd_fma > n, "the FMA backward did not launch")
     b_ms, b_by, flops = flash_bwd_bound(B, Sq, Sk, H, Kh, D, True, None, 2,
                                         BF16_FLOPS_PER_S)
-    print(f"  backward at yi-6b's layer shape {case[:6]} causal bf16"
+    print(f"  backward at {what} shape {case[:6]} causal bf16"
           + (" (the train step's microbatch)" if B == TRAIN_MICRO else "")
           + f" on "
           f"{card}: kernel_ms={k_ms:.4f} ({k_ms1:.4f}, {k_ms2:.4f}) "
@@ -3924,8 +3999,8 @@ def compare_grads(tag, got, want, loss, loss_ref, what="flash"):
             zero_bias = max(zero_bias, float((a.float() - b.float()).norm()))
             continue
         r = rel_l2(a, b)
-        if r > worst:
-            worst, worst_path = r, path
+        if not r <= worst:         # a non-finite leaf is the worst
+            worst, worst_path = (r if math.isfinite(r) else math.inf), path
     loss_rel = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
     print(f"  {tag}: loss {what} {float(loss):.6f} reference "
           f"{float(loss_ref):.6f} (rel {loss_rel:.3e}, limit "
@@ -4797,11 +4872,393 @@ def train_xlstm(card: str) -> dict:
             "launch_rel_l2": worst, "float32": f32}
 
 
+# ---------------------------------------------------------------------------
+# phase 13, continued: the MoE and hybrid train steps
+# ---------------------------------------------------------------------------
+
+MOE_TRAIN_ARCH = "qwen2-moe-a2.7b"
+MOE_TRAIN_MIN_LAYERS = 2          # fewer is no stack: the phase fails
+JAMBA_TRAIN_ARCH = "jamba-1.5-large-398b"
+JAMBA_TRAIN_KEEP = (0, 4)         # mamba + dense, attention + dense
+# step 1 runs at lr 0 (the schedule's warm-up starts there); steps 2 and 3
+# are timed (jamba's step 2 also holds Adafactor against the host); step 4
+# runs under the profiler.  Every step takes the same batch, so the loss's
+# drop from step 1 to step 4 is the two updates' own effect
+FAMILY_TRAIN_STEPS = 4
+ADAFACTOR_REL = 1e-5              # the card's update vs the host's, per leaf
+FAMILY_TRAIN_BUDGET_S = 90.0      # both steps together
+
+
+def family_train_cut(arch: str):
+    """(config, RunConfig, reduced) of the MoE or the hybrid train step at
+    full width: qwen2-moe-a2.7b at the depth ``launch.dryrun.fit_depth``
+    gives for the step's RunConfig (yi-6b's: microbatch 1, remat
+    ``block``, flash) at TRAIN_B x TRAIN_S, at least MOE_TRAIN_MIN_LAYERS;
+    jamba-1.5-large-398b cut to the pattern positions JAMBA_TRAIN_KEEP (as
+    ``tests/test_torch_train._cut`` cuts) under its family's
+    ``RUN_OVERRIDES`` (Adafactor, no float32 masters, remat ``full``,
+    microbatch 1) with flash attention."""
+    import importlib
+    from repro_torch.configs import canonical, get_config
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.runconfig import RunConfig
+    full = get_config(arch)
+    if arch == MOE_TRAIN_ARCH:
+        rc = RunConfig(microbatch=TRAIN_MICRO, remat_policy="block",
+                       attention_impl="flash")
+        n = dryrun.fit_depth(full, rc, roofline.H100.hbm_bytes,
+                             mode="train", batch=TRAIN_B, seq=TRAIN_S)
+        check(n >= MOE_TRAIN_MIN_LAYERS, f"{arch}: fit_depth gives {n} "
+              f"layers, fewer than {MOE_TRAIN_MIN_LAYERS}")
+        return (full.scaled(n_layers=n), rc,
+                [f"depth {full.n_layers} -> {n}"])
+    check(arch == JAMBA_TRAIN_ARCH, f"no train cut for {arch}")
+    over = importlib.import_module(
+        f"repro_torch.configs.{canonical(arch)}").RUN_OVERRIDES
+    keep = JAMBA_TRAIN_KEEP
+    cfg = full.scaled(n_layers=len(keep),
+                      pattern=tuple(full.pattern[i] for i in keep))
+    return (cfg, RunConfig(attention_impl="flash", **over),
+            [f"depth {full.n_layers} -> {len(keep)}", "MoE layers cut"])
+
+
+@contextlib.contextmanager
+def reused_host_heap():
+    """While a host computation allocates and frees many large tensors,
+    keep the freed memory in this process's heap (glibc's ``mallopt``: no
+    mmap for large blocks, no trimming) so that each page is touched once
+    instead of once per temporary (fresh outputs cost 3-5x preallocated
+    ones on the card's host: two elementwise passes over 201M float32
+    0.308-0.368 s against 0.069-0.092 s, ``tools/train_memory_stages.py``);
+    then restore glibc's defaults and give the memory back
+    (``malloc_trim``).  A no-op where libc has no ``mallopt``."""
+    import ctypes
+    try:
+        libc = ctypes.CDLL("libc.so.6")
+        mallopt, trim = libc.mallopt, libc.malloc_trim
+    except (OSError, AttributeError):
+        yield
+        return
+    mallopt.argtypes, mallopt.restype = [ctypes.c_int, ctypes.c_int], \
+        ctypes.c_int
+    trim.argtypes, trim.restype = [ctypes.c_size_t], ctypes.c_int
+    m_trim_threshold, m_mmap_max = -1, -4
+    mallopt(m_mmap_max, 0)
+    mallopt(m_trim_threshold, -1)          # as size_t: never trim
+    try:
+        yield
+    finally:
+        mallopt(m_mmap_max, 65536)          # glibc's defaults
+        mallopt(m_trim_threshold, 128 * 1024)
+        trim(0)
+
+
+def adafactor_vs_host(card_in, card_out, lr, rc) -> dict:
+    """The card's Adafactor update (``card_out``: new parameters and state,
+    copied to the host) against ``train/optimizer.py`` run on the host on
+    the same gradients, state and parameters (``card_in``, copied before
+    the card's update): each leaf of the new parameters and of the new
+    row, column and full second moments within ADAFACTOR_REL (relative
+    L2; a leaf whose host value is 0 by its absolute L2)."""
+    with reused_host_heap():
+        return _adafactor_vs_host(card_in, card_out, lr, rc)
+
+
+def _adafactor_vs_host(card_in, card_out, lr, rc) -> dict:
+    import torch
+    from repro_torch.models.common import tree_flatten_with_path
+    from repro_torch.train import optimizer as topt
+    grads, st, params = card_in
+    old = [p.clone() for _, p in tree_flatten_with_path(params)[0]]
+    t0 = time.perf_counter()
+    host = topt.opt_update(grads, st, params, rc, lr, donate=True)
+    host_s = time.perf_counter() - t0
+    worst, where, n = 0.0, "", 0
+    for part, got, want in (("params", card_out[0], host[0]),
+                            ("vr", card_out[1].vr, host[1].vr),
+                            ("vc", card_out[1].vc, host[1].vc),
+                            ("v", card_out[1].v, host[1].v)):
+        pairs = tree_flatten_with_path(got)[0]
+        for (path, a), (_, b) in zip(pairs, tree_flatten_with_path(want)[0]):
+            if b.numel() == 0:
+                continue
+            n += 1
+            d = float((a.float() - b.float()).norm())
+            ref_norm = float(b.float().norm())
+            r = d / ref_norm if ref_norm > 0 else d
+            if r > worst:
+                worst, where = r, f"{part}/" + "/".join(map(str, path))
+    moved, differ = 0, 0
+    for (_, a), (_, b), o in zip(tree_flatten_with_path(card_out[0])[0],
+                                 tree_flatten_with_path(host[0])[0], old):
+        moved += int((a != o).sum())
+        differ += int((a != b).sum())
+    total = sum(o.numel() for o in old)
+    print(f"  Adafactor's update on the card vs train/optimizer.py on the "
+          f"host ({torch.get_num_threads()} threads, {host_s:.1f} s) on the "
+          f"same gradients and state at lr {float(lr):.3e}: worst of {n} "
+          f"leaves (new parameters, vr, vc, v) relative L2 {worst:.3e} at "
+          f"{where} (limit {ADAFACTOR_REL}); bf16 parameters the update "
+          f"moved {moved} of {total}, {differ} differ between the card and "
+          f"the host", flush=True)
+    check(worst <= ADAFACTOR_REL, f"Adafactor's update on the card vs the "
+          f"host: relative L2 {worst} at {where} > {ADAFACTOR_REL}")
+    return {"rel_l2": worst, "leaves": n, "host_s": host_s, "moved": moved,
+            "of": total, "differ": differ}
+
+
+def train_family(card: str, arch: str) -> dict:
+    """The MoE (qwen2-moe-a2.7b) or hybrid (the jamba cut) train step at
+    full width (``family_train_cut``) on the flash forward and backward
+    kernels: step 1's loss and per-leaf gradients against reference
+    attention, accumulated over the microbatches as the step accumulates
+    them (the MoE's routing recorded in the flash run and its top-k
+    indices replayed into the reference run: a random-weight bf16 MoE is
+    chaotic, PERF §6), the router's gradient finite and nonzero; then
+    FAMILY_TRAIN_STEPS steps of ``make_train_step`` on one batch, each
+    with exact flash launch counts; the loss's drop; jamba's Adafactor
+    update against the host's (``adafactor_vs_host``); step time,
+    tokens/s, peak memory, the MoE or mamba layers' share of the step's
+    device span (``layer_spans``), the optimizer's (CUDA events), the
+    profiled step's kernel shares and the idle share."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import moe, ssm
+    from repro_torch.models.common import (tree_flatten,
+                                           tree_flatten_with_path, tree_map)
+    from repro_torch.models.model import Model
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_loop as ttl
+    from repro_torch.train.data import SyntheticDataset
+
+    t_start = time.perf_counter()
+    # a process's first profiler session starts CUPTI, which failed to
+    # initialise when that session came with the card nearly full (after
+    # a 4-layer qwen2-moe step): start it before the model is built
+    profiled_device_us(lambda: torch.ones(1, device="cuda").add_(1))
+    cfg, rc, reduced = family_train_cut(arch)
+    rc_ref = rc.replace(attention_impl="reference")
+    n_micro = TRAIN_B // TRAIN_MICRO
+    n_attn = cfg.attn_layer_count
+    n_moe = sum(sp.mlp == "moe" for sp in cfg.pattern) * cfg.n_groups
+    kinds = ", ".join(f"{sp.kind}+{sp.mlp}" for sp in cfg.pattern)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device="cuda")
+    params = model.init(TRAIN_SEED)
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
+    batch = next(SyntheticDataset(TRAIN_SEED, TRAIN_B, TRAIN_S,
+                                  cfg.vocab_size, device="cuda"))
+    print(f"-- {arch} train step: full width, {cfg.n_layers} layers "
+          f"({kinds} x {cfg.n_groups}), reduced {reduced}: {n_params / 1e9:.3f}"
+          f" B parameters ({rc.optimizer}, float32 masters "
+          f"{rc.master_weights_f32}); one batch of {TRAIN_B}x{TRAIN_S} "
+          f"(SyntheticDataset on the card), microbatch {rc.microbatch}, "
+          f"remat {rc.remat_policy}, flash", flush=True)
+
+    # step 1's gradients, flash vs reference attention (before the
+    # optimizer state exists: the two float32 trees fit beside the weights)
+    want = (2 * n_micro * n_attn, n_micro * n_attn)   # fwd (+ remat), bwd
+    ops.reset_launch_counts()
+    with (routing_replay() if n_moe else contextlib.nullcontext([])) \
+            as routes:
+        loss, g = micro_grads(model, params, batch, rc, n_micro)
+    got = (ops.launches, ops.launches_wgmma, ops.launches_fma,
+           ops.launches_bwd, ops.launches_bwd_wgmma, ops.launches_bwd_fma)
+    check(got == (want[0], want[0], 0, want[1], want[1], 0),
+          f"{arch} step-1 gradients: launches (fwd, wgmma, fma, bwd, bwd "
+          f"wgmma, bwd fma) {got}, want {want[0]}, {want[0]}, 0, {want[1]}, "
+          f"{want[1]}, 0")
+    with (routing_replay(lambda i: routes[i]) if n_moe
+          else contextlib.nullcontext([])) as flips:
+        loss_ref, g_ref = micro_grads(model, params, batch, rc_ref, n_micro)
+    routed = ""
+    if n_moe:
+        check(len(flips) == len(routes) == 2 * n_micro * n_moe,
+              f"{arch}: {len(routes)} routings recorded, {len(flips)} "
+              f"replayed, want {2 * n_micro * n_moe}")
+        routed = (f" (the flash run's routing replayed into the reference "
+                  f"run: {sum(flips)} of {len(flips) * TRAIN_S * TRAIN_MICRO}"
+                  f" token routings had flipped)")
+    cmp = compare_grads(f"{arch} step-1 gradients ({n_micro} microbatches "
+                        f"of {TRAIN_MICRO}), flash vs reference attention"
+                        + routed, g, g_ref, loss, loss_ref)
+    if n_moe:
+        router = [(p, x) for p, x in tree_flatten_with_path(g)[0]
+                  if "router" in p]
+        norms = [float(x.float().norm()) for _, x in router]
+        print(f"  {arch}: the router's gradient norm per leaf "
+              + ", ".join(f"{v:.4e}" for v in norms), flush=True)
+        check(bool(router) and all(math.isfinite(v) and v > 0
+                                   for v in norms),
+              f"{arch}: the router's gradient {norms}")
+        cmp["router_grad_norm"] = norms
+    del g, g_ref, routes
+    torch.cuda.empty_cache()
+    t_grads = time.perf_counter() - t_start
+
+    state = ttl.init_state(model, TRAIN_SEED, rc, params=params)
+    del params
+    step = ttl.make_train_step(model, rc, donate=True)
+    real_update, opt_ms, held = topt.opt_update, [], {}
+
+    def timed_update(grads, st, params, rc_, lr, donate=False):
+        if len(opt_ms) == 1 and rc_.optimizer == "adafactor":
+            # step 2 (the first at lr > 0): its inputs to the host first
+            t0 = time.perf_counter()
+            held["in"] = tree_map(lambda t: t.to("cpu"), (grads, st, params))
+            held["lr"] = lr.to("cpu")
+            held["copy_s"] = time.perf_counter() - t0
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        out = real_update(grads, st, params, rc_, lr, donate)
+        end.record()
+        end.synchronize()
+        opt_ms.append(start.elapsed_time(end))
+        if "in" in held and "out" not in held:
+            t0 = time.perf_counter()
+            held["out"] = tree_map(lambda t: t.to("cpu"), out)
+            held["copy_s"] += time.perf_counter() - t0
+        return out
+
+    def counters():
+        return (ops.launches, ops.launches_wgmma, ops.launches_fma,
+                ops.launches_bwd, ops.launches_bwd_wgmma,
+                ops.launches_bwd_fma)
+    layers = [(moe, "apply", "moe")] if n_moe else [(ssm, "apply", "mamba")]
+    times, metrics, totals, prof, spans_ms = [], [], [0, 0], {}, {}
+    topt.opt_update = timed_update
+    ops.reset_launch_counts()
+    try:
+        for i in range(FAMILY_TRAIN_STEPS):
+            before = counters()
+            under = i == FAMILY_TRAIN_STEPS - 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if under:                  # every flash kernel recorded
+                (state, met), by_name = whole_profile(
+                    lambda: step(state, batch),
+                    (("flash_wgmma_kernel", lambda: ops.launches_wgmma, 1),)
+                    + bwd_counted("wgmma"), what=f"{arch} train step")
+            elif i == 2:               # the layers' share of a timed step
+                with layer_spans(layers) as spans:
+                    s0, s1 = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                    s0.record()
+                    state, met = step(state, batch)
+                    s1.record()
+            else:
+                state, met = step(state, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            d = [a - b for a, b in zip(counters(), before)]
+            if under:                  # a retried session ran more steps
+                d = [x // (len(opt_ms) - i) for x in d]
+            check(d == [want[0], want[0], 0, want[1], want[1], 0],
+                  f"{arch} step {i + 1}: launches (fwd, wgmma, fma, bwd, bwd "
+                  f"wgmma, bwd fma) {d}, want {want[0]}, {want[0]}, 0, "
+                  f"{want[1]}, {want[1]}, 0")
+            totals[0] += d[0]
+            totals[1] += d[3]
+            m = {k: float(v) for k, v in met.items()}
+            metrics.append(m)
+            times.append(dt)
+            check(all(math.isfinite(v) for v in m.values()),
+                  f"{arch} step {i + 1}: {m}")
+            print(f"  step {i + 1}: loss {m['loss']:.6f} gnorm "
+                  f"{m['grad_norm']:.4f} lr {m['lr']:.2e}; {dt:.3f} s"
+                  + (" (under the profiler)" if under else "")
+                  + (" (inputs and outputs of the update copied to the "
+                     "host)" if i == 1 and "in" in held else "")
+                  + f"; launches fwd {d[0]} (wgmma {d[1]}, fma {d[2]}), "
+                  f"bwd {d[3]} (wgmma {d[4]}, fma {d[5]})", flush=True)
+            if i == 2:
+                span = s0.elapsed_time(s1)
+                spans_ms = {k: sum(a.elapsed_time(b) for a, b in v)
+                            for k, v in spans.items()}
+                spans_ms["span"] = span
+                spans_ms["calls"] = {k: len(v) for k, v in spans.items()}
+            if under:
+                kinds_us, counts = train_shares(by_name)
+                busy_s = sum(t for t, _ in by_name.values()) / 1e6
+                prof = {"shares": {k: v / 1e6 / busy_s
+                                   for k, v in kinds_us.items()},
+                        "counts": counts, "busy_s": busy_s,
+                        "bwd_set_ms": kinds_us["flash_bwd"] / 1e3 / want[1],
+                        "fwd_ms": kinds_us["flash_fwd"] / 1e3 / want[0]}
+    finally:
+        topt.opt_update = real_update
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    drop = metrics[0]["loss"] - metrics[-1]["loss"]
+    print(f"  {arch}: the loss's drop from step 1 to step "
+          f"{FAMILY_TRAIN_STEPS} on one batch (updates at lr "
+          + ", ".join(f"{m['lr']:.2e}" for m in metrics[:-1])
+          + f" between them): {drop:.6e}", flush=True)
+    check(drop > 0, f"{arch}: the loss did not drop over the steps "
+          f"({[m['loss'] for m in metrics]})")
+    del state
+    torch.cuda.empty_cache()
+    # the timed steps: 2 and 3, but a step whose update was copied out
+    timed = [j for j in range(1, FAMILY_TRAIN_STEPS - 1)
+             if not (j == 1 and "in" in held)]
+    t_steps = time.perf_counter() - t_start - t_grads
+    ada = None
+    if "in" in held:
+        check("out" in held, f"{arch}: the update's outputs were not held")
+        ada = adafactor_vs_host(held["in"], held["out"], held["lr"], rc)
+        ada["copy_s"] = held["copy_s"]
+    del held
+    step_s = statistics.median([times[j] for j in timed])
+    opt_step_ms = statistics.median([opt_ms[j] for j in timed])
+    shares = dict(prof["shares"])
+    shares["idle"] = max(0.0, 1.0 - prof["busy_s"] / step_s)
+    shares["busy_s"] = prof["busy_s"]
+    shares["optimizer_of_step"] = opt_step_ms / 1e3 / step_s
+    layer_key = "moe" if n_moe else "mamba"
+    shares[f"{layer_key}_layers_of_span"] = spans_ms[layer_key] \
+        / spans_ms["span"]
+    tokens = TRAIN_B * TRAIN_S
+    wall = time.perf_counter() - t_start
+    print(f"  {arch} train step (B={TRAIN_B}, S={TRAIN_S}, microbatch "
+          f"{rc.microbatch}, remat {rc.remat_policy}, {rc.optimizer}, flash)"
+          f" on {card}: step_s={step_s:.4f} (step(s) "
+          + ", ".join(str(j + 1) for j in timed) + "; all steps "
+          + ", ".join(f"{t:.4f}" for t in times) + f"), tokens/s="
+          f"{tokens / step_s:.1f}, peak memory {peak:.2f} GiB; device "
+          f"shares of busy time (the profiled step; idle against the "
+          f"timed steps): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                      shares.items())
+          + f"; kernels recorded {prof['counts']}; the {layer_key} layers' "
+          f"forward, recompute and backward {spans_ms[layer_key]:.1f} ms of "
+          f"step 3's {spans_ms['span']:.1f} ms device span (CUDA events, "
+          f"{spans_ms['calls'][layer_key]} spans); flash forward "
+          f"{prof['fwd_ms']:.4f} ms and backward {prof['bwd_set_ms']:.4f} ms "
+          f"of device time a launch ({want[0]} and {want[1]} a step); the "
+          f"optimizer {opt_step_ms:.2f} ms a step (CUDA events; steps "
+          + ", ".join(f"{t:.2f}" for t in opt_ms) + f"); {wall:.1f} s in "
+          f"all: the model and step 1's gradients {t_grads:.1f} s, the "
+          f"steps {t_steps:.1f} s"
+          + (f" (the update's copies to the host {ada['copy_s']:.1f} s), "
+             f"the host's Adafactor {ada['host_s']:.1f} s" if ada else ""),
+          flush=True)
+    return {"arch": arch, "n_layers": cfg.n_layers, "reduced": reduced,
+            "params_b": n_params / 1e9, "launches_fwd": totals[0],
+            "launches_bwd": totals[1],
+            "per_step": {"fwd_wgmma": want[0], "bwd_wgmma": want[1]},
+            "step_s": step_s, "tokens_per_s": tokens / step_s,
+            "optimizer_ms": opt_step_ms, "peak_gib": peak, "shares": shares,
+            "steps_s": times, "bwd_set_device_ms": prof["bwd_set_ms"],
+            "fwd_device_ms": prof["fwd_ms"],
+            "loss": [m["loss"] for m in metrics], "loss_drop": drop, **cmp,
+            "adafactor": ada, "wall_s": wall}
+
+
 def phase_train(card: str) -> dict:
     import torch
     print("== phase 13: training: the flash and mLSTM backward kernels, "
-          "yi-6b and xlstm-1.3b (8 layers, full width) and whisper-tiny "
-          "train steps", flush=True)
+          "yi-6b and xlstm-1.3b (8 layers, full width), whisper-tiny, "
+          "qwen2-moe-a2.7b (cut in depth) and the jamba cut's train steps",
+          flush=True)
     t0 = time.perf_counter()
     bwd = train_bwd_kernel(card)
     torch.cuda.empty_cache()
@@ -4813,11 +5270,20 @@ def phase_train(card: str) -> dict:
     mlstm_bwd = train_mlstm_bwd(card)
     torch.cuda.empty_cache()
     xl = train_xlstm(card)
+    torch.cuda.empty_cache()
     t2 = time.perf_counter()
-    print(f"phase 13 took {t2 - t0:.1f} s (the mLSTM backward and xlstm "
+    fam = {}
+    for name, arch in (("qwen2-moe", MOE_TRAIN_ARCH),
+                       ("jamba", JAMBA_TRAIN_ARCH)):
+        fam[name] = train_family(card, arch)
+        torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    print(f"the MoE and hybrid train steps took {t3 - t2:.1f} s (budget "
+          f"{FAMILY_TRAIN_BUDGET_S:.0f} s) on {card}", flush=True)
+    print(f"phase 13 took {t3 - t0:.1f} s (the mLSTM backward and xlstm "
           f"training {t2 - t1:.1f} s of it)", flush=True)
     return {"bwd": bwd, "yi": yi, "whisper": wh, "mlstm_bwd": mlstm_bwd,
-            "xlstm": xl}
+            "xlstm": xl, **fam, "family_s": t3 - t2}
 
 
 # ---------------------------------------------------------------------------
@@ -5132,6 +5598,8 @@ def main() -> None:
                   for k in ("qwen2-moe", "jamba", "whisper")},
                "train-yi-6b": train["yi"]["launches_fwd"],
                "train-whisper": train["whisper"]["launches_fwd"],
+               "train-qwen2-moe": train["qwen2-moe"]["launches_fwd"],
+               "train-jamba": train["jamba"]["launches_fwd"],
                "product-yi-6b": product["launches_fwd"]}
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",
@@ -5141,7 +5609,9 @@ def main() -> None:
         "launches_wgmma": serving["launches_wgmma"] + sum(
             families[k]["launches"] for k in ("qwen2-moe", "jamba",
                                               "whisper"))
-        + train["yi"]["launches_fwd"] + product["launches_fwd"],
+        + sum(train[k]["launches_fwd"] for k in ("yi", "qwen2-moe",
+                                                  "jamba"))
+        + product["launches_fwd"],
         "launches_fma": serving["launches_fma"],
         f"launches_{serving['long_s'] // 1024}k": serving["launches_long"],
         "max_abs_err": flash["max_abs_err"], "rel_l2": flash["rel_l2"],
@@ -5186,17 +5656,25 @@ def main() -> None:
         "tuned_phase11": autotune["tuned"]["mlstm_chunk"],
     })
     bwd, yi, wh = train["bwd"], train["yi"], train["whisper"]
+    fam = {k: train[k] for k in ("qwen2-moe", "jamba")}
+    fam_bwd = sum(f["launches_bwd"] for f in fam.values())
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": FLASH_BWD_SOURCE, "fma_source": FLASH_BWD_FMA_SOURCE,
         "replaces": FLASH_REPLACES,
-        "launches": yi["launches_bwd"] + product["launches_bwd"],
+        "launches": yi["launches_bwd"] + fam_bwd + product["launches_bwd"],
         "launches_wgmma": yi["launches_bwd"] + wh["launches_bwd_wgmma"]
-        + product["launches_bwd"],
+        + fam_bwd + product["launches_bwd"],
         "launches_fma": wh["launches_bwd_fma"],
         "launches_by_path": {"train-yi-6b": yi["launches_bwd"],
                              "train-whisper": wh["launches_bwd"],
+                             **{f"train-{k}": f["launches_bwd"]
+                                for k, f in fam.items()},
                              "product-yi-6b": product["launches_bwd"]},
+        "layers": {k: {**bwd["layers"][k],
+                       "step_device_ms": f["bwd_set_device_ms"],
+                       "launches_per_step": f["per_step"]["bwd_wgmma"]}
+                   for k, f in fam.items()},
         "fma_ms": bwd["fma_ms"],
         "max_abs_err": bwd["max_abs_err"], "rel_l2": bwd["rel_l2"],
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
@@ -5209,6 +5687,10 @@ def main() -> None:
         "train_step_s": yi["step_s"], "train_tokens_per_s":
         yi["tokens_per_s"], "train_peak_gib": yi["peak_gib"],
         "train_shares": yi["shares"],
+        "family_train": {k: {key: f[key] for key in (
+            "n_layers", "reduced", "step_s", "tokens_per_s", "peak_gib",
+            "shares", "loss_rel", "grad_rel_l2", "loss_drop", "adafactor",
+            "wall_s")} for k, f in fam.items()},
     })
     kernels.append({
         "name": "mlstm_chunk_bwd", "route": "cuda",

@@ -229,8 +229,12 @@ class CompiledEvaluator:
     equal only through the cache (first writer wins).  A config that runs
     out of the card's memory raises ``torch.cuda.OutOfMemoryError`` (a
     failed evaluation for the service layer); it is not cached, never
-    retried smaller and never moved to the CPU.  ``records`` keeps each
-    measured config's full ``compile_cell`` record by cache key.
+    retried smaller and never moved to the CPU.  With no ``n_layers``, a
+    cell one period of which does not fit the card raises
+    ``launch.dryrun.DoesNotFit`` with the bytes it would need, before
+    anything is allocated (also a failed evaluation, not cached).
+    ``records`` keeps each measured config's full ``compile_cell`` record
+    by cache key.
     """
     model_cfg: ModelConfig
     cell: ShapeCell

@@ -120,6 +120,30 @@ def _state_bytes_per_param(rc: RunConfig, train: bool) -> int:
     return n
 
 
+# float32 temporaries of the largest parameter leaf that the optimizer's
+# update holds at once beside the state (the clipped gradient, the new
+# moments, the update's chain of elementwise results); read off the card's
+# allocator around ``opt_update`` (AdamW: 16.6 GB over qwen2-moe's 2.77 GB
+# expert leaf at 4 layers; Adafactor: 17.2 GB over the jamba cut's 2.15 GB
+# embedding)
+UPDATE_TEMPORARIES = {"adamw": 6, "adafactor": 8}
+
+
+def _largest_leaf(cfg: ModelConfig) -> int:
+    """Elements of the largest parameter leaf: the embedding (or the head)
+    or a pattern position's largest matrix stacked over the groups."""
+    d, big = cfg.d_model, 0
+    for spec in cfg.pattern:
+        mixer = {"attn": d * cfg.q_dim, "mamba": 2 * d * cfg.d_inner,
+                 "mlstm": 2 * d * int(cfg.mlstm_expand * d),
+                 "slstm": 4 * d * d}.get(spec.kind, 0)
+        ff = cfg.moe_d_ff if cfg.moe_d_ff is not None else cfg.d_ff
+        mlp = {"dense": d * cfg.d_ff,
+               "moe": cfg.n_experts * d * ff}.get(spec.mlp, 0)
+        big = max(big, mixer, mlp)
+    return max(cfg.vocab_size * d, cfg.n_groups * big)
+
+
 def estimate_bytes(cfg: ModelConfig, rc: RunConfig, mode: str,
                    batch: int, seq: int) -> float:
     """An estimate of the step's peak bytes on the card, for choosing the
@@ -132,9 +156,14 @@ def estimate_bytes(cfg: ModelConfig, rc: RunConfig, mode: str,
     prefill four copies of one chunk's: the scores, the masked scores,
     their difference from the row maxima and its exponential), and in
     decode the cache's keys and values widened to the query heads in
-    bf16 and float32."""
+    bf16 and float32.  A train step's update can peak above its backward
+    (a wide MoE's expert leaves): there the state and the optimizer's
+    float32 temporaries of the largest leaf (``UPDATE_TEMPORARIES``), or,
+    with microbatches, the accumulated gradients' divided float32 copy;
+    the larger of the two phases is returned."""
     train = mode == "train"
-    n = cfg.param_count() * _state_bytes_per_param(rc, train)
+    state = cfg.param_count() * _state_bytes_per_param(rc, train)
+    n = state
     micro = min(rc.microbatch or batch, batch) if train else batch
     if train:
         layer_io = 12 if cfg.has_attention else 8
@@ -145,29 +174,50 @@ def estimate_bytes(cfg: ModelConfig, rc: RunConfig, mode: str,
         n += (2 * batch * seq * cfg.kv_dim * _bytes_of(rc.kv_cache_dtype)
               * cfg.attn_layer_count)
         n += batch * (1 if mode == "decode" else seq) * cfg.vocab_size * 4
-    if not cfg.has_attention:
+    if cfg.has_attention:
+        if mode == "decode":
+            n += batch * seq * cfg.q_dim * 12
+        elif rc.attention_impl != "flash":
+            keys = seq if train or rc.attention_impl == "reference" \
+                else min(seq, rc.chunk_size_k)
+            n += (3 if train else 4) * micro * cfg.n_heads * seq * keys * 4
+    if not train:
         return n
-    if mode == "decode":
-        n += batch * seq * cfg.q_dim * 12
-    elif rc.attention_impl != "flash":
-        keys = seq if train or rc.attention_impl == "reference" \
-            else min(seq, rc.chunk_size_k)
-        n += (3 if train else 4) * micro * cfg.n_heads * seq * keys * 4
-    return n
+    divided = 4 * cfg.param_count() if batch // micro > 1 else 0
+    update = state + max(divided, UPDATE_TEMPORARIES[rc.optimizer] * 4
+                         * _largest_leaf(cfg))
+    return max(n, update)
+
+
+class DoesNotFit(RuntimeError):
+    """One layer period of a config needs more than ``FIT_FRACTION`` of
+    the card (:func:`estimate_bytes`): the cell cannot run at any depth.
+    ``need_bytes`` is the one-period estimate, ``room_bytes`` the share
+    of the card it was held to."""
+
+    def __init__(self, cfg: ModelConfig, mode: str, batch: int, seq: int,
+                 need_bytes: float, room_bytes: float):
+        self.need_bytes, self.room_bytes = need_bytes, room_bytes
+        super().__init__(
+            f"{cfg.name} {mode} B={batch} S={seq}: one period of "
+            f"{len(cfg.pattern)} layer(s) needs {need_bytes / 1e9:.2f} GB "
+            f"(estimate_bytes), above {FIT_FRACTION} of the card "
+            f"({room_bytes / 1e9:.2f} GB)")
 
 
 def fit_depth(cfg: ModelConfig, rc: RunConfig, hbm_bytes: float, *,
               mode: str = "train", batch: int = 1, seq: int = 1) -> int:
-    """The deepest whole number of layer periods (at least one, at most
-    the config's) whose :func:`estimate_bytes` under ``rc`` fits in
-    ``FIT_FRACTION`` of ``hbm_bytes``; returned as a layer count."""
-    period = len(cfg.pattern)
-    for groups in range(cfg.n_groups, 1, -1):
-        cut = cfg.scaled(n_layers=groups * period)
-        if estimate_bytes(cut, rc, mode, batch, seq) \
-                <= FIT_FRACTION * hbm_bytes:
+    """The deepest whole number of layer periods (at most the config's)
+    whose :func:`estimate_bytes` under ``rc`` fits in ``FIT_FRACTION`` of
+    ``hbm_bytes``; returned as a layer count.  Raises :class:`DoesNotFit`
+    when not even one period fits."""
+    period, room = len(cfg.pattern), FIT_FRACTION * hbm_bytes
+    for groups in range(cfg.n_groups, 0, -1):
+        need = estimate_bytes(cfg.scaled(n_layers=groups * period), rc,
+                              mode, batch, seq)
+        if need <= room:
             return groups * period
-    return period
+    raise DoesNotFit(cfg, mode, batch, seq, need, room)
 
 
 def replica_shape(cell: ShapeCell, rc: RunConfig, mesh: Dict[str, int],
@@ -196,7 +246,9 @@ def cell_depth(cfg: ModelConfig, cell: ShapeCell, *,
     with no knobs) at the replica's share.  It does not depend on the
     knobs, so every config of a cell runs the same model; a config whose
     step needs more than the family default's may run out of the card's
-    memory at this depth (a failed evaluation)."""
+    memory at this depth (a failed evaluation).  Raises
+    :class:`DoesNotFit` when one period of the family default does not
+    fit."""
     rc = default_runconfig(cfg, cell)
     B, S, _ = replica_shape(cell, rc, make_production_mesh(
         multi_pod=multi_pod), reduce)
@@ -341,10 +393,12 @@ def compile_cell(cfg: ModelConfig, cell: ShapeCell,
                  verbose: bool = False) -> Dict:
     """Build, run and time one cell on ``device``; return the record.
 
-    A step that runs out of the card's memory raises
-    ``torch.cuda.OutOfMemoryError`` (its state is dropped, never reused);
-    every tensor of the cell is freed and the allocator's cache emptied
-    before this returns or raises."""
+    With no ``n_layers``, a cell one period of which does not fit the
+    card raises :class:`DoesNotFit` (with the bytes it would need) before
+    anything is allocated.  A step that runs out of the card's memory
+    raises ``torch.cuda.OutOfMemoryError`` (its state is dropped, never
+    reused); every tensor of the cell is freed and the allocator's cache
+    emptied before this returns or raises."""
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
     dev = resolve_device(device)

@@ -142,10 +142,14 @@ def apply(params, u, cfg: ModelConfig, rc: RunConfig):
         C_i = Cm[:, c0:c0 + c].float()
         # cumulative log decay within the chunk, inclusive: [B,c,H]
         cum = torch.cumsum(log_decay[:, c0:c0 + c], dim=1)
-        # intra-chunk: sc[b,i,j,h] = exp(cum_i - cum_j) (C_i . B_j), j <= i
+        # intra-chunk: sc[b,i,j,h] = exp(cum_i - cum_j) (C_i . B_j), j <= i.
+        # The hidden entries (j > i) are set to -inf before the exp: their
+        # exp(cum_i - cum_j) overflows float32 once a chunk's decay sums
+        # past ~88 (at the default chunk of 256 over 512 tokens already),
+        # and a where() after the exp, as the reference writes it, passes
+        # 0 * inf = NaN to the gradient.  The values are the same
         diff = cum[:, :, None, :] - cum[:, None, :, :]             # [B,i,j,H]
-        L = torch.where(mask[None, :, :, None], torch.exp(diff),
-                        torch.zeros((), device=u.device))
+        L = torch.exp(diff.masked_fill(~mask[None, :, :, None], -math.inf))
         cb = torch.einsum("bin,bjn->bij", C_i, B_i)
         y_intra = torch.einsum("bijh,bjhp->bihp", cb[..., None] * L, xin_i)
         # inter-chunk: exp(cum_i) C_i s_prev

@@ -292,7 +292,11 @@ def test_fit_depth_whole_periods():
         cfg, rc.replace(remat_policy="none"), **shape) > est(cfg.n_layers)
     assert dryrun.fit_depth(cfg, rc, 80e9, mode="decode", batch=1,
                             seq=16) == cfg.n_layers
-    assert dryrun.fit_depth(cfg, rc, 1e9, **shape) == 1   # at least one
+    with pytest.raises(dryrun.DoesNotFit) as refused:     # not even one
+        dryrun.fit_depth(cfg, rc, 1e9, **shape)
+    assert refused.value.need_bytes == est(1) > refused.value.room_bytes \
+        == dryrun.FIT_FRACTION * 1e9
+    assert f"{est(1) / 1e9:.2f} GB" in str(refused.value)
     xl = get_config("xlstm-1.3b")                        # period of 8
     assert dryrun.fit_depth(xl, rc, 80e9, **shape) % len(xl.pattern) == 0
 
@@ -324,8 +328,11 @@ def test_cell_depth_does_not_follow_the_knobs(arch, monkeypatch):
             dryrun.compile_cell(cfg, cell, knobs, device="cpu")
         got.add(e.value.args[0])
         rc = dryrun.default_runconfig(cfg, cell, knobs)
-        alone.add(dryrun.fit_depth(cfg, rc, roofline.H100.hbm_bytes,
-                                   mode="train", batch=16, seq=4096))
+        try:
+            alone.add(dryrun.fit_depth(cfg, rc, roofline.H100.hbm_bytes,
+                                       mode="train", batch=16, seq=4096))
+        except dryrun.DoesNotFit:        # not even one period fits alone
+            alone.add(0)
     assert got == {dryrun.cell_depth(cfg, cell)}
     assert len(alone) > 1          # the knobs' own fits would differ
 

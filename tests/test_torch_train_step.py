@@ -103,13 +103,15 @@ def _assert_params_close(got, want, lr):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_step(arch, microbatch, keep=None):
+def _reference_step(arch, microbatch, keep=None, extra=()):
     """The reference's jitted step from ``_pair``'s weights: (new state,
     metrics).  With float32 gradients ``allreduce_per_microbatch`` on and
     off accumulate in float32 alike, so one reference step (bulk) holds
-    the port's step with either value."""
+    the port's step with either value.  ``extra``: further RunConfig
+    knobs, as sorted (name, value) pairs."""
     jm, jp, _, _ = _pair(arch, keep=keep)
-    jrc = JRunConfig(**F32, learning_rate=1e-3, microbatch=microbatch)
+    jrc = JRunConfig(**F32, learning_rate=1e-3, microbatch=microbatch,
+                     **dict(extra))
     jstate = jtl.TrainState(jp, jopt.opt_init(jp, jrc),
                             jnp.zeros((), jnp.int32))
     step = jax.jit(jtl.make_train_step(
@@ -118,15 +120,20 @@ def _reference_step(arch, microbatch, keep=None):
                          for k, v in _batch(jm.cfg).items()})
 
 
-def check_train_step(arch, knobs, keep=None):
+def check_train_step(arch, knobs, keep=None, extra=None):
     """One step of each package from the same state (``keep``: the
-    pattern positions of a depth cut, ``test_torch_train._cut``)."""
-    kw = dict(F32, learning_rate=1e-3, **STEP_KNOBS[knobs])
+    pattern positions of a depth cut, ``test_torch_train._cut``;
+    ``extra``: further RunConfig knobs for both, e.g. remat, attention,
+    optimizer).  AdamW's first moment is held, or Adafactor's row, column
+    and full second moments."""
+    extra = dict(extra or {})
+    kw = dict(F32, learning_rate=1e-3, **STEP_KNOBS[knobs], **extra)
     jm, _, tm, tp = _pair(arch, keep=keep)
     trc = RunConfig(**kw)
     tstate = ttl.init_state(tm, 0, trc, params=tp)
     batch = _batch(jm.cfg)
-    jnew, jmet = _reference_step(arch, kw["microbatch"], keep)
+    jnew, jmet = _reference_step(arch, kw["microbatch"], keep,
+                                 tuple(sorted(extra.items())))
     tnew, tmet = ttl.make_train_step(
         tm, trc, lr_schedule=topt.cosine_schedule(1e-3, 0, 100))(tstate,
                                                                   batch)
@@ -136,8 +143,11 @@ def check_train_step(arch, knobs, keep=None):
                                    rtol=rtol, atol=1e-7, err_msg=key)
     assert int(tnew.step) == int(jnew.step) == 1
     _assert_params_close(tnew.params, jnew.params, lr=1e-3)
-    _assert_tree_close(tnew.opt_state.m, jnew.opt_state.m, atol=1e-6,
-                       rtol=1e-3, zero_grad_atol=1e-6)
+    moments = ("m",) if trc.optimizer == "adamw" else ("vr", "vc", "v")
+    for name in moments:
+        _assert_tree_close(getattr(tnew.opt_state, name),
+                           getattr(jnew.opt_state, name), atol=1e-6,
+                           rtol=1e-3, zero_grad_atol=1e-6)
 
 
 @pytest.mark.parametrize("knobs", list(STEP_KNOBS), ids=list(STEP_KNOBS))
