@@ -175,14 +175,14 @@ Phases (any failure exits non-zero before the result line):
    time, which must be recorded) beside its plain version and SDPA's
    backward (``enable_gqa``), with its bound, and must be within 3x of
    SDPA's backward at B=1; the FMA backward is timed once at B=1 too.
-   Then ``Model(yi-6b full width, 8 of 32 layers)``
+   Then ``Model(yi-6b full width, 4 of 32 layers)``
    trained with AdamW (float32 master weights) on ``SyntheticDataset``
    batches of 2 x 4096 made on the card, microbatch 1 (two accumulation
    steps), remat ``block``, flash: step 1's loss and gradients,
    accumulated over its microbatches as the step accumulates them,
-   against reference attention (1e-2, 2e-2 per leaf), exactly 32 wgmma forward
-   launches (8 layers x 2 microbatches x forward and recompute), no FMA
-   launch and 16 backward sets, all on the wgmma backward, in each of 4
+   against reference attention (1e-2, 2e-2 per leaf), exactly 16 wgmma forward
+   launches (4 layers x 2 microbatches x forward and recompute), no FMA
+   launch and 8 backward sets, all on the wgmma backward, in each of 4
    steps (counted from 0 around
    the steps), step time, tokens/s, peak memory, the profiled step's
    device shares (flash forward, flash backward, cuBLAS, other; they
@@ -275,6 +275,20 @@ Phases (any failure exits non-zero before the result line):
    launches exactly (warm-up + timed steps) x microbatches x layers
    wgmma forwards (twice under a recomputing remat policy) and as many
    wgmma backward sets, counted from 0 around it.
+15. the sharded train step: yi-6b at full width, 2 of 32 layers, on a
+   2 x 2 (data, model) mesh of four processes (``launch.mesh.spawn``;
+   NCCL when the host has a card for each rank, else gloo with the four
+   sharing the card; the backend is printed), the reference's layout
+   (ZeRO-3 over data, Megatron TP over model), global batch 4 x 2048,
+   microbatch 1, bf16, flash, remat ``block``, AdamW with float32
+   masters, 2 steps.  The kernels are built before the spawn.  Gates:
+   step 1's gradients (every leaf gathered) within relative L2 2e-2 of
+   the one-process step's at the same seed and shape (run on rank 0),
+   its loss within 1e-3, no non-finite leaf; each rank's flash launches
+   counted from 0 around its 2 steps: 16 wgmma forwards and 8 wgmma
+   backward sets at Hq 16 / Hkv 2, none on an FMA route; the phase
+   within 90 s.  Prints each rank's step times, peak GiB and the
+   backend.
 
 Every device time read from ``torch.profiler`` in phases 2-13 comes
 from a session that recorded the window whole (``whole_profile``: the
@@ -3689,7 +3703,8 @@ BWD_REL = {"float32": 1e-5, "bfloat16": 1e-2}
 BWD_REL_ROUNDED = 5e-3
 FLASH_BWD_LIBRARY_FACTOR = 3.0   # the wgmma backward within 3x of SDPA's
 TRAIN_ARCH = "yi-6b"
-TRAIN_LAYERS = 8                 # depth 32 -> 8; full width
+TRAIN_LAYERS = 4                 # depth 32 -> 4 (8 until phase 15 came:
+                                 # the script's 1200 s); full width
 TRAIN_B, TRAIN_S = 2, 4096       # global batch, sequence
 TRAIN_MICRO = 1                  # two accumulation steps
 TRAIN_STEPS = 4
@@ -4080,7 +4095,7 @@ def train_shares(by_name: dict, named=FLASH_KINDS):
 
 
 def train_yi(card: str) -> dict:
-    """yi-6b at full width, 8 layers: the train step on the flash forward
+    """yi-6b at full width, 4 layers: the train step on the flash forward
     and backward kernels, against reference attention, launch counts,
     step time, memory and shares, checkpoint-resume bit-equal."""
     import shutil
@@ -5101,7 +5116,8 @@ def train_family(card: str, arch: str) -> dict:
     step = ttl.make_train_step(model, rc, donate=True)
     real_update, opt_ms, held = topt.opt_update, [], {}
 
-    def timed_update(grads, st, params, rc_, lr, donate=False):
+    def timed_update(grads, st, params, rc_, lr, donate=False,
+                     placements=None):
         if len(opt_ms) == 1 and rc_.optimizer == "adafactor":
             # step 2 (the first at lr > 0): its inputs to the host first
             t0 = time.perf_counter()
@@ -5111,7 +5127,7 @@ def train_family(card: str, arch: str) -> dict:
         start, end = (torch.cuda.Event(enable_timing=True)
                       for _ in range(2))
         start.record()
-        out = real_update(grads, st, params, rc_, lr, donate)
+        out = real_update(grads, st, params, rc_, lr, donate, placements)
         end.record()
         end.synchronize()
         opt_ms.append(start.elapsed_time(end))
@@ -5256,7 +5272,8 @@ def train_family(card: str, arch: str) -> dict:
 def phase_train(card: str) -> dict:
     import torch
     print("== phase 13: training: the flash and mLSTM backward kernels, "
-          "yi-6b and xlstm-1.3b (8 layers, full width), whisper-tiny, "
+          f"yi-6b ({TRAIN_LAYERS} layers) and xlstm-1.3b "
+          f"({XLSTM_TRAIN_LAYERS} layers) at full width, whisper-tiny, "
           "qwen2-moe-a2.7b (cut in depth) and the jamba cut's train steps",
           flush=True)
     t0 = time.perf_counter()
@@ -5503,6 +5520,206 @@ def phase_product(card: str, tuned: dict) -> dict:
             "seconds": total}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the sharded train step on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+MESH_ARCH = "yi-6b"
+MESH_LAYERS = 2                  # depth 32 -> 2; full width (~0.87 B)
+MESH_SHAPE = (2, 2)              # data x model: four processes
+MESH_B, MESH_S = 4, 2048         # global batch
+MESH_MICRO = 1                   # per replica: 2 microbatches
+MESH_STEPS = 2
+MESH_SEED = 0
+MESH_LOSS_REL = 1e-3             # step-1 loss vs the one-process step
+MESH_GRAD_REL = TRAIN_GRAD_REL   # per gathered leaf (phase 13's limit)
+MESH_BUDGET_S = 90.0
+MESH_TIMEOUT_S = 600.0           # the spawn's join
+
+
+def mesh_rank(mesh, out_dir: str) -> None:
+    """One rank of phase 15 (spawned; runs under ``with mesh:``): this
+    rank's blocks of yi-6b's state, its data rank's rows, step 1's
+    gradients gathered (rank 0 also runs the one-process step's, off the
+    mesh, and compares), then the counted steps.  Writes
+    ``rank<r>.json`` under ``out_dir``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.common import (tree_flatten,
+                                           tree_flatten_with_path)
+    from repro_torch.models.model import Model, gather_tree
+    from repro_torch.parallel.sharding import (reset_ambient_mesh,
+                                               set_ambient_mesh)
+    from repro_torch.runconfig import RunConfig
+    from repro_torch.train import train_loop as ttl
+    from repro_torch.train.data import SyntheticDataset
+
+    cfg = get_config(MESH_ARCH).scaled(n_layers=MESH_LAYERS)
+    rc = RunConfig(microbatch=MESH_MICRO, remat_policy="block",
+                   attention_impl="flash")
+    model = Model(cfg, device=mesh.device)
+    ops.load()
+    out = {"rank": mesh.rank, "coords": mesh.coords,
+           "backend": mesh.backend, "device": str(mesh.device)}
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(MESH_SEED)
+    state = ttl.shard_state(model, rc, params, mesh)
+    out["state_gib"] = sum(t.numel() * t.element_size() for t in
+                           tree_flatten(state)[0]) / 2 ** 30
+    if mesh.rank != 0:
+        del params
+    torch.cuda.empty_cache()
+    data = SyntheticDataset(MESH_SEED, MESH_B, MESH_S, cfg.vocab_size,
+                            data_index=mesh.coords["data"],
+                            data_count=mesh.shape["data"],
+                            device=mesh.device)
+    batches = [next(data) for _ in range(MESH_STEPS)]
+
+    # step 1's gradients, every leaf gathered; on rank 0 against the
+    # one-process step at the same seed, shape and global batch
+    pls = ttl.param_placements(model, rc)
+    loss, _, grads = ttl.step_grads(model, state.params, batches[0], rc,
+                                    placements=pls)
+    grads = gather_tree(grads, pls)
+    out["loss_step1"] = float(loss)
+    if mesh.rank == 0:
+        token = set_ambient_mesh(None)
+        try:
+            full = SyntheticDataset(MESH_SEED, MESH_B, MESH_S,
+                                    cfg.vocab_size, device=mesh.device)
+            loss1, _, want = ttl.step_grads(model, params, next(full), rc)
+        finally:
+            reset_ambient_mesh(token)
+        del params
+        worst, worst_path, finite = 0.0, "", True
+        for (path, g), (_, w) in zip(tree_flatten_with_path(grads)[0],
+                                     tree_flatten_with_path(want)[0]):
+            finite &= bool(torch.isfinite(g).all())
+            r = rel_l2(g, w)
+            if not r <= worst:
+                worst, worst_path = (r if math.isfinite(r) else math.inf,
+                                     "/".join(map(str, path)))
+        out.update(loss_one_process=float(loss1), grad_rel_l2=worst,
+                   grad_worst_leaf=worst_path, grads_finite=finite,
+                   n_leaves=len(tree_flatten_with_path(want)[0]))
+        del want
+    del grads
+    import gc
+    gc.collect()        # rank 0's one-process step left reference cycles
+    torch.cuda.empty_cache()
+
+    # the main path: MESH_STEPS steps, flash counted from 0 around them
+    step = ttl.make_train_step(model, rc, donate=True)
+    shapes = set()
+    fn = ops.flash_attention
+
+    def recording(q, k, v, **kw):
+        shapes.add((tuple(q.shape), tuple(k.shape), str(q.dtype)))
+        return fn(q, k, v, **kw)
+    out["setup_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ops.flash_attention = recording
+    try:
+        times = []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, mets = step(state, b)
+            out.setdefault("losses", []).append(float(mets["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        ops.flash_attention = fn
+    out.update(step_s=times, shapes=sorted(map(list, shapes)),
+               launches={k: getattr(ops, k) for k in (
+                   "launches", "launches_wgmma", "launches_fma",
+                   "launches_bwd", "launches_bwd_wgmma",
+                   "launches_bwd_fma")},
+               step_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    Path(out_dir, f"rank{mesh.rank}.json").write_text(json.dumps(out))
+
+
+def phase_mesh(card: str) -> dict:
+    """Phase 15: yi-6b's train step sharded over a 2 x 2 mesh of four
+    processes against the one-process step (module docstring)."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.mesh import backend_for, spawn
+
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    print(f"== phase 15: the sharded train step, {MESH_ARCH} full width, "
+          f"{MESH_LAYERS} layers, mesh {MESH_SHAPE[0]}x{MESH_SHAPE[1]} "
+          f"(data x model), global batch {MESH_B}x{MESH_S}", flush=True)
+    t0 = time.perf_counter()
+    for which in ("wgmma", "fma", "bwd", "bwd_wgmma"):
+        ops.build(which=which)      # before the spawn: ranks only load
+    backend = backend_for("cuda", world)
+    print(f"  backend {backend} ({torch.cuda.device_count()} card(s) for "
+          f"{world} ranks{'' if backend == 'nccl' else ': all ranks share card 0, collectives staged through pinned host memory'})",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="mesh-", dir=ROOT) as tmp:
+        spawn(mesh_rank, MESH_SHAPE, (tmp,), device="cuda", backend=backend,
+              timeout_s=MESH_TIMEOUT_S)
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(world)]
+    wall = time.perf_counter() - t0
+    cfg = get_config(MESH_ARCH)
+    per_rank_micro = MESH_B // MESH_SHAPE[0] // MESH_MICRO
+    want_fwd = MESH_STEPS * per_rank_micro * MESH_LAYERS * 2   # + remat
+    want_bwd = MESH_STEPS * per_rank_micro * MESH_LAYERS
+    hq, hkv = cfg.n_heads // MESH_SHAPE[1], cfg.n_kv_heads // MESH_SHAPE[1]
+    for r in ranks:
+        c = r["launches"]
+        print(f"  rank {r['rank']} {r['coords']} on {r['device']} "
+              f"({r['backend']}): steps "
+              + ", ".join(f"{t:.3f} s" for t in r["step_s"])
+              + f"; state {r['state_gib']:.3f} GiB, peak "
+              f"{r['step_peak_gib']:.2f} GiB in the counted steps "
+              f"({r['setup_peak_gib']:.2f} GiB in the setup); flash fwd "
+              f"{c['launches_wgmma']} wgmma + {c['launches_fma']} FMA, bwd "
+              f"{c['launches_bwd_wgmma']} wgmma + {c['launches_bwd_fma']} "
+              f"FMA; shapes {r['shapes']}; losses {r['losses']}", flush=True)
+        check(c["launches"] == c["launches_wgmma"] == want_fwd
+              and c["launches_fma"] == 0,
+              f"phase 15 rank {r['rank']}: flash forwards {c}, want "
+              f"{want_fwd} wgmma and no FMA")
+        check(c["launches_bwd"] == c["launches_bwd_wgmma"] == want_bwd
+              and c["launches_bwd_fma"] == 0,
+              f"phase 15 rank {r['rank']}: flash backward sets {c}, want "
+              f"{want_bwd} wgmma and no FMA")
+        check(all(q[2] == hq and k[2] == hkv and d == "torch.bfloat16"
+                  for q, k, d in r["shapes"]) and r["shapes"],
+              f"phase 15 rank {r['rank']}: flash shapes {r['shapes']}, "
+              f"want Hq {hq} / Hkv {hkv} bf16")
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"phase 15 rank {r['rank']}: losses {r['losses']}")
+    r0 = ranks[0]
+    loss_rel = abs(r0["loss_step1"] - r0["loss_one_process"]) \
+        / abs(r0["loss_one_process"])
+    print(f"  step-1 loss sharded {r0['loss_step1']:.6f} one process "
+          f"{r0['loss_one_process']:.6f} (rel {loss_rel:.3e}, limit "
+          f"{MESH_LOSS_REL}); worst gathered gradient leaf rel_l2 "
+          f"{r0['grad_rel_l2']:.3e} at {r0['grad_worst_leaf']} (limit "
+          f"{MESH_GRAD_REL}) over {r0['n_leaves']} leaves; phase wall "
+          f"{wall:.1f} s (budget {MESH_BUDGET_S:.0f} s) on {card}",
+          flush=True)
+    check(loss_rel <= MESH_LOSS_REL, f"phase 15: step-1 loss rel {loss_rel}")
+    check(r0["grads_finite"], "phase 15: a non-finite gradient leaf")
+    check(r0["grad_rel_l2"] <= MESH_GRAD_REL,
+          f"phase 15: gradient rel_l2 {r0['grad_rel_l2']} at "
+          f"{r0['grad_worst_leaf']}")
+    check(wall <= MESH_BUDGET_S, f"phase 15 took {wall:.1f} s")
+    return {"backend": backend, "ranks": ranks, "wall_s": wall,
+            "loss_rel": loss_rel, "grad_rel_l2": r0["grad_rel_l2"],
+            "launches_fwd": sum(r["launches"]["launches"] for r in ranks),
+            "launches_bwd": sum(r["launches"]["launches_bwd"]
+                                for r in ranks)}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5536,6 +5753,8 @@ def main() -> None:
     train = phase_train(card)
     torch.cuda.empty_cache()
     product = phase_product(card, tuned)
+    torch.cuda.empty_cache()
+    sharded = phase_mesh(card)
 
     kernels = []
     for kind, shape, svc_shape in (("gram", MAIN_GRAM, SERVICE_GRAM),
@@ -5600,7 +5819,8 @@ def main() -> None:
                "train-whisper": train["whisper"]["launches_fwd"],
                "train-qwen2-moe": train["qwen2-moe"]["launches_fwd"],
                "train-jamba": train["jamba"]["launches_fwd"],
-               "product-yi-6b": product["launches_fwd"]}
+               "product-yi-6b": product["launches_fwd"],
+               "train-yi-6b-mesh-2x2": sharded["launches_fwd"]}
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",
         "source": FLASH_SOURCE, "fma_source": FLASH_FMA_SOURCE,
@@ -5611,7 +5831,7 @@ def main() -> None:
                                               "whisper"))
         + sum(train[k]["launches_fwd"] for k in ("yi", "qwen2-moe",
                                                   "jamba"))
-        + product["launches_fwd"],
+        + product["launches_fwd"] + sharded["launches_fwd"],
         "launches_fma": serving["launches_fma"],
         f"launches_{serving['long_s'] // 1024}k": serving["launches_long"],
         "max_abs_err": flash["max_abs_err"], "rel_l2": flash["rel_l2"],
@@ -5662,15 +5882,18 @@ def main() -> None:
         "name": "flash_attention_bwd", "route": "cuda",
         "source": FLASH_BWD_SOURCE, "fma_source": FLASH_BWD_FMA_SOURCE,
         "replaces": FLASH_REPLACES,
-        "launches": yi["launches_bwd"] + fam_bwd + product["launches_bwd"],
+        "launches": yi["launches_bwd"] + fam_bwd + product["launches_bwd"]
+        + sharded["launches_bwd"],
         "launches_wgmma": yi["launches_bwd"] + wh["launches_bwd_wgmma"]
-        + fam_bwd + product["launches_bwd"],
+        + fam_bwd + product["launches_bwd"] + sharded["launches_bwd"],
         "launches_fma": wh["launches_bwd_fma"],
         "launches_by_path": {"train-yi-6b": yi["launches_bwd"],
                              "train-whisper": wh["launches_bwd"],
                              **{f"train-{k}": f["launches_bwd"]
                                 for k, f in fam.items()},
-                             "product-yi-6b": product["launches_bwd"]},
+                             "product-yi-6b": product["launches_bwd"],
+                             "train-yi-6b-mesh-2x2":
+                             sharded["launches_bwd"]},
         "layers": {k: {**bwd["layers"][k],
                        "step_device_ms": f["bwd_set_device_ms"],
                        "launches_per_step": f["per_step"]["bwd_wgmma"]}
@@ -5684,6 +5907,13 @@ def main() -> None:
         "step_device_ms": yi["bwd_set_device_ms"],
         "b2": bwd["b2"],
         "max_abs_err_cases": bwd["err"],
+        "train_mesh_2x2": {
+            "backend": sharded["backend"], "wall_s": sharded["wall_s"],
+            "loss_rel": sharded["loss_rel"],
+            "grad_rel_l2": sharded["grad_rel_l2"],
+            **{k: [r[k] for r in sharded["ranks"]]
+               for k in ("step_s", "step_peak_gib", "setup_peak_gib",
+                         "state_gib")}},
         "train_step_s": yi["step_s"], "train_tokens_per_s":
         yi["tokens_per_s"], "train_peak_gib": yi["peak_gib"],
         "train_shares": yi["shares"],

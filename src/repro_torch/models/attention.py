@@ -32,9 +32,12 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import common
-from repro_torch.models.common import dense_apply, dense_init
+from repro_torch.models.common import dense_apply, dense_axes, dense_init
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rotary import apply_rope
+from repro_torch.parallel import collectives
+from repro_torch.parallel.sharding import (WHISPER_ITEM, ambient_mesh,
+                                           compute_range)
 from repro_torch.runconfig import RunConfig
 
 NEG_INF = -1e30
@@ -55,6 +58,24 @@ def init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
         "o": dense_init(gen, qd, d, scale=1.0 / math.sqrt(2 * cfg.n_layers),
                         **kw),
     }
+
+
+def axes(cfg: ModelConfig):
+    b = cfg.qkv_bias
+    return {
+        "q": dense_axes("qkv_in", "heads", bias=b),
+        "k": dense_axes("qkv_in", "kv_heads", bias=b),
+        "v": dense_axes("qkv_in", "kv_heads", bias=b),
+        "o": dense_axes("heads", "o_out"),
+    }
+
+
+def cache_axes(rc: RunConfig):
+    if rc.kv_layout == "bhsd":
+        ax = ("batch", "kv_heads", "kv_seq", "head_dim")
+    else:
+        ax = ("batch", "kv_seq", "kv_heads", "head_dim")
+    return ax, ax
 
 
 # ---------------------------------------------------------------------------
@@ -179,6 +200,13 @@ def apply(params, x, positions, cfg: ModelConfig, rc: RunConfig, *,
     cross-attention; the flash kernel reads them through their strides,
     so a view TMA cannot read raises (the caller passes contiguous ones).
     """
+    tp = _tensor_parallel(cfg, rc)
+    if tp is not None:
+        if kv_override is not None:
+            raise ValueError("cross-attention under tensor parallelism is "
+                             f"not implemented: {WHISPER_ITEM}")
+        return _apply_tp(params, x, positions, cfg, rc, tp, causal=causal,
+                         window=window, use_rope=use_rope)
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     red = common.reduce_dtype(rc)
@@ -196,22 +224,120 @@ def apply(params, x, positions, cfg: ModelConfig, rc: RunConfig, *,
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
 
-    impl = rc.attention_impl
-    if impl == "reference":
-        out = reference_attention(q, k, v, causal=causal, window=window,
-                                  softcap=cfg.logit_softcap)
-    elif impl == "chunked":
-        out = chunked_attention(q, k, v, causal=causal, window=window,
-                                softcap=cfg.logit_softcap,
-                                chunk=rc.chunk_size_k)
-    elif impl == "flash":
-        out = flash_attention_dispatch(q, k, v, causal=causal, window=window,
-                                       softcap=cfg.logit_softcap, rc=rc)
-    else:
-        raise ValueError(f"unknown attention_impl {impl!r}")
-
+    out = _attend(q, k, v, cfg, rc, causal=causal, window=window)
     out = out.reshape(B, S, cfg.q_dim)
     return dense_apply(params["o"], out, preferred=red)
+
+
+def _attend(q, k, v, cfg: ModelConfig, rc: RunConfig, *, causal, window):
+    impl = rc.attention_impl
+    if impl == "reference":
+        return reference_attention(q, k, v, causal=causal, window=window,
+                                   softcap=cfg.logit_softcap)
+    if impl == "chunked":
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 softcap=cfg.logit_softcap,
+                                 chunk=rc.chunk_size_k)
+    if impl == "flash":
+        return flash_attention_dispatch(q, k, v, causal=causal,
+                                        window=window,
+                                        softcap=cfg.logit_softcap, rc=rc)
+    raise ValueError(f"unknown attention_impl {impl!r}")
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over heads
+# ---------------------------------------------------------------------------
+
+def _tensor_parallel(cfg: ModelConfig, rc: RunConfig):
+    """(mesh, q columns, kv columns) of this rank when the model axis
+    splits the q projection's columns (the reference's guard: ``q_dim``
+    divides by the axis), else None.  The kv columns are None when
+    ``kv_dim`` does not divide (the k/v weights are then whole)."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return None
+    d = cfg.d_model
+    q = compute_range(("qkv_in", "heads"), (d, cfg.q_dim), 1, rc.shard,
+                      mesh)
+    if q is None:
+        return None
+    kv = compute_range(("qkv_in", "kv_heads"), (d, cfg.kv_dim), 1,
+                       rc.shard, mesh)
+    return mesh, q, kv
+
+
+def _local_kv(p, x, col, cols, heads, B, S, hd, red, mesh):
+    """K or V for kv heads [k_lo, k_hi) = ``heads`` on this rank, from
+    the weight's storage block (``cols``, None when whole).
+
+    Storage and compute differ where a rank's q heads need kv heads it
+    does not hold whole (the reference's guard splits ``kv_dim``, not
+    heads): the columns are then gathered over the model axis.  A column
+    block reads ``col()``, the block input under Megatron's f.  A whole
+    weight reads ``x`` itself and gives a replicated projection, whose
+    rank-local use sums the projection's gradient over the model axis
+    (``copy_to``), so its weight gradient and its input gradient are
+    whole on every rank."""
+    k_lo, k_hi = heads
+    if cols is None:
+        y = collectives.copy_to(dense_apply(p, x, preferred=red), "model",
+                                mesh, red)
+        base = 0
+    else:
+        y = dense_apply(p, col(), preferred=red)
+        base = cols[0]
+        if not (cols[0] <= k_lo * hd and k_hi * hd <= cols[1]):
+            y = collectives.all_gather(y, 2, ("model",), mesh,
+                                       sum_axes=("model",))
+            base = 0
+    y = y[..., k_lo * hd - base:k_hi * hd - base]
+    return y.reshape(B, S, k_hi - k_lo, hd)
+
+
+def _apply_tp(params, x, positions, cfg: ModelConfig, rc: RunConfig, tp, *,
+              causal: bool, window: Optional[int], use_rope: bool):
+    """``apply`` with the heads split over the model axis (Megatron).
+
+    Storage: this rank holds q columns [c0, c1) and the o rows alike (and
+    k/v columns when ``kv_dim`` divides).  Compute: the rank attends
+    with the q heads its columns touch, [c0 // hd, ceil(c1 / hd)) (the q
+    columns gathered first when a head is cut), and the kv heads those
+    need; its block of the output columns enters the row-parallel o
+    projection, whose partial sums are reduced over the model axis.  The
+    column blocks read the input under Megatron's f
+    (``common.column_input``)."""
+    mesh, (c0, c1), kv_cols = tp
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    red = common.reduce_dtype(rc)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    h_lo, h_hi = c0 // hd, -(-c1 // hd)
+    col = common.column_input(x, red, mesh)
+    q = dense_apply(params["q"], col(), preferred=red)
+    if c0 % hd or c1 % hd:
+        q = collectives.all_gather(q, 2, ("model",), mesh,
+                                   sum_axes=("model",))
+        q = q[..., h_lo * hd:h_hi * hd]
+    q = q.reshape(B, S, h_hi - h_lo, hd)
+    kv_heads = (h_lo // rep, (h_hi - 1) // rep + 1)
+    k = _local_kv(params["k"], x, col, kv_cols, kv_heads, B, S, hd, red,
+                  mesh)
+    v = _local_kv(params["v"], x, col, kv_cols, kv_heads, B, S, hd, red,
+                  mesh)
+    if use_rope:
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+    if h_lo % rep or (h_hi - h_lo) % rep:
+        # local q head i no longer reads kv head i // rep: one kv head per
+        # q head
+        idx = torch.tensor([h // rep - kv_heads[0]
+                            for h in range(h_lo, h_hi)], device=x.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    out = _attend(q, k, v, cfg, rc, causal=causal, window=window)
+    out = out.reshape(B, S, (h_hi - h_lo) * hd)
+    out = out[..., c0 - h_lo * hd:c1 - h_lo * hd]
+    return dense_apply(params["o"], out, preferred=red, row_parallel=True)
 
 
 def project_kv(params, x, positions, cfg: ModelConfig, *,

@@ -37,12 +37,20 @@ def trunc_normal(gen: torch.Generator, shape, scale: float,
     """Truncated-normal init (±2 std) with fan-in style scale; drawn in
     float32 on ``gen``'s device.  ``fan_in`` defaults to ``shape[0]`` as in
     the reference; a stacked ``[groups, in, out]`` leaf passes ``in``."""
+    if gen.device.type == "meta":               # shapes only (MetaGenerator)
+        return torch.empty(shape, dtype=dtype, device="meta")
     if fan_in is None:
         fan_in = shape[0] if len(shape) >= 2 else 0
     std = scale / math.sqrt(max(fan_in, 1)) if len(shape) >= 2 else scale
     x = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (x * std).to(dtype)
+
+
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` to make a parameter tree of
+    meta tensors: shapes and dtypes, no storage (``Model.param_shapes``)."""
+    device = torch.device("meta")
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
@@ -57,6 +65,14 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
         p["b"] = torch.zeros(lead + (out_dim,), dtype=dtype,
                              device=gen.device)
     return p
+
+
+def dense_axes(in_axis: Optional[str], out_axis: Optional[str], *,
+               bias: bool = False):
+    ax = {"w": (in_axis, out_axis)}
+    if bias:
+        ax["b"] = (out_axis,)
+    return ax
 
 
 def _matmul(x, w):
@@ -107,8 +123,18 @@ class MatmulBf16(torch.autograd.Function):
         return dx.to(x.dtype), dw.to(w.dtype), None
 
 
-def dense_apply(p, x, *, preferred: Optional[torch.dtype] = None):
+def dense_apply(p, x, *, preferred: Optional[torch.dtype] = None,
+                row_parallel: bool = False):
     """``x @ w (+ b)`` in x's dtype.
+
+    ``row_parallel`` is Megatron's row-parallel form on the ambient
+    mesh's model axis, for a weight whose input rows are this rank's
+    block (``x`` this rank's columns): the partial products are summed
+    over the model axis in ``preferred``, float32 when None, as the
+    reference's partial sums combine, and the bias is added after.  A
+    column-parallel weight (its output columns this rank's block) is a
+    plain local product of an input under Megatron's f
+    (:func:`column_input`).
 
     ``preferred`` is the reference's accumulation/partial-sum dtype.  With
     ``torch.bfloat16`` the product is rounded to bf16 before the bias is
@@ -122,6 +148,8 @@ def dense_apply(p, x, *, preferred: Optional[torch.dtype] = None):
     Operands of two types (bf16 activations into the xLSTM's float32 gate
     weights) are promoted to the wider one first, as ``jnp.matmul`` does.
     """
+    if row_parallel:
+        return _row_parallel(p, x, preferred)
     if preferred == torch.bfloat16:
         y = MatmulBf16.apply(x, p["w"])
         if "b" in p:
@@ -131,6 +159,41 @@ def dense_apply(p, x, *, preferred: Optional[torch.dtype] = None):
     if "b" in p:
         y = y.float() + p["b"].float()
     return y.to(x.dtype)
+
+
+def _row_parallel(p, x, preferred: Optional[torch.dtype]):
+    """A row-parallel ``dense_apply``: this rank's partial product (bf16
+    under ``preferred=bfloat16``, as ``MatmulBf16`` rounds it; float32
+    otherwise), summed over the model axis in that dtype, then the bias."""
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.sharding import ambient_mesh
+    mesh = ambient_mesh()
+    if preferred == torch.bfloat16:
+        y = collectives.reduce_from(MatmulBf16.apply(x, p["w"]), "model",
+                                    mesh, torch.bfloat16)
+        if "b" in p:
+            y = y + p["b"]
+        return y.to(x.dtype)
+    y = collectives.reduce_from(_matmul_to(x, p["w"], torch.float32),
+                                "model", mesh)
+    if "b" in p:
+        y = y + p["b"].float()
+    return y.to(x.dtype)
+
+
+def column_input(x, red: torch.dtype, mesh):
+    """The input of a block's column-parallel projections under
+    Megatron's f (``collectives.copy_to`` over the model axis): a
+    function that gives each projection its input.  In float32 the
+    projections share one f, so the input's gradient is summed over the
+    model axis once for them all; under a bf16 reduce each has its own,
+    as the reference combines each projection's dgrad in bf16 on its own
+    (``_mm_bf16_reduce``) and one f would round their sum instead."""
+    from repro_torch.parallel import collectives
+    if red == torch.bfloat16:
+        return lambda: collectives.copy_to(x, "model", mesh, red)
+    xm = collectives.copy_to(x, "model", mesh, red)
+    return lambda: xm
 
 
 def reduce_dtype(rc) -> torch.dtype:
@@ -149,6 +212,13 @@ def norm_init(d: int, kind: str = "rmsnorm", dtype=torch.bfloat16, *,
     if kind == "layernorm":
         p["bias"] = torch.zeros(lead + (d,), dtype=dtype, device=device)
     return p
+
+
+def norm_axes(kind: str = "rmsnorm"):
+    ax = {"scale": ("embed",)}
+    if kind == "layernorm":
+        ax["bias"] = ("embed",)
+    return ax
 
 
 def norm_apply(p, x, *, kind: str = "rmsnorm", eps: float = 1e-5):
@@ -184,6 +254,12 @@ def softcap(x, cap: Optional[float]):
     if cap is None:
         return x
     return cap * torch.tanh(x / cap)
+
+
+def stack_axes(axes_tree):
+    """Prepend the (unsharded) stack axis to every logical-axes tuple."""
+    from repro_torch.parallel.sharding import map_axes
+    return map_axes(lambda ax: (None,) + tuple(ax), axes_tree)
 
 
 def tree_map(fn, tree):

@@ -19,6 +19,16 @@ or recurrent states, updated in place.  ``loss`` is the training
 objective (``train/train_loop.py`` differentiates it with autograd): the
 decoder stacks' next-token cross-entropy plus the MoE aux loss, whisper's
 teacher-forced cross-entropy over its encoder.
+
+``param_axes`` / ``decode_state_axes`` are the reference's logical axes
+and ``param_shapes`` the parameters as meta tensors; ``shard_tree`` and
+``gather_tree`` take a global tree (the reference's numpy parameters, a
+one-process state) to a rank's blocks of its ``Placement`` s and back,
+and ``gather_tree_to_host`` builds the global tree on rank 0's host
+alone (a checkpoint's save).
+Under an ambient process mesh of more than one rank ``loss`` is the
+sharded forward of the dense family (``models/transformer.py``);
+``prefill`` and ``decode_step`` raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -30,8 +40,12 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer, whisper
-from repro_torch.models.common import tree_map
+from repro_torch.models import attention
+from repro_torch.models.common import (MetaGenerator, tree_flatten, tree_map,
+                                       tree_unflatten)
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import collectives
+from repro_torch.parallel.sharding import SERVE_ITEM, ambient_mesh, world_of
 from repro_torch.runconfig import RunConfig
 
 
@@ -56,6 +70,17 @@ class Model:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         mod = whisper if self._ed else transformer
         return mod.init(gen, self.cfg, dtype)
+
+    def param_axes(self):
+        """The logical sharding axes of ``init``'s tree."""
+        mod = whisper if self._ed else transformer
+        return mod.axes(self.cfg)
+
+    def param_shapes(self, dtype=torch.bfloat16):
+        """``init``'s tree as meta tensors (global shapes, no storage)."""
+        if self._ed:
+            return whisper.init(MetaGenerator(), self.cfg, dtype)
+        return transformer.param_shapes(self.cfg, dtype)
 
     def params_from_numpy(self, tree):
         """Load a reference parameter tree (leaves as numpy arrays, bf16
@@ -86,6 +111,7 @@ class Model:
 
     def prefill(self, params, inputs: Dict[str, object], s_max: int,
                 rc: RunConfig):
+        _refuse_mesh("prefill")
         tokens = self._on_device(inputs["tokens"])
         if self._ed:
             # encode + teacher-forced full-sequence decoder pass, caches
@@ -112,7 +138,72 @@ class Model:
         return transformer.init_decode_state(batch, s_max, self.cfg, rc,
                                              device=self.device)
 
+    def decode_state_axes(self, rc: RunConfig):
+        """The logical axes of the decode state (the reference's)."""
+        if self._ed:
+            ax, _ = attention.cache_axes(rc)
+            stacked = (None,) + tuple(ax)
+            return whisper.WhisperDecodeState(
+                self_k=stacked, self_v=stacked, cross_k=stacked,
+                cross_v=stacked, pos=())
+        return transformer.decode_state_axes(self.cfg, rc)
+
     def decode_step(self, params, token, state, rc: RunConfig):
+        _refuse_mesh("decode_step")
         mod = whisper if self._ed else transformer
         return mod.decode_step(params, self._on_device(token), state,
                                self.cfg, rc)
+
+
+def _refuse_mesh(what: str) -> None:
+    mesh = ambient_mesh()
+    if mesh is not None and world_of(mesh) > 1:
+        raise ValueError(f"{what} on a mesh of {world_of(mesh)} ranks is not "
+                         f"implemented: {SERVE_ITEM}")
+
+
+def shard_tree(tree, placements, rank: int):
+    """Rank ``rank``'s blocks of every leaf of a global ``tree`` (torch
+    tensors or numpy arrays; numpy leaves come back as tensors on the
+    CPU), each its own contiguous copy.  ``placements`` has ``tree``'s
+    structure, one ``Placement`` per leaf."""
+    leaves, treedef = tree_flatten(tree)
+    pls = tree_flatten(placements)[0]
+    if len(pls) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves, {len(pls)} placements")
+    out = []
+    for x, pl in zip(leaves, pls):
+        if not isinstance(x, torch.Tensor):
+            x = _tensor(x)
+        out.append(x[pl.index(tuple(x.shape), rank)].clone(
+            memory_format=torch.contiguous_format))
+    return tree_unflatten(treedef, out)
+
+
+def gather_tree_to_host(tree, placements, mesh):
+    """The global tree on rank 0's host, None on every other rank (a
+    collective: every rank calls it), gathered one leaf at a time
+    (``collectives.gather_to_host``): no rank holds the global tree on
+    its device, so a state sharded because it fits on no one card is
+    saved as the one-process launcher saves it, from host memory."""
+    leaves, treedef = tree_flatten(tree)
+    pls = tree_flatten(placements)[0]
+    out = [collectives.gather_to_host(x, pl, mesh)
+           for x, pl in zip(leaves, pls)]
+    return tree_unflatten(treedef, out) if mesh.rank == 0 else None
+
+
+def gather_tree(tree, placements, mesh=None):
+    """The global tree from every rank's blocks (a collective: every
+    rank calls it and gets the whole tree) on the ambient mesh by
+    default."""
+    mesh = mesh if mesh is not None else ambient_mesh()
+    leaves, treedef = tree_flatten(tree)
+    pls = tree_flatten(placements)[0]
+    out = []
+    for x, pl in zip(leaves, pls):
+        for d in range(x.dim()):
+            if pl.dim_axes(d):
+                x = collectives.gather(x, d, pl.dim_axes(d), mesh)
+        out.append(x)
+    return tree_unflatten(treedef, out)

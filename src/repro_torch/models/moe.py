@@ -1,5 +1,7 @@
 """Mixture-of-Experts MLP with shared experts and top-k routing (from
-``repro.models.moe``; ``axes`` is mesh-only and has no counterpart).
+``repro.models.moe``; ``axes`` gives the reference's logical axes, and
+the sharded train step refuses the family on a mesh of more than one
+rank: expert parallelism is not ported).
 Autograd differentiates it for training; the bf16-reduce down-projection
 carries JAX's VJP of a bf16-output dot (``common.MatmulBf16``).
 
@@ -65,6 +67,24 @@ def init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
         p["shared"] = mlp.init(gen, cfg, d_ff=cfg.n_shared_experts * f,
                                dtype=dtype, stack=stack)
     return p
+
+
+def axes(cfg: ModelConfig):
+    ax = {"router": {"w": ("embed", "experts")}}
+    if cfg.act == "silu":
+        ax["experts"] = {
+            "gate": ("experts", "expert_in", "expert_ff"),
+            "up": ("experts", "expert_in", "expert_ff"),
+            "down": ("experts", "expert_ff", "expert_in"),
+        }
+    else:
+        ax["experts"] = {
+            "up": ("experts", "expert_in", "expert_ff"),
+            "down": ("experts", "expert_ff", "expert_in"),
+        }
+    if cfg.n_shared_experts:
+        ax["shared"] = mlp.axes(cfg)
+    return ax
 
 
 def _top_k(probs, k: int):

@@ -1,6 +1,7 @@
 """Mamba block in the chunked state-space-dual form (from
-``repro.models.ssm``; ``axes`` and ``state_axes`` are mesh-only and
-have no counterpart).  Autograd differentiates it for training.
+``repro.models.ssm``; ``axes`` and ``state_axes`` give the reference's
+logical axes, and the sharded train step refuses the block on a mesh of
+more than one rank: its ``ssm_inner`` split is not ported).  Autograd differentiates it for training.
 
 Mamba-2 / SSD (arXiv:2405.21060): per-head scalar decay, intra-chunk
 attention-like products under a decay mask, and an inter-chunk carried
@@ -23,8 +24,8 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (dense_apply, dense_init, norm_apply,
-                                       norm_init, trunc_normal)
+from repro_torch.models.common import (dense_apply, dense_axes, dense_init,
+                                       norm_apply, norm_init, trunc_normal)
 from repro_torch.models.config import ModelConfig
 from repro_torch.runconfig import RunConfig
 
@@ -60,6 +61,20 @@ def init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
     }
 
 
+def axes(cfg: ModelConfig):
+    return {
+        "in_proj": dense_axes("ssm_in", "ssm_inner"),
+        "conv_w": (None, "ssm_inner"),
+        "conv_b": ("ssm_inner",),
+        "bc_proj": dense_axes("ssm_inner", None),
+        "dt_proj": dense_axes("ssm_inner", None, bias=True),
+        "a_log": (None,),
+        "d_skip": (None,),
+        "out_norm": {"scale": ("ssm_inner",)},
+        "out_proj": dense_axes("ssm_inner", "o_out"),
+    }
+
+
 def _causal_conv(x, w, b):
     """Depthwise causal conv1d in float32.  x [B,S,di], w [W,di]."""
     W, S = w.shape[0], x.shape[1]
@@ -86,6 +101,13 @@ def init_state(batch: int, cfg: ModelConfig, dtype=torch.float32, *,
                       device=device),
         conv=torch.zeros(lead + (batch, cfg.ssm_conv_width - 1, di),
                          dtype=torch.bfloat16, device=device),
+    )
+
+
+def state_axes(cfg: ModelConfig):
+    return SsmState(
+        s=("batch", None, "ssm_state", None),
+        conv=("batch", None, "ssm_inner"),
     )
 
 

@@ -8,6 +8,18 @@ The reference's ``lax.scan`` over groups is a Python loop over groups
 here, and its remat policy (``rc.remat_policy``) wraps each group in
 ``torch.utils.checkpoint`` (non-reentrant; ``_remat_wrap``).
 
+Under an ambient process mesh (``launch.mesh.ProcessMesh``; ``with
+mesh:``) the parameters are this rank's blocks of the reference's layout
+(``axes``, ``parallel.sharding.shardings_for``) and the forward is the
+reference's function computed across the ranks: each layer position's
+weights are gathered over the data axes inside the remat group
+(``gather_weights_for_compute``, ZeRO-3), attention and the MLP run
+Megatron's column- and row-parallel forms over the model axis, the
+embedding is a vocab-parallel lookup and the cross entropy a
+vocab-parallel one.  Only the dense family is sharded: a MoE, mamba or
+xLSTM block on a mesh of more than one rank raises ``ValueError``.  Off a
+mesh every path is the one-process one.
+
 Every block kind of the reference is ported: ``ATTN`` (the flash kernel
 under ``attention_impl="flash"``), ``MAMBA`` (the chunked SSD of
 ``models/ssm.py``), and the xLSTM family's ``MLSTM`` and ``SLSTM``
@@ -16,7 +28,9 @@ under ``attention_impl="flash"``), ``MAMBA`` (the chunked SSD of
 stack by ``forward``; the serving paths drop it, as the reference's do.
 
 Exposes:
-    init                   — random parameters on a ``torch.Generator``
+    init / axes            — random parameters on a ``torch.Generator``,
+                             and their logical sharding axes
+    param_shapes           — the parameters as meta tensors (no storage)
     forward                — full-sequence logits and MoE aux loss
     loss_fn                — next-token cross-entropy (+ MoE aux)
     init_decode_state      — per-position stacked caches / states
@@ -33,10 +47,17 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.models import attention, mlp, moe, ssm, xlstm
-from repro_torch.models.common import (dense_apply, norm_apply, norm_init,
-                                       reduce_dtype, trunc_normal, tree_map)
+from repro_torch.models.common import (MetaGenerator, dense_apply,
+                                       norm_apply, norm_axes, norm_init,
+                                       reduce_dtype, stack_axes, trunc_normal,
+                                       tree_map)
 from repro_torch.models.config import (ATTN, MAMBA, MLP_DENSE, MLP_MOE,
                                        MLSTM, SLSTM, LayerSpec, ModelConfig)
+from repro_torch.parallel import collectives
+from repro_torch.parallel.sharding import (EP_ITEM, SSM_ITEM, ambient_mesh,
+                                           check_layout, compute_range,
+                                           gather_weights_for_compute,
+                                           shard_activation, world_of)
 from repro_torch.runconfig import RunConfig
 
 # ---------------------------------------------------------------------------
@@ -82,6 +103,48 @@ def init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16):
         params["head"] = {"w": trunc_normal(
             gen, (cfg.d_model, cfg.vocab_size), 1.0, dtype)}
     return params
+
+
+def _pos_axes(spec: LayerSpec, cfg: ModelConfig):
+    ax: Dict[str, Any] = {}
+    if spec.kind == ATTN:
+        ax["norm1"] = norm_axes(cfg.norm)
+        ax["attn"] = attention.axes(cfg)
+    elif spec.kind == MAMBA:
+        ax["norm1"] = norm_axes(cfg.norm)
+        ax["mamba"] = ssm.axes(cfg)
+    elif spec.kind == MLSTM:
+        ax["norm1"] = norm_axes(cfg.norm)
+        ax["mlstm"] = xlstm.mlstm_axes(cfg)
+    elif spec.kind == SLSTM:
+        ax["norm1"] = norm_axes(cfg.norm)
+        ax["slstm"] = xlstm.slstm_axes(cfg)
+    if spec.mlp == MLP_DENSE:
+        ax["norm2"] = norm_axes(cfg.norm)
+        ax["mlp"] = mlp.axes(cfg)
+    elif spec.mlp == MLP_MOE:
+        ax["norm2"] = norm_axes(cfg.norm)
+        ax["moe"] = moe.axes(cfg)
+    return ax
+
+
+def axes(cfg: ModelConfig):
+    """The logical sharding axes of ``init``'s tree (the reference's)."""
+    ax: Dict[str, Any] = {
+        "embed": {"tok": ("vocab", "emb_embed")},
+        "final_norm": norm_axes(cfg.norm),
+        "layers": [stack_axes(_pos_axes(spec, cfg)) for spec in cfg.pattern],
+    }
+    if not cfg.tie_embeddings:
+        ax["head"] = {"w": ("emb_embed", "vocab")}
+    return ax
+
+
+@functools.lru_cache(maxsize=None)
+def param_shapes(cfg: ModelConfig, dtype=torch.bfloat16):
+    """``init``'s tree as meta tensors: every leaf's global shape and
+    dtype, no storage (the reference's ``Model.param_shapes``)."""
+    return init(MetaGenerator(), cfg, dtype)
 
 
 def _group(stacked, g: int):
@@ -167,18 +230,55 @@ def _remat_wrap(fn, rc: RunConfig):
     return wrapped
 
 
+def check_mesh(cfg: ModelConfig, rc: RunConfig):
+    """The ambient mesh, after refusing (``ValueError`` naming the ROADMAP
+    item) what the sharded forward does not implement on a mesh of more
+    than one rank: MoE, mamba and xLSTM blocks, and the layouts
+    ``parallel.sharding.check_layout`` refuses."""
+    mesh = ambient_mesh()
+    if mesh is None or world_of(mesh) == 1:
+        return mesh
+    check_layout(rc.shard, mesh)
+    for spec in cfg.pattern:
+        if spec.mlp == MLP_MOE:
+            raise ValueError(f"{cfg.name}: a MoE block on a mesh of "
+                             f"{world_of(mesh)} ranks is not implemented: "
+                             f"{EP_ITEM}")
+        if spec.kind != ATTN:
+            raise ValueError(f"{cfg.name}: a {spec.kind} block on a mesh "
+                             f"of {world_of(mesh)} ranks is not "
+                             f"implemented: {SSM_ITEM}")
+    return mesh
+
+
+def _grad_dtype(rc: RunConfig) -> torch.dtype:
+    return torch.bfloat16 if rc.grad_allreduce_dtype == "bfloat16" \
+        else torch.float32
+
+
 def backbone(params, x, positions, cfg: ModelConfig, rc: RunConfig):
     """Embedded activations -> (final hidden states, summed aux loss).
     x [B,S,d].  The carried activation is cast to ``rc.activation_dtype``
     at every group boundary, as the reference's scan carry is; each group
-    runs under ``rc.remat_policy``."""
+    runs under ``rc.remat_policy``.  On a mesh each position's weights
+    are gathered inside the group, so a recompute gathers them again."""
     act_dtype = torch.bfloat16 if rc.activation_dtype == "bfloat16" \
         else torch.float32
+    mesh = check_mesh(cfg, rc)
+    if mesh is not None:
+        pattern_axes = [_pos_axes(spec, cfg) for spec in cfg.pattern]
+        pattern_shapes = [_group(s, 0) for s in param_shapes(cfg)["layers"]]
 
     def group_body(x, aux, g: int):
+        x = shard_activation(x, ("batch", "seq", "embed"), rc.shard)
         for p_i, spec in enumerate(cfg.pattern):
-            x, a = _block_forward(spec, _group(params["layers"][p_i], g), x,
-                                  positions, cfg, rc)
+            p = _group(params["layers"][p_i], g)
+            if mesh is not None:
+                # ZeRO-3: stream this position's weights in
+                p = gather_weights_for_compute(
+                    p, pattern_axes[p_i], rc.shard, pattern_shapes[p_i],
+                    _grad_dtype(rc))
+            x, a = _block_forward(spec, p, x, positions, cfg, rc)
             aux = aux + a
         return x.to(act_dtype), aux
 
@@ -190,8 +290,29 @@ def backbone(params, x, positions, cfg: ModelConfig, rc: RunConfig):
                       eps=cfg.norm_eps), aux
 
 
-def embed(params, tokens, cfg: ModelConfig):
-    x = params["embed"]["tok"][tokens.long()]
+def _vocab_range(cfg: ModelConfig, rc: Optional[RunConfig]):
+    """This rank's vocab rows [lo, hi) when the vocab is split over the
+    model axis, else None."""
+    if rc is None:
+        return None
+    return compute_range(("vocab", "emb_embed"),
+                         (cfg.vocab_size, cfg.d_model), 0, rc.shard)
+
+
+def embed(params, tokens, cfg: ModelConfig, rc: Optional[RunConfig] = None):
+    """Token embeddings.  With the vocab split over the model axis, a
+    vocab-parallel lookup: each rank looks up the tokens in its rows
+    (zeros elsewhere) and the sum over the model axis is the embedding."""
+    rows = _vocab_range(cfg, rc)
+    tok = params["embed"]["tok"]
+    if rows is None:
+        x = tok[tokens.long()]
+    else:
+        lo, hi = rows
+        t = tokens.long() - lo
+        inside = (t >= 0) & (t < hi - lo)
+        x = tok[t.clamp(0, hi - lo - 1)] * inside[..., None].to(tok.dtype)
+        x = collectives.reduce_from(x, "model", ambient_mesh())
     if cfg.embedding_multiplier:
         x = x * torch.tensor(cfg.embedding_multiplier, dtype=x.dtype,
                              device=x.device)
@@ -201,11 +322,15 @@ def embed(params, tokens, cfg: ModelConfig):
 def unembed(params, x, cfg: ModelConfig, rc: Optional[RunConfig] = None):
     """Hidden states -> float32 logits.  Without the bf16 reduce knob the
     product is taken in float32, as the reference's float32-accumulated
-    einsum returns it (a bf16 product would round the logits to bf16)."""
+    einsum returns it (a bf16 product would round the logits to bf16).
+    With the vocab split over the model axis the logits are this rank's
+    vocab columns [B, S, V/M] (column-parallel)."""
     if cfg.tie_embeddings:
         w = params["embed"]["tok"].T
     else:
         w = params["head"]["w"]
+    if _vocab_range(cfg, rc) is not None:
+        x = collectives.copy_to(x, "model", ambient_mesh(), reduce_dtype(rc))
     if rc is not None and reduce_dtype(rc) == torch.bfloat16:
         return dense_apply({"w": w}, x, preferred=torch.bfloat16).float()
     return torch.matmul(x.float(), w.float())
@@ -222,7 +347,15 @@ def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
     B, S = tokens.shape
     if positions is None:
         positions = _default_positions(B, S, tokens.device)
-    x = embed(params, tokens, cfg)
+    if check_mesh(cfg, rc) is not None:
+        top = {k: v for k, v in params.items() if k != "layers"}
+        top_axes = {k: v for k, v in axes(cfg).items() if k != "layers"}
+        top_shapes = {k: v for k, v in param_shapes(cfg).items()
+                      if k != "layers"}
+        params = {**params, **gather_weights_for_compute(
+            top, top_axes, rc.shard, top_shapes, _grad_dtype(rc))}
+    x = embed(params, tokens, cfg, rc)
+    x = shard_activation(x, ("batch", "seq", "embed"), rc.shard)
     x, aux = backbone(params, x, positions, cfg, rc)
     return unembed(params, x, cfg, rc), aux
 
@@ -237,14 +370,37 @@ def xent(logits, labels):
     return torch.mean(logz - ll)
 
 
+def xent_vocab_parallel(logits, labels, rows, mesh):
+    """``xent`` of logits whose vocab is split over the model axis:
+    ``logits`` [B,S,V/M] are this rank's columns [lo, hi) = ``rows``.
+    The row max (a stabiliser: no gradient), the sum of exponentials and
+    the label's logit are each reduced over the model axis."""
+    lo, hi = rows
+    m = collectives.all_reduce(logits.detach().amax(dim=-1), "model", mesh,
+                               op="max")
+    se = collectives.reduce_from(
+        torch.exp(logits - m[..., None]).sum(dim=-1), "model", mesh)
+    t = labels.long() - lo
+    inside = (t >= 0) & (t < hi - lo)
+    ll = logits.gather(-1, t.clamp(0, hi - lo - 1)[..., None]).squeeze(-1)
+    ll = collectives.reduce_from(ll * inside.to(ll.dtype), "model", mesh)
+    return torch.mean(torch.log(se) + m - ll)
+
+
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             rc: RunConfig):
     """Next-token cross-entropy plus the MoE aux loss.  batch: tokens
     [B,S], labels [B,S], and ``positions`` [3,B,S] for M-RoPE.  Returns
-    (loss, {"nll", "aux"})."""
+    (loss, {"nll", "aux"}).  On a mesh the batch is this data rank's
+    slice and the loss its mean (``train_loop`` averages the ranks)."""
     logits, aux = forward(params, batch["tokens"], cfg, rc,
                           positions=batch.get("positions"))
-    nll = xent(logits, batch["labels"])
+    rows = _vocab_range(cfg, rc)
+    if rows is None:
+        nll = xent(logits, batch["labels"])
+    else:
+        nll = xent_vocab_parallel(logits, batch["labels"], rows,
+                                  ambient_mesh())
     return nll + aux, {"nll": nll, "aux": aux}
 
 
@@ -274,6 +430,24 @@ def _pos_state(spec: LayerSpec, batch: int, s_max: int, cfg: ModelConfig,
     if spec.kind == SLSTM:
         return xlstm.slstm_init_state(batch, cfg, device=device, stack=G)
     raise ValueError(spec.kind)
+
+
+def _pos_state_axes(spec: LayerSpec, cfg: ModelConfig, rc: RunConfig):
+    if spec.kind == ATTN:
+        return attention.cache_axes(rc)
+    if spec.kind == MAMBA:
+        return ssm.state_axes(cfg)
+    if spec.kind == MLSTM:
+        return xlstm.mlstm_state_axes(cfg)
+    if spec.kind == SLSTM:
+        return xlstm.slstm_state_axes(cfg)
+    raise ValueError(spec.kind)
+
+
+def decode_state_axes(cfg: ModelConfig, rc: RunConfig) -> DecodeState:
+    slots = [stack_axes(_pos_state_axes(spec, cfg, rc))
+             for spec in cfg.pattern]
+    return DecodeState(slots=tuple(slots), pos=("batch",))
 
 
 def init_decode_state(batch: int, s_max: int, cfg: ModelConfig,

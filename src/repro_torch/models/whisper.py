@@ -1,5 +1,7 @@
 """Whisper-tiny backbone: encoder-decoder transformer (from
-``repro.models.whisper``; ``axes`` is mesh-only and has no counterpart).
+``repro.models.whisper``; ``axes`` gives the reference's logical axes,
+and the sharded train step refuses whisper on a mesh of more than one
+rank).
 ``loss_fn`` is the teacher-forced cross-entropy the train step
 differentiates.
 
@@ -27,9 +29,10 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models import attention, mlp, transformer
-from repro_torch.models.common import (norm_apply, norm_init, tree_map,
-                                       trunc_normal)
+from repro_torch.models.common import (norm_apply, norm_axes, norm_init,
+                                       stack_axes, tree_map, trunc_normal)
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.sharding import WHISPER_ITEM, ambient_mesh, world_of
 from repro_torch.runconfig import RunConfig
 
 
@@ -80,6 +83,31 @@ def init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16):
                     "norm2": norms(Ld),
                     "mlp": mlp.init(gen, cfg, dtype=dtype, stack=Ld)},
         "final_norm": norms(0),
+    }
+
+
+def _enc_layer_axes(cfg: ModelConfig):
+    return {
+        "norm1": norm_axes(cfg.norm), "attn": attention.axes(cfg),
+        "norm2": norm_axes(cfg.norm), "mlp": mlp.axes(cfg),
+    }
+
+
+def _dec_layer_axes(cfg: ModelConfig):
+    return {
+        "norm1": norm_axes(cfg.norm), "attn": attention.axes(cfg),
+        "norm_x": norm_axes(cfg.norm), "xattn": attention.axes(cfg),
+        "norm2": norm_axes(cfg.norm), "mlp": mlp.axes(cfg),
+    }
+
+
+def axes(cfg: ModelConfig):
+    return {
+        "embed": {"tok": ("vocab", "emb_embed")},
+        "encoder": stack_axes(_enc_layer_axes(cfg)),
+        "enc_norm": norm_axes(cfg.norm),
+        "decoder": stack_axes(_dec_layer_axes(cfg)),
+        "final_norm": norm_axes(cfg.norm),
     }
 
 
@@ -155,7 +183,12 @@ class WhisperDecodeState(NamedTuple):
 def loss_fn(params, batch, cfg: ModelConfig, rc: RunConfig):
     """Teacher-forced cross-entropy over ``encode`` + ``decode_train``.
     batch: frames [B, T_enc, d], tokens and labels [B, S].  Returns (nll,
-    {"nll", "aux" = 0})."""
+    {"nll", "aux" = 0}).  Refused (``ValueError``) on a mesh of more
+    than one rank."""
+    mesh = ambient_mesh()
+    if mesh is not None and world_of(mesh) > 1:
+        raise ValueError(f"whisper on a mesh of {world_of(mesh)} ranks is "
+                         f"not implemented: {WHISPER_ITEM}")
     memory = encode(params, batch["frames"], cfg, rc)
     logits = decode_train(params, batch["tokens"], memory, cfg, rc)
     nll = transformer.xent(logits, batch["labels"])

@@ -1,6 +1,7 @@
 """xLSTM blocks: mLSTM (matrix memory) and sLSTM (scalar memory), from
-``repro.models.xlstm`` (the ``*_axes`` functions are mesh-only and have
-no counterpart).  Autograd differentiates it: on the card the mLSTM
+``repro.models.xlstm`` (the ``*_axes`` functions give the reference's
+logical axes; the sharded train step refuses the family on a mesh of
+more than one rank: its ``ssm_inner`` split is not ported).  Autograd differentiates it: on the card the mLSTM
 sequence pass through its backward kernel (``ops.mlstm_chunk``'s
 ``autograd.Function``), on CPU tensors through the plain version.
 
@@ -37,8 +38,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
 from repro_torch.kernels.mlstm_chunk.ref import mlstm_sequential
-from repro_torch.models.common import (activation, dense_apply, dense_init,
-                                       norm_apply, norm_init, trunc_normal)
+from repro_torch.models.common import (activation, dense_apply, dense_axes,
+                                       dense_init, norm_apply, norm_init,
+                                       trunc_normal)
 from repro_torch.models.config import ModelConfig
 from repro_torch.runconfig import RunConfig
 
@@ -75,6 +77,19 @@ def mlstm_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
     }
 
 
+def mlstm_axes(cfg: ModelConfig):
+    return {
+        "up": dense_axes("ssm_in", "ssm_inner"),
+        "q": dense_axes("ssm_inner", "ssm_inner"),
+        "k": dense_axes("ssm_inner", "ssm_inner"),
+        "v": dense_axes("ssm_inner", "ssm_inner"),
+        "igate": dense_axes("ssm_inner", None, bias=True),
+        "fgate": dense_axes("ssm_inner", None, bias=True),
+        "out_norm": {"scale": ("ssm_inner",)},
+        "down": dense_axes("ssm_inner", "o_out"),
+    }
+
+
 class MlstmState(NamedTuple):
     c: torch.Tensor    # [B, H, P, P]
     n: torch.Tensor    # [B, H, P]
@@ -91,6 +106,12 @@ def mlstm_init_state(batch: int, cfg: ModelConfig, *, device,
         n=torch.zeros(lead + (batch, nh, P), **f32),
         m=torch.full(lead + (batch, nh), NEG_INF, **f32),
     )
+
+
+def mlstm_state_axes(cfg: ModelConfig):
+    return MlstmState(c=("batch", None, None, None),
+                      n=("batch", None, None),
+                      m=("batch", None))
 
 
 def _mlstm_qkvg(params, u, cfg: ModelConfig):
@@ -196,6 +217,17 @@ def slstm_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
     }
 
 
+def slstm_axes(cfg: ModelConfig):
+    return {
+        "w_in": ("ssm_in", None),
+        "w_rec": (None, None, None, None),
+        "bias": (None,),
+        "out_norm": {"scale": ("embed",)},
+        "ffn_up": dense_axes("ff_in", "ff"),
+        "ffn_down": dense_axes("ff", "o_out"),
+    }
+
+
 class SlstmState(NamedTuple):
     c: torch.Tensor    # [B, d]
     n: torch.Tensor    # [B, d]
@@ -211,6 +243,11 @@ def slstm_init_state(batch: int, cfg: ModelConfig, *, device,
                       n=torch.zeros(shape, **f32),
                       h=torch.zeros(shape, **f32),
                       m=torch.full(shape, NEG_INF, **f32))
+
+
+def slstm_state_axes(cfg: ModelConfig):
+    return SlstmState(c=("batch", "embed"), n=("batch", "embed"),
+                      h=("batch", "embed"), m=("batch", "embed"))
 
 
 def _rec_weight(params):

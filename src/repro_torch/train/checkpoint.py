@@ -128,11 +128,16 @@ class CheckpointManager:
         return s[-1] if s else None
 
     def restore(self, template: Any, step: Optional[int] = None,
-                device=None) -> Tuple[Any, int]:
+                device=None, placements: Any = None,
+                rank: int = 0) -> Tuple[Any, int]:
         """Restore into the structure of ``template`` (leaf count and
         shapes checked); each leaf takes the template leaf's dtype and
         device, or ``device`` when given (a template of ``meta`` tensors
-        then describes the state without holding it)."""
+        then describes the state without holding it).  With
+        ``placements`` (``template``'s structure, one
+        ``parallel.sharding.Placement`` per leaf) each leaf is rank
+        ``rank``'s block of it.  Leaves are read one at a time, so the
+        host holds one global leaf beside what is restored."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -140,20 +145,26 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
         d = self.root / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
-        with np.load(d / f"shard_{self.process_index:05d}.npz") as z:
-            leaves = [_tensor(z[f"leaf_{i}"], manifest["dtypes"][i])
-                      for i in range(manifest["n_leaves"])]
         t_leaves, treedef = tree_flatten(template)
-        if len(t_leaves) != len(leaves):
+        if len(t_leaves) != manifest["n_leaves"]:
             raise ValueError(
-                f"checkpoint has {len(leaves)} leaves, template "
+                f"checkpoint has {manifest['n_leaves']} leaves, template "
                 f"{len(t_leaves)} — architecture/RunConfig mismatch")
-        for i, (a, b) in enumerate(zip(t_leaves, leaves)):
-            if tuple(a.shape) != tuple(b.shape):
-                raise ValueError(f"leaf {i}: shape {tuple(b.shape)} != "
-                                 f"{tuple(a.shape)}")
-        restored = [b.to(device=a.device if device is None else device,
-                         dtype=a.dtype) for a, b in zip(t_leaves, leaves)]
+        pls = tree_flatten(placements)[0] if placements is not None \
+            else [None] * len(t_leaves)
+        restored = []
+        with np.load(d / f"shard_{self.process_index:05d}.npz") as z:
+            for i, (a, pl) in enumerate(zip(t_leaves, pls)):
+                b = _tensor(z[f"leaf_{i}"], manifest["dtypes"][i])
+                if tuple(a.shape) != tuple(b.shape):
+                    raise ValueError(f"leaf {i}: shape {tuple(b.shape)} != "
+                                     f"{tuple(a.shape)}")
+                if pl is not None:     # a copy: the global leaf is freed
+                    b = b[pl.index(tuple(b.shape), rank)].clone(
+                        memory_format=torch.contiguous_format)
+                restored.append(b.to(
+                    device=a.device if device is None else device,
+                    dtype=a.dtype))
         return tree_unflatten(treedef, restored), step
 
     # ---- housekeeping ---------------------------------------------------------

@@ -5,7 +5,11 @@
 cursor, so a restart at any step reproduces the exact token stream (data
 position is part of the checkpoint implicitly, as just the step number).
 Each host materializes only its slice of the global batch
-(``host_slice``).
+(``host_slice``), and on a process mesh each data rank only its rows of
+the host's batch (``data_index`` / ``data_count``; the same tokens the
+one-process stream has in those rows).  ``data_slice`` cuts a batch
+already in memory the same way (M-RoPE ``positions`` [3, B, S] on axis
+1).
 
 Documents are drawn from a Zipf(1.1) unigram mixture with a BOS (token 0)
 every ``doc_len`` positions, as in the reference, and the draw is the
@@ -74,14 +78,15 @@ def _unigram_logits(vocab: int, device) -> torch.Tensor:
 
 
 def categorical_rows(k: Tuple[int, int], logits: torch.Tensor,
-                     rows: int) -> torch.Tensor:
-    """``jax.random.categorical(k, broadcast(logits, (rows, V)))``: int64
-    [rows], drawn ``_CHUNK`` elements at a time."""
+                     rows: int, first: int = 0) -> torch.Tensor:
+    """Rows [first, first + rows) of ``jax.random.categorical(k,
+    broadcast(logits, (R, V)))`` (R >= first + rows): int64 [rows], drawn
+    ``_CHUNK`` elements at a time."""
     V = logits.shape[0]
     per = max(_CHUNK // V, 1)
     out = []
-    for r0 in range(0, rows, per):
-        r1 = min(rows, r0 + per)
+    for r0 in range(first, first + rows, per):
+        r1 = min(first + rows, r0 + per)
         g = gumbel_from_bits(random_bits(k, r0 * V, (r1 - r0) * V,
                                          logits.device))
         out.append(torch.argmax(g.view(r1 - r0, V) + logits, dim=-1))
@@ -90,21 +95,27 @@ def categorical_rows(k: Tuple[int, int], logits: torch.Tensor,
 
 def batch_at(seed: int, step: int, *, global_batch: int, seq_len: int,
              vocab_size: int, doc_len: int = 512, host_index: int = 0,
-             host_count: int = 1,
+             host_count: int = 1, data_index: int = 0, data_count: int = 1,
              device: Union[str, torch.device] = "cuda"
              ) -> Dict[str, torch.Tensor]:
-    """Return {tokens, labels} int32 [B_host, S] for (seed, step) — pure,
+    """Return {tokens, labels} int32 [B_host / data_count, S] for (seed,
+    step): data rank ``data_index``'s rows of the host's batch — pure,
     made on ``device``."""
     if global_batch % host_count:
         raise ValueError(f"global_batch {global_batch} does not split over "
                          f"{host_count} hosts")
     dev = resolve_device(device)
     b_host = global_batch // host_count
+    if b_host % data_count:
+        raise ValueError(f"a host batch of {b_host} does not split over "
+                         f"{data_count} data ranks")
+    r0, r1 = host_slice(b_host, data_index, data_count)
     k = fold_in(fold_in(key(seed), step), host_index)
     logits = _unigram_logits(vocab_size, dev)
     # one extra token so labels are a true shift
-    toks = categorical_rows(k, logits, b_host * (seq_len + 1)) \
-        .view(b_host, seq_len + 1)
+    toks = categorical_rows(k, logits, (r1 - r0) * (seq_len + 1),
+                            first=r0 * (seq_len + 1)) \
+        .view(r1 - r0, seq_len + 1)
     # doc boundaries: token 0 acts as BOS every doc_len positions
     pos = torch.arange(seq_len + 1, device=dev)
     toks = torch.where((pos % doc_len == 0)[None, :], 0, toks)
@@ -118,12 +129,26 @@ def host_slice(global_batch: int, host_index: int, host_count: int
     return host_index * per, (host_index + 1) * per
 
 
+def data_slice(batch: Dict[str, object], index: int, count: int
+               ) -> Dict[str, object]:
+    """Data rank ``index``'s rows of a batch of ``count`` ranks (every
+    leaf [B, ...] on axis 0, M-RoPE ``positions`` [3, B, S] on axis 1, as
+    the reference's ``_split_micro`` splits them)."""
+    out = {}
+    for key, x in batch.items():
+        axis = 1 if key == "positions" else 0
+        lo, hi = host_slice(x.shape[axis], index, count)
+        out[key] = x[:, lo:hi] if axis else x[lo:hi]
+    return out
+
+
 class SyntheticDataset:
     """Thin iterator facade over ``batch_at`` (examples and the train launcher)."""
 
     def __init__(self, seed: int, global_batch: int, seq_len: int,
                  vocab_size: int, start_step: int = 0,
                  host_index: int = 0, host_count: int = 1,
+                 data_index: int = 0, data_count: int = 1,
                  device: Union[str, torch.device] = "cuda"):
         self.seed = seed
         self.global_batch = global_batch
@@ -132,6 +157,8 @@ class SyntheticDataset:
         self.step = start_step
         self.host_index = host_index
         self.host_count = host_count
+        self.data_index = data_index
+        self.data_count = data_count
         self.device = resolve_device(device)
 
     def __iter__(self):
@@ -141,6 +168,7 @@ class SyntheticDataset:
         b = batch_at(self.seed, self.step, global_batch=self.global_batch,
                      seq_len=self.seq_len, vocab_size=self.vocab_size,
                      host_index=self.host_index, host_count=self.host_count,
+                     data_index=self.data_index, data_count=self.data_count,
                      device=self.device)
         self.step += 1
         return b

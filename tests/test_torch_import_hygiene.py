@@ -42,7 +42,8 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.kernels.mlstm_chunk.ref",
                 "repro_torch.models.xlstm", "repro_torch.models.moe",
                 "repro_torch.models.ssm", "repro_torch.models.whisper",
-                "repro_torch.parallel.sharding", "repro_torch.runconfig",
+                "repro_torch.parallel.sharding",
+                "repro_torch.parallel.collectives", "repro_torch.runconfig",
                 "repro_torch.models.common", "repro_torch.models.rotary",
                 "repro_torch.models.mlp", "repro_torch.models.attention",
                 "repro_torch.models.transformer", "repro_torch.models.model",
