@@ -160,7 +160,8 @@ Phases (any failure exits non-zero before the result line):
    ``autograd.Function``) over ``BWD_CASES``: yi-6b's layer causal bf16 at
    the train step's microbatch (1,4096,4096,32,4,128) and at B=2, the MoE
    and hybrid steps' layers (qwen2-moe's MHA (1,4096,4096,16,16,128) and
-   jamba's (1,4096,4096,64,8,128), timed as yi-6b's), GQA 8/1,
+   jamba's (1,4096,4096,64,8,128)) and yi-6b's on one chip of the 16 x 16
+   mesh (1,4096,4096,2,1,128), each timed as yi-6b's, GQA 8/1,
    a window of 256, soft-cap 30, Sq != Sk, whisper's encoder and cross
    shapes (bf16 at D 64/128: ``flash_attention_bwd_wgmma.cu``, the tensor
    cores), and float32 at D 16/32/64/128 (``flash_attention_bwd.cu``, the
@@ -248,33 +249,45 @@ Phases (any failure exits non-zero before the result line):
    layers' share of a step's device span (CUDA events in their forward,
    recompute and backward), the optimizer's, and the profiled step's
    kernel shares and idle share.
-14. the product cluster: ``CompiledEvaluator(yi-6b full width, 4 of 32
-   layers, train_4k, device="cuda")`` runs each probe's train step on
-   the card at one data-parallel replica's share of the cell (16 x 4096
-   tokens on the 16 x 16 production mesh): a counted warm-up step (FLOPs,
-   bytes, the kernels' own work) and 2 timed steps.  Probes: the space's
+14. the product cluster: ``CompiledEvaluator(yi-6b full width,
+   train_4k, device="cuda", share="chip")`` runs each probe's train step
+   on the card at one chip's share of the 16 x 16 production mesh, at
+   the chip share's cell depth (32 of 32 layers; a cut would show in
+   ``reduced``): chip (0, 0)'s blocks of the state, data rank 0's 16 x
+   4096 tokens, 2 of the 32 q heads (the kv head they read gathered),
+   1 / 16 of ff and vocab, its FSDP gathers, under a virtual mesh whose
+   collectives act locally and are counted by kind: a counted warm-up
+   step (FLOPs, bytes, the kernels' own work, collective bytes) and 2
+   timed steps.  First the flash forward at the chip's layer (1 x 4096,
+   2 q heads over 1 kv head) against its plain version (relative L2
+   1e-2), timed beside the plain version and SDPA.  Probes: the space's
    default (``space.project(space.default_config())``), it with
    ``attention_impl="flash"``, ``remat_policy`` ``"dots"`` and
    ``"full"``, ``optimizer="adafactor"``, ``grad_allreduce_dtype=
    "bfloat16"``, phase 3's batch-8 recommendation and
-   ``expert_manual_config``; then one default probe each of
-   ``prefill_32k`` (2 x 32768) and ``decode_32k`` (8 against a 32k
-   cache).  Each prints the knobs it changed, the measured step,
-   tokens/s, peak memory, ``mfu``, the roofline terms, its step-1 loss,
-   or that it ran out of the card's memory (an infeasible probe, not a
-   failure); then the measured speedups default/recommended and
-   default/expert beside ``tune()``'s analytic ones (a finding, not a
-   gate).  Gates: the flash, ``dots``, ``full``, Adafactor and bf16
-   all-reduce probes fit; every step-1 loss within 1e-2 (relative) of
-   the default's; the ``dots``, ``full``, Adafactor and bf16 probes'
-   step-1 gradient norm within 1e-2 of the default's; the loss's drop
-   over the timed steps (the one update the warm-up's lr 0 leaves) of
-   the ``dots``, ``full`` and bf16 probes within 0.1 of the default's,
-   and the default's and Adafactor's drop above 0; the repeated default
-   is a cache hit; the flash probe
-   launches exactly (warm-up + timed steps) x microbatches x layers
-   wgmma forwards (twice under a recomputing remat policy) and as many
-   wgmma backward sets, counted from 0 around it.
+   ``expert_manual_config``; then the default once at one replica's
+   share (4 layers, the replica cell scored before the chip share) and
+   one default probe each of ``prefill_32k`` (2 x 32768) and
+   ``decode_32k`` (8 against a 32k cache), both at the replica's share
+   (the layout does not serve).
+   Each prints its depth, ``reduced``, the measured step,
+   ``collective_s``, the bytes by kind, ``scored_step_s``, peak memory,
+   ``mfu`` and its step-1 loss, or that it ran out of the card's memory;
+   then the measured speedups default/recommended and default/expert
+   (of ``scored_step_s``) beside ``tune()``'s analytic ones (a finding,
+   not a gate).  Gates: every chip probe fits (the recommendation and
+   the expert rule too), runs the chip share and counts collectives;
+   every step-1 loss within 1e-2 (relative) of the default's; the
+   ``dots``, ``full``, Adafactor and bf16 probes' step-1 gradient norm
+   within 1e-2 of the default's; the loss's drop over the timed steps
+   (the one update the warm-up's lr 0 leaves) of the ``dots``, ``full``
+   and bf16 probes within 0.1 of the default's, and the default's and
+   Adafactor's drop above 0; the repeated default is a cache hit; the
+   flash probe launches exactly (warm-up + timed steps) x microbatches x
+   layers wgmma forwards (twice under a recomputing remat policy) and as
+   many wgmma backward sets, counted from 0 around it, all at q [1,
+   4096, 2, 128] / k [1, 4096, 1, 128]; the replica probe scores its
+   measured step; the phase within 240 s.
 15. the sharded train step: yi-6b at full width, 2 of 32 layers, on a
    2 x 2 (data, model) mesh of four processes (``launch.mesh.spawn``;
    NCCL when the host has a card for each rank, else gloo with the four
@@ -286,9 +299,12 @@ Phases (any failure exits non-zero before the result line):
    the one-process step's at the same seed and shape (run on rank 0),
    its loss within 1e-3, no non-finite leaf; each rank's flash launches
    counted from 0 around its 2 steps: 16 wgmma forwards and 8 wgmma
-   backward sets at Hq 16 / Hkv 2, none on an FMA route; the phase
-   within 90 s.  Prints each rank's step times, peak GiB and the
-   backend.
+   backward sets at Hq 16 / Hkv 2, none on an FMA route.  Each rank
+   counts its collectives' bytes by kind over those steps; then, in this
+   process, the virtual 2 x 2 mesh's chip (0, 0) runs the same steps
+   alone and must give rank 0's bytes by kind and flash launches
+   exactly; the phase within 90 s.  Prints each rank's step times, peak
+   GiB, bytes by kind and the backend.
 
 Every device time read from ``torch.profiler`` in phases 2-13 comes
 from a session that recorded the window whole (``whole_profile``: the
@@ -657,9 +673,9 @@ print(json.dumps(chip_smoke.device_ms(lambda: fn(*args), counted=counted,
 
 
 def fresh_device_ms(script: str, arg) -> float:
-    """Run ``script`` (FRESH_GRAM, FRESH_BWD, FRESH_MLSTM_BWD) in a new
-    process with the JSON of ``arg``; its last line is the device ms per
-    call."""
+    """Run ``script`` (FRESH_GRAM, FRESH_BWD, FRESH_FWD, FRESH_MLSTM_BWD)
+    in a new process with the JSON of ``arg``; its last line is the device
+    ms per call."""
     r = subprocess.run([sys.executable, "-c", script, json.dumps(arg),
                         str(ROOT), str(SRC)], capture_output=True,
                        text=True, timeout=300, cwd=ROOT)
@@ -2782,6 +2798,59 @@ def select_sharded(dev) -> dict:
     return out
 
 
+def fresh_thread_launches(dev) -> list:
+    """Each tensor-core forward launched from a new thread that has made no
+    CUDA call, its memory served from PyTorch's cache (as in a tuner's
+    worker thread): its launcher binds the device's context before it
+    encodes a tensor map, so the launch must not fail there and must equal
+    the same launch from this thread bit for bit."""
+    import threading
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
+
+    gen = torch.Generator().manual_seed(0)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    q, k, v = rand(2, 512, 8, 128), rand(2, 512, 2, 128), rand(2, 512, 2, 128)
+    mq, mk, mv = rand(1, 512, 2, 256), rand(1, 512, 2, 256) / 16, \
+        rand(1, 512, 2, 256)
+    li = rand(1, 512, 2, dtype=torch.float32)
+    lf = -torch.nn.functional.softplus(-2 * rand(1, 512, 2,
+                                                 dtype=torch.float32))
+    check(flash_ops.route(q.dtype, 128) == "wgmma"
+          and mlstm_ops.route(mq.dtype, 256, 256) == "wgmma",
+          "fresh thread: the inputs do not reach the wgmma routes")
+    cases = (("flash_attention_wgmma", lambda: flash_ops.flash_attention(
+                  q, k, v)),
+             ("mlstm_chunk_wgmma", lambda: mlstm_ops.mlstm_chunk(
+                  mq, mk, mv, li, lf, chunk=256)))
+    names = []
+    for name, fn in cases:
+        want = fn()
+        fn()                        # freed: the thread's call reuses it
+        torch.cuda.synchronize()
+        got, errs = [], []
+
+        def work():
+            try:
+                got.append(fn())
+                torch.cuda.synchronize()
+            except Exception as e:  # reported below
+                errs.append(e)
+        worker = threading.Thread(target=work)
+        worker.start()
+        worker.join()
+        check(not errs, f"{name} launched from a fresh thread failed: "
+              f"{errs[0]!r}" if errs else "")
+        check(torch.equal(got[0], want), f"{name} from a fresh thread "
+              "differs from the same launch on the main thread")
+        names.append(name)
+    return names
+
+
 def phase_autotune(card: str):
     import torch
     from repro_torch.core.strategy import _config_key
@@ -2801,6 +2870,9 @@ def phase_autotune(card: str):
              tiles_flash(dev), "mlstm_chunk": tiles_mlstm(dev)}
     torch.cuda.synchronize()
     t_tiles = time.perf_counter() - t_phase
+    fresh = fresh_thread_launches(dev)
+    print(f"  launched from a fresh thread (memory from the cache), bit-equal"
+          f" to the main thread's launch: {', '.join(fresh)}", flush=True)
 
     # the path: tune_kernel, launches counted from 0 just before it
     gram_ops.reset_launch_counts()
@@ -3670,10 +3742,13 @@ FLASH_BWD_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
 FLASH_BWD_FMA_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                         "flash_attention_bwd.cu")
 # the layers of the MoE and hybrid train steps at their microbatch of 1:
-# qwen2-moe's MHA (Kh = H) and jamba's 64 heads over 8
+# qwen2-moe's MHA (Kh = H) and jamba's 64 heads over 8; yi-6b's on one
+# chip of the production mesh
 BWD_LAYER_CASES = {
     "qwen2-moe": (1, 4096, 4096, 16, 16, 128, True, None, None, "bfloat16"),
     "jamba": (1, 4096, 4096, 64, 8, 128, True, None, None, "bfloat16"),
+    # yi-6b's layer on one chip of the 16 x 16 mesh (phase 14's probes)
+    "yi-6b-chip": (1, 4096, 4096, 2, 1, 128, True, None, None, "bfloat16"),
 }
 # B, Sq, Sk, H, Kh, D, causal, window, softcap, dtype: yi-6b's layer at
 # the train step's microbatch of 1 (the path's shape) first, then at
@@ -5308,7 +5383,15 @@ def phase_train(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 PRODUCT_ARCH = "yi-6b"
-PRODUCT_LAYERS = 4               # depth 32 -> 4; full width
+# the chip's probes' depth (the chip share's cell_depth is 32 of 32): 4,
+# the replica probe's.  tune()'s recommendation (microbatch 16, remat
+# none, reference attention) keeps every layer's activations and float32
+# scores of the chip's 16 rows, ~10.5 GiB a layer (the default, 1 row,
+# peaked at 23.2 GiB over 32 layers): it ran out of the card's memory
+# at 32 layers; at 4 every probe fits and the phase keeps to its budget.
+# `reduced` lists the cut.
+PRODUCT_CHIP_LAYERS = 4
+PRODUCT_LAYERS = 4               # the replica share's probes: depth 32 -> 4
 PRODUCT_STEPS = 2                # timed steps after the counted warm-up
 PRODUCT_LOSS_REL = 1e-2          # each probe's step-1 loss vs the default's
 # step 1's gradient norm vs the default's, for the probes whose gradient is
@@ -5323,7 +5406,7 @@ PRODUCT_SAME_GRAD = ("remat-dots", "remat-full", "adafactor",
 # gradient; Adafactor's update differs and must only lower the loss
 PRODUCT_DROP_REL = 0.1
 PRODUCT_SAME_UPDATE = ("remat-dots", "remat-full", "bf16-allreduce")
-PRODUCT_BUDGET_S = 150.0
+PRODUCT_BUDGET_S = 240.0
 # probes of train_4k: (name, knobs over the space's default); "recommended"
 # and "expert" are filled in from phase 3 and the expert rule
 PRODUCT_KNOBS = (("flash", {"attention_impl": "flash"}),
@@ -5331,24 +5414,38 @@ PRODUCT_KNOBS = (("flash", {"attention_impl": "flash"}),
                  ("remat-full", {"remat_policy": "full"}),
                  ("adafactor", {"optimizer": "adafactor"}),
                  ("bf16-allreduce", {"grad_allreduce_dtype": "bfloat16"}))
-PRODUCT_MUST_FIT = {name for name, _ in PRODUCT_KNOBS}
+PRODUCT_MUST_FIT = {name for name, _ in PRODUCT_KNOBS} | {"recommended",
+                                                          "expert"}
 PRODUCT_SERVING = ("prefill_32k", "decode_32k")   # one default probe each
+# yi-6b's attention layer on one chip of the 16 x 16 mesh at the space
+# default's microbatch of 1: 32 / 16 q heads and the one kv head they read
+# (kv_dim 512 / 16 is a quarter head: the kv columns are gathered)
+CHIP_FLASH = (1, 4096, 4096, 2, 1, 128)
 
 
 def product_probe(ev, name: str, knobs: dict, base: dict) -> dict:
     """One ``CompiledEvaluator`` probe with flash's launches counted from
-    0 around it; prints what it changed and what the card measured.  An
-    out-of-memory step is an infeasible probe, not a failure."""
+    0 around it (and the q / k shapes its calls saw); prints what it
+    changed and what the card measured.  An out-of-memory step is an
+    infeasible probe, not a failure."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fops
 
     changed = {k: v for k, v in knobs.items() if base.get(k) != v}
     fops.reset_launch_counts()
     calls = ev.calls
+    shapes, fn = set(), fops.flash_attention
+
+    def recording(q, k, v, **kw):
+        shapes.add((tuple(q.shape), tuple(k.shape)))
+        return fn(q, k, v, **kw)
+    fops.flash_attention = recording
     try:
         step_s = ev(knobs)
     except torch.cuda.OutOfMemoryError as e:
         step_s, oom = None, str(e).splitlines()[0][:160]
+    finally:
+        fops.flash_attention = fn
     launches = {"fwd": fops.launches, "fwd_wgmma": fops.launches_wgmma,
                 "fwd_fma": fops.launches_fma, "bwd": fops.launches_bwd,
                 "bwd_wgmma": fops.launches_bwd_wgmma}
@@ -5359,29 +5456,111 @@ def product_probe(ev, name: str, knobs: dict, base: dict) -> dict:
     rec = ev.records[ev._key(knobs)]
     r = rec["roofline"]
     loss = rec["step1_loss"]
-    print(f"  {name}: measured_step_s={step_s:.6f} "
-          f"tokens/s={rec['tokens_per_s']:.1f} "
+    print(f"  {name} ({rec['share']} share, mesh {rec['mesh']}, chip "
+          f"{rec['chip']}): depth {rec['n_layers']} reduced {rec['reduced']} "
+          f"measured_step_s={rec['measured_step_s']:.6f} collective_s="
+          f"{r['collective_s']:.6f} coll_by_kind={r['coll_by_kind']} "
+          f"scored_step_s={step_s:.6f} "
           f"peak={rec['memory']['max_memory_allocated_gb']:.2f} GiB "
-          f"mfu={rec['mfu']:.4f} roofline step={r['step_s']:.6f} "
-          f"(compute {r['compute_s']:.6f}, memory {r['memory_s']:.6f}, "
-          f"collective {r['collective_s']:.1f}; {r['dominant']}; kernels "
+          f"(estimated {rec['memory']['estimated_gb']:.2f}) "
+          f"mfu={rec['mfu']:.4f} tokens/s={rec['tokens_per_s']:.1f} "
+          f"roofline step={r['step_s']:.6f} (compute {r['compute_s']:.6f}, "
+          f"memory {r['memory_s']:.6f}; {r['dominant']}; kernels "
           f"{r['kernel_flops']:.4g} flop, {r['kernel_bytes']:.4g} B) "
-          f"feasible step1_loss={'-' if loss is None else f'{loss:.6f}'} "
+          f"step1_loss={'-' if loss is None else f'{loss:.6f}'} "
           f"step_losses={rec['step_losses']} "
           f"step1_grad_norm={rec['step1_grad_norm']} "
           f"compile_s={rec['compile_s']:.2f} steps={rec['step_times_s']} "
           f"calls {calls}->{ev.calls}", flush=True)
     print(f"    changed {changed}; runconfig {rec['runconfig']}; "
-          f"{rec['batch']} x {rec['seq_len']} tokens, reduced "
-          f"{rec['reduced']}; flash launches {launches}", flush=True)
+          f"{rec['batch']} x {rec['seq_len']} tokens; flash launches "
+          f"{launches}, q/k shapes {sorted(shapes)}", flush=True)
     return {"name": name, "feasible": True, "changed": changed,
-            "step_s": step_s, "record": rec, "launches": launches}
+            "step_s": step_s, "record": rec, "launches": launches,
+            "shapes": sorted(shapes)}
+
+
+# the flash forward's profiled device ms per call in a process of its own:
+# argv = shape (JSON: B, Sq, Sk, H, Kh, D; causal bf16), the repo's root,
+# its src/
+FRESH_FWD = """
+import json, sys
+sys.path[:0] = sys.argv[2:4]
+import torch
+import chip_smoke
+from repro_torch.kernels.flash_attention import ops
+B, Sq, Sk, H, Kh, D = json.loads(sys.argv[1])
+gen = torch.Generator(device="cuda").manual_seed(17)
+q, k, v = (torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+           for s in ((B, Sq, H, D), (B, Sk, Kh, D), (B, Sk, Kh, D)))
+print(json.dumps(chip_smoke.device_ms(
+    lambda: ops.flash_attention(q, k, v, causal=True), 20,
+    chip_smoke.FLASH_COUNTED, what="fresh forward")))
+"""
+
+
+def chip_flash_forward(card: str) -> dict:
+    """The flash forward at the chip's layer (``CHIP_FLASH``): the kernel
+    against its plain version (P rounded to bf16, relative L2 1e-2), timed
+    with CUDA events in turns with SDPA (K/V repeated outside the timed
+    calls), its device time from a whole profiler session (here, or in a
+    fresh process: ``FRESH_FWD``), the plain version's time and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    B, Sq, Sk, H, Kh, D = CHIP_FLASH
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(
+        torch.bfloat16) for s in ((B, Sq, H, D), (B, Sk, Kh, D),
+                                  (B, Sk, Kh, D)))
+
+    def kernel():
+        return ops.flash_attention(q, k, v, causal=True)
+
+    def plain():
+        return ref.reference_attention(q, k, v, causal=True,
+                                       p_dtype=torch.bfloat16)
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(H // Kh, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(H // Kh, dim=2).transpose(1, 2)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    rel = rel_l2(kernel(), plain())
+    check(rel <= FLASH_REL_L2, f"the chip's flash layer {CHIP_FLASH}: "
+          f"kernel vs plain relative L2 {rel} > {FLASH_REL_L2}")
+    l_ms1 = cuda_ms(library, reps=5, inner=10)
+    k_ms1 = cuda_ms(kernel, reps=5, inner=10)
+    k_ms2 = cuda_ms(kernel, reps=5, inner=10)
+    l_ms2 = cuda_ms(library, reps=5, inner=10)
+    k_ms, l_ms = min(k_ms1, k_ms2), min(l_ms1, l_ms2)
+    p_ms = cuda_ms(plain, reps=3, inner=2)
+    dev_ms = device_ms(kernel, calls=20, counted=FLASH_COUNTED,
+                       fresh=lambda: fresh_device_ms(FRESH_FWD,
+                                                     list(CHIP_FLASH)),
+                       what="the chip's flash forward")
+    b_ms, b_by, flops = flash_bound(B, Sq, Sk, H, Kh, D, True, 2,
+                                    BF16_FLOPS_PER_S)
+    print(f"  flash forward at the chip's layer {CHIP_FLASH} causal bf16 on "
+          f"{card}: kernel_ms={k_ms:.4f} ({k_ms1:.4f}, {k_ms2:.4f}) "
+          f"device_ms={dev_ms:.4f} plain_ms={p_ms:.4f} library_ms="
+          f"{l_ms:.4f} ({l_ms1:.4f}, "
+          f"{l_ms2:.4f}; SDPA) bound_ms={b_ms:.4f} ({b_by}; "
+          f"{flops / 1e9:.2f} GFLOP) kernel / library {k_ms / l_ms:.3f}; "
+          f"kernel vs plain rel_l2 {rel:.3e}", flush=True)
+    return {"ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
+            "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "rel_l2": rel, "shape": list(CHIP_FLASH)}
 
 
 def phase_product(card: str, tuned: dict) -> dict:
-    """Phase 14: the config probes of yi-6b's train_4k replica share and
-    the serving cells' defaults, run on the card by ``CompiledEvaluator``;
-    the measured speedups beside the analytic ones of phase 3."""
+    """Phase 14: the config probes of yi-6b's train_4k at one chip's share
+    of the 16 x 16 mesh (and the default once at the replica's share),
+    and the serving cells' defaults at the replica's, run on the card by
+    ``CompiledEvaluator``; the measured speedups beside the analytic ones
+    of phase 3."""
     import gc
 
     import torch
@@ -5390,19 +5569,24 @@ def phase_product(card: str, tuned: dict) -> dict:
     from repro_torch.core.evaluators import CompiledEvaluator
     from repro_torch.core.knobs import clean_space
     from repro_torch.core.tuner import expert_manual_config
+    from repro_torch.launch import dryrun
     from repro_torch.models.config import SHAPES_BY_NAME
 
     cfg = get_config(PRODUCT_ARCH)
     cell = SHAPES_BY_NAME["train_4k"]
     gc.collect()
     torch.cuda.empty_cache()
+    depth = PRODUCT_CHIP_LAYERS or dryrun.cell_depth(cfg, cell, share="chip")
     print(f"== phase 14: the product cluster: CompiledEvaluator on "
-          f"{PRODUCT_ARCH} (full width, {PRODUCT_LAYERS} of {cfg.n_layers} "
-          f"layers) at train_4k's replica share, 1 warm-up + "
+          f"{PRODUCT_ARCH} (full width) at train_4k's share of one chip of "
+          f"the 16 x 16 mesh, {depth} of {cfg.n_layers} layers (the chip "
+          f"share's cell depth {dryrun.cell_depth(cfg, cell, share='chip')}"
+          f"; the replica's share once at {PRODUCT_LAYERS}), 1 warm-up + "
           f"{PRODUCT_STEPS} timed steps a probe (memory allocated at the "
           f"start {torch.cuda.memory_allocated() / 2**30:.3f} GiB)",
           flush=True)
     t0 = time.perf_counter()
+    flash_layer = chip_flash_forward(card)
     space, _, _ = clean_space(cfg, cell, SINGLE_POD)
     default = space.project(space.default_config())
     probes = [("default", default)]
@@ -5411,25 +5595,26 @@ def phase_product(card: str, tuned: dict) -> dict:
     probes += [("recommended", dict(tuned["best_config"])),
                ("expert", expert_manual_config(space))]
     ev = CompiledEvaluator(cfg, cell, device="cuda",
-                           n_layers=PRODUCT_LAYERS, steps=PRODUCT_STEPS)
+                           n_layers=PRODUCT_CHIP_LAYERS, steps=PRODUCT_STEPS,
+                           share="chip")
     out = {}
     for name, knobs in probes:
         out[name] = product_probe(ev, name, knobs, default)
         torch.cuda.empty_cache()
-    d = out["default"]
-    check(d["feasible"], "phase 14: the default train_4k probe ran out of "
-          "the card's memory")
-    for name in PRODUCT_MUST_FIT:
+    for name in ["default", *sorted(PRODUCT_MUST_FIT)]:
         check(out[name]["feasible"], f"phase 14: the {name} probe ran out "
               f"of the card's memory")
+    d = out["default"]
     for name, p in out.items():
-        if p["feasible"]:
-            rel = abs(p["record"]["step1_loss"] - d["record"]["step1_loss"]) \
-                / abs(d["record"]["step1_loss"])
-            p["loss_rel"] = rel
-            check(rel <= PRODUCT_LOSS_REL, f"phase 14: {name}'s step-1 loss "
-                  f"is {rel:.3e} from the default's (limit "
-                  f"{PRODUCT_LOSS_REL})")
+        check(p["record"]["share"] == "chip"
+              and p["record"]["roofline"]["collective_s"] > 0,
+              f"phase 14: {name} did not run one chip's share with its "
+              f"collectives counted")
+        rel = abs(p["record"]["step1_loss"] - d["record"]["step1_loss"]) \
+            / abs(d["record"]["step1_loss"])
+        p["loss_rel"] = rel
+        check(rel <= PRODUCT_LOSS_REL, f"phase 14: {name}'s step-1 loss "
+              f"is {rel:.3e} from the default's (limit {PRODUCT_LOSS_REL})")
 
     # what the step-1 loss cannot see: the gradient and the update
     def drop(p):
@@ -5439,7 +5624,7 @@ def phase_product(card: str, tuned: dict) -> dict:
     check(d_drop > 0, f"phase 14: the default's loss did not drop over its "
           f"timed steps ({d['record']['step_losses']})")
     for name, p in out.items():
-        if not p["feasible"] or name == "default":
+        if name == "default":
             continue
         g_rel = abs(p["record"]["step1_grad_norm"] - d_norm) / d_norm
         u_rel = abs(drop(p) - d_drop) / d_drop
@@ -5469,22 +5654,25 @@ def phase_product(card: str, tuned: dict) -> dict:
 
     # flash's launches: per step, microbatches x layers forward (twice
     # where the remat policy recomputes the group) and as many backward
-    # sets, over the warm-up and the timed steps
+    # sets, over the warm-up and the timed steps, at the chip's heads
     f = out["flash"]
     rec = f["record"]
     micro = rec["runconfig"]["microbatch"] or rec["batch"]
     n_micro = rec["batch"] // min(micro, rec["batch"])
     again_fwd = 1 if rec["runconfig"]["remat_policy"] == "none" else 2
     steps = 1 + PRODUCT_STEPS
-    want_fwd = steps * n_micro * PRODUCT_LAYERS * again_fwd
-    want_bwd = steps * n_micro * PRODUCT_LAYERS
+    want_fwd = steps * n_micro * rec["n_layers"] * again_fwd
+    want_bwd = steps * n_micro * rec["n_layers"]
     got = f["launches"]
     check(got["fwd"] == got["fwd_wgmma"] == want_fwd and got["fwd_fma"] == 0
           and got["bwd"] == got["bwd_wgmma"] == want_bwd,
           f"phase 14: flash launches {got}, want {want_fwd} wgmma forward "
           f"and {want_bwd} wgmma backward sets")
-    fwd_total = sum(p["launches"]["fwd"] for p in out.values())
-    bwd_total = sum(p["launches"]["bwd"] for p in out.values())
+    B, _, S, H, Kh, D = CHIP_FLASH
+    want_shapes = [((micro, rec["seq_len"], H, D),
+                    (micro, rec["seq_len"], Kh, D))]
+    check(f["shapes"] == want_shapes, f"phase 14: the flash probe's q / k "
+          f"shapes {f['shapes']}, want {want_shapes} (the chip's heads)")
 
     def speedup(name):
         p = out[name]
@@ -5493,29 +5681,50 @@ def phase_product(card: str, tuned: dict) -> dict:
     a_best = tuned["default_value"] / tuned["best_value"]
     a_expert = tuned["default_value"] / tuned["expert_value"]
     m_best, m_expert = speedup("recommended"), speedup("expert")
+    print(f"  transfer on {card}, one chip of 16 x 16 at depth {depth} "
+          f"(scored_step_s): default/recommended measured {m_best:.4f}x, "
+          f"analytic (tune, batch 8) {a_best:.4f}x; default/expert measured "
+          f"{m_expert:.4f}x, analytic {a_expert:.4f}x", flush=True)
 
-    def show(x):
-        return "OOM" if x is None else f"{x:.4f}x"
-    print(f"  transfer on {card}: default/recommended measured "
-          f"{show(m_best)}, analytic (tune, batch 8) {a_best:.4f}x; "
-          f"default/expert measured {show(m_expert)}, analytic "
-          f"{a_expert:.4f}x", flush=True)
-
+    # the replica's share once, as it was scored before the chip share,
+    # and the serving cells (the layout does not cover them: ROADMAP A 18f)
+    rev = CompiledEvaluator(cfg, cell, device="cuda", n_layers=PRODUCT_LAYERS,
+                            steps=PRODUCT_STEPS, share="replica")
+    replica = product_probe(rev, "default (replica share)", default, default)
+    check(replica["feasible"] and replica["record"]["roofline"][
+        "collective_s"] == 0.0 and replica["step_s"] ==
+        replica["record"]["measured_step_s"], "phase 14: the replica "
+        "share's default did not run, or scored more than its measured step")
+    torch.cuda.empty_cache()
     serving = {}
     for shape in PRODUCT_SERVING:
-        sev = CompiledEvaluator(cfg, SHAPES_BY_NAME[shape], device="cuda",
+        scell = SHAPES_BY_NAME[shape]
+        check(dryrun.resolve_share(cfg, scell) == "replica",
+              f"phase 14: {shape} should run at the replica's share")
+        sev = CompiledEvaluator(cfg, scell, device="cuda",
                                 n_layers=PRODUCT_LAYERS, steps=PRODUCT_STEPS)
         serving[shape] = product_probe(sev, f"{shape} default", {}, {})
         if serving[shape]["feasible"]:
             check(serving[shape]["record"]["outputs_finite"],
                   f"phase 14: {shape}'s logits are not finite")
         torch.cuda.empty_cache()
+    fwd_total = sum(p["launches"]["fwd"] for p in out.values()) \
+        + replica["launches"]["fwd"] \
+        + sum(p["launches"]["fwd"] for p in serving.values())
+    bwd_total = sum(p["launches"]["bwd"] for p in out.values()) \
+        + replica["launches"]["bwd"]
     total = time.perf_counter() - t0
     print(f"phase 14 total {total:.1f} s (budget {PRODUCT_BUDGET_S:.0f} s)",
           flush=True)
-    return {"probes": out, "serving": serving, "launches_fwd": fwd_total,
-            "launches_bwd": bwd_total, "measured_speedup": m_best,
-            "measured_expert_speedup": m_expert,
+    check(total <= PRODUCT_BUDGET_S, f"phase 14 took {total:.1f} s")
+    return {"probes": out, "replica": replica, "serving": serving,
+            "flash_layer": flash_layer, "depth": depth,
+            "launches_fwd": fwd_total, "launches_bwd": bwd_total,
+            "launches_fwd_per_probe": {n: p["launches"]["fwd"]
+                                       for n, p in out.items()},
+            "launches_bwd_per_probe": {n: p["launches"]["bwd"]
+                                       for n, p in out.items()},
+            "measured_speedup": m_best, "measured_expert_speedup": m_expert,
             "analytic_speedup": a_best, "analytic_expert_speedup": a_expert,
             "seconds": total}
 
@@ -5549,6 +5758,7 @@ def mesh_rank(mesh, out_dir: str) -> None:
     from repro_torch.models.common import (tree_flatten,
                                            tree_flatten_with_path)
     from repro_torch.models.model import Model, gather_tree
+    from repro_torch.parallel.collectives import counting_collectives
     from repro_torch.parallel.sharding import (reset_ambient_mesh,
                                                set_ambient_mesh)
     from repro_torch.runconfig import RunConfig
@@ -5623,22 +5833,67 @@ def mesh_rank(mesh, out_dir: str) -> None:
     ops.flash_attention = recording
     try:
         times = []
-        for b in batches:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, mets = step(state, b)
-            out.setdefault("losses", []).append(float(mets["loss"]))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+        with counting_collectives() as coll:
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, mets = step(state, b)
+                out.setdefault("losses", []).append(float(mets["loss"]))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
     finally:
         ops.flash_attention = fn
     out.update(step_s=times, shapes=sorted(map(list, shapes)),
+               coll_by_kind=dict(coll),
                launches={k: getattr(ops, k) for k in (
                    "launches", "launches_wgmma", "launches_fma",
                    "launches_bwd", "launches_bwd_wgmma",
                    "launches_bwd_fma")},
                step_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     Path(out_dir, f"rank{mesh.rank}.json").write_text(json.dumps(out))
+
+
+def mesh_virtual_chip() -> dict:
+    """Rank 0's share of phase 15 run alone in this process: the virtual
+    2 x 2 mesh's chip (0, 0) (``launch.mesh.make_virtual_mesh``), its
+    blocks of the state drawn alone (``init_local_state``), data rank 0's
+    rows, the counted steps with flash's launches and the collectives'
+    bytes by kind counted around them."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.mesh import make_virtual_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.collectives import counting_collectives
+    from repro_torch.runconfig import RunConfig
+    from repro_torch.train import train_loop as ttl
+    from repro_torch.train.data import SyntheticDataset
+
+    cfg = get_config(MESH_ARCH).scaled(n_layers=MESH_LAYERS)
+    rc = RunConfig(microbatch=MESH_MICRO, remat_policy="block",
+                   attention_impl="flash")
+    model = Model(cfg, device="cuda")
+    mesh = make_virtual_mesh(MESH_SHAPE, device="cuda")
+    with mesh:
+        state = ttl.init_local_state(model, MESH_SEED, rc)
+        data = SyntheticDataset(MESH_SEED, MESH_B, MESH_S, cfg.vocab_size,
+                                data_index=0, data_count=MESH_SHAPE[0],
+                                device="cuda")
+        batches = [next(data) for _ in range(MESH_STEPS)]
+        step = ttl.make_train_step(model, rc, donate=True)
+        ops.reset_launch_counts()
+        losses = []
+        t0 = time.perf_counter()
+        with counting_collectives() as coll:
+            for b in batches:
+                state, mets = step(state, b)
+                losses.append(float(mets["loss"]))
+        torch.cuda.synchronize()
+    return {"coll_by_kind": dict(coll), "losses": losses,
+            "wall_s": time.perf_counter() - t0,
+            "launches": {k: getattr(ops, k) for k in (
+                "launches", "launches_wgmma", "launches_fma",
+                "launches_bwd", "launches_bwd_wgmma", "launches_bwd_fma")}}
 
 
 def phase_mesh(card: str) -> dict:
@@ -5712,8 +5967,24 @@ def phase_mesh(card: str) -> dict:
     check(r0["grad_rel_l2"] <= MESH_GRAD_REL,
           f"phase 15: gradient rel_l2 {r0['grad_rel_l2']} at "
           f"{r0['grad_worst_leaf']}")
+    # the virtual chip is a real rank: rank 0's bytes and launches exactly
+    virtual = mesh_virtual_chip()
+    print(f"  collective bytes by kind over the {MESH_STEPS} counted steps: "
+          + "; ".join(f"rank {r['rank']} {r['coll_by_kind']}" for r in ranks)
+          + f"; the virtual 2x2 chip (0, 0) {virtual['coll_by_kind']} "
+          f"(launches {virtual['launches']}, losses {virtual['losses']}, "
+          f"{virtual['wall_s']:.2f} s)", flush=True)
+    check(virtual["coll_by_kind"] == r0["coll_by_kind"]
+          and virtual["launches"] == r0["launches"],
+          f"phase 15: the virtual chip's bytes {virtual['coll_by_kind']} and "
+          f"launches {virtual['launches']} are not rank 0's "
+          f"{r0['coll_by_kind']} / {r0['launches']}")
+    check(all(math.isfinite(x) for x in virtual["losses"]),
+          f"phase 15: the virtual chip's losses {virtual['losses']}")
+    wall = time.perf_counter() - t0
     check(wall <= MESH_BUDGET_S, f"phase 15 took {wall:.1f} s")
     return {"backend": backend, "ranks": ranks, "wall_s": wall,
+            "virtual": virtual,
             "loss_rel": loss_rel, "grad_rel_l2": r0["grad_rel_l2"],
             "launches_fwd": sum(r["launches"]["launches"] for r in ranks),
             "launches_bwd": sum(r["launches"]["launches_bwd"]
@@ -5850,6 +6121,8 @@ def main() -> None:
             "qwen2-moe": families["qwen2-moe"]["flash_device_ms"],
             "jamba": families["jamba"]["flash_device_ms"],
             "whisper": families["whisper"]["device_ms"]},
+        "chip_layer": product["flash_layer"],
+        "launches_phase14_per_probe": product["launches_fwd_per_probe"],
     })
     xl, mbwd = train["xlstm"], train["mlstm_bwd"]
     kernels.append({
@@ -5906,9 +6179,12 @@ def main() -> None:
         "device_ms": bwd["device_ms"],
         "step_device_ms": yi["bwd_set_device_ms"],
         "b2": bwd["b2"],
+        "chip_layer": bwd["layers"]["yi-6b-chip"],
+        "launches_phase14_per_probe": product["launches_bwd_per_probe"],
         "max_abs_err_cases": bwd["err"],
         "train_mesh_2x2": {
             "backend": sharded["backend"], "wall_s": sharded["wall_s"],
+            "coll_by_kind": [r["coll_by_kind"] for r in sharded["ranks"]],
             "loss_rel": sharded["loss_rel"],
             "grad_rel_l2": sharded["grad_rel_l2"],
             **{k: [r[k] for r in sharded["ranks"]]

@@ -215,7 +215,12 @@ CARD_LOCK = threading.Lock()
 
 @dataclass
 class CompiledEvaluator:
-    """Scores a config by running the real step on the card.
+    """Scores a config by running the real step on the card: the
+    ``scored_step_s`` of ``launch.dryrun.compile_cell``'s record, at the
+    cell's ``share`` (None: one chip's share of the production mesh where
+    the port's layout covers the cell, its measured step combined with
+    its collectives' bytes priced at ``ici_bw``; else one replica's, whose
+    score is its measured step).
 
     Lazy-imports the launch layer so ``repro_torch.core`` stays light.
     Thread-safe: every ``calls``/``history``/``_cache`` update happens
@@ -232,9 +237,11 @@ class CompiledEvaluator:
     retried smaller and never moved to the CPU.  With no ``n_layers``, a
     cell one period of which does not fit the card raises
     ``launch.dryrun.DoesNotFit`` with the bytes it would need, before
-    anything is allocated (also a failed evaluation, not cached).
-    ``records`` keeps each measured config's full ``compile_cell`` record
-    by cache key.
+    anything is allocated (also a failed evaluation, not cached), and so
+    does a config whose layout the port refuses on the chip (e.g.
+    ``sequence_parallel`` with model > 1: ``ValueError`` naming the
+    ROADMAP item).  ``records`` keeps each measured config's full
+    ``compile_cell`` record by cache key.
     """
     model_cfg: ModelConfig
     cell: ShapeCell
@@ -245,6 +252,8 @@ class CompiledEvaluator:
     n_layers: Optional[int] = None     # depth cut (None: the cell's
                                        # dryrun.cell_depth, knob-free)
     steps: int = 2                     # timed steps after the warm-up
+    share: Optional[str] = None        # "chip", "replica" or None
+                                       # (dryrun.resolve_share)
     calls: int = 0
     history: list = field(default_factory=list)
     records: Dict[str, dict] = field(default_factory=dict)
@@ -267,10 +276,11 @@ class CompiledEvaluator:
         from repro_torch.launch.dryrun import compile_cell  # lazy
         rec = compile_cell(self.model_cfg, self.cell, knobs,
                            multi_pod=self.multi_pod, device=self.device,
-                           n_layers=self.n_layers, steps=self.steps)
+                           n_layers=self.n_layers, steps=self.steps,
+                           share=self.share)
         with self._lock:
             self.records[self._key(knobs)] = rec
-        return rec["measured_step_s"]
+        return rec["scored_step_s"]
 
     def _measure(self, knobs: Config) -> float:
         with CARD_LOCK:

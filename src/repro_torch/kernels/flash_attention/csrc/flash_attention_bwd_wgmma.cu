@@ -704,12 +704,7 @@ extern "C" int flash_attention_bwd_wgmma_launch(
     int Sq, int Sk, int D, const long long* strides, int causal, int window,
     float softcap, float scale, cudaStream_t stream) {
   if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
-  // autograd runs this on its own thread, which may have made no runtime
-  // call yet: bind the device's primary context there before the driver's
-  // tensor-map encoder runs (it needs a current context)
-  int dev = 0;
-  cudaError_t bound = cudaGetDevice(&dev);
-  if (bound == cudaSuccess) bound = cudaSetDevice(dev);
+  const cudaError_t bound = bind_device();  // autograd's thread
   if (bound != cudaSuccess) return static_cast<int>(bound);
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -1000;

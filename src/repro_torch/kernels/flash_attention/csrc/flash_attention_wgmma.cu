@@ -505,6 +505,8 @@ extern "C" int flash_attention_wgmma_launch(
   if ((D != 64 && D != 128) || (block_q != 64 && block_q != 128) ||
       (block_k != 64 && block_k != 128))
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t bound = bind_device();
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -1000;
   CUtensorMap tq, tk, tv;

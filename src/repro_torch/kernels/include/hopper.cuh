@@ -326,6 +326,17 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
+// Bind the calling thread's device's primary context.  A thread that has
+// made no runtime call yet (autograd's device thread, or a worker thread
+// whose tensors all came from PyTorch's cache) has no current context, and
+// cuTensorMapEncodeTiled fails there with CUDA_ERROR_INVALID_CONTEXT; every
+// launcher calls this before it encodes a tensor map.
+inline cudaError_t bind_device() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  return err == cudaSuccess ? cudaSetDevice(dev) : err;
+}
+
 // cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda);
 // nullptr when it is not available
 inline EncodeTiled encode_tiled() {

@@ -1257,12 +1257,7 @@ extern "C" int mlstm_chunk_bwd_wgmma_launch(
     int chunk, const long long* strides, cudaStream_t stream) {
   if (!supported(B, S, H, P, chunk))
     return static_cast<int>(cudaErrorInvalidValue);
-  // autograd runs this on its own thread, which may have made no runtime
-  // call yet: bind the device's primary context there before
-  // cuTensorMapEncodeTiled runs (it needs a current context)
-  int dev = 0;
-  cudaError_t bound = cudaGetDevice(&dev);
-  if (bound == cudaSuccess) bound = cudaSetDevice(dev);
+  const cudaError_t bound = bind_device();  // autograd's thread
   if (bound != cudaSuccess) return static_cast<int>(bound);
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -1000;

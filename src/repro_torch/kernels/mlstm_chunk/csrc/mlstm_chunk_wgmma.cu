@@ -812,6 +812,8 @@ extern "C" int mlstm_chunk_wgmma_launch(
       OutLayout(chunk, out_wg, out_tile(P, chunk, out_wg)).stages < 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n = S / chunk, BH = B * H;
+  const cudaError_t bound = bind_device();
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -1000;
   CUtensorMap tq, tk128, tk64, tv64, tst;

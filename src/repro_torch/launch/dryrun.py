@@ -2,57 +2,80 @@
 card, run it, time it (from ``repro.launch.dryrun``).
 
 The reference lowers and compiles every cell on a forced 512-device CPU
-mesh and reads three roofline terms out of the compiled HLO.  The port
-has one real card instead, so it runs the configured step there, as
+mesh and reads three roofline terms out of the compiled HLO: per-device
+FLOPs, HBM bytes and collective bytes of the SPMD program.  The port has
+one real card instead, so it runs the configured step there, as
 Sapphire's product cluster (the paper's Ceph deployment) runs a
-recommended config:
+recommended config, at one of two shares of the production mesh
+(``make_production_mesh``: 16 x 16, or 2 x 16 x 16):
+
+* ``"chip"``: one chip's share, the program that chip (0, 0) (pod 0 on
+  the multi-pod mesh) runs: its blocks of the state
+  (``train_loop.init_local_state``; no global leaf is built), its data
+  rank's rows, its local heads, ff and vocab, its FSDP gathers, under a
+  virtual mesh (``launch.mesh.make_virtual_mesh``) whose collectives act
+  locally and are counted by kind (``parallel.collectives``).  The
+  record's ``collective_s`` prices those bytes at ``ici_bw``, and its
+  ``scored_step_s`` is the reference's combine rule with the measured
+  step in place of the compute and memory terms.  Only what the port's
+  layout implements runs this way: the dense family's (and the VLM's)
+  train cells (:func:`layout_covers`);
+* ``"replica"``: one data-parallel replica's share, every other cell:
+  ``global_batch // data_parallel_size`` sequences, the replica's whole
+  model work on the card, no collective (``scored_step_s`` is the
+  measured step).
+
+For a cell:
 
   1. the full (paper-exact) ModelConfig, cut in depth where the card
      asks for it (:func:`cell_depth`: one depth for every config of a
-     cell), and the per-arch default RunConfig
-     (:func:`default_runconfig`, the reference's, with each config's
-     ``RUN_OVERRIDES`` and the caller's knobs);
-  2. one data-parallel replica's share of the cell on the card:
-     ``global_batch // data_parallel_size(shard, production mesh)``
-     sequences (``train_4k``: 16 x 4096 tokens on the 16 x 16 mesh).  The
-     16-way tensor-parallel split is not simulated: the card does the
-     replica's whole model work;
+     cell, from :func:`estimate_bytes` at the share), and the per-arch
+     default RunConfig (:func:`default_runconfig`, the reference's, with
+     each config's ``RUN_OVERRIDES`` and the caller's knobs);
+  2. the share's batch: ``global_batch // data_parallel_size(shard,
+     production mesh)`` sequences (``train_4k``: 16 x 4096 tokens on the
+     16 x 16 mesh; a chip's model axis replicates its data rank's rows);
   3. the step for the cell's mode with weights, state and inputs made on
      the device from a seed (:func:`lower_cell`): ``make_train_step``
      (donated state), ``Model.prefill``, or one ``Model.decode_step``
      against an S-long cache;
   4. one warm-up step, counted (``roofline.count_step``: FLOPs, an HBM
-     bytes proxy, the kernels' own work) and timed with the build as
-     ``compile_s``; then ``steps`` timed steps, each ending in a
-     synchronise, whose median is ``measured_step_s``;
+     bytes proxy, the kernels' own work, the collectives' bytes by kind)
+     and timed with the build as ``compile_s``; then ``steps`` timed
+     steps, each ending in a synchronise, whose median is
+     ``measured_step_s``;
   5. the record (:func:`compile_cell`): the reference's keys, the
      roofline terms against ``roofline.H100``, and what was measured.
      :func:`run_cell` writes it to
-     ``artifacts/dryrun/<arch>.<shape>.1xH100.json`` (the reference's
-     records are ``...16x16.json`` and are never overwritten).
+     ``artifacts/dryrun/<arch>.<shape>[.multi-pod].<mesh>-chip.1xH100.json``
+     (a chip) or ``...<shape>[.multi-pod].1xH100.json`` (a replica); the
+     reference's records are ``...16x16.json`` and are never
+     overwritten.
 
 This module sets no ``XLA_FLAGS`` and imports no JAX.
 
 CLI:
     python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k
-        [--device cpu] [--layers 2] [--multi-pod]
+        [--device cpu] [--layers 2] [--multi-pod] [--share chip|replica]
     python -m repro_torch.launch.dryrun --all [--skip-existing]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
 import importlib
 import json
+import math
 import statistics
 import subprocess
 import time
 import traceback
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -60,20 +83,27 @@ from repro_torch.configs import ARCH_IDS, canonical, get_config
 from repro_torch.core.costmodel import REMAT_ACT_FRACTION, _bytes_of
 from repro_torch.device import resolve_device
 from repro_torch.launch import roofline as rl
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import (VirtualMesh, make_production_mesh,
+                                     make_virtual_mesh)
+from repro_torch.models import transformer
 from repro_torch.models.common import tree_flatten
 from repro_torch.models.config import (SHAPES_BY_NAME, ModelConfig,
                                        ShapeCell, applicable_shapes)
 from repro_torch.models.model import Model
-from repro_torch.parallel.sharding import data_parallel_size
+from repro_torch.parallel.sharding import (SERVE_ITEM, SP_ITEM, WHISPER_ITEM,
+                                           compute_range, data_parallel_size,
+                                           unported_layout)
 from repro_torch.runconfig import RunConfig, runconfig_from_knobs
-from repro_torch.train.train_loop import init_state, make_train_step
+from repro_torch.train.train_loop import (init_local_state, init_state,
+                                          make_train_step, state_placements,
+                                          state_shapes)
 
 ARTIFACTS = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun"
 # the share of the card estimate_bytes may take when fit_depth picks the
 # depth; the rest is slack for what the estimate leaves out
 FIT_FRACTION = 0.9
 SEED = 0                 # of the weights, the optimizer state and the tokens
+SHARES = ("chip", "replica")
 
 
 def default_runconfig(cfg: ModelConfig, cell: ShapeCell,
@@ -144,8 +174,38 @@ def _largest_leaf(cfg: ModelConfig) -> int:
     return max(cfg.vocab_size * d, cfg.n_groups * big)
 
 
+def _chip_state(cfg: ModelConfig, rc: RunConfig, mesh, train: bool):
+    """(state bytes, parameters, elements of the largest parameter block)
+    of one chip of ``mesh``: each leaf's ``Placement.local_shape`` in its
+    own dtype (the weights, and in training the optimizer state and the
+    gradients, as :func:`_state_bytes_per_param` counts them)."""
+    model = Model(cfg, device="cpu")
+    shapes, pls = state_shapes(model, rc), state_placements(model, rc, mesh)
+
+    def local(tree, pl_tree):
+        return [(math.prod(pl.local_shape(tuple(sh.shape))),
+                 sh.element_size()) for sh, pl in
+                zip(tree_flatten(tree)[0], tree_flatten(pl_tree)[0])]
+    params = local(shapes.params, pls.params)
+    n = sum(k for k, _ in params)
+    if train:
+        state = sum(k * b for k, b in local(shapes, pls)) + 6 * n
+    else:
+        state = sum(k * b for k, b in params)
+    return state, n, max(k for k, _ in params)
+
+
+def _tp_splits(cfg: ModelConfig, rc: RunConfig, mesh) -> Tuple[int, int]:
+    """How many ways the model axis splits the heads and the vocab on
+    ``mesh`` (1 where tensor parallelism is off or a dim does not divide,
+    as ``logical_to_spec``'s guard replicates it)."""
+    m = mesh.shape.get("model", 1) if rc.shard.tensor_parallel else 1
+    return (m if cfg.q_dim % m == 0 else 1,
+            m if cfg.vocab_size % m == 0 else 1)
+
+
 def estimate_bytes(cfg: ModelConfig, rc: RunConfig, mode: str,
-                   batch: int, seq: int) -> float:
+                   batch: int, seq: int, mesh=None) -> float:
     """An estimate of the step's peak bytes on the card, for choosing the
     depth: the state (:func:`_state_bytes_per_param`); in training the
     cost model's live activations of a microbatch under ``rc``'s remat
@@ -160,16 +220,33 @@ def estimate_bytes(cfg: ModelConfig, rc: RunConfig, mode: str,
     (a wide MoE's expert leaves): there the state and the optimizer's
     float32 temporaries of the largest leaf (``UPDATE_TEMPORARIES``), or,
     with microbatches, the accumulated gradients' divided float32 copy;
-    the larger of the two phases is returned."""
+    the larger of the two phases is returned.
+
+    With ``mesh`` (a virtual mesh: one chip's share) the state is the
+    chip's blocks exactly (:func:`_chip_state`), and the activations
+    beyond one whole block input a layer, the scores and the logits are
+    divided where the model axis splits the heads and the vocab."""
     train = mode == "train"
-    state = cfg.param_count() * _state_bytes_per_param(rc, train)
+    if mesh is None:
+        n_params = cfg.param_count()
+        state = n_params * _state_bytes_per_param(rc, train)
+        largest, heads, vocab = _largest_leaf(cfg), 1, 1
+    else:
+        state, n_params, largest = _chip_state(cfg, rc, mesh, train)
+        heads, vocab = _tp_splits(cfg, rc, mesh)
     n = state
     micro = min(rc.microbatch or batch, batch) if train else batch
     if train:
         layer_io = 12 if cfg.has_attention else 8
-        n += (micro * seq * cfg.d_model * _bytes_of(rc.activation_dtype)
-              * layer_io * REMAT_ACT_FRACTION[rc.remat_policy] * cfg.n_layers)
-        n += micro * seq * cfg.vocab_size * 4 * 2
+        unit = micro * seq * cfg.d_model * _bytes_of(rc.activation_dtype)
+        act = (unit * layer_io * REMAT_ACT_FRACTION[rc.remat_policy]
+               * cfg.n_layers)
+        if heads > 1:       # the block input is whole on every model rank
+            whole = unit * cfg.n_layers * min(
+                layer_io * REMAT_ACT_FRACTION[rc.remat_policy], 1.0)
+            act = whole + (act - whole) / heads
+        n += act
+        n += micro * seq * cfg.vocab_size * 4 * 2 / vocab
     else:
         n += (2 * batch * seq * cfg.kv_dim * _bytes_of(rc.kv_cache_dtype)
               * cfg.attn_layer_count)
@@ -180,12 +257,13 @@ def estimate_bytes(cfg: ModelConfig, rc: RunConfig, mode: str,
         elif rc.attention_impl != "flash":
             keys = seq if train or rc.attention_impl == "reference" \
                 else min(seq, rc.chunk_size_k)
-            n += (3 if train else 4) * micro * cfg.n_heads * seq * keys * 4
+            n += ((3 if train else 4) * micro * -(-cfg.n_heads // heads)
+                  * seq * keys * 4)
     if not train:
         return n
-    divided = 4 * cfg.param_count() if batch // micro > 1 else 0
+    divided = 4 * n_params if batch // micro > 1 else 0
     update = state + max(divided, UPDATE_TEMPORARIES[rc.optimizer] * 4
-                         * _largest_leaf(cfg))
+                         * largest)
     return max(n, update)
 
 
@@ -206,15 +284,17 @@ class DoesNotFit(RuntimeError):
 
 
 def fit_depth(cfg: ModelConfig, rc: RunConfig, hbm_bytes: float, *,
-              mode: str = "train", batch: int = 1, seq: int = 1) -> int:
+              mode: str = "train", batch: int = 1, seq: int = 1,
+              mesh=None) -> int:
     """The deepest whole number of layer periods (at most the config's)
-    whose :func:`estimate_bytes` under ``rc`` fits in ``FIT_FRACTION`` of
-    ``hbm_bytes``; returned as a layer count.  Raises :class:`DoesNotFit`
-    when not even one period fits."""
+    whose :func:`estimate_bytes` under ``rc`` (at one chip's share of
+    ``mesh`` when given) fits in ``FIT_FRACTION`` of ``hbm_bytes``;
+    returned as a layer count.  Raises :class:`DoesNotFit` when not even
+    one period fits."""
     period, room = len(cfg.pattern), FIT_FRACTION * hbm_bytes
     for groups in range(cfg.n_groups, 0, -1):
         need = estimate_bytes(cfg.scaled(n_layers=groups * period), rc,
-                              mode, batch, seq)
+                              mode, batch, seq, mesh)
         if need <= room:
             return groups * period
     raise DoesNotFit(cfg, mode, batch, seq, need, room)
@@ -223,7 +303,8 @@ def fit_depth(cfg: ModelConfig, rc: RunConfig, hbm_bytes: float, *,
 def replica_shape(cell: ShapeCell, rc: RunConfig, mesh: Dict[str, int],
                   reduce: Optional[Dict[str, int]] = None):
     """(batch, seq, cuts): one data-parallel replica's share of the cell,
-    and ``reduce``'s cuts of it."""
+    and ``reduce``'s cuts of it.  It is one chip's rows too: the model
+    axis replicates its data rank's batch."""
     B = max(cell.global_batch // data_parallel_size(rc.shard, mesh), 1)
     S = cell.seq_len
     reduce = reduce or {}
@@ -237,22 +318,70 @@ def replica_shape(cell: ShapeCell, rc: RunConfig, mesh: Dict[str, int],
     return B, S, cuts
 
 
+def production_chip(multi_pod: bool = False, device="cpu") -> VirtualMesh:
+    """Chip (0, 0) (pod 0) of the production mesh, as a virtual mesh."""
+    return make_virtual_mesh(make_production_mesh(multi_pod=multi_pod),
+                             device=device)
+
+
+def layout_covers(cfg: ModelConfig, cell: ShapeCell, rc: RunConfig, *,
+                  multi_pod: bool = False) -> Optional[str]:
+    """None when the port's layout runs this cell's step under ``rc`` on
+    one chip of the production mesh, else the ROADMAP item it lacks: the
+    item the step raises there (serving under a mesh, whisper, sequence
+    parallelism or ``shard_kv_seq``, expert parallelism, ``ssm_inner``).
+    Decided from the config alone, before anything is built."""
+    if cell.mode != "train":
+        return SERVE_ITEM
+    if cfg.is_encoder_decoder:
+        return WHISPER_ITEM
+    if unported_layout(rc.shard, production_chip(multi_pod)) is not None:
+        return SP_ITEM
+    bad = transformer.unported_block(cfg)
+    return None if bad is None else bad[1]
+
+
+def resolve_share(cfg: ModelConfig, cell: ShapeCell,
+                  share: Optional[str] = None, *,
+                  multi_pod: bool = False) -> str:
+    """The share a cell runs at: ``share`` when given, else ``"chip"``
+    where :func:`layout_covers` the cell under its family default (no
+    knobs) and ``"replica"`` otherwise.  ``share="chip"`` on a cell the
+    layout does not cover raises ``ValueError`` naming the item."""
+    if share not in (None,) + SHARES:
+        raise ValueError(f"share must be one of {SHARES} or None, got "
+                         f"{share!r}")
+    if share == "replica":
+        return share
+    item = layout_covers(cfg, cell, default_runconfig(cfg, cell),
+                         multi_pod=multi_pod)
+    if item is None:
+        return "chip"
+    if share == "chip":
+        raise ValueError(f"{cfg.name} {cell.name}: one chip's share is not "
+                         f"implemented: {item}")
+    return "replica"
+
+
 def cell_depth(cfg: ModelConfig, cell: ShapeCell, *,
                multi_pod: bool = False,
                reduce: Optional[Dict[str, int]] = None,
-               hbm_bytes: float = rl.H100.hbm_bytes) -> int:
+               hbm_bytes: float = rl.H100.hbm_bytes,
+               share: Optional[str] = None) -> int:
     """The depth one cell is measured at when none is given: what
     :func:`fit_depth` picks for the family default (``default_runconfig``
-    with no knobs) at the replica's share.  It does not depend on the
-    knobs, so every config of a cell runs the same model; a config whose
-    step needs more than the family default's may run out of the card's
-    memory at this depth (a failed evaluation).  Raises
-    :class:`DoesNotFit` when one period of the family default does not
-    fit."""
+    with no knobs) at the cell's share (:func:`resolve_share`).  It does
+    not depend on the knobs, so every config of a cell runs the same
+    model; a config whose step needs more than the family default's may
+    run out of the card's memory at this depth (a failed evaluation).
+    Raises :class:`DoesNotFit` when one period of the family default does
+    not fit."""
     rc = default_runconfig(cfg, cell)
+    chip = resolve_share(cfg, cell, share, multi_pod=multi_pod) == "chip"
     B, S, _ = replica_shape(cell, rc, make_production_mesh(
         multi_pod=multi_pod), reduce)
-    return fit_depth(cfg, rc, hbm_bytes, mode=cell.mode, batch=B, seq=S)
+    return fit_depth(cfg, rc, hbm_bytes, mode=cell.mode, batch=B, seq=S,
+                     mesh=production_chip(multi_pod) if chip else None)
 
 
 @dataclasses.dataclass
@@ -276,24 +405,39 @@ def _nbytes(*trees) -> int:
 
 
 def lower_cell(cfg: ModelConfig, cell: ShapeCell, rc: RunConfig,
-               mesh: Dict[str, int], *, device, n_layers: int,
+               mesh, *, device, n_layers: int,
                reduce: Optional[Dict[str, int]] = None) -> Lowered:
     """Build one cell's step on ``device``: the model cut to ``n_layers``,
-    weights (and optimizer state) from ``SEED``, and one replica's share
-    of the cell's batch (``reduce`` may cut its ``"batch"`` and ``"seq"``)
-    as seeded random tokens."""
+    weights (and optimizer state) from ``SEED``, and the share's batch
+    (``reduce`` may cut its ``"batch"`` and ``"seq"``) as seeded random
+    tokens.  ``mesh`` is the production mesh's axis sizes (a replica's
+    share) or a virtual mesh (one chip's share of a train cell: its
+    blocks of the state, drawn alone, and every step run under it)."""
     dev = resolve_device(device)
+    chip = isinstance(mesh, VirtualMesh)
+    if chip and cell.mode != "train":
+        raise ValueError(f"{cell.name} on one chip is not implemented: "
+                         f"{SERVE_ITEM}")
     reduced = []
     if n_layers != cfg.n_layers:
         reduced.append(f"n_layers {cfg.n_layers} -> {n_layers}")
         cfg = cfg.scaled(n_layers=n_layers)
-    B, S, cuts = replica_shape(cell, rc, mesh, reduce)
+    B, S, cuts = replica_shape(cell, rc, mesh.shape if chip else mesh,
+                               reduce)
     reduced += cuts
     model = Model(cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     width = 1 if cell.mode == "decode" else S + 1
-    toks = torch.randint(0, cfg.vocab_size, (B, width), generator=gen,
-                         device=dev, dtype=torch.int32)
+    # a chip draws its tokens from its own vocab rows: a token outside
+    # them would embed to zeros under the virtual reduce (its sum over the
+    # model axis is this chip's share alone), whose RMS norm's gradient
+    # overflows a few layers down; any tokens give the same shapes, FLOPs,
+    # bytes and launches
+    lo, hi = (compute_range(("vocab", "emb_embed"),
+                            (cfg.vocab_size, cfg.d_model), 0, rc.shard, mesh)
+              if chip else None) or (0, cfg.vocab_size)
+    toks = torch.randint(lo, hi, (B, width), generator=gen, device=dev,
+                         dtype=torch.int32)
     inputs = {"tokens": toks[:, :S]}
     if cfg.is_encoder_decoder:
         inputs["frames"] = torch.randn(
@@ -303,12 +447,15 @@ def lower_cell(cfg: ModelConfig, cell: ShapeCell, rc: RunConfig,
     if cell.mode == "train":
         inputs["labels"] = toks[:, 1:]
         step_fn = make_train_step(model, rc, donate=True)
-        box = [init_state(model, SEED, rc)]
+        on_mesh = mesh if chip else contextlib.nullcontext()
+        box = [init_local_state(model, SEED, rc, mesh) if chip
+               else init_state(model, SEED, rc)]
         state_bytes = _nbytes(box[0])
         norms: List[torch.Tensor] = []
 
         def step():
-            box[0], metrics = step_fn(box[0], inputs)
+            with on_mesh:
+                box[0], metrics = step_fn(box[0], inputs)
             norms.append(metrics["grad_norm"])
             return metrics["loss"]
         return Lowered(step, cfg, B, S, B * S, state_bytes,
@@ -390,23 +537,38 @@ def compile_cell(cfg: ModelConfig, cell: ShapeCell,
                  knobs: Optional[Dict] = None, *, multi_pod: bool = False,
                  device="cuda", n_layers: Optional[int] = None,
                  steps: int = 2, reduce: Optional[Dict[str, int]] = None,
-                 verbose: bool = False) -> Dict:
-    """Build, run and time one cell on ``device``; return the record.
+                 verbose: bool = False, share: Optional[str] = None) -> Dict:
+    """Build, run and time one cell on ``device`` at its share
+    (:func:`resolve_share`: one chip's where the layout covers the cell,
+    else one replica's); return the record.
 
-    With no ``n_layers``, a cell one period of which does not fit the
-    card raises :class:`DoesNotFit` (with the bytes it would need) before
-    anything is allocated.  A step that runs out of the card's memory
-    raises ``torch.cuda.OutOfMemoryError`` (its state is dropped, never
-    reused); every tensor of the cell is freed and the allocator's cache
-    emptied before this returns or raises."""
+    Under the chip share a config whose layout the port does not
+    implement there (``layout_covers``, e.g. ``sequence_parallel``)
+    raises ``ValueError`` naming the ROADMAP item, before anything is
+    built.  With no ``n_layers``, a cell one period of which does not fit
+    the card raises :class:`DoesNotFit` (with the bytes it would need)
+    before anything is allocated.  A step that runs out of the card's
+    memory raises ``torch.cuda.OutOfMemoryError`` (its state is dropped,
+    never reused); every tensor of the cell is freed and the allocator's
+    cache emptied before this returns or raises."""
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
     dev = resolve_device(device)
-    mesh = make_production_mesh(multi_pod=multi_pod)
+    share = resolve_share(cfg, cell, share, multi_pod=multi_pod)
+    prod = make_production_mesh(multi_pod=multi_pod)
     rc = default_runconfig(cfg, cell, knobs)
     train = cell.mode == "train"
+    mesh = prod
+    if share == "chip":
+        item = layout_covers(cfg, cell, rc, multi_pod=multi_pod)
+        if item is not None:
+            raise ValueError(f"{cfg.name} {cell.name}: this config's layout "
+                             f"on one chip of the {_mesh_tag(multi_pod)} "
+                             f"mesh is not implemented: {item}")
+        mesh = make_virtual_mesh(prod, device=dev)
     if n_layers is None:
-        n_layers = cell_depth(cfg, cell, multi_pod=multi_pod, reduce=reduce)
+        n_layers = cell_depth(cfg, cell, multi_pod=multi_pod, reduce=reduce,
+                              share=share)
     failure = None
     try:
         m = _measure(cfg, cell, rc, mesh, dev, n_layers, steps, reduce)
@@ -425,14 +587,23 @@ def compile_cell(cfg: ModelConfig, cell: ShapeCell,
         raise failure
 
     low, counts = m["low"], m["counts"]
-    report = rl.report_from_counts(counts.flops, counts.hbm_bytes, 0.0,
-                                   rl.H100)
+    report = rl.report_from_counts(counts.flops, counts.hbm_bytes,
+                                   counts.coll_by_kind, rl.H100)
     measured = statistics.median(m["times"])
-    mflops = rl.model_flops(low.cfg.active_param_count(), low.tokens, train)
+    chip = share == "chip"
+    # the chips the step's work is spread over, and the tokens of one
+    # step of the whole mesh (the reference's 6ND)
+    chips = (512 if multi_pod else 256) if chip else 1
+    tokens = low.tokens * (data_parallel_size(rc.shard, prod) if chip else 1)
+    mflops = rl.model_flops(low.cfg.active_param_count(), tokens, train)
     cuda = dev.type == "cuda"
+    fast, slow = sorted((measured, report.collective_s))
     record = {
         "arch": cfg.name, "shape": cell.name,
-        "mesh": "1xH100" if cuda else "1xCPU", "chips": 1,
+        "mesh": _mesh_tag(multi_pod) if chip else _device_tag(dev),
+        "chips": chips,
+        "chip": mesh.coords if chip else None,
+        "share": share,
         "mode": cell.mode,
         "compile_s": m["compile_s"],
         "memory": {
@@ -441,7 +612,8 @@ def compile_cell(cfg: ModelConfig, cell: ShapeCell,
             "max_memory_allocated_gb":
                 m["peak"] / 2**30 if m["peak"] is not None else None,
             "estimated_gb": estimate_bytes(
-                low.cfg, rc, cell.mode, low.batch, low.seq_len) / 2**30,
+                low.cfg, rc, cell.mode, low.batch, low.seq_len,
+                mesh if chip else None) / 2**30,
         },
         "roofline": {
             "flops_per_device": report.flops,
@@ -459,17 +631,22 @@ def compile_cell(cfg: ModelConfig, cell: ShapeCell,
             "hbm_bytes_by_device": counts.bytes_by_device,
         },
         "model_flops_6nd": mflops,
-        "useful_flops_ratio": mflops / counts.flops if counts.flops else None,
+        "useful_flops_ratio": mflops / (counts.flops * chips)
+        if counts.flops else None,
         "raw_cost_analysis_flops": None,      # no XLA cost analysis
         "runconfig": {k: getattr(rc, k) for k in
                       ("microbatch", "remat_policy", "attention_impl",
                        "optimizer", "master_weights_f32",
                        "grad_allreduce_dtype")},
         "measured_step_s": measured,
+        # the reference's combine rule over the measured step (in place
+        # of its compute and memory terms) and the priced collectives
+        "scored_step_s": slow + 0.15 * fast,
         "step_times_s": m["times"],
         "tokens_per_s": low.tokens / measured,
         # a CPU time is no card's utilisation
-        "mfu": mflops / (measured * rl.H100.peak_flops) if cuda else None,
+        "mfu": mflops / chips / (measured * rl.H100.peak_flops)
+        if cuda else None,
         # every step's loss on the one batch, the warm-up's (step 1's,
         # before any update) first, and step 1's gradient norm
         "step1_loss": m["losses"][0] if train else None,
@@ -486,15 +663,31 @@ def compile_cell(cfg: ModelConfig, cell: ShapeCell,
     return record
 
 
-def _artifact(arch: str, shape: str, mesh_tag: str, multi_pod: bool):
+def _mesh_tag(multi_pod: bool) -> str:
+    return "2x16x16" if multi_pod else "16x16"
+
+
+def _device_tag(dev: torch.device) -> str:
+    return "1xH100" if dev.type == "cuda" else "1xCPU"
+
+
+def _artifact(arch: str, shape: str, multi_pod: bool, share: str,
+              dev: torch.device) -> Path:
+    """A record's file: ``<arch>.<shape>[.multi-pod].<mesh>-chip.1xH100``
+    for a chip's share, ``<arch>.<shape>[.multi-pod].1xH100`` for a
+    replica's (``1xCPU`` off the card); never the reference's
+    ``<mesh>.json``."""
     pod = ".multi-pod" if multi_pod else ""
-    return ARTIFACTS / f"{canonical(arch)}.{shape}{pod}.{mesh_tag}.json"
+    chip = f".{_mesh_tag(multi_pod)}-chip" if share == "chip" else ""
+    return ARTIFACTS / (f"{canonical(arch)}.{shape}{pod}{chip}."
+                        f"{_device_tag(dev)}.json")
 
 
 def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
              knobs: Optional[Dict] = None, save: bool = True,
              verbose: bool = True, device="cuda",
-             n_layers: Optional[int] = None) -> Dict:
+             n_layers: Optional[int] = None,
+             share: Optional[str] = None) -> Dict:
     cfg = get_config(arch)
     cell = SHAPES_BY_NAME[shape]
     if cell not in applicable_shapes(cfg):
@@ -503,10 +696,11 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
         print(f"SKIP {arch} {shape}: {rec['reason']}")
         return rec
     rec = compile_cell(cfg, cell, knobs, multi_pod=multi_pod, device=device,
-                       n_layers=n_layers, verbose=verbose)
+                       n_layers=n_layers, verbose=verbose, share=share)
     if save:
         ARTIFACTS.mkdir(parents=True, exist_ok=True)
-        out = _artifact(arch, shape, rec["mesh"], multi_pod)
+        out = _artifact(arch, shape, multi_pod, rec["share"],
+                        resolve_device(device))
         out.write_text(json.dumps(rec, indent=1, default=str))
     return rec
 
@@ -523,6 +717,10 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     ap.add_argument("--layers", type=int, default=None,
                     help="depth to cut to (default: what fits the card)")
+    ap.add_argument("--share", choices=SHARES, default=None,
+                    help="one chip's share of the mesh or one replica's "
+                         "(default: the chip's where the port's layout "
+                         "covers the cell)")
     args = ap.parse_args(argv)
 
     cells = []
@@ -539,33 +737,38 @@ def main(argv=None):
     meshes = [args.multi_pod]
     if args.both_meshes:
         meshes = [False, True]
-    mesh_tag = "1xH100" if resolve_device(args.device).type == "cuda" \
-        else "1xCPU"
+    dev = resolve_device(args.device)
 
     failures = []
     for mp in meshes:
         for arch, shape in cells:
-            tag = f"{arch} {shape} {mesh_tag}{' multi-pod' if mp else ''}"
-            if args.skip_existing and _artifact(arch, shape, mesh_tag,
-                                                mp).exists():
-                print(f"SKIP (cached) {tag}")
-                continue
-            print(f"=== {tag} ===", flush=True)
+            tag = f"{arch} {shape} {_device_tag(dev)}" \
+                  f"{' multi-pod' if mp else ''}"
             try:
+                share = resolve_share(get_config(arch), SHAPES_BY_NAME[shape],
+                                      args.share, multi_pod=mp)
+                if args.skip_existing and _artifact(arch, shape, mp, share,
+                                                    dev).exists():
+                    print(f"SKIP (cached) {tag}")
+                    continue
+                print(f"=== {tag} ({share} share) ===", flush=True)
                 rec = run_cell(arch, shape, multi_pod=mp, verbose=False,
-                               device=args.device, n_layers=args.layers)
+                               device=args.device, n_layers=args.layers,
+                               share=share)
                 if not rec.get("skipped"):
                     r, mem = rec["roofline"], rec["memory"]
                     mfu, peak = rec["mfu"], mem["max_memory_allocated_gb"]
-                    print(f"  ok n_layers={rec['n_layers']} "
+                    print(f"  ok mesh={rec['mesh']} chips={rec['chips']} "
+                          f"n_layers={rec['n_layers']} "
                           f"compile={rec['compile_s']:.2f}s "
                           f"measured={rec['measured_step_s']:.4f}s "
+                          f"scored={rec['scored_step_s']:.4f}s "
                           f"tokens/s={rec['tokens_per_s']:.1f} "
                           f"mfu={'n/a' if mfu is None else f'{mfu:.4f}'} "
                           f"roofline step={r['step_s']:.4f}s "
                           f"dominant={r['dominant']} "
                           f"(c={r['compute_s']:.4f} m={r['memory_s']:.4f} "
-                          f"x={r['collective_s']:.4f}) "
+                          f"x={r['collective_s']:.4f}; {r['coll_by_kind']}) "
                           f"peak={'n/a' if peak is None else f'{peak:.2f}'}"
                           f" GiB (estimated {mem['estimated_gb']:.2f}) "
                           f"reduced={rec['reduced']}", flush=True)

@@ -2,9 +2,16 @@
 
 ``make_production_mesh`` names the reference's production mesh, 16 x 16
 chips (``("data", "model")``) or 2 x 16 x 16 (``("pod", "data",
-"model")``), as axis sizes and no devices.  Its one use is to fix how
-much work one card does, one data-parallel replica's share of a cell
-(``launch.dryrun``).
+"model")``), as axis sizes and no devices.  It fixes how much work one
+card does in ``launch.dryrun``: one chip's share of a cell, or one
+data-parallel replica's.
+
+``make_virtual_mesh`` is one chip of a mesh of any size, run alone in
+this process: the face of a process mesh (axis names and sizes, this
+chip's coordinates and rank, ``with mesh:``) with the ``"virtual"``
+backend and no process group, whose collectives
+(``parallel/collectives.py``) act locally.  It runs the per-chip program
+of a production mesh on one card.
 
 ``make_host_mesh`` is the one-process mesh: a device alone on the data
 axis.  ``make_process_mesh`` is a mesh of processes, one per rank and
@@ -86,8 +93,33 @@ def backend_for(device: Union[str, torch.device], world: int) -> str:
     return "gloo"
 
 
+class _MeshFace:
+    """What a process mesh and a virtual one share: axis names and sizes
+    (``shape``, ``world``) and ``with mesh:``, which makes the mesh the
+    ambient one that the layers and the train step read
+    (``parallel.sharding.ambient_mesh``)."""
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def world(self) -> int:
+        n = 1
+        for s in self.sizes:
+            n *= s
+        return n
+
+    def __enter__(self):
+        self._tokens.append(set_ambient_mesh(self))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        reset_ambient_mesh(self._tokens.pop())
+
+
 @dataclass
-class ProcessMesh:
+class ProcessMesh(_MeshFace):
     """This process's place in a mesh of processes.
 
     ``shape`` maps axis name -> size in mesh order, ``coords`` this rank's
@@ -104,17 +136,6 @@ class ProcessMesh:
     _tokens: list = field(default_factory=list, repr=False)
 
     @property
-    def shape(self) -> Dict[str, int]:
-        return dict(zip(self.axis_names, self.sizes))
-
-    @property
-    def world(self) -> int:
-        n = 1
-        for s in self.sizes:
-            n *= s
-        return n
-
-    @property
     def coords(self) -> Dict[str, int]:
         out, stride = {}, 1
         for a, n in reversed(list(zip(self.axis_names, self.sizes))):
@@ -125,19 +146,70 @@ class ProcessMesh:
     def group(self, axis: str):
         return self._groups[axis]
 
-    def __enter__(self) -> "ProcessMesh":
-        self._tokens.append(set_ambient_mesh(self))
-        return self
-
-    def __exit__(self, *exc) -> None:
-        reset_ambient_mesh(self._tokens.pop())
-
 
 def _rank_of(coords: Sequence[int], sizes: Sequence[int]) -> int:
     r = 0
     for c, n in zip(coords, sizes):
         r = r * n + c
     return r
+
+
+@dataclass
+class VirtualMesh(_MeshFace):
+    """One chip of a mesh, alone in this process: the chip at ``chip``
+    (its index on each axis, in mesh order) of a mesh of ``sizes``.  Its
+    collectives act locally (``parallel/collectives.py``: each returns
+    what it would if every rank of the axis held this chip's operand), so
+    the tensors, FLOPs, collective bytes and kernel launches of a step
+    run under it are that chip's; the values are not the mesh's.  It has
+    no process group: ``group`` raises."""
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    chip: Tuple[int, ...]
+    device: torch.device
+    backend: str = "virtual"
+    _tokens: list = field(default_factory=list, repr=False)
+
+    @property
+    def rank(self) -> int:
+        return _rank_of(self.chip, self.sizes)
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.chip))
+
+    def group(self, axis: str):
+        raise RuntimeError(f"a virtual mesh has no process group (axis "
+                           f"{axis!r}): its collectives act locally")
+
+
+def make_virtual_mesh(shape: Union[Sequence[int], Dict[str, int]],
+                      coords: Union[None, Sequence[int],
+                                    Dict[str, int]] = None, *,
+                      device: Union[str, torch.device] = "cuda"
+                      ) -> VirtualMesh:
+    """The chip at ``coords`` (0 on every axis by default) of a mesh of
+    ``shape``: axis sizes in mesh order, or an axis-name -> size dict such
+    as ``make_production_mesh()``'s; ``coords`` likewise, by position or
+    by name."""
+    if isinstance(shape, dict):
+        names, sizes = tuple(shape), tuple(int(n) for n in shape.values())
+        if names != axis_names_for(sizes):
+            raise ValueError(f"mesh axes {names}, want "
+                             f"{axis_names_for(sizes)}")
+    else:
+        sizes = tuple(int(n) for n in shape)
+        names = axis_names_for(sizes)
+    if coords is None:
+        chip = (0,) * len(sizes)
+    elif isinstance(coords, dict):
+        chip = tuple(int(coords.get(a, 0)) for a in names)
+    else:
+        chip = tuple(int(c) for c in coords)
+    if len(chip) != len(sizes) or not all(
+            0 <= c < n for c, n in zip(chip, sizes)):
+        raise ValueError(f"chip {chip} is not on a mesh of {sizes}")
+    return VirtualMesh(names, sizes, chip, resolve_device(device))
 
 
 def make_process_mesh(shape: Sequence[int], backend: str, *, rank: int,

@@ -1,10 +1,10 @@
 """Roofline terms of one step, counted while it runs (from
 ``repro.launch.roofline``).
 
-The reference parses compiled HLO text for the step's FLOPs, an HBM
-traffic proxy and collective bytes.  PyTorch lowers no HLO, so the port
-counts the same three quantities over one eager run of the step
-(:func:`count_step`):
+The reference parses compiled HLO text for the step's per-device FLOPs,
+an HBM traffic proxy and collective bytes.  PyTorch lowers no HLO, so the
+port counts the same three quantities over one eager run of one chip's
+step (:func:`count_step`):
 
 * FLOPs: ``torch.utils.flop_counter``'s formulas (``FlopCounterMode``'s
   registry) over the aten ops (the products: mm, bmm, convolutions,
@@ -21,18 +21,22 @@ counts the same three quantities over one eager run of the step
   adds its own operations and its inputs' and outputs' bytes, from the
   formulas its bound uses (``fwd_work`` / ``bwd_work`` of the kernel's
   ``ops.py``, through ``kernels.add_work``);
-* collective bytes: 0 on one card.
+* collective bytes: the result-shape bytes of each collective the step
+  issues, by kind (``parallel.collectives.counting_collectives``; the
+  reference's per-device proxy), on a process mesh or a virtual one.
+  Off a mesh there are none.
 
 :func:`report_from_counts` combines the terms by the reference's rule:
-each term is its count over the card's peak rate, the step is the
-largest term plus 0.15 x the others, and ``dominant`` names the largest.
+each term is its count over the card's peak rate (collectives over
+``ici_bw``), the step is the largest term plus 0.15 x the others, and
+``dominant`` names the largest.
 ``H100`` is the card's record beside the analytic model's ``V5E``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Mapping, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -40,6 +44,7 @@ from torch.utils._pytree import tree_leaves
 
 from repro_torch import kernels
 from repro_torch.core.costmodel import Hardware
+from repro_torch.parallel.collectives import counting_collectives
 
 # NVIDIA's data sheet, H100 SXM at its 700 W limit: dense bf16, HBM3 rate
 # and size; NVLink 4 (900 GB/s a card) and one 400 Gb/s NDR port between
@@ -69,10 +74,15 @@ class RooflineReport:
 
 
 def report_from_counts(flops: float, hbm_bytes: float,
-                       collective_bytes: float,
+                       coll_by_kind: Mapping[str, float],
                        hw: Hardware = H100) -> RooflineReport:
     """The three terms of these per-device counts on ``hw``, combined by
-    the reference's rule (``repro.launch.roofline.analyze_hlo``)."""
+    the reference's rule (``repro.launch.roofline.analyze_hlo``);
+    ``coll_by_kind`` maps a collective kind to its result-shape bytes,
+    whose sum is the collective term's count."""
+    collective_bytes = 0.0
+    for v in coll_by_kind.values():
+        collective_bytes += v
     compute_s = flops / hw.peak_flops
     memory_s = hbm_bytes / hw.hbm_bw
     collective_s = collective_bytes / hw.ici_bw
@@ -82,7 +92,8 @@ def report_from_counts(flops: float, hbm_bytes: float,
     step += 0.15 * (compute_s + memory_s + collective_s - step)
     return RooflineReport(
         flops=flops, bytes_proxy=hbm_bytes,
-        collective_bytes=collective_bytes, coll_by_kind={},
+        collective_bytes=collective_bytes,
+        coll_by_kind={k: v for k, v in coll_by_kind.items() if v},
         compute_s=compute_s, memory_s=memory_s, collective_s=collective_s,
         step_s=step, dominant=dominant, raw_cost_analysis={},
         trip_counts={},
@@ -105,7 +116,8 @@ class _StepCounter(TorchDispatchMode):
     """Runs each aten op as called and counts it: its FLOPs by
     ``FlopCounterMode``'s formula where the registry has one, and the
     bytes of its tensor outputs by device type, skipping views (their
-    output is their input's storage) and bare allocations."""
+    output is their input's storage), bare allocations and meta tensors
+    (shapes, no storage)."""
 
     def __init__(self):
         super().__init__()
@@ -123,7 +135,7 @@ class _StepCounter(TorchDispatchMode):
         if not (func.is_view
                 or func.overloadpacket.__name__ in _NO_WRITE):
             for t in tree_leaves(out):
-                if isinstance(t, torch.Tensor):
+                if isinstance(t, torch.Tensor) and not t.is_meta:
                     kind = t.device.type
                     self.by_device[kind] = (self.by_device.get(kind, 0)
                                             + t.numel() * t.element_size())
@@ -139,17 +151,21 @@ class StepCounts:
     kernel_bytes: int
     # the aten ops' output bytes by device type ("cuda", "cpu")
     bytes_by_device: Dict[str, int]
+    # the collectives' result-shape bytes by kind (every kind, 0 off a
+    # mesh)
+    coll_by_kind: Dict[str, int]
 
 
 def count_step(fn: Callable[[], object]) -> Tuple[StepCounts, object]:
     """Run ``fn()`` once under the counters; ``(StepCounts, fn's
     result)``.  The counting changes no number ``fn`` computes."""
     counter = _StepCounter()
-    with kernels.counting_work() as work:
+    with kernels.counting_work() as work, counting_collectives() as coll:
         with counter:
             out = fn()
     return StepCounts(
         flops=int(counter.flops) + int(work[0]),
         hbm_bytes=sum(counter.by_device.values()) + int(work[1]),
         kernel_flops=int(work[0]), kernel_bytes=int(work[1]),
-        bytes_by_device=dict(counter.by_device)), out
+        bytes_by_device=dict(counter.by_device),
+        coll_by_kind=dict(coll)), out

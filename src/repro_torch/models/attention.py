@@ -288,9 +288,12 @@ def _local_kv(p, x, col, cols, heads, B, S, hd, red, mesh):
         y = dense_apply(p, col(), preferred=red)
         base = cols[0]
         if not (cols[0] <= k_lo * hd and k_hi * hd <= cols[1]):
+            # the gather lays the columns out major (its dimension 0):
+            # the heads taken from it are made contiguous again
             y = collectives.all_gather(y, 2, ("model",), mesh,
                                        sum_axes=("model",))
-            base = 0
+            y = y[..., k_lo * hd:k_hi * hd].contiguous()
+            return y.reshape(B, S, k_hi - k_lo, hd)
     y = y[..., k_lo * hd - base:k_hi * hd - base]
     return y.reshape(B, S, k_hi - k_lo, hd)
 
@@ -318,7 +321,7 @@ def _apply_tp(params, x, positions, cfg: ModelConfig, rc: RunConfig, tp, *,
     if c0 % hd or c1 % hd:
         q = collectives.all_gather(q, 2, ("model",), mesh,
                                    sum_axes=("model",))
-        q = q[..., h_lo * hd:h_hi * hd]
+        q = q[..., h_lo * hd:h_hi * hd].contiguous()
     q = q.reshape(B, S, h_hi - h_lo, hd)
     kv_heads = (h_lo // rep, (h_hi - 1) // rep + 1)
     k = _local_kv(params["k"], x, col, kv_cols, kv_heads, B, S, hd, red,
@@ -328,9 +331,9 @@ def _apply_tp(params, x, positions, cfg: ModelConfig, rc: RunConfig, tp, *,
     if use_rope:
         k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-    if h_lo % rep or (h_hi - h_lo) % rep:
+    if kv_heads[1] - kv_heads[0] > 1 and (h_lo % rep or (h_hi - h_lo) % rep):
         # local q head i no longer reads kv head i // rep: one kv head per
-        # q head
+        # q head (where they all read one kv head, that head serves them)
         idx = torch.tensor([h // rep - kv_heads[0]
                             for h in range(h_lo, h_hi)], device=x.device)
         k, v = k.index_select(2, idx), v.index_select(2, idx)

@@ -37,11 +37,20 @@ def trunc_normal(gen: torch.Generator, shape, scale: float,
     """Truncated-normal init (±2 std) with fan-in style scale; drawn in
     float32 on ``gen``'s device.  ``fan_in`` defaults to ``shape[0]`` as in
     the reference; a stacked ``[groups, in, out]`` leaf passes ``in``."""
-    if gen.device.type == "meta":               # shapes only (MetaGenerator)
-        return torch.empty(shape, dtype=dtype, device="meta")
     if fan_in is None:
         fan_in = shape[0] if len(shape) >= 2 else 0
     std = scale / math.sqrt(max(fan_in, 1)) if len(shape) >= 2 else scale
+    if isinstance(gen, InitRecorder):
+        return gen.record(shape, std, dtype)
+    if gen.device.type == "meta":               # shapes only (MetaGenerator)
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return trunc_normal_std(gen, shape, std, dtype)
+
+
+def trunc_normal_std(gen: torch.Generator, shape, std: float,
+                     dtype=torch.bfloat16) -> torch.Tensor:
+    """``std`` times a truncated standard normal (±2), drawn in float32 on
+    ``gen``'s device."""
     x = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (x * std).to(dtype)
@@ -51,6 +60,23 @@ class MetaGenerator:
     """Stands in for a ``torch.Generator`` to make a parameter tree of
     meta tensors: shapes and dtypes, no storage (``Model.param_shapes``)."""
     device = torch.device("meta")
+
+
+class InitRecorder:
+    """Stands in for a ``torch.Generator`` to record how an ``init`` fills
+    each leaf, building none of the random ones: a truncated normal comes
+    back as a meta tensor whose scale (from its global shape's fan-in)
+    ``std`` keeps by the tensor's id; the constant leaves (zeros, ones)
+    are built on the host, whole (``Model.init_blocks``)."""
+    device = torch.device("cpu")
+
+    def __init__(self):
+        self.std = {}
+
+    def record(self, shape, std: float, dtype) -> torch.Tensor:
+        out = torch.empty(shape, dtype=dtype, device="meta")
+        self.std[id(out)] = std
+        return out
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,

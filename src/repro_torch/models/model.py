@@ -21,7 +21,9 @@ decoder stacks' next-token cross-entropy plus the MoE aux loss, whisper's
 teacher-forced cross-entropy over its encoder.
 
 ``param_axes`` / ``decode_state_axes`` are the reference's logical axes
-and ``param_shapes`` the parameters as meta tensors; ``shard_tree`` and
+and ``param_shapes`` the parameters as meta tensors; ``init_blocks``
+draws one rank's blocks of random parameters without building the
+global leaves (a chip of a model no card holds whole); ``shard_tree`` and
 ``gather_tree`` take a global tree (the reference's numpy parameters, a
 one-process state) to a rank's blocks of its ``Placement`` s and back,
 and ``gather_tree_to_host`` builds the global tree on rank 0's host
@@ -33,6 +35,7 @@ sharded forward of the dense family (``models/transformer.py``);
 
 from __future__ import annotations
 
+import hashlib
 from typing import Dict
 
 import numpy as np
@@ -41,8 +44,9 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer, whisper
 from repro_torch.models import attention
-from repro_torch.models.common import (MetaGenerator, tree_flatten, tree_map,
-                                       tree_unflatten)
+from repro_torch.models.common import (InitRecorder, MetaGenerator,
+                                       tree_flatten, tree_map, tree_unflatten,
+                                       trunc_normal_std)
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import collectives
 from repro_torch.parallel.sharding import SERVE_ITEM, ambient_mesh, world_of
@@ -70,6 +74,38 @@ class Model:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         mod = whisper if self._ed else transformer
         return mod.init(gen, self.cfg, dtype)
+
+    def init_blocks(self, seed: int, placements, rank: int,
+                    dtype=torch.bfloat16):
+        """Rank ``rank``'s blocks of random parameters laid out by
+        ``placements`` (``init``'s structure, one ``Placement`` per leaf),
+        made on ``self.device`` with no global leaf built: each block of a
+        truncated-normal leaf is drawn at its block's shape with the
+        global leaf's scale (its fan-in from the global shape), from a
+        generator seeded by ``seed``, the leaf and the block, so ranks
+        that hold the same block hold the same numbers; the constant
+        leaves (zeros, ones) are built whole on the host and sliced.  The
+        numbers are not ``init``'s."""
+        rec = InitRecorder()
+        mod = whisper if self._ed else transformer
+        leaves, treedef = tree_flatten(mod.init(rec, self.cfg, dtype))
+        pls = tree_flatten(placements)[0]
+        if len(pls) != len(leaves):
+            raise ValueError(f"{len(leaves)} leaves, {len(pls)} placements")
+        out = []
+        for i, (x, pl) in enumerate(zip(leaves, pls)):
+            shape = tuple(x.shape)
+            if id(x) not in rec.std:
+                out.append(x[pl.index(shape, rank)].to(self.device).clone(
+                    memory_format=torch.contiguous_format))
+                continue
+            blocks = tuple(pl.block(d, rank) for d in range(len(shape)))
+            key = hashlib.sha256(repr((seed, i, blocks)).encode()).digest()
+            gen = torch.Generator(device=self.device).manual_seed(
+                int.from_bytes(key[:8], "little") >> 1)
+            out.append(trunc_normal_std(gen, pl.local_shape(shape),
+                                        rec.std[id(x)], x.dtype))
+        return tree_unflatten(treedef, out)
 
     def param_axes(self):
         """The logical sharding axes of ``init``'s tree."""

@@ -239,16 +239,25 @@ def check_mesh(cfg: ModelConfig, rc: RunConfig):
     if mesh is None or world_of(mesh) == 1:
         return mesh
     check_layout(rc.shard, mesh)
+    bad = unported_block(cfg)
+    if bad is not None:
+        raise ValueError(f"{cfg.name}: {bad[0]} on a mesh of "
+                         f"{world_of(mesh)} ranks is not implemented: "
+                         f"{bad[1]}")
+    return mesh
+
+
+def unported_block(cfg: ModelConfig) -> Optional[Tuple[str, str]]:
+    """(the block, its ROADMAP item) of the first block of the pattern
+    that the sharded forward does not implement (a MoE block: expert
+    parallelism; a mamba or xLSTM block: ``ssm_inner``), or None (the
+    dense family)."""
     for spec in cfg.pattern:
         if spec.mlp == MLP_MOE:
-            raise ValueError(f"{cfg.name}: a MoE block on a mesh of "
-                             f"{world_of(mesh)} ranks is not implemented: "
-                             f"{EP_ITEM}")
+            return "a MoE block", EP_ITEM
         if spec.kind != ATTN:
-            raise ValueError(f"{cfg.name}: a {spec.kind} block on a mesh "
-                             f"of {world_of(mesh)} ranks is not "
-                             f"implemented: {SSM_ITEM}")
-    return mesh
+            return f"a {spec.kind} block", SSM_ITEM
+    return None
 
 
 def _grad_dtype(rc: RunConfig) -> torch.dtype:

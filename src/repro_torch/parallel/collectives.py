@@ -28,14 +28,66 @@ The gloo backend moves host tensors: under gloo a CUDA tensor is staged
 through pinned host memory (copied out, reduced, copied back), on this
 one code path chosen by the mesh's backend.  No error is caught and
 retried another way.
+
+On a virtual mesh (``launch.mesh.VirtualMesh``: one chip of a mesh, alone
+in its process) each of the three primitives returns what it would if
+every rank of the axis held this chip's operand: an all-gather tiles the
+operand ``n`` times along its dimension, a reduce-scatter returns ``n``
+times this chip's block, an all-reduce ``n`` times the operand (a sum) or
+the operand (a max).  The result is deterministic and finite (``n`` is a
+power of two on the production meshes, so the scaling is exact in bf16)
+and has the real result's shape, dtype and allocation, but its values
+are not the mesh's function: what a step run this way shows is its
+shapes, bytes, FLOPs and kernel launches, those of the chip it stands
+for.  :func:`gather_to_host` (a checkpoint's save) raises there.
+
+:func:`counting_collectives` tallies each primitive's result-shape bytes
+by kind (``"all-reduce"``, ``"all-gather"``, ``"reduce-scatter"``: the
+reference's names and its per-device proxy, ``repro.launch.roofline``'s
+``COLLECTIVES``), in the dtype actually reduced, on every backend.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import contextlib
+import threading
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+# result-shape bytes by collective kind while a step is counted
+# (``counting_collectives``); None otherwise.  Process-wide: autograd runs
+# the backward and a remat group's recompute on a thread of its own.
+_bytes: Optional[Dict[str, int]] = None
+_bytes_lock = threading.Lock()
+KINDS = ("all-reduce", "all-gather", "reduce-scatter")
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """Tally the result-shape bytes of every collective issued inside the
+    block, on any thread and any backend, into the yielded dict (kind ->
+    bytes, ``KINDS``); one tally at a time."""
+    global _bytes
+    tally = dict.fromkeys(KINDS, 0)
+    with _bytes_lock:
+        if _bytes is not None:
+            raise RuntimeError("collectives are already being counted")
+        _bytes = tally
+    try:
+        yield tally
+    finally:
+        with _bytes_lock:
+            _bytes = None
+
+
+def _count(kind: str, out: torch.Tensor) -> torch.Tensor:
+    if _bytes is not None:
+        with _bytes_lock:
+            if _bytes is not None:
+                _bytes[kind] += out.numel() * out.element_size()
+    return out
 
 
 def _axes(axes) -> Tuple[str, ...]:
@@ -45,6 +97,10 @@ def _axes(axes) -> Tuple[str, ...]:
 def _live(mesh, axes) -> Tuple[str, ...]:
     """The axes of ``axes`` that have more than one rank."""
     return tuple(a for a in _axes(axes) if mesh.shape.get(a, 1) > 1)
+
+
+def _virtual(mesh) -> bool:
+    return mesh.backend == "virtual"
 
 
 def _staged(mesh, x: torch.Tensor) -> bool:
@@ -68,15 +124,23 @@ def _empty_like_host(shape, x: torch.Tensor, staged: bool) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _all_reduce_axis(x: torch.Tensor, axis: str, mesh, op) -> torch.Tensor:
+    if _virtual(mesh):
+        buf = x.clone(memory_format=torch.contiguous_format)
+        if op == dist.ReduceOp.SUM:
+            buf.mul_(mesh.shape[axis])
+        return _count("all-reduce", buf)
     staged = _staged(mesh, x)
     buf = _host(x) if staged else x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(buf, op=op, group=mesh.group(axis))
-    return buf.to(x.device) if staged else buf
+    return _count("all-reduce", buf.to(x.device) if staged else buf)
 
 
 def _gather_axis(x: torch.Tensor, dim: int, axis: str, mesh) -> torch.Tensor:
     n = mesh.shape[axis]
     x0 = x.movedim(dim, 0).contiguous()
+    if _virtual(mesh):
+        out = x0.repeat((n,) + (1,) * (x0.dim() - 1))
+        return _count("all-gather", out).movedim(0, dim)
     staged = _staged(mesh, x)
     src = _host(x0) if staged else x0
     out = _empty_like_host((n * x0.shape[0],) + tuple(x0.shape[1:]), x0,
@@ -84,7 +148,7 @@ def _gather_axis(x: torch.Tensor, dim: int, axis: str, mesh) -> torch.Tensor:
     dist.all_gather_into_tensor(out, src, group=mesh.group(axis))
     if staged:
         out = out.to(x.device)
-    return out.movedim(0, dim)
+    return _count("all-gather", out).movedim(0, dim)
 
 
 def _scatter_axis(x: torch.Tensor, dim: int, axis: str, mesh,
@@ -95,16 +159,22 @@ def _scatter_axis(x: torch.Tensor, dim: int, axis: str, mesh,
     if not summed:
         k = x.shape[dim] // n
         return x.narrow(dim, i * k, k)
-    x0 = x.movedim(dim, 0).contiguous()
+    x0 = x.movedim(dim, 0)
+    k = x0.shape[0] // n
+    if _virtual(mesh):
+        out = torch.empty((k,) + tuple(x0.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        torch.mul(x0[i * k:(i + 1) * k], n, out=out)
+        return _count("reduce-scatter", out).movedim(0, dim)
+    x0 = x0.contiguous()
     staged = _staged(mesh, x)
     src = _host(x0) if staged else x0
-    out = _empty_like_host((x0.shape[0] // n,) + tuple(x0.shape[1:]), x0,
-                           staged)
+    out = _empty_like_host((k,) + tuple(x0.shape[1:]), x0, staged)
     dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM,
                                group=mesh.group(axis))
     if staged:
         out = out.to(x.device)
-    return out.movedim(0, dim)
+    return _count("reduce-scatter", out).movedim(0, dim)
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +211,11 @@ def gather_to_host(x: torch.Tensor, placement, mesh):
     to point over the world group, from the lowest rank that holds it
     (the ranks at coordinate 0 on every axis the leaf is replicated
     on), and rank 0 copies it into place at once: no rank holds more
-    than its own blocks and one block in flight on its device."""
+    than its own blocks and one block in flight on its device.  A
+    virtual mesh holds no other rank's blocks: it raises."""
+    if _virtual(mesh):
+        raise ValueError("a virtual mesh holds one chip's blocks: no "
+                         "checkpoint is gathered from it")
     shape = tuple(n * placement.count(d) for d, n in enumerate(x.shape))
     sharded = placement.sharded_axes
     world = 1

@@ -458,17 +458,26 @@ def _over_one(mesh, axes) -> bool:
     return any(sizes.get(a, 1) > 1 for a in _as_axes(axes))
 
 
+def unported_layout(shard_cfg: ShardConfig, mesh) -> Optional[str]:
+    """Why this port refuses the layout on ``mesh`` (its ROADMAP item
+    ends the text), or None: sequence parallelism (seq over model) on a
+    mesh with more than one model rank, ``shard_kv_seq`` (kv_seq over
+    data) with more than one data rank."""
+    if shard_cfg.sequence_parallel and _over_one(mesh, "model"):
+        return f"sequence_parallel on a mesh with model > 1 is not " \
+               f"implemented: {SP_ITEM}"
+    if shard_cfg.shard_kv_seq_for_decode and _over_one(mesh, "data"):
+        return f"shard_kv_seq on a mesh with data > 1 is not " \
+               f"implemented: {SP_ITEM}"
+    return None
+
+
 def check_layout(shard_cfg: ShardConfig, mesh) -> None:
     """Refuse, with ``ValueError`` naming its ROADMAP item, a layout knob
-    this port does not implement on a mesh with more than one rank along
-    its axis: sequence parallelism (seq over model) and ``shard_kv_seq``
-    (kv_seq over data)."""
-    if shard_cfg.sequence_parallel and _over_one(mesh, "model"):
-        raise ValueError(f"sequence_parallel on a mesh with model > 1 is "
-                         f"not implemented: {SP_ITEM}")
-    if shard_cfg.shard_kv_seq_for_decode and _over_one(mesh, "data"):
-        raise ValueError(f"shard_kv_seq on a mesh with data > 1 is not "
-                         f"implemented: {SP_ITEM}")
+    this port does not implement on the mesh (:func:`unported_layout`)."""
+    why = unported_layout(shard_cfg, mesh)
+    if why is not None:
+        raise ValueError(why)
 
 
 def shard_activation(x, logical_axes, shard_cfg: ShardConfig):

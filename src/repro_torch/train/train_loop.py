@@ -19,7 +19,8 @@ Knobs that shape the step:
 Under an ambient process mesh (``launch.mesh.ProcessMesh``, ``with
 mesh:``) the step is the reference's sharded step: the state is this
 rank's blocks of ``shardings_for(state_axes, rc.shard.resolve(mesh))``
-(``state_placements``, ``shard_state``), the batch is this data rank's
+(``state_placements``; ``shard_state`` from global parameters, or
+``init_local_state`` drawing the blocks alone), the batch is this data rank's
 slice of the global batch (``train.data.data_slice``), and the
 per-replica ``microbatch`` divides that slice.  Each leaf's gradient is
 summed over the data ranks exactly once, in ``grad_allreduce_dtype``: by
@@ -99,7 +100,28 @@ def shard_state(model: Model, rc: RunConfig, params, mesh=None) -> TrainState:
     raises ``ValueError``."""
     mesh = mesh if mesh is not None else ambient_mesh()
     pls = state_placements(model, rc, mesh)
-    local = shard_tree(params, pls.params, mesh.rank)
+    return _blocks_state(model, rc, shard_tree(params, pls.params,
+                                               mesh.rank), pls)
+
+
+def init_local_state(model: Model, seed: int, rc: RunConfig,
+                     mesh=None) -> TrainState:
+    """This rank's train state drawn block by block: its blocks of random
+    parameters (``Model.init_blocks``: each block at its
+    ``Placement.local_shape``, with the global leaf's init scale; no
+    global leaf is built), a fresh optimizer state of them, step 0.  The
+    state of a model no card holds whole (one chip of the production
+    mesh).  Its numbers are not ``shard_state(model.init(seed))``'s."""
+    mesh = mesh if mesh is not None else ambient_mesh()
+    pls = state_placements(model, rc, mesh)
+    return _blocks_state(model, rc, model.init_blocks(seed, pls.params,
+                                                      mesh.rank), pls)
+
+
+def _blocks_state(model: Model, rc: RunConfig, local, pls) -> TrainState:
+    """The train state of parameter blocks ``local``, after checking that
+    the optimizer state made from them is the blocks of the global one's
+    layout ``pls``."""
     state = TrainState(local, opt.opt_init(local, rc),
                        torch.zeros((), dtype=torch.int32,
                                    device=model.device))

@@ -9,7 +9,10 @@ config that runs out of the card's memory is a failed evaluation: the
 service returns a failed ``EvalResult``, nothing is cached, and
 ``evaluate_many`` raises.  ``_compile`` passes the evaluator's device,
 depth and step count to ``launch.dryrun.compile_cell`` and keeps its
-record; a CPU evaluator runs the smoke config's cell through it.
+record; a CPU evaluator runs the smoke config's cell through it, at
+one chip's share of the 16 x 16 mesh by default and at one replica's when
+asked; the score is the record's ``scored_step_s``.  A config whose
+layout the port refuses on the chip is a failed evaluation, not cached.
 """
 
 import sys
@@ -158,19 +161,24 @@ def test_compile_passes_the_evaluators_settings(monkeypatch):
 
     def fake(cfg, cell, knobs, **kw):
         seen.append((cfg.name, cell.name, dict(knobs), kw))
-        return {"measured_step_s": 0.25, "arch": cfg.name}
+        return {"measured_step_s": 0.25, "scored_step_s": 0.3,
+                "arch": cfg.name}
 
     monkeypatch.setattr(dryrun, "compile_cell", fake)
     ev = CompiledEvaluator(get_smoke_config("yi-6b"), CELL, device="cpu",
                            n_layers=2, steps=3)
-    assert ev({"microbatch": 2}) == 0.25
-    assert ev({"microbatch": 2}) == 0.25 and ev.calls == 1   # cache hit
-    assert ev.true_step({"microbatch": 2}) == 0.25
+    assert ev({"microbatch": 2}) == 0.3              # the record's score
+    assert ev({"microbatch": 2}) == 0.3 and ev.calls == 1    # cache hit
+    assert ev.true_step({"microbatch": 2}) == 0.3
     assert seen == [("yi-6b", "train_4k", {"microbatch": 2},
                      {"multi_pod": False, "device": "cpu", "n_layers": 2,
-                      "steps": 3})]
+                      "steps": 3, "share": None})]
     assert ev.records[ev._key({"microbatch": 2})]["arch"] == "yi-6b"
     assert ev.service_kind == "pool"
+    for share in ("chip", "replica"):
+        CompiledEvaluator(get_smoke_config("yi-6b"), CELL, device="cpu",
+                          share=share)({"microbatch": 4})
+        assert seen[-1][3]["share"] == share
 
 
 def test_cpu_evaluator_runs_the_cell(monkeypatch):
@@ -191,10 +199,58 @@ def test_cpu_evaluator_runs_the_cell(monkeypatch):
     finally:
         torch.set_num_threads(n)
     rec = ev.records[ev._key({"remat_policy": "none", "microbatch": 1})]
-    assert v == rec["measured_step_s"] > 0
+    assert v == rec["scored_step_s"] >= rec["measured_step_s"] > 0
     assert rec["runconfig"]["remat_policy"] == "none"
     assert rec["runconfig"]["microbatch"] == 1
-    assert np.isfinite(rec["step1_loss"]) and rec["mesh"] == "1xCPU"
+    # train_4k defaults to one chip's share of the 16 x 16 mesh
+    assert np.isfinite(rec["step1_loss"]) and rec["mesh"] == "16x16"
+    assert rec["share"] == "chip" and rec["roofline"]["collective_s"] > 0
+
+
+def test_cpu_evaluator_runs_the_replica_share(monkeypatch):
+    """``share="replica"`` runs the replica cell: one replica's whole model
+    work, no collective, scored by its measured step."""
+    real = dryrun.compile_cell
+
+    def cut(cfg, cell, knobs, **kw):
+        return real(cfg, cell, knobs, reduce={"batch": 2, "seq": 16}, **kw)
+
+    monkeypatch.setattr(dryrun, "compile_cell", cut)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ev = CompiledEvaluator(get_smoke_config("yi-6b"), CELL,
+                               device="cpu", steps=1, share="replica")
+        v = ev({"remat_policy": "none", "microbatch": 1})
+    finally:
+        torch.set_num_threads(n)
+    rec = ev.records[ev._key({"remat_policy": "none", "microbatch": 1})]
+    assert v == rec["scored_step_s"] == rec["measured_step_s"] > 0
+    assert rec["mesh"] == "1xCPU" and rec["share"] == "replica"
+    assert rec["roofline"]["collective_s"] == 0.0
+
+
+def test_a_refused_layout_is_a_failed_uncached_evaluation():
+    """A config whose layout the port refuses on the chip
+    (``sequence_parallel`` with model > 1) fails with the ``ValueError``
+    naming its ROADMAP item, before anything is built, and is not
+    cached; the evaluator's explicit chip share on a cell the layout does
+    not cover fails the same way."""
+    ev = CompiledEvaluator(get_smoke_config("yi-6b"), CELL, device="cpu")
+    svc = as_service(ev)
+    try:
+        (res,) = svc.gather(svc.submit([EvalRequest(
+            {"sequence_parallel": True})]))
+    finally:
+        svc.close()
+    assert not res.ok and isinstance(res.exception, ValueError)
+    assert "ROADMAP A 18b" in res.error
+    assert ev.calls == 0 and not ev._cache and not ev.records
+    moe = CompiledEvaluator(get_smoke_config("qwen2-moe-a2.7b"), CELL,
+                            device="cpu", share="chip")
+    with pytest.raises(ValueError, match="ROADMAP A 18c"):
+        moe({})
+    assert moe.calls == 0 and not moe._cache
 
 
 def test_cuda_device_raises_without_a_card():

@@ -113,10 +113,10 @@ HARDWARE = {"v5e": {}, "memory-bound": {"hbm_bw": 1e3},
 def test_report_from_counts_matches_analyze_hlo(hw):
     want = jrl.analyze_hlo(SYNTH_HLO, JHardware(**HARDWARE[hw]))
     got = roofline.report_from_counts(
-        want.flops, want.bytes_proxy, want.collective_bytes,
+        want.flops, want.bytes_proxy, want.coll_by_kind,
         Hardware(**HARDWARE[hw]))
-    for k in ("compute_s", "memory_s", "collective_s", "step_s",
-              "dominant"):
+    for k in ("collective_bytes", "coll_by_kind", "compute_s", "memory_s",
+              "collective_s", "step_s", "dominant"):
         assert getattr(got, k) == getattr(want, k), k
     assert got.terms() == want.terms()
     assert got.dominant == {"v5e": "collective", "memory-bound": "memory",
@@ -225,11 +225,14 @@ def _reference_record_keys():
 def test_compile_cell_cpu_record(shape):
     cfg = get_smoke_config("yi-6b")
     cell = SHAPES_BY_NAME[shape]
-    rec = dryrun.compile_cell(cfg, cell, device="cpu", reduce=REDUCE)
+    rec = dryrun.compile_cell(cfg, cell, device="cpu", reduce=REDUCE,
+                              share="replica")
     keys, roof_keys = _reference_record_keys()
     assert keys <= set(rec) and roof_keys <= set(rec["roofline"])
     assert "measured_step_s" in rec and "tokens_per_s" in rec
     assert rec["mesh"] == "1xCPU" and rec["chips"] == 1
+    assert rec["share"] == "replica" and rec["chip"] is None
+    assert rec["scored_step_s"] == rec["measured_step_s"]
     assert rec["mfu"] is None and rec["card"] == "cpu"  # no card, no mfu
     assert rec["mode"] == cell.mode and rec["outputs_finite"]
     assert rec["measured_step_s"] > 0 and len(rec["step_times_s"]) == 2
@@ -262,6 +265,83 @@ def test_compile_cell_cpu_record(shape):
         assert rec["step1_loss"] is None and rec["step_losses"] is None
         assert rec["step1_grad_norm"] is None
     assert rec["memory"]["estimated_gb"] > rec["memory"]["state_size_gb"]
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_compile_cell_cpu_record_chip_share(multi_pod):
+    """train_4k defaults to one chip's share: the reference's record keys,
+    the mesh and chip, counted collectives priced at ``ici_bw``, and the
+    score by the reference's combine rule over the measured step; the
+    6ND FLOPs are the whole mesh's, spread over its chips."""
+    cfg = get_smoke_config("yi-6b")
+    cell = SHAPES_BY_NAME["train_4k"]
+    assert dryrun.resolve_share(cfg, cell) == "chip"
+    rec = dryrun.compile_cell(cfg, cell, device="cpu", reduce=REDUCE,
+                              multi_pod=multi_pod)
+    keys, roof_keys = _reference_record_keys()
+    assert keys <= set(rec) and roof_keys <= set(rec["roofline"])
+    chips = 512 if multi_pod else 256
+    assert (rec["share"], rec["mesh"], rec["chips"]) == (
+        "chip", "2x16x16" if multi_pod else "16x16", chips)
+    assert rec["chip"] == ({"pod": 0, "data": 0, "model": 0} if multi_pod
+                           else {"data": 0, "model": 0})
+    roof = rec["roofline"]
+    assert set(roof["coll_by_kind"]) == {"all-reduce", "all-gather",
+                                         "reduce-scatter"}
+    assert roof["collective_bytes_per_device"] == sum(
+        roof["coll_by_kind"].values())
+    assert roof["collective_s"] == roof["collective_bytes_per_device"] \
+        / roofline.H100.ici_bw > 0
+    m, x = rec["measured_step_s"], roof["collective_s"]
+    assert rec["scored_step_s"] == max(m, x) + 0.15 * min(m, x)
+    # a chip's rows are its data rank's; 6ND counts every data rank's
+    assert rec["batch"] == REDUCE["batch"] and rec["n_layers"] == 2
+    dp = 32 if multi_pod else 16
+    assert rec["model_flops_6nd"] == roofline.model_flops(
+        cfg.active_param_count(), dp * REDUCE["batch"] * REDUCE["seq"], True)
+    assert rec["useful_flops_ratio"] == rec["model_flops_6nd"] / (
+        roof["flops_per_device"] * chips)
+    assert rec["mfu"] is None and rec["outputs_finite"]
+    assert rec["memory"]["estimated_gb"] > rec["memory"]["state_size_gb"]
+    assert np.isfinite(rec["step1_loss"])
+
+
+@pytest.mark.parametrize("share,multi_pod", [("chip", False),
+                                             ("chip", True),
+                                             ("replica", False)])
+def test_artifacts_never_collide_with_the_reference(share, multi_pod):
+    out = dryrun._artifact("yi-6b", "train_4k", multi_pod, share,
+                           torch.device("cpu"))
+    pod = ".multi-pod" if multi_pod else ""
+    want = {"chip": f"yi_6b.train_4k{pod}."
+                    f"{'2x16x16' if multi_pod else '16x16'}-chip.1xCPU.json",
+            "replica": "yi_6b.train_4k.1xCPU.json"}[share]
+    assert out.name == want and out.parent == dryrun.ARTIFACTS
+    assert not out.name.endswith(("16x16.json", "2x16x16.json"))
+
+
+def test_chip_estimate_counts_the_chips_blocks():
+    """At one chip's share the state is the placements' local blocks
+    (yi-6b under the family default: ~54 M parameters a chip, 5.5 B
+    layer parameters over 256 chips and the embedding and head over the
+    model axis' 16), and the whole model fits the card."""
+    cfg, cell = get_config("yi-6b"), SHAPES_BY_NAME["train_4k"]
+    rc = dryrun.default_runconfig(cfg, cell)
+    mesh = dryrun.production_chip()
+    state, n, largest = dryrun._chip_state(cfg, rc, mesh, True)
+    d, emb = cfg.d_model, cfg.vocab_size * cfg.d_model
+    matrices = cfg.n_layers * (2 * d * cfg.q_dim + 2 * d * cfg.kv_dim
+                               + 3 * d * cfg.d_ff)
+    norms = (2 * cfg.n_layers + 1) * d                   # replicated
+    assert n == matrices // 256 + norms + 2 * emb // 16 == 54_661_120
+    assert largest == emb // 16
+    # 20 B a parameter (bf16 weight, float32 master and moments, the
+    # gradients) and the scalar step counters
+    assert 0 < state - n * dryrun._state_bytes_per_param(rc, True) <= 16
+    chip = dryrun.estimate_bytes(cfg, rc, "train", 16, 4096, mesh)
+    assert chip < dryrun.estimate_bytes(cfg, rc, "train", 16, 4096) / 8
+    assert dryrun.fit_depth(cfg, rc, roofline.H100.hbm_bytes, batch=16,
+                            seq=4096, mesh=mesh) == cfg.n_layers
 
 
 def test_compile_cell_cuts_depth_and_records_it():

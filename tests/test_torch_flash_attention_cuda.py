@@ -262,3 +262,37 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="TMA"):
         ops.flash_attention(x, x, x)
     assert _counts() == before
+
+
+def _in_fresh_thread(fn):
+    """fn() on a new thread that has made no CUDA call; its exception, if
+    any, raised here."""
+    import threading
+    box = {}
+
+    def work():
+        try:
+            box["out"] = fn()
+            torch.cuda.synchronize()
+        except Exception as e:                   # re-raised below
+            box["err"] = e
+    worker = threading.Thread(target=work)
+    worker.start()
+    worker.join()
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+@pytest.mark.cuda
+def test_wgmma_launch_from_a_fresh_thread(cuda):
+    # a tuner's worker thread whose output memory comes from PyTorch's
+    # cache makes no CUDA call before the launcher encodes its tensor maps:
+    # the launcher binds the device's context itself
+    q, k, v = _qkv((2, 512, 512, 8, 2, 128), torch.bfloat16, cuda, seed=3)
+    assert ops.route(q.dtype, 128) == "wgmma"
+    want = ops.flash_attention(q, k, v)
+    ops.flash_attention(q, k, v)                 # freed into the cache
+    torch.cuda.synchronize()
+    got = _in_fresh_thread(lambda: ops.flash_attention(q, k, v))
+    assert torch.equal(got, want)

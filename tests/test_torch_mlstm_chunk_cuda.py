@@ -192,3 +192,37 @@ def test_wrapper_errors(cuda):
     with pytest.raises(ValueError, match="unit stride"):
         ops.mlstm_chunk(q.transpose(2, 3), k.transpose(2, 3),
                         v.transpose(2, 3), li, lf)
+
+
+def _in_fresh_thread(fn):
+    """fn() on a new thread that has made no CUDA call; its exception, if
+    any, raised here."""
+    import threading
+    box = {}
+
+    def work():
+        try:
+            box["out"] = fn()
+            torch.cuda.synchronize()
+        except Exception as e:                   # re-raised below
+            box["err"] = e
+    worker = threading.Thread(target=work)
+    worker.start()
+    worker.join()
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+@pytest.mark.cuda
+def test_wgmma_launch_from_a_fresh_thread(cuda):
+    # a worker thread whose memory comes from PyTorch's cache makes no
+    # CUDA call before the launcher encodes its tensor maps: the launcher
+    # binds the device's context itself
+    args = _inputs(1, 512, 2, 256, cuda, torch.bfloat16, seed=3)
+    assert ops.route(torch.bfloat16, 256, 256) == "wgmma"
+    want = ops.mlstm_chunk(*args, chunk=256)
+    ops.mlstm_chunk(*args, chunk=256)            # freed into the cache
+    torch.cuda.synchronize()
+    got = _in_fresh_thread(lambda: ops.mlstm_chunk(*args, chunk=256))
+    assert torch.equal(got, want)

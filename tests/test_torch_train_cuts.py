@@ -102,7 +102,11 @@ def test_a_period_that_does_not_fit_is_refused(arch, shape):
 
 def test_yi_cells_keep_their_depths():
     cfg = get_config("yi-6b")
-    assert dryrun.cell_depth(cfg, SHAPES_BY_NAME["train_4k"]) == 7
+    assert dryrun.cell_depth(cfg, SHAPES_BY_NAME["train_4k"],
+                             share="replica") == 7
+    # one chip's share of the 16 x 16 mesh, train_4k's default share,
+    # fits the whole model
+    assert dryrun.cell_depth(cfg, SHAPES_BY_NAME["train_4k"]) == 32
     assert dryrun.cell_depth(cfg, SHAPES_BY_NAME["decode_32k"]) == 32
 
 

@@ -1,0 +1,432 @@
+"""One chip of a mesh run alone in its process (``launch.mesh.VirtualMesh``,
+the virtual backend of ``parallel/collectives.py``), on the CPU.
+
+(a) The virtual 2 x 2 mesh's chip (0, 0) against rank 0 of a real gloo
+    2 x 2 world (``launch.mesh.spawn`` running
+    ``torch_sharded_worker.count_cases``): one counted
+    ``make_train_step`` step (``roofline.count_step``) of yi-6b's smoke
+    config from ``init_local_state``, FSDP + TP, FSDP only and TP only,
+    microbatch 1 and 2, remat none and block.  FLOPs, collective bytes
+    by kind and every state leaf's shape and the state's bytes must be
+    equal, exactly: they depend on shapes only, and the virtual
+    collectives allocate the real results' shapes.
+(b) A virtual 16 x 16 step at smoke width: the state is drawn block by
+    block (no sharded leaf's global shape is ever allocated), every leaf
+    is its ``Placement.local_shape``, and the step's loss is finite and
+    drops.
+(c) For every architecture and applicable shape (smoke configs, family
+    default), ``dryrun.layout_covers`` names exactly the ROADMAP item
+    that a virtual 2 x 2 step (train, prefill or decode) raises, and
+    None where it runs; ``compile_cell(share="chip")`` refuses the others
+    with that item before anything is built.
+(d) Against the reference: ``repro.launch.dryrun.lower_cell`` on a 2 x 2
+    auto-axis mesh of forced CPU devices, compiled and read by
+    ``analyze_hlo`` (``torch_virtual_reference.py`` in a subprocess;
+    remat none, a 4 x 16 train cell).  The port's per-chip FLOPs are
+    held to the reference's per-device FLOPs within 2e-3 relative: the
+    reference takes the label's logit by a one-hot contraction (a dot of
+    2·B·S·V/M FLOPs over the chip's rows and vocab columns), the port by
+    a gather (no FLOPs), and the gap is exactly that dot.  Both
+    ``coll_by_kind`` are printed; they differ (XLA all-gathers the FSDP
+    weights again for the backward and per microbatch, and all-reduces
+    the gradients where the port reduce-scatters them: ROADMAP C).
+(e) ``report_from_counts`` with collectives equals ``analyze_hlo`` on a
+    synthetic HLO that holds each collective kind.
+(f) The three primitives' virtual rules and the byte counter.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+
+from repro.core.costmodel import Hardware as JHardware
+from repro.launch import roofline as jrl
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.core.costmodel import Hardware
+from repro_torch.launch import dryrun, roofline
+from repro_torch.launch.mesh import make_virtual_mesh, spawn
+from repro_torch.models.common import tree_flatten
+from repro_torch.models.config import (SHAPES_BY_NAME, ShapeCell,
+                                       applicable_shapes)
+from repro_torch.models.model import Model
+from repro_torch.parallel import collectives
+from repro_torch.parallel.sharding import (EP_ITEM, SERVE_ITEM, SP_ITEM,
+                                           SSM_ITEM, WHISPER_ITEM)
+from repro_torch.runconfig import runconfig_from_knobs
+from repro_torch.train import optimizer as topt
+from repro_torch.train import train_loop as ttl
+from repro_torch.train.data import data_slice
+import torch_sharded_worker as worker
+
+ROOT = Path(__file__).resolve().parents[1]
+B, S = 4, 8
+LAYOUTS = {"fsdp-tp": {}, "fsdp": {"tensor_parallel": False},
+           "tp": {"fsdp_shard_params": False}}
+CASES = {f"{lay}-mb{mb}-{remat}": dict(LAYOUTS[lay], microbatch=mb,
+                                       remat_policy=remat,
+                                       attention_impl="reference")
+         for lay in LAYOUTS for mb in (1, 2) for remat in ("none", "block")}
+SPAWN_TIMEOUT_S = 120
+REFERENCE_TIMEOUT_S = 240
+# the reference's cells: (name, arch, knobs) at a 4 x 16 train cell
+REF_CELL = (16, 4)                                 # seq, global batch
+REF_CASES = (("yi-fsdp-tp", "yi-6b", {"microbatch": 1}),
+             ("yi-fsdp", "yi-6b", {"microbatch": 1,
+                                   "tensor_parallel": False}),
+             ("yi-tp-whole", "yi-6b", {"microbatch": 0,
+                                       "fsdp_shard_params": False}),
+             ("qwen15", "qwen1.5-4b", {"microbatch": 1}))
+FLOPS_REL = 2e-3
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _batch(cfg, seed=1):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(1, cfg.vocab_size, size=(B, S + 1)).astype(np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+# ---------------------------------------------------------------------------
+# (a) the virtual chip against rank 0 of a real gloo world
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def gloo_rank0(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("virtual")
+    cfg = get_smoke_config("yi-6b")
+    data = tmp / "batch.npz"
+    batch = _batch(cfg)
+    np.savez(data, **{f"batch_{k}": v for k, v in batch.items()})
+    specs = [{"name": name, "arch": "yi-6b", "knobs": knobs,
+              "data": str(data), "batch": sorted(batch)}
+             for name, knobs in CASES.items()]
+    spec_path = tmp / "cases.json"
+    spec_path.write_text(json.dumps(specs))
+    out = tmp / "rank0.json"
+    spawn(worker.count_cases, (2, 2), (str(spec_path), str(out)),
+          device="cpu", timeout_s=SPAWN_TIMEOUT_S)
+    return {s["name"]: s for s in specs}, json.loads(out.read_text())
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_virtual_chip_counts_what_rank0_counts(gloo_rank0, case):
+    specs, got = gloo_rank0
+    spec = specs[case]
+    with np.load(spec["data"]) as z:
+        batch = {k: torch.from_numpy(z[f"batch_{k}"]) for k in spec["batch"]}
+    with make_virtual_mesh((2, 2), device="cpu"):
+        want, loss = worker.count_case(spec, data_slice(batch, 0, 2))
+    real = got[case]
+    assert real["flops"] == want["flops"] > 0
+    assert real["coll_by_kind"] == want["coll_by_kind"]
+    assert real["shapes"] == want["shapes"]
+    assert real["bytes"] == want["bytes"]
+    live = {k for k, v in want["coll_by_kind"].items() if v}
+    assert live == ({"all-reduce"} if "tp-" in case and "fsdp" not in case
+                    else set(collectives.KINDS))
+    assert np.isfinite(loss) and np.isfinite(real["loss"])
+
+
+# ---------------------------------------------------------------------------
+# (b) the production mesh's chip at smoke width
+# ---------------------------------------------------------------------------
+
+class _Allocations(TorchDispatchMode):
+    """The shapes of every tensor an op makes off the meta device."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor) and not t.is_meta:
+                self.shapes.add(tuple(t.shape))
+        return out
+
+
+def test_virtual_16x16_state_is_drawn_block_by_block():
+    cfg = get_smoke_config("yi-6b")
+    rc = runconfig_from_knobs({"microbatch": 1, "remat_policy": "block"})
+    model = Model(cfg, device="cpu")
+    mesh = make_virtual_mesh(dryrun.make_production_mesh(), device="cpu")
+    pls = tree_flatten(ttl.state_placements(model, rc, mesh))[0]
+    shapes = tree_flatten(ttl.state_shapes(model, rc))[0]
+    sharded = {tuple(sh.shape) for sh, pl in zip(shapes, pls)
+               if pl.local_shape(tuple(sh.shape)) != tuple(sh.shape)}
+    assert sharded
+    with _Allocations() as made:
+        state = ttl.init_local_state(model, 0, rc, mesh)
+    assert not made.shapes & sharded, made.shapes & sharded
+    for leaf, sh, pl in zip(tree_flatten(state)[0], shapes, pls):
+        assert tuple(leaf.shape) == pl.local_shape(tuple(sh.shape))
+    # the same seed draws the same blocks; another rank's differ
+    again = ttl.init_local_state(model, 0, rc, mesh)
+    other = ttl.init_local_state(model, 0, rc, make_virtual_mesh(
+        dryrun.make_production_mesh(), (0, 3), device="cpu"))
+    p0, p1, p3 = (tree_flatten(s.params)[0] for s in (state, again, other))
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+    assert any(a.shape == b.shape and not torch.equal(a, b)
+               for a, b in zip(p0, p3))
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
+    step = ttl.make_train_step(model, rc, topt.cosine_schedule(1e-2, 0, 100),
+                               donate=True)
+    losses = []
+    with mesh:
+        for _ in range(3):
+            state, mets = step(state, batch)
+            losses.append(float(mets["loss"]))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def test_init_blocks_keeps_the_global_scale():
+    """A block of a truncated-normal leaf has the global leaf's scale:
+    1 / sqrt(global fan-in), not its own rows' (yi-6b's MLP up
+    projection at full width, one layer: a [1, 256, 688] block of
+    [1, 4096, 11008])."""
+    cfg = get_config("yi-6b").scaled(n_layers=1)
+    model = Model(cfg, device="cpu")
+    mesh = make_virtual_mesh(dryrun.make_production_mesh(), device="cpu")
+    pls = ttl.param_placements(model, runconfig_from_knobs({}), mesh)
+    blocks = model.init_blocks(0, pls, mesh.rank, dtype=torch.float32)
+    w = blocks["layers"][0]["mlp"]["up"]["w"]
+    assert tuple(w.shape) == (1, 4096 // 16, 11008 // 16)
+    want = 0.87962 / 4096 ** 0.5    # a ±2-truncated unit normal's std
+    assert abs(float(w.std()) - want) < 0.02 * want, (float(w.std()), want)
+    assert float(w.abs().max()) <= 2 * 4096 ** -0.5
+
+
+# ---------------------------------------------------------------------------
+# (c) layout_covers against the refusals
+# ---------------------------------------------------------------------------
+
+def _virtual_refusal(cfg, cell):
+    """The ROADMAP item a virtual 2 x 2 step of the cell raises, or None
+    when it runs (its loss, or its logits, finite)."""
+    rc = dryrun.default_runconfig(cfg, cell)
+    model = Model(cfg, device="cpu")
+    toks = torch.from_numpy(_batch(cfg)["tokens"])
+    try:
+        with make_virtual_mesh((2, 2), device="cpu") as mesh:
+            if cell.mode == "train":
+                batch = {"tokens": toks[:2], "labels": toks[:2]}
+                if cfg.is_encoder_decoder:
+                    batch["frames"] = torch.zeros(
+                        (2, cfg.encoder_seq, cfg.d_model),
+                        dtype=torch.bfloat16)
+                state = ttl.init_local_state(model, 0, rc, mesh)
+                _, mets = ttl.make_train_step(model, rc)(state, batch)
+                assert np.isfinite(float(mets["loss"]))
+                return None
+            params = model.init(0)
+            inputs = {"tokens": toks[:2]}
+            if cfg.is_encoder_decoder:
+                inputs["frames"] = torch.zeros(
+                    (2, cfg.encoder_seq, cfg.d_model), dtype=torch.bfloat16)
+            if cell.mode == "prefill":
+                model.prefill(params, inputs, S, rc)
+            else:
+                model.decode_step(params, toks[:2, :1], None, rc)
+            raise AssertionError(f"{cell.mode} ran on a mesh")
+    except ValueError as e:
+        items = [it for it in (SERVE_ITEM, WHISPER_ITEM, SP_ITEM, EP_ITEM,
+                               SSM_ITEM) if str(e).endswith(it)]
+        assert len(items) == 1, str(e)
+        return items[0]
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_layout_covers_agrees_with_the_refusals(arch):
+    cfg = get_smoke_config(arch)
+    for cell in applicable_shapes(get_config(arch)):
+        rc = dryrun.default_runconfig(cfg, cell)
+        item = dryrun.layout_covers(cfg, cell, rc)
+        assert item == _virtual_refusal(cfg, cell), (arch, cell.name)
+        full = get_config(arch)
+        want = "replica" if item else "chip"
+        assert dryrun.resolve_share(full, cell) == want
+        if item is not None:
+            with pytest.raises(ValueError, match=item.split(" (")[0]):
+                dryrun.compile_cell(full, cell, device="cpu", share="chip")
+
+
+def test_a_refused_layout_knob_is_refused_on_the_chip(monkeypatch):
+    def built(*a, **k):
+        raise AssertionError("the cell was built")
+    monkeypatch.setattr(dryrun, "_measure", built)
+    cfg, cell = get_config("yi-6b"), SHAPES_BY_NAME["train_4k"]
+    for knobs in ({"sequence_parallel": True}, {"shard_kv_seq": True}):
+        with pytest.raises(ValueError, match="ROADMAP A 18b"):
+            dryrun.compile_cell(cfg, cell, knobs, device="cpu")
+        assert dryrun.layout_covers(
+            cfg, cell, dryrun.default_runconfig(cfg, cell, knobs)) \
+            == SP_ITEM
+    # the replica's share runs what the chip's refuses
+    assert dryrun.resolve_share(cfg, cell, "replica") == "replica"
+    with pytest.raises(ValueError, match="share must be"):
+        dryrun.resolve_share(cfg, cell, "pod")
+
+
+# ---------------------------------------------------------------------------
+# (d) the reference's compiled per-device FLOPs
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def reference_counts(tmp_path_factory):
+    spec = tmp_path_factory.mktemp("reference") / "runs.json"
+    seq, batch = REF_CELL
+    spec.write_text(json.dumps([
+        {"name": name, "arch": arch,
+         "knobs": dict(knobs, remat_policy="none"), "seq": seq,
+         "batch": batch} for name, arch, knobs in REF_CASES]))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "tests" / "torch_virtual_reference.py"),
+         str(spec)], capture_output=True, text=True, env=env,
+        timeout=REFERENCE_TIMEOUT_S, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name,arch,knobs", REF_CASES,
+                         ids=[c[0] for c in REF_CASES])
+def test_chip_flops_meet_the_reference(reference_counts, name, arch, knobs):
+    cfg = get_smoke_config(arch)
+    seq, batch = REF_CELL
+    cell = ShapeCell("tiny", seq_len=seq, global_batch=batch, mode="train")
+    rc = dryrun.default_runconfig(cfg, cell, dict(knobs,
+                                                  remat_policy="none"))
+    mesh = make_virtual_mesh((2, 2), device="cpu")
+    low = dryrun.lower_cell(cfg, cell, rc, mesh, device="cpu",
+                            n_layers=cfg.n_layers)
+    counts, loss = roofline.count_step(low.step)
+    ref = reference_counts[name]
+    print(f"{name}: port coll_by_kind {counts.coll_by_kind}, reference "
+          f"{ref['coll_by_kind']}")
+    vocab = cfg.vocab_size // (2 if rc.shard.tensor_parallel else 1)
+    one_hot = 2 * low.batch * seq * vocab
+    assert ref["flops"] - counts.flops == one_hot
+    assert abs(counts.flops - ref["flops"]) <= FLOPS_REL * ref["flops"]
+    assert np.isfinite(float(loss))
+
+
+# ---------------------------------------------------------------------------
+# (e) the collective term against analyze_hlo
+# ---------------------------------------------------------------------------
+
+COLL_HLO = """\
+HloModule collectives
+
+%cond (p: (s32[], bf16[64,32])) -> pred[] {
+  %p = (s32[], bf16[64,32]) parameter(0)
+  %i = s32[] get-tuple-element(%p), index=0
+  %c = s32[] constant(6)
+  ROOT %lt = pred[] compare(%i, %c), direction=LT
+}
+
+%body (p: (s32[], bf16[64,32])) -> (s32[], bf16[64,32]) {
+  %p = (s32[], bf16[64,32]) parameter(0)
+  %i = s32[] get-tuple-element(%p), index=0
+  %x = bf16[64,32] get-tuple-element(%p), index=1
+  %one = s32[] constant(1)
+  %ni = s32[] add(%i, %one)
+  %g = bf16[256,32] all-gather(%x), dimensions={0}, replica_groups={}
+  %d = f32[64,64] dot(%x, %x), lhs_contracting_dims={1}, rhs_contracting_dims={1}
+  %rs = f32[16,64] reduce-scatter(%d), dimensions={0}, to_apply=%sum
+  %ar = f32[64,64] all-reduce(%d), replica_groups={}, to_apply=%sum
+  %arp = f32[64,32] all-reduce(%x), replica_groups={}, to_apply=%sum.promoted
+  ROOT %t = (s32[], bf16[64,32]) tuple(%ni, %x)
+}
+
+%sum (a: f32[], b: f32[]) -> f32[] {
+  %a = f32[] parameter(0)
+  %b = f32[] parameter(1)
+  ROOT %s = f32[] add(%a, %b)
+}
+
+%sum.promoted (a: f32[], b: f32[]) -> f32[] {
+  %a = f32[] parameter(0)
+  %b = f32[] parameter(1)
+  ROOT %s = f32[] add(%a, %b)
+}
+
+ENTRY %main (arg: bf16[64,32]) -> bf16[64,32] {
+  %arg = bf16[64,32] parameter(0)
+  %zero = s32[] constant(0)
+  %t0 = (s32[], bf16[64,32]) tuple(%zero, %arg)
+  %w = (s32[], bf16[64,32]) while(%t0), condition=%cond, body=%body
+  ROOT %out = bf16[64,32] get-tuple-element(%w), index=1
+}
+"""
+HARDWARE = {"v5e": {}, "memory-bound": {"hbm_bw": 1e3},
+            "compute-bound": {"peak_flops": 1e3}}
+
+
+@pytest.mark.parametrize("hw", list(HARDWARE))
+def test_report_from_counts_prices_each_kind_as_analyze_hlo(hw):
+    want = jrl.analyze_hlo(COLL_HLO, JHardware(**HARDWARE[hw]))
+    assert set(want.coll_by_kind) == {"all-gather", "reduce-scatter",
+                                      "all-reduce"}
+    assert want.coll_by_kind["all-reduce"] == 6 * (64 * 64 * 4
+                                                   + 64 * 32 * 4 / 2)
+    got = roofline.report_from_counts(want.flops, want.bytes_proxy,
+                                      want.coll_by_kind,
+                                      Hardware(**HARDWARE[hw]))
+    for k in ("collective_bytes", "coll_by_kind", "compute_s", "memory_s",
+              "collective_s", "step_s", "dominant"):
+        assert getattr(got, k) == getattr(want, k), k
+
+
+# ---------------------------------------------------------------------------
+# (f) the virtual rules and the counter
+# ---------------------------------------------------------------------------
+
+def test_virtual_primitives_and_their_bytes():
+    mesh = make_virtual_mesh((4, 2), (1, 1), device="cpu")
+    assert (mesh.rank, mesh.coords, mesh.backend) == \
+        (3, {"data": 1, "model": 1}, "virtual")
+    with pytest.raises(RuntimeError, match="no process group"):
+        mesh.group("data")
+    x = torch.arange(24, dtype=torch.bfloat16).reshape(2, 4, 3)
+    with collectives.counting_collectives() as tally:
+        g = collectives.gather(x, 1, ("data",), mesh)
+        s = collectives._scatter_axis(x, 1, "data", mesh, summed=True)
+        r = collectives.all_reduce(x, ("data", "model"), mesh,
+                                   dtype=torch.float32)
+        m = collectives.all_reduce(x, "data", mesh, op="max")
+    assert torch.equal(g, torch.cat([x] * 4, dim=1))
+    assert torch.equal(s, 4 * x[:, 1:2])
+    assert torch.equal(r, 8 * x) and r.dtype == torch.bfloat16
+    assert torch.equal(m, x)
+    n = x.numel()
+    assert tally == {"all-gather": 4 * n * 2, "reduce-scatter": n // 4 * 2,
+                     # float32 over data then model, bf16 once for max
+                     "all-reduce": 2 * n * 4 + n * 2}
+    with pytest.raises(RuntimeError, match="already being counted"):
+        with collectives.counting_collectives():
+            with collectives.counting_collectives():
+                pass
+    with pytest.raises(ValueError, match="virtual mesh"):
+        collectives.gather_to_host(x, None, mesh)
+    with pytest.raises(ValueError, match="not on a mesh"):
+        make_virtual_mesh((2, 2), (2, 0), device="cpu")
+    assert make_virtual_mesh({"pod": 2, "data": 16, "model": 16},
+                             {"pod": 1}, device="cpu").rank == 256

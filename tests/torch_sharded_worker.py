@@ -9,7 +9,14 @@ this rank's blocks of the case's float32 parameters
 ``make_train_step`` step.  Rank 0 writes the metrics, the gathered
 gradients and the gathered new state to ``out_path`` (``.npz``, leaves in
 ``tree_flatten`` order), and whether the new state built on its host by
-``gather_tree_to_host`` (a checkpoint's save) equals the gathered one."""
+``gather_tree_to_host`` (a checkpoint's save) equals the gathered one.
+
+``count_cases(mesh, spec_path, out_path)`` (``test_torch_virtual_mesh.py``):
+for every case, this rank's state drawn block by block
+(``train_loop.init_local_state``) and one ``make_train_step`` step on
+its data rank's slice under ``launch.roofline.count_step``.  Rank 0
+writes its counts (FLOPs, collective bytes by kind, each state leaf's
+shape and bytes) and the step's loss to ``out_path`` (JSON)."""
 
 import json
 
@@ -17,12 +24,50 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.launch.roofline import count_step
 from repro_torch.models.common import tree_flatten, tree_unflatten
 from repro_torch.models.model import Model, gather_tree, gather_tree_to_host
 from repro_torch.runconfig import runconfig_from_knobs
 from repro_torch.train import optimizer as topt
 from repro_torch.train import train_loop as ttl
 from repro_torch.train.data import data_slice
+
+
+def state_counts(state) -> dict:
+    """Each state leaf's shape and the state's bytes."""
+    leaves = tree_flatten(state)[0]
+    return {"shapes": [list(t.shape) for t in leaves],
+            "bytes": sum(t.numel() * t.element_size() for t in leaves)}
+
+
+def count_case(spec, batch):
+    """(counts, loss) of one counted step of a case on the ambient mesh,
+    from the state ``init_local_state`` draws and this rank's ``batch``."""
+    model = Model(get_smoke_config(spec["arch"]), device="cpu")
+    rc = runconfig_from_knobs(spec["knobs"])
+    state = ttl.init_local_state(model, 0, rc)
+    held = state_counts(state)
+    step = ttl.make_train_step(model, rc)
+    counts, (_, mets) = count_step(lambda: step(state, batch))
+    return {"flops": counts.flops, "coll_by_kind": counts.coll_by_kind,
+            **held}, float(mets["loss"])
+
+
+def count_cases(mesh, spec_path, out_path):
+    torch.set_num_threads(1)
+    with open(spec_path) as f:
+        cases = json.load(f)
+    out = {}
+    for spec in cases:
+        with np.load(spec["data"]) as z:
+            batch = {k: torch.from_numpy(z[f"batch_{k}"])
+                     for k in spec["batch"]}
+        local = data_slice(batch, mesh.coords["data"], mesh.shape["data"])
+        counts, loss = count_case(spec, local)
+        out[spec["name"]] = {**counts, "loss": loss}
+    if mesh.rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(out, f)
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
