@@ -265,7 +265,10 @@ Phases (any failure exits non-zero before the result line):
    ``attention_impl="flash"``, ``remat_policy`` ``"dots"`` and
    ``"full"``, ``optimizer="adafactor"``, ``grad_allreduce_dtype=
    "bfloat16"``, phase 3's batch-8 recommendation and
-   ``expert_manual_config``; then the default once at one replica's
+   ``expert_manual_config``, and the flash probe and the recommendation
+   again with ``sequence_parallel=True`` (the stream between blocks the
+   chip's 256-token block of the sequence: ``PRODUCT_SP``), each printed
+   beside its SP-off twin; then the default once at one replica's
    share (4 layers, the replica cell scored before the chip share) and
    one default probe each of ``prefill_32k`` (2 x 32768) and
    ``decode_32k`` (8 against a 32k cache), both at the replica's share
@@ -286,8 +289,13 @@ Phases (any failure exits non-zero before the result line):
    flash probe launches exactly (warm-up + timed steps) x microbatches x
    layers wgmma forwards (twice under a recomputing remat policy) and as
    many wgmma backward sets, counted from 0 around it, all at q [1,
-   4096, 2, 128] / k [1, 4096, 1, 128]; the replica probe scores its
-   measured step; the phase within 240 s.
+   4096, 2, 128] / k [1, 4096, 1, 128]; the SP flash probe exactly the
+   flash probe's launches at its shapes (attention runs on the gathered
+   sequence); each SP probe sequence-parallel, its step-1 loss within
+   1e-2 of the other's and 3e-2 of its twin's (``PRODUCT_SP_TWIN_REL``:
+   on the virtual chip the two compute different functions), its
+   gradient norm finite and its loss dropping;
+   the replica probe scores its measured step; the phase within 240 s.
 15. the sharded train step: yi-6b at full width, 2 of 32 layers, on a
    2 x 2 (data, model) mesh of four processes (``launch.mesh.spawn``;
    NCCL when the host has a card for each rank, else gloo with the four
@@ -303,8 +311,14 @@ Phases (any failure exits non-zero before the result line):
    counts its collectives' bytes by kind over those steps; then, in this
    process, the virtual 2 x 2 mesh's chip (0, 0) runs the same steps
    alone and must give rank 0's bytes by kind and flash launches
-   exactly; the phase within 90 s.  Prints each rank's step times, peak
-   GiB, bytes by kind and the backend.
+   exactly.  Under sequence parallelism, in the same world: step 1's
+   gathered gradients and loss from the same state against the same
+   one-process step at the same limits, counted: a rank's flash
+   launches are one SP-off step's (8 wgmma forwards, 4 backward sets),
+   and the virtual chip's SP forward and backward must give rank 0's
+   bytes by kind and launches exactly; the phase within 90 s.
+   Prints each rank's step times, peak GiB, bytes by kind and the
+   backend.
 
 Every device time read from ``torch.profiler`` in phases 2-13 comes
 from a session that recorded the window whole (``whole_profile``: the
@@ -5414,8 +5428,23 @@ PRODUCT_KNOBS = (("flash", {"attention_impl": "flash"}),
                  ("remat-full", {"remat_policy": "full"}),
                  ("adafactor", {"optimizer": "adafactor"}),
                  ("bf16-allreduce", {"grad_allreduce_dtype": "bfloat16"}))
-PRODUCT_MUST_FIT = {name for name, _ in PRODUCT_KNOBS} | {"recommended",
-                                                          "expert"}
+# the chip's probes under sequence parallelism: (name, its SP-off twin);
+# each is its twin's knobs with sequence_parallel on
+PRODUCT_SP = (("flash-sp", "flash"), ("recommended-sp", "recommended"))
+# an SP probe's step-1 loss vs its twin's.  On the virtual chip the two
+# are different functions: under SP the chip computes its 256-token block
+# of the stream and its gathers tile that block 16 times, so 15/16 of the
+# labels meet another position's hidden state, where the SP-off chip
+# meets each label with its own.  With random weights the loss is
+# logsumexp minus 16 x the label's logit (the virtual reduce of the
+# chip's vocab columns), a mean over the chip's 65536 tokens of logits
+# of std ~1: the two draws differ by 16 sqrt(2 x 15/16 / 65536) ~ 0.086
+# nats (~0.74 % of ~11.57) at one sigma; measured 1.357e-2 on an
+# NVIDIA H100 80GB HBM3.  Limit: 4 sigma.  The SP step's function is held
+# on the real mesh instead (phase 15: 1e-3 of one process).
+PRODUCT_SP_TWIN_REL = 3e-2
+PRODUCT_MUST_FIT = {name for name, _ in PRODUCT_KNOBS} | {
+    "recommended", "expert"} | {name for name, _ in PRODUCT_SP}
 PRODUCT_SERVING = ("prefill_32k", "decode_32k")   # one default probe each
 # yi-6b's attention layer on one chip of the 16 x 16 mesh at the space
 # default's microbatch of 1: 32 / 16 q heads and the one kv head they read
@@ -5594,6 +5623,10 @@ def phase_product(card: str, tuned: dict) -> dict:
                for name, kn in PRODUCT_KNOBS]
     probes += [("recommended", dict(tuned["best_config"])),
                ("expert", expert_manual_config(space))]
+    twins = dict(probes)
+    probes += [(name, space.project({**twins[twin],
+                                     "sequence_parallel": True}))
+               for name, twin in PRODUCT_SP]
     ev = CompiledEvaluator(cfg, cell, device="cuda",
                            n_layers=PRODUCT_CHIP_LAYERS, steps=PRODUCT_STEPS,
                            share="chip")
@@ -5605,16 +5638,20 @@ def phase_product(card: str, tuned: dict) -> dict:
         check(out[name]["feasible"], f"phase 14: the {name} probe ran out "
               f"of the card's memory")
     d = out["default"]
+    # the SP probes compute one function (the virtual chip's under
+    # sequence parallelism, PRODUCT_SP_TWIN_REL): the first is theirs
+    sp_base = PRODUCT_SP[0][0]
     for name, p in out.items():
         check(p["record"]["share"] == "chip"
               and p["record"]["roofline"]["collective_s"] > 0,
               f"phase 14: {name} did not run one chip's share with its "
               f"collectives counted")
-        rel = abs(p["record"]["step1_loss"] - d["record"]["step1_loss"]) \
-            / abs(d["record"]["step1_loss"])
+        base = sp_base if name in dict(PRODUCT_SP) else "default"
+        b = out[base]["record"]["step1_loss"]
+        rel = abs(p["record"]["step1_loss"] - b) / abs(b)
         p["loss_rel"] = rel
         check(rel <= PRODUCT_LOSS_REL, f"phase 14: {name}'s step-1 loss "
-              f"is {rel:.3e} from the default's (limit {PRODUCT_LOSS_REL})")
+              f"is {rel:.3e} from {base}'s (limit {PRODUCT_LOSS_REL})")
 
     # what the step-1 loss cannot see: the gradient and the update
     def drop(p):
@@ -5673,6 +5710,38 @@ def phase_product(card: str, tuned: dict) -> dict:
                     (micro, rec["seq_len"], Kh, D))]
     check(f["shapes"] == want_shapes, f"phase 14: the flash probe's q / k "
           f"shapes {f['shapes']}, want {want_shapes} (the chip's heads)")
+
+    # sequence parallelism: each SP probe beside its SP-off twin; the flash
+    # probe's kernels run at the same shapes, so its launches are the twin's
+    for name, twin in PRODUCT_SP:
+        p, t = out[name], out[twin]
+        pr, tr = p["record"], t["record"]
+        rel = abs(pr["step1_loss"] - tr["step1_loss"]) / abs(tr["step1_loss"])
+        p["twin_loss_rel"] = rel
+        for q, qr in ((p, pr), (t, tr)):
+            r = qr["roofline"]
+            print(f"  {q['name']} (sequence_parallel "
+                  f"{qr['sequence_parallel']}): measured_step_s="
+                  f"{qr['measured_step_s']:.6f} collective_s="
+                  f"{r['collective_s']:.6f} coll_by_kind={r['coll_by_kind']} "
+                  f"({r['collective_bytes_per_device'] / 1e9:.3f} GB) "
+                  f"scored_step_s={q['step_s']:.6f} peak="
+                  f"{qr['memory']['max_memory_allocated_gb']:.2f} GiB mfu="
+                  f"{qr['mfu']:.4f} step1_loss={qr['step1_loss']:.6f} "
+                  f"grad_norm={qr['step1_grad_norm']}", flush=True)
+        check(pr["sequence_parallel"] and not tr["sequence_parallel"],
+              f"phase 14: {name} did not run sequence-parallel, or its twin "
+              f"{twin} did")
+        check(rel <= PRODUCT_SP_TWIN_REL, f"phase 14: {name}'s step-1 loss "
+              f"is {rel:.3e} from {twin}'s (limit {PRODUCT_SP_TWIN_REL})")
+        check(math.isfinite(pr["step1_grad_norm"]) and drop(p) > 0,
+              f"phase 14: {name}: gradient norm {pr['step1_grad_norm']}, "
+              f"losses {pr['step_losses']}")
+    fs, f0 = out["flash-sp"], out["flash"]
+    check(fs["launches"] == f0["launches"] and fs["shapes"] == f0["shapes"],
+          f"phase 14: flash-sp's launches {fs['launches']} at "
+          f"{fs['shapes']}, want the flash probe's {f0['launches']} at "
+          f"{f0['shapes']}")
 
     def speedup(name):
         p = out[name]
@@ -5760,14 +5829,13 @@ def mesh_rank(mesh, out_dir: str) -> None:
     from repro_torch.models.model import Model, gather_tree
     from repro_torch.parallel.collectives import counting_collectives
     from repro_torch.parallel.sharding import (reset_ambient_mesh,
+                                               sequence_parallel_on,
                                                set_ambient_mesh)
-    from repro_torch.runconfig import RunConfig
     from repro_torch.train import train_loop as ttl
     from repro_torch.train.data import SyntheticDataset
 
     cfg = get_config(MESH_ARCH).scaled(n_layers=MESH_LAYERS)
-    rc = RunConfig(microbatch=MESH_MICRO, remat_policy="block",
-                   attention_impl="flash")
+    rc, rc_sp = mesh_runconfig(False), mesh_runconfig(True)
     model = Model(cfg, device=mesh.device)
     ops.load()
     out = {"rank": mesh.rank, "coords": mesh.coords,
@@ -5786,13 +5854,31 @@ def mesh_rank(mesh, out_dir: str) -> None:
                             device=mesh.device)
     batches = [next(data) for _ in range(MESH_STEPS)]
 
-    # step 1's gradients, every leaf gathered; on rank 0 against the
+    # step 1's gradients, every leaf gathered, without and with sequence
+    # parallelism (the same placements); on rank 0 against the
     # one-process step at the same seed, shape and global batch
     pls = ttl.param_placements(model, rc)
+    got = {}
     loss, _, grads = ttl.step_grads(model, state.params, batches[0], rc,
                                     placements=pls)
-    grads = gather_tree(grads, pls)
-    out["loss_step1"] = float(loss)
+    got[""] = (float(loss), gather_tree(grads, pls))
+    # the SP step's forward and backward, counted on their own: its flash
+    # launches are one SP-off step's, its bytes by kind the virtual chip's
+    del grads
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with counting_collectives() as coll:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, grads = ttl.step_grads(model, state.params, batches[0],
+                                        rc_sp, placements=pls)
+        torch.cuda.synchronize()
+    out.update(sp_step_s=time.perf_counter() - t0,
+               sp_coll_by_kind=dict(coll), sp_launches=flash_counts(ops),
+               sp_step_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               sp_on=sequence_parallel_on(rc_sp.shard, mesh, MESH_S))
+    got["sp_"] = (float(loss), gather_tree(grads, pls))
+    del grads
     if mesh.rank == 0:
         token = set_ambient_mesh(None)
         try:
@@ -5802,19 +5888,27 @@ def mesh_rank(mesh, out_dir: str) -> None:
         finally:
             reset_ambient_mesh(token)
         del params
-        worst, worst_path, finite = 0.0, "", True
-        for (path, g), (_, w) in zip(tree_flatten_with_path(grads)[0],
-                                     tree_flatten_with_path(want)[0]):
-            finite &= bool(torch.isfinite(g).all())
-            r = rel_l2(g, w)
-            if not r <= worst:
-                worst, worst_path = (r if math.isfinite(r) else math.inf,
-                                     "/".join(map(str, path)))
-        out.update(loss_one_process=float(loss1), grad_rel_l2=worst,
-                   grad_worst_leaf=worst_path, grads_finite=finite,
-                   n_leaves=len(tree_flatten_with_path(want)[0]))
-        del want
-    del grads
+        want_leaves = tree_flatten_with_path(want)[0]
+        for tag, (loss, grads) in got.items():
+            worst, worst_path, finite = 0.0, "", True
+            for (path, g), (_, w) in zip(tree_flatten_with_path(grads)[0],
+                                         want_leaves):
+                finite &= bool(torch.isfinite(g).all())
+                r = rel_l2(g, w)
+                if not r <= worst:
+                    worst, worst_path = (r if math.isfinite(r)
+                                         else math.inf,
+                                         "/".join(map(str, path)))
+            out.update({f"{tag}loss_step1": loss,
+                        f"{tag}grad_rel_l2": worst,
+                        f"{tag}grad_worst_leaf": worst_path,
+                        f"{tag}grads_finite": finite})
+        out.update(loss_one_process=float(loss1),
+                   n_leaves=len(want_leaves))
+        del want, want_leaves
+    else:
+        out["loss_step1"], out["sp_loss_step1"] = got[""][0], got["sp_"][0]
+    del got
     import gc
     gc.collect()        # rank 0's one-process step left reference cycles
     torch.cuda.empty_cache()
@@ -5844,13 +5938,26 @@ def mesh_rank(mesh, out_dir: str) -> None:
     finally:
         ops.flash_attention = fn
     out.update(step_s=times, shapes=sorted(map(list, shapes)),
-               coll_by_kind=dict(coll),
-               launches={k: getattr(ops, k) for k in (
-                   "launches", "launches_wgmma", "launches_fma",
-                   "launches_bwd", "launches_bwd_wgmma",
-                   "launches_bwd_fma")},
+               coll_by_kind=dict(coll), launches=flash_counts(ops),
                step_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     Path(out_dir, f"rank{mesh.rank}.json").write_text(json.dumps(out))
+
+
+def mesh_runconfig(sp: bool):
+    """Phase 15's RunConfig: the family default's layout, with sequence
+    parallelism where ``sp``."""
+    from repro_torch.parallel.sharding import ShardConfig
+    from repro_torch.runconfig import RunConfig
+    return RunConfig(microbatch=MESH_MICRO, remat_policy="block",
+                     attention_impl="flash",
+                     shard=ShardConfig(sequence_parallel=sp))
+
+
+def flash_counts(ops) -> dict:
+    """The flash wrapper's launch counters."""
+    return {k: getattr(ops, k) for k in (
+        "launches", "launches_wgmma", "launches_fma", "launches_bwd",
+        "launches_bwd_wgmma", "launches_bwd_fma")}
 
 
 def mesh_virtual_chip() -> dict:
@@ -5858,20 +5965,19 @@ def mesh_virtual_chip() -> dict:
     2 x 2 mesh's chip (0, 0) (``launch.mesh.make_virtual_mesh``), its
     blocks of the state drawn alone (``init_local_state``), data rank 0's
     rows, the counted steps with flash's launches and the collectives'
-    bytes by kind counted around them."""
+    bytes by kind counted around them; then step 1's forward and
+    backward under sequence parallelism, counted on their own."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch.mesh import make_virtual_mesh
     from repro_torch.models.model import Model
     from repro_torch.parallel.collectives import counting_collectives
-    from repro_torch.runconfig import RunConfig
     from repro_torch.train import train_loop as ttl
     from repro_torch.train.data import SyntheticDataset
 
     cfg = get_config(MESH_ARCH).scaled(n_layers=MESH_LAYERS)
-    rc = RunConfig(microbatch=MESH_MICRO, remat_policy="block",
-                   attention_impl="flash")
+    rc = mesh_runconfig(False)
     model = Model(cfg, device="cuda")
     mesh = make_virtual_mesh(MESH_SHAPE, device="cuda")
     with mesh:
@@ -5889,11 +5995,17 @@ def mesh_virtual_chip() -> dict:
                 state, mets = step(state, b)
                 losses.append(float(mets["loss"]))
         torch.cuda.synchronize()
-    return {"coll_by_kind": dict(coll), "losses": losses,
-            "wall_s": time.perf_counter() - t0,
-            "launches": {k: getattr(ops, k) for k in (
-                "launches", "launches_wgmma", "launches_fma",
-                "launches_bwd", "launches_bwd_wgmma", "launches_bwd_fma")}}
+        wall = time.perf_counter() - t0
+        launches = flash_counts(ops)
+        ops.reset_launch_counts()
+        with counting_collectives() as coll_sp:
+            loss, _, _ = ttl.step_grads(
+                model, state.params, batches[0], mesh_runconfig(True),
+                placements=ttl.param_placements(model, rc))
+        sp_loss = float(loss)
+    return {"coll_by_kind": dict(coll), "losses": losses, "wall_s": wall,
+            "launches": launches, "sp_coll_by_kind": dict(coll_sp),
+            "sp_launches": flash_counts(ops), "sp_loss": sp_loss}
 
 
 def phase_mesh(card: str) -> dict:
@@ -5952,6 +6064,22 @@ def phase_mesh(card: str) -> dict:
               f"want Hq {hq} / Hkv {hkv} bf16")
         check(all(math.isfinite(x) for x in r["losses"]),
               f"phase 15 rank {r['rank']}: losses {r['losses']}")
+        # the SP step: the same kernels at the same shapes, once a step
+        s = r["sp_launches"]
+        print(f"  rank {r['rank']} under sequence parallelism (on: "
+              f"{r['sp_on']}): step 1's gradients {r['sp_step_s']:.3f} s, "
+              f"peak {r['sp_step_peak_gib']:.2f} GiB, loss "
+              f"{r['sp_loss_step1']:.6f}, flash {s}, collective bytes "
+              f"{r['sp_coll_by_kind']}", flush=True)
+        check(r["sp_on"] and s["launches"] == s["launches_wgmma"]
+              == want_fwd // MESH_STEPS and s["launches_fma"] == 0
+              and s["launches_bwd"] == s["launches_bwd_wgmma"]
+              == want_bwd // MESH_STEPS and s["launches_bwd_fma"] == 0,
+              f"phase 15 rank {r['rank']}: the SP step's flash launches "
+              f"{s}, want one SP-off step's ({want_fwd // MESH_STEPS} "
+              f"forward, {want_bwd // MESH_STEPS} backward sets, wgmma)")
+        check(math.isfinite(r["sp_loss_step1"]),
+              f"phase 15 rank {r['rank']}: SP loss {r['sp_loss_step1']}")
     r0 = ranks[0]
     loss_rel = abs(r0["loss_step1"] - r0["loss_one_process"]) \
         / abs(r0["loss_one_process"])
@@ -5967,6 +6095,19 @@ def phase_mesh(card: str) -> dict:
     check(r0["grad_rel_l2"] <= MESH_GRAD_REL,
           f"phase 15: gradient rel_l2 {r0['grad_rel_l2']} at "
           f"{r0['grad_worst_leaf']}")
+    sp_loss_rel = abs(r0["sp_loss_step1"] - r0["loss_one_process"]) \
+        / abs(r0["loss_one_process"])
+    print(f"  under sequence parallelism: step-1 loss "
+          f"{r0['sp_loss_step1']:.6f} (rel {sp_loss_rel:.3e} to one "
+          f"process, limit {MESH_LOSS_REL}); worst gathered gradient leaf "
+          f"rel_l2 {r0['sp_grad_rel_l2']:.3e} at "
+          f"{r0['sp_grad_worst_leaf']} (limit {MESH_GRAD_REL})", flush=True)
+    check(sp_loss_rel <= MESH_LOSS_REL,
+          f"phase 15: SP step-1 loss rel {sp_loss_rel}")
+    check(r0["sp_grads_finite"], "phase 15: a non-finite SP gradient leaf")
+    check(r0["sp_grad_rel_l2"] <= MESH_GRAD_REL,
+          f"phase 15: SP gradient rel_l2 {r0['sp_grad_rel_l2']} at "
+          f"{r0['sp_grad_worst_leaf']}")
     # the virtual chip is a real rank: rank 0's bytes and launches exactly
     virtual = mesh_virtual_chip()
     print(f"  collective bytes by kind over the {MESH_STEPS} counted steps: "
@@ -5981,13 +6122,29 @@ def phase_mesh(card: str) -> dict:
           f"{r0['coll_by_kind']} / {r0['launches']}")
     check(all(math.isfinite(x) for x in virtual["losses"]),
           f"phase 15: the virtual chip's losses {virtual['losses']}")
+    print(f"  step 1 under SP: rank 0 {r0['sp_coll_by_kind']} (launches "
+          f"{r0['sp_launches']}); the virtual chip "
+          f"{virtual['sp_coll_by_kind']} (launches "
+          f"{virtual['sp_launches']}, loss {virtual['sp_loss']:.6f})",
+          flush=True)
+    check(virtual["sp_coll_by_kind"] == r0["sp_coll_by_kind"]
+          and virtual["sp_launches"] == r0["sp_launches"]
+          and math.isfinite(virtual["sp_loss"]),
+          f"phase 15: the virtual chip's SP bytes "
+          f"{virtual['sp_coll_by_kind']} and launches "
+          f"{virtual['sp_launches']} are not rank 0's "
+          f"{r0['sp_coll_by_kind']} / {r0['sp_launches']}")
     wall = time.perf_counter() - t0
     check(wall <= MESH_BUDGET_S, f"phase 15 took {wall:.1f} s")
     return {"backend": backend, "ranks": ranks, "wall_s": wall,
             "virtual": virtual,
             "loss_rel": loss_rel, "grad_rel_l2": r0["grad_rel_l2"],
-            "launches_fwd": sum(r["launches"]["launches"] for r in ranks),
+            "sp_loss_rel": sp_loss_rel, "sp_grad_rel_l2": r0["sp_grad_rel_l2"],
+            "launches_fwd": sum(r["launches"]["launches"]
+                                + r["sp_launches"]["launches"]
+                                for r in ranks),
             "launches_bwd": sum(r["launches"]["launches_bwd"]
+                                + r["sp_launches"]["launches_bwd"]
                                 for r in ranks)}
 
 
@@ -6187,9 +6344,12 @@ def main() -> None:
             "coll_by_kind": [r["coll_by_kind"] for r in sharded["ranks"]],
             "loss_rel": sharded["loss_rel"],
             "grad_rel_l2": sharded["grad_rel_l2"],
+            "sp_loss_rel": sharded["sp_loss_rel"],
+            "sp_grad_rel_l2": sharded["sp_grad_rel_l2"],
             **{k: [r[k] for r in sharded["ranks"]]
                for k in ("step_s", "step_peak_gib", "setup_peak_gib",
-                         "state_gib")}},
+                         "state_gib", "sp_step_s", "sp_step_peak_gib",
+                         "sp_coll_by_kind")}},
         "train_step_s": yi["step_s"], "train_tokens_per_s":
         yi["tokens_per_s"], "train_peak_gib": yi["peak_gib"],
         "train_shares": yi["shares"],

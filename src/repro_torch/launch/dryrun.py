@@ -57,6 +57,7 @@ This module sets no ``XLA_FLAGS`` and imports no JAX.
 CLI:
     python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k
         [--device cpu] [--layers 2] [--multi-pod] [--share chip|replica]
+        [--knob sequence_parallel=true ...]
     python -m repro_torch.launch.dryrun --all [--skip-existing]
 """
 
@@ -85,14 +86,15 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import (VirtualMesh, make_production_mesh,
                                      make_virtual_mesh)
+from repro_torch.launch.serve import parse_knobs
 from repro_torch.models import transformer
 from repro_torch.models.common import tree_flatten
 from repro_torch.models.config import (SHAPES_BY_NAME, ModelConfig,
                                        ShapeCell, applicable_shapes)
 from repro_torch.models.model import Model
-from repro_torch.parallel.sharding import (SERVE_ITEM, SP_ITEM, WHISPER_ITEM,
+from repro_torch.parallel.sharding import (SERVE_ITEM, WHISPER_ITEM,
                                            compute_range, data_parallel_size,
-                                           unported_layout)
+                                           sequence_parallel_on)
 from repro_torch.runconfig import RunConfig, runconfig_from_knobs
 from repro_torch.train.train_loop import (init_local_state, init_state,
                                           make_train_step, state_placements,
@@ -225,7 +227,10 @@ def estimate_bytes(cfg: ModelConfig, rc: RunConfig, mode: str,
     With ``mesh`` (a virtual mesh: one chip's share) the state is the
     chip's blocks exactly (:func:`_chip_state`), and the activations
     beyond one whole block input a layer, the scores and the logits are
-    divided where the model axis splits the heads and the vocab."""
+    divided where the model axis splits the heads and the vocab; under
+    sequence parallelism (``sequence_parallel_on`` for ``seq``) the block
+    inputs (the stream between blocks) are divided by the model axis
+    too."""
     train = mode == "train"
     if mesh is None:
         n_params = cfg.param_count()
@@ -244,7 +249,10 @@ def estimate_bytes(cfg: ModelConfig, rc: RunConfig, mode: str,
         if heads > 1:       # the block input is whole on every model rank
             whole = unit * cfg.n_layers * min(
                 layer_io * REMAT_ACT_FRACTION[rc.remat_policy], 1.0)
-            act = whole + (act - whole) / heads
+            # but for sequence parallelism's: the rank's block of it
+            split = mesh.shape["model"] if sequence_parallel_on(
+                rc.shard, mesh, seq) else 1
+            act = whole / split + (act - whole) / heads
         n += act
         n += micro * seq * cfg.vocab_size * 4 * 2 / vocab
     else:
@@ -328,15 +336,14 @@ def layout_covers(cfg: ModelConfig, cell: ShapeCell, rc: RunConfig, *,
                   multi_pod: bool = False) -> Optional[str]:
     """None when the port's layout runs this cell's step under ``rc`` on
     one chip of the production mesh, else the ROADMAP item it lacks: the
-    item the step raises there (serving under a mesh, whisper, sequence
-    parallelism or ``shard_kv_seq``, expert parallelism, ``ssm_inner``).
-    Decided from the config alone, before anything is built."""
+    item the step raises there (serving under a mesh, whisper, expert
+    parallelism, ``ssm_inner``).  Every layout knob of a train cell is
+    covered (``shard_kv_seq`` splits only a decode cache).  Decided from
+    the config alone, before anything is built."""
     if cell.mode != "train":
         return SERVE_ITEM
     if cfg.is_encoder_decoder:
         return WHISPER_ITEM
-    if unported_layout(rc.shard, production_chip(multi_pod)) is not None:
-        return SP_ITEM
     bad = transformer.unported_block(cfg)
     return None if bad is None else bad[1]
 
@@ -543,9 +550,9 @@ def compile_cell(cfg: ModelConfig, cell: ShapeCell,
     else one replica's); return the record.
 
     Under the chip share a config whose layout the port does not
-    implement there (``layout_covers``, e.g. ``sequence_parallel``)
-    raises ``ValueError`` naming the ROADMAP item, before anything is
-    built.  With no ``n_layers``, a cell one period of which does not fit
+    implement there (``layout_covers``: a train cell's family, the
+    serving cells) raises ``ValueError`` naming the ROADMAP item, before
+    anything is built.  With no ``n_layers``, a cell one period of which does not fit
     the card raises :class:`DoesNotFit` (with the bytes it would need)
     before anything is allocated.  A step that runs out of the card's
     memory raises ``torch.cuda.OutOfMemoryError`` (its state is dropped,
@@ -604,6 +611,10 @@ def compile_cell(cfg: ModelConfig, cell: ShapeCell,
         "chips": chips,
         "chip": mesh.coords if chip else None,
         "share": share,
+        # whether the chip's stream was split along the sequence (the
+        # knob, and the sequence a multiple of the model axis)
+        "sequence_parallel": chip and sequence_parallel_on(
+            rc.shard, mesh, low.seq_len),
         "mode": cell.mode,
         "compile_s": m["compile_s"],
         "memory": {
@@ -721,7 +732,12 @@ def main(argv=None):
                     help="one chip's share of the mesh or one replica's "
                          "(default: the chip's where the port's layout "
                          "covers the cell)")
+    ap.add_argument("--knob", action="append", default=[],
+                    help="a SAPPHIRE knob over the family default, e.g. "
+                         "--knob sequence_parallel=true (the record keeps "
+                         "its file name: the knobs are in its runconfig)")
     args = ap.parse_args(argv)
+    knobs = parse_knobs(args.knob) or None
 
     cells = []
     if args.all:
@@ -754,7 +770,7 @@ def main(argv=None):
                 print(f"=== {tag} ({share} share) ===", flush=True)
                 rec = run_cell(arch, shape, multi_pod=mp, verbose=False,
                                device=args.device, n_layers=args.layers,
-                               share=share)
+                               share=share, knobs=knobs)
                 if not rec.get("skipped"):
                     r, mem = rec["roofline"], rec["memory"]
                     mfu, peak = rec["mfu"], mem["max_memory_allocated_gb"]

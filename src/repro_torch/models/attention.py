@@ -37,7 +37,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.rotary import apply_rope
 from repro_torch.parallel import collectives
 from repro_torch.parallel.sharding import (WHISPER_ITEM, ambient_mesh,
-                                           compute_range)
+                                           compute_range, seq_block)
 from repro_torch.runconfig import RunConfig
 
 NEG_INF = -1e30
@@ -192,13 +192,19 @@ def flash_attention_dispatch(q, k, v, *, causal, window, softcap,
 def apply(params, x, positions, cfg: ModelConfig, rc: RunConfig, *,
           causal: bool = True, window: Optional[int] = None,
           kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-          use_rope: bool = True):
+          use_rope: bool = True, seq_parallel: bool = False):
     """Full-sequence attention (train / prefill).
 
     x [B, S, d_model]; positions [B, S] (or [3,B,S] for M-RoPE).
     kv_override: (k, v) already-projected [B, Sk, Kh, D] tensors for
     cross-attention; the flash kernel reads them through their strides,
     so a view TMA cannot read raises (the caller passes contiguous ones).
+    With ``seq_parallel`` (on a mesh) ``x`` is this rank's block of the
+    sequence [B, S/M, d_model] and so is the result; the positions are
+    whole, as they meet the gathered sequence.  Where the model axis does
+    not split the heads, every rank attends over the gathered sequence
+    with the weights under ``common.replicated`` and its block of the
+    attention's output enters the o projection.
     """
     tp = _tensor_parallel(cfg, rc)
     if tp is not None:
@@ -206,10 +212,15 @@ def apply(params, x, positions, cfg: ModelConfig, rc: RunConfig, *,
             raise ValueError("cross-attention under tensor parallelism is "
                              f"not implemented: {WHISPER_ITEM}")
         return _apply_tp(params, x, positions, cfg, rc, tp, causal=causal,
-                         window=window, use_rope=use_rope)
+                         window=window, use_rope=use_rope,
+                         seq_parallel=seq_parallel)
+    red = common.reduce_dtype(rc)
+    if seq_parallel:
+        mesh = ambient_mesh()
+        params = common.replicated(params, mesh)
+        x = collectives.gather_seq(x, mesh, red)
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    red = common.reduce_dtype(rc)
     q = dense_apply(params["q"], x, preferred=red) \
         .reshape(B, S, cfg.n_heads, hd)
     if kv_override is None:
@@ -226,6 +237,8 @@ def apply(params, x, positions, cfg: ModelConfig, rc: RunConfig, *,
 
     out = _attend(q, k, v, cfg, rc, causal=causal, window=window)
     out = out.reshape(B, S, cfg.q_dim)
+    if seq_parallel:
+        out = seq_block(out, mesh)
     return dense_apply(params["o"], out, preferred=red)
 
 
@@ -267,20 +280,26 @@ def _tensor_parallel(cfg: ModelConfig, rc: RunConfig):
     return mesh, q, kv
 
 
-def _local_kv(p, x, col, cols, heads, B, S, hd, red, mesh):
+def _local_kv(p, x, col, cols, heads, B, S, hd, red, mesh, seq_parallel):
     """K or V for kv heads [k_lo, k_hi) = ``heads`` on this rank, from
     the weight's storage block (``cols``, None when whole).
 
     Storage and compute differ where a rank's q heads need kv heads it
     does not hold whole (the reference's guard splits ``kv_dim``, not
     heads): the columns are then gathered over the model axis.  A column
-    block reads ``col()``, the block input under Megatron's f.  A whole
-    weight reads ``x`` itself and gives a replicated projection, whose
-    rank-local use sums the projection's gradient over the model axis
-    (``copy_to``), so its weight gradient and its input gradient are
-    whole on every rank."""
+    block reads ``col()``, the block input under Megatron's f (the
+    gathered sequence under ``seq_parallel``).  A whole weight reads
+    ``x`` itself and gives a replicated projection, whose rank-local use
+    sums the projection's gradient over the model axis (``copy_to``), so
+    its weight gradient and its input gradient are whole on every rank;
+    under ``seq_parallel`` it reads the gathered sequence instead, with
+    the weight under ``common.replicated`` (the gather's backward sums
+    the input's gradient)."""
     k_lo, k_hi = heads
-    if cols is None:
+    if cols is None and seq_parallel:
+        y = dense_apply(common.replicated(p, mesh), col(), preferred=red)
+        base = 0
+    elif cols is None:
         y = collectives.copy_to(dense_apply(p, x, preferred=red), "model",
                                 mesh, red)
         base = 0
@@ -299,7 +318,8 @@ def _local_kv(p, x, col, cols, heads, B, S, hd, red, mesh):
 
 
 def _apply_tp(params, x, positions, cfg: ModelConfig, rc: RunConfig, tp, *,
-              causal: bool, window: Optional[int], use_rope: bool):
+              causal: bool, window: Optional[int], use_rope: bool,
+              seq_parallel: bool):
     """``apply`` with the heads split over the model axis (Megatron).
 
     Storage: this rank holds q columns [c0, c1) and the o rows alike (and
@@ -309,14 +329,19 @@ def _apply_tp(params, x, positions, cfg: ModelConfig, rc: RunConfig, tp, *,
     need; its block of the output columns enters the row-parallel o
     projection, whose partial sums are reduced over the model axis.  The
     column blocks read the input under Megatron's f
-    (``common.column_input``)."""
+    (``common.column_input``).  Under ``seq_parallel`` ``x`` is this
+    rank's block of the sequence: the column blocks read the gathered
+    sequence, attention runs over all of it at the rank's heads, and the
+    o projection's sums are reduce-scattered back to the block."""
     mesh, (c0, c1), kv_cols = tp
     B, S, _ = x.shape
+    if seq_parallel:
+        S *= mesh.shape["model"]
     hd = cfg.resolved_head_dim
     red = common.reduce_dtype(rc)
     rep = cfg.n_heads // cfg.n_kv_heads
     h_lo, h_hi = c0 // hd, -(-c1 // hd)
-    col = common.column_input(x, red, mesh)
+    col = common.column_input(x, red, mesh, seq_parallel)
     q = dense_apply(params["q"], col(), preferred=red)
     if c0 % hd or c1 % hd:
         q = collectives.all_gather(q, 2, ("model",), mesh,
@@ -325,9 +350,9 @@ def _apply_tp(params, x, positions, cfg: ModelConfig, rc: RunConfig, tp, *,
     q = q.reshape(B, S, h_hi - h_lo, hd)
     kv_heads = (h_lo // rep, (h_hi - 1) // rep + 1)
     k = _local_kv(params["k"], x, col, kv_cols, kv_heads, B, S, hd, red,
-                  mesh)
+                  mesh, seq_parallel)
     v = _local_kv(params["v"], x, col, kv_cols, kv_heads, B, S, hd, red,
-                  mesh)
+                  mesh, seq_parallel)
     if use_rope:
         k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
@@ -340,7 +365,8 @@ def _apply_tp(params, x, positions, cfg: ModelConfig, rc: RunConfig, tp, *,
     out = _attend(q, k, v, cfg, rc, causal=causal, window=window)
     out = out.reshape(B, S, (h_hi - h_lo) * hd)
     out = out[..., c0 - h_lo * hd:c1 - h_lo * hd]
-    return dense_apply(params["o"], out, preferred=red, row_parallel=True)
+    return dense_apply(params["o"], out, preferred=red, row_parallel=True,
+                       seq_parallel=seq_parallel)
 
 
 def project_kv(params, x, positions, cfg: ModelConfig, *,

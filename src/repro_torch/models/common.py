@@ -150,17 +150,20 @@ class MatmulBf16(torch.autograd.Function):
 
 
 def dense_apply(p, x, *, preferred: Optional[torch.dtype] = None,
-                row_parallel: bool = False):
+                row_parallel: bool = False, seq_parallel: bool = False):
     """``x @ w (+ b)`` in x's dtype.
 
     ``row_parallel`` is Megatron's row-parallel form on the ambient
     mesh's model axis, for a weight whose input rows are this rank's
     block (``x`` this rank's columns): the partial products are summed
     over the model axis in ``preferred``, float32 when None, as the
-    reference's partial sums combine, and the bias is added after.  A
-    column-parallel weight (its output columns this rank's block) is a
-    plain local product of an input under Megatron's f
-    (:func:`column_input`).
+    reference's partial sums combine, and the bias is added after.  With
+    ``seq_parallel`` the sum is a reduce-scatter along the sequence
+    (dimension 1): the result is this rank's block of the stream, and the
+    bias, which then meets a part of the tokens, is used under
+    :func:`replicated`.  A column-parallel weight (its output columns
+    this rank's block) is a plain local product of an input under
+    Megatron's f, or of the gathered sequence (:func:`column_input`).
 
     ``preferred`` is the reference's accumulation/partial-sum dtype.  With
     ``torch.bfloat16`` the product is rounded to bf16 before the bias is
@@ -175,7 +178,7 @@ def dense_apply(p, x, *, preferred: Optional[torch.dtype] = None,
     weights) are promoted to the wider one first, as ``jnp.matmul`` does.
     """
     if row_parallel:
-        return _row_parallel(p, x, preferred)
+        return _row_parallel(p, x, preferred, seq_parallel)
     if preferred == torch.bfloat16:
         y = MatmulBf16.apply(x, p["w"])
         if "b" in p:
@@ -187,39 +190,67 @@ def dense_apply(p, x, *, preferred: Optional[torch.dtype] = None,
     return y.to(x.dtype)
 
 
-def _row_parallel(p, x, preferred: Optional[torch.dtype]):
+def _row_parallel(p, x, preferred: Optional[torch.dtype],
+                  seq_parallel: bool = False):
     """A row-parallel ``dense_apply``: this rank's partial product (bf16
     under ``preferred=bfloat16``, as ``MatmulBf16`` rounds it; float32
-    otherwise), summed over the model axis in that dtype, then the bias."""
+    otherwise), summed over the model axis in that dtype (all-reduced,
+    or reduce-scattered along the sequence under ``seq_parallel``), then
+    the bias."""
     from repro_torch.parallel import collectives
     from repro_torch.parallel.sharding import ambient_mesh
     mesh = ambient_mesh()
+    if seq_parallel:
+        def combine(y, dt):
+            return collectives.reduce_scatter(y, 1, "model", mesh, dt)
+        if "b" in p:
+            p = {**p, "b": replicated(p["b"], mesh)}
+    else:
+        def combine(y, dt):
+            return collectives.reduce_from(y, "model", mesh, dt)
     if preferred == torch.bfloat16:
-        y = collectives.reduce_from(MatmulBf16.apply(x, p["w"]), "model",
-                                    mesh, torch.bfloat16)
+        y = combine(MatmulBf16.apply(x, p["w"]), torch.bfloat16)
         if "b" in p:
             y = y + p["b"]
         return y.to(x.dtype)
-    y = collectives.reduce_from(_matmul_to(x, p["w"], torch.float32),
-                                "model", mesh)
+    y = combine(_matmul_to(x, p["w"], torch.float32), None)
     if "b" in p:
         y = y + p["b"].float()
     return y.to(x.dtype)
 
 
-def column_input(x, red: torch.dtype, mesh):
+def column_input(x, red: torch.dtype, mesh, seq_parallel: bool = False):
     """The input of a block's column-parallel projections under
-    Megatron's f (``collectives.copy_to`` over the model axis): a
-    function that gives each projection its input.  In float32 the
-    projections share one f, so the input's gradient is summed over the
-    model axis once for them all; under a bf16 reduce each has its own,
-    as the reference combines each projection's dgrad in bf16 on its own
-    (``_mm_bf16_reduce``) and one f would round their sum instead."""
+    Megatron's f (``collectives.copy_to`` over the model axis), or, with
+    ``seq_parallel``, the sequence gathered from every model rank's block
+    (``collectives.gather_seq``, whose backward reduce-scatters the
+    gradient): a function that gives each projection its input.  In
+    float32 the projections share one f (one gather), so the input's
+    gradient is summed over the model axis once for them all; under a
+    bf16 reduce each has its own, as the reference combines each
+    projection's dgrad in bf16 on its own (``_mm_bf16_reduce``) and one f
+    would round their sum instead."""
     from repro_torch.parallel import collectives
+    if seq_parallel:
+        def f(t):
+            return collectives.gather_seq(t, mesh, red)
+    else:
+        def f(t):
+            return collectives.copy_to(t, "model", mesh, red)
     if red == torch.bfloat16:
-        return lambda: collectives.copy_to(x, "model", mesh, red)
-    xm = collectives.copy_to(x, "model", mesh, red)
+        return lambda: f(x)
+    xm = f(x)
     return lambda: xm
+
+
+def replicated(tree, mesh):
+    """Every tensor of ``tree`` (a weight replicated over the model axis)
+    under ``collectives.copy_to`` over it, its gradient summed in
+    float32: the weight's use where each model rank sees its own block of
+    the sequence, whose gradients are the ranks' parts of the whole."""
+    from repro_torch.parallel import collectives
+    return tree_map(lambda t: collectives.copy_to(t, "model", mesh,
+                                                  torch.float32), tree)
 
 
 def reduce_dtype(rc) -> torch.dtype:

@@ -7,7 +7,7 @@ import torch
 
 from repro_torch.models.common import (activation, column_input,
                                        dense_apply, dense_axes, dense_init,
-                                       reduce_dtype)
+                                       reduce_dtype, replicated)
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel.sharding import ambient_mesh, compute_range
 from repro_torch.runconfig import RunConfig
@@ -44,20 +44,28 @@ def axes(cfg: ModelConfig):
     }
 
 
-def apply(params, x, cfg: ModelConfig, rc: RunConfig):
+def apply(params, x, cfg: ModelConfig, rc: RunConfig,
+          seq_parallel: bool = False):
     """The MLP; on a mesh whose model axis splits ff, the gate and up
     projections are column-parallel (their input under Megatron's f,
     ``column_input``) and the down projection row-parallel
-    (Megatron)."""
+    (Megatron).  With ``seq_parallel`` ``x`` is this rank's block of the
+    sequence: the column projections read the gathered sequence and the
+    down projection's sums are reduce-scattered back to the block; an MLP
+    whose ff the model axis does not split runs on the block itself (it
+    is per token), its weights under ``common.replicated``."""
     act = activation(cfg.act)
     red = reduce_dtype(rc)
     split = compute_range(("ff_in", "ff"), (cfg.d_model, cfg.d_ff), 1,
                           rc.shard) is not None
-    col = column_input(x, red, ambient_mesh()) if split else lambda: x
+    mesh = ambient_mesh()
+    if seq_parallel and not split:
+        params = replicated(params, mesh)
+    col = column_input(x, red, mesh, seq_parallel) if split else lambda: x
     if "gate" in params:
         h = act(dense_apply(params["gate"], col(), preferred=red)) \
             * dense_apply(params["up"], col(), preferred=red)
     else:
         h = act(dense_apply(params["up"], col(), preferred=red))
     return dense_apply(params["down"], h, preferred=red,
-                       row_parallel=split)
+                       row_parallel=split, seq_parallel=seq_parallel)

@@ -16,7 +16,9 @@ weights are gathered over the data axes inside the remat group
 (``gather_weights_for_compute``, ZeRO-3), attention and the MLP run
 Megatron's column- and row-parallel forms over the model axis, the
 embedding is a vocab-parallel lookup and the cross entropy a
-vocab-parallel one.  Only the dense family is sharded: a MoE, mamba or
+vocab-parallel one; under sequence parallelism the stream between blocks
+is each model rank's block of the sequence (``backbone``, ``embed``,
+``unembed``).  Only the dense family is sharded: a MoE, mamba or
 xLSTM block on a mesh of more than one rank raises ``ValueError``.  Off a
 mesh every path is the one-process one.
 
@@ -49,14 +51,15 @@ from torch.utils import checkpoint as _ckpt
 from repro_torch.models import attention, mlp, moe, ssm, xlstm
 from repro_torch.models.common import (MetaGenerator, dense_apply,
                                        norm_apply, norm_axes, norm_init,
-                                       reduce_dtype, stack_axes, trunc_normal,
-                                       tree_map)
+                                       reduce_dtype, replicated, stack_axes,
+                                       trunc_normal, tree_map)
 from repro_torch.models.config import (ATTN, MAMBA, MLP_DENSE, MLP_MOE,
                                        MLSTM, SLSTM, LayerSpec, ModelConfig)
 from repro_torch.parallel import collectives
 from repro_torch.parallel.sharding import (EP_ITEM, SSM_ITEM, ambient_mesh,
-                                           check_layout, compute_range,
+                                           compute_range,
                                            gather_weights_for_compute,
+                                           sequence_parallel_on,
                                            shard_activation, world_of)
 from repro_torch.runconfig import RunConfig
 
@@ -157,11 +160,13 @@ def _group(stacked, g: int):
 # ---------------------------------------------------------------------------
 
 def _mixer(spec: LayerSpec, p, h, positions, cfg: ModelConfig,
-           rc: RunConfig):
-    """The block's sequence mixer on the normed input (full sequence)."""
+           rc: RunConfig, sp: bool = False):
+    """The block's sequence mixer on the normed input (full sequence, or
+    this rank's block of it under sequence parallelism: ``sp``)."""
     if spec.kind == ATTN:
         return attention.apply(p["attn"], h, positions, cfg, rc,
-                               causal=True, window=spec.sliding_window)
+                               causal=True, window=spec.sliding_window,
+                               seq_parallel=sp)
     if spec.kind == MAMBA:
         return ssm.apply(p["mamba"], h, cfg, rc)
     if spec.kind == MLSTM:
@@ -169,13 +174,24 @@ def _mixer(spec: LayerSpec, p, h, positions, cfg: ModelConfig,
     return xlstm.slstm_apply(p["slstm"], h, cfg, rc)
 
 
-def _block_mlp(spec: LayerSpec, p, x, cfg: ModelConfig, rc: RunConfig):
+def _norm(p, x, cfg: ModelConfig, sp: bool):
+    """``norm_apply``; under sequence parallelism (``sp``: ``x`` is this
+    rank's block of the sequence) its weights under
+    ``common.replicated``, so that their gradient is the model ranks'
+    sum."""
+    if sp:
+        p = replicated(p, ambient_mesh())
+    return norm_apply(p, x, kind=cfg.norm, eps=cfg.norm_eps)
+
+
+def _block_mlp(spec: LayerSpec, p, x, cfg: ModelConfig, rc: RunConfig,
+               sp: bool = False):
     """The block's MLP half (pre-norm residual).  Returns (x, aux): the
     MoE auxiliary loss, 0.0 for a dense MLP or none."""
     aux = 0.0
     if spec.mlp == MLP_DENSE:
-        h = norm_apply(p["norm2"], x, kind=cfg.norm, eps=cfg.norm_eps)
-        x = x + mlp.apply(p["mlp"], h, cfg, rc)
+        h = _norm(p["norm2"], x, cfg, sp)
+        x = x + mlp.apply(p["mlp"], h, cfg, rc, seq_parallel=sp)
     elif spec.mlp == MLP_MOE:
         h = norm_apply(p["norm2"], x, kind=cfg.norm, eps=cfg.norm_eps)
         y, aux = moe.apply(p["moe"], h, cfg, rc)
@@ -184,11 +200,13 @@ def _block_mlp(spec: LayerSpec, p, x, cfg: ModelConfig, rc: RunConfig):
 
 
 def _block_forward(spec: LayerSpec, p, x, positions, cfg: ModelConfig,
-                   rc: RunConfig):
-    """One block (pre-norm residual).  Returns (x, aux_loss)."""
-    h = norm_apply(p["norm1"], x, kind=cfg.norm, eps=cfg.norm_eps)
-    x = x + _mixer(spec, p, h, positions, cfg, rc)
-    return _block_mlp(spec, p, x, cfg, rc)
+                   rc: RunConfig, sp: bool = False):
+    """One block (pre-norm residual).  Returns (x, aux_loss).  Under
+    sequence parallelism (``sp``) ``x`` is this rank's block of the
+    sequence, and so is the result."""
+    h = _norm(p["norm1"], x, cfg, sp)
+    x = x + _mixer(spec, p, h, positions, cfg, rc, sp)
+    return _block_mlp(spec, p, x, cfg, rc, sp)
 
 
 # matmuls without batch dims (weight products: ``torch.matmul`` of
@@ -233,12 +251,10 @@ def _remat_wrap(fn, rc: RunConfig):
 def check_mesh(cfg: ModelConfig, rc: RunConfig):
     """The ambient mesh, after refusing (``ValueError`` naming the ROADMAP
     item) what the sharded forward does not implement on a mesh of more
-    than one rank: MoE, mamba and xLSTM blocks, and the layouts
-    ``parallel.sharding.check_layout`` refuses."""
+    than one rank: MoE, mamba and xLSTM blocks."""
     mesh = ambient_mesh()
     if mesh is None or world_of(mesh) == 1:
         return mesh
-    check_layout(rc.shard, mesh)
     bad = unported_block(cfg)
     if bad is not None:
         raise ValueError(f"{cfg.name}: {bad[0]} on a mesh of "
@@ -270,16 +286,22 @@ def backbone(params, x, positions, cfg: ModelConfig, rc: RunConfig):
     x [B,S,d].  The carried activation is cast to ``rc.activation_dtype``
     at every group boundary, as the reference's scan carry is; each group
     runs under ``rc.remat_policy``.  On a mesh each position's weights
-    are gathered inside the group, so a recompute gathers them again."""
+    are gathered inside the group, so a recompute gathers them again.
+    Under sequence parallelism (``parallel.sharding.sequence_parallel_on``
+    for the positions' length) ``x`` is this rank's block of the sequence
+    [B, S/M, d] and the carry between groups (a remat group's saved
+    input) stays that block; the positions are whole."""
     act_dtype = torch.bfloat16 if rc.activation_dtype == "bfloat16" \
         else torch.float32
     mesh = check_mesh(cfg, rc)
+    S = positions.shape[-1]
+    sp = sequence_parallel_on(rc.shard, mesh, S)
     if mesh is not None:
         pattern_axes = [_pos_axes(spec, cfg) for spec in cfg.pattern]
         pattern_shapes = [_group(s, 0) for s in param_shapes(cfg)["layers"]]
 
     def group_body(x, aux, g: int):
-        x = shard_activation(x, ("batch", "seq", "embed"), rc.shard)
+        x = shard_activation(x, ("batch", "seq", "embed"), rc.shard, S)
         for p_i, spec in enumerate(cfg.pattern):
             p = _group(params["layers"][p_i], g)
             if mesh is not None:
@@ -287,7 +309,7 @@ def backbone(params, x, positions, cfg: ModelConfig, rc: RunConfig):
                 p = gather_weights_for_compute(
                     p, pattern_axes[p_i], rc.shard, pattern_shapes[p_i],
                     _grad_dtype(rc))
-            x, a = _block_forward(spec, p, x, positions, cfg, rc)
+            x, a = _block_forward(spec, p, x, positions, cfg, rc, sp)
             aux = aux + a
         return x.to(act_dtype), aux
 
@@ -295,8 +317,7 @@ def backbone(params, x, positions, cfg: ModelConfig, rc: RunConfig):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(cfg.n_groups):
         x, aux = body(x.to(act_dtype), aux, g)
-    return norm_apply(params["final_norm"], x, kind=cfg.norm,
-                      eps=cfg.norm_eps), aux
+    return _norm(params["final_norm"], x, cfg, sp), aux
 
 
 def _vocab_range(cfg: ModelConfig, rc: Optional[RunConfig]):
@@ -308,37 +329,64 @@ def _vocab_range(cfg: ModelConfig, rc: Optional[RunConfig]):
                          (cfg.vocab_size, cfg.d_model), 0, rc.shard)
 
 
-def embed(params, tokens, cfg: ModelConfig, rc: Optional[RunConfig] = None):
+def embed(params, tokens, cfg: ModelConfig, rc: Optional[RunConfig] = None,
+          sp: bool = False):
     """Token embeddings.  With the vocab split over the model axis, a
     vocab-parallel lookup: each rank looks up the tokens in its rows
-    (zeros elsewhere) and the sum over the model axis is the embedding."""
+    (zeros elsewhere) and the sum over the model axis is the embedding;
+    under sequence parallelism (``sp``) that sum is reduce-scattered
+    along the sequence, and the result is this rank's block of it.  A
+    whole table under ``sp`` is looked up whole, under
+    ``common.replicated`` (``forward``'s ``shard_activation`` takes the
+    block, so the table's gradient is the model ranks' sum)."""
     rows = _vocab_range(cfg, rc)
     tok = params["embed"]["tok"]
     if rows is None:
+        if sp:
+            tok = replicated(tok, ambient_mesh())
         x = tok[tokens.long()]
     else:
         lo, hi = rows
         t = tokens.long() - lo
         inside = (t >= 0) & (t < hi - lo)
         x = tok[t.clamp(0, hi - lo - 1)] * inside[..., None].to(tok.dtype)
-        x = collectives.reduce_from(x, "model", ambient_mesh())
+        if sp:
+            x = collectives.reduce_scatter(x, 1, "model", ambient_mesh())
+        else:
+            x = collectives.reduce_from(x, "model", ambient_mesh())
     if cfg.embedding_multiplier:
         x = x * torch.tensor(cfg.embedding_multiplier, dtype=x.dtype,
                              device=x.device)
     return x
 
 
-def unembed(params, x, cfg: ModelConfig, rc: Optional[RunConfig] = None):
+def unembed(params, x, cfg: ModelConfig, rc: Optional[RunConfig] = None,
+            sp: bool = False):
     """Hidden states -> float32 logits.  Without the bf16 reduce knob the
     product is taken in float32, as the reference's float32-accumulated
     einsum returns it (a bf16 product would round the logits to bf16).
     With the vocab split over the model axis the logits are this rank's
-    vocab columns [B, S, V/M] (column-parallel)."""
+    vocab columns [B, S, V/M] (column-parallel).
+
+    Under sequence parallelism (``sp``: ``x`` is this rank's block of the
+    sequence) the sequence is gathered first and the logits are those
+    vocab columns of every position, as without it: the reference pins
+    its logits to the sequence's block and the whole vocab, which would
+    gather the head's [d, V] weight instead of the [B, S, d] hidden
+    states, for the same per-chip FLOPs.  Where the vocab is whole, every
+    model rank computes the whole logits of the gathered sequence (its
+    gradient is then whole on every rank, so the gather's backward takes
+    the block and sums nothing)."""
     if cfg.tie_embeddings:
         w = params["embed"]["tok"].T
     else:
         w = params["head"]["w"]
-    if _vocab_range(cfg, rc) is not None:
+    split = _vocab_range(cfg, rc) is not None
+    if sp and split:
+        x = collectives.gather_seq(x, ambient_mesh(), reduce_dtype(rc))
+    elif sp:
+        x = collectives.all_gather(x, 1, ("model",), ambient_mesh())
+    elif split:
         x = collectives.copy_to(x, "model", ambient_mesh(), reduce_dtype(rc))
     if rc is not None and reduce_dtype(rc) == torch.bfloat16:
         return dense_apply({"w": w}, x, preferred=torch.bfloat16).float()
@@ -356,17 +404,19 @@ def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
     B, S = tokens.shape
     if positions is None:
         positions = _default_positions(B, S, tokens.device)
-    if check_mesh(cfg, rc) is not None:
+    mesh = check_mesh(cfg, rc)
+    sp = sequence_parallel_on(rc.shard, mesh, S)
+    if mesh is not None:
         top = {k: v for k, v in params.items() if k != "layers"}
         top_axes = {k: v for k, v in axes(cfg).items() if k != "layers"}
         top_shapes = {k: v for k, v in param_shapes(cfg).items()
                       if k != "layers"}
         params = {**params, **gather_weights_for_compute(
             top, top_axes, rc.shard, top_shapes, _grad_dtype(rc))}
-    x = embed(params, tokens, cfg, rc)
-    x = shard_activation(x, ("batch", "seq", "embed"), rc.shard)
+    x = embed(params, tokens, cfg, rc, sp)
+    x = shard_activation(x, ("batch", "seq", "embed"), rc.shard, S)
     x, aux = backbone(params, x, positions, cfg, rc)
-    return unembed(params, x, cfg, rc), aux
+    return unembed(params, x, cfg, rc, sp), aux
 
 
 def xent(logits, labels):

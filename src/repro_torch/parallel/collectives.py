@@ -6,16 +6,25 @@ returns its input unchanged, so a one-rank axis adds no arithmetic.  A
 dimension sharded over several axes is gathered minor axis first, which
 orders its blocks as ``NamedSharding`` does (``Placement``).
 
-Autograd-aware forms:
+Autograd-aware forms, Megatron's four operators among them:
 
 * :func:`all_gather` — forward an all-gather along a dimension; backward
   a reduce-scatter (sum) over the axes the computation was split on and a
   plain slice over the others (ZeRO-3's weight gather: each data rank's
   gradient is a partial sum of its own batch);
 * :func:`copy_to` — Megatron's f: identity forward, all-reduce of the
-  gradient backward (a replicated input of a rank-local computation);
+  gradient backward (a replicated input of a rank-local computation; also
+  a weight replicated over the axis whose ranks each see a part of the
+  tokens, so that its gradient is their sum);
 * :func:`reduce_from` — Megatron's g: all-reduce forward, identity
   backward (rank-local partial sums made whole);
+* :func:`gather_seq` — sequence parallelism's g-bar (the f of a
+  sequence-split stream): all-gather along the sequence over the model
+  axis forward, reduce-scatter of the gradient backward (the block input
+  of the column-parallel projections);
+* :func:`reduce_scatter` — sequence parallelism's g: reduce-scatter
+  forward, all-gather of the gradient backward (the row-parallel
+  projections' partial sums made whole and split along the sequence);
 
 and, without autograd, :func:`all_reduce` (sum or max) for gradients,
 norms and the cross entropy's max, and :func:`gather_to_host`, a leaf
@@ -311,3 +320,36 @@ def reduce_from(x: torch.Tensor, axis: str, mesh,
     if not _live(mesh, axis):
         return x
     return _ReduceFrom.apply(x, axis, mesh, dtype)
+
+
+def gather_seq(x: torch.Tensor, mesh,
+               grad_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The whole sequence from every model rank's block of ``x``
+    [B, S/M, ...]: an all-gather along dimension 1 over the model axis;
+    backward, the gradient reduce-scattered over it (in ``grad_dtype``),
+    each rank's use of the gathered sequence being a part of the work."""
+    return all_gather(x, 1, ("model",), mesh, sum_axes=("model",),
+                      grad_dtype=grad_dtype)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis, mesh, dtype):
+        ctx.dim, ctx.axis, ctx.mesh = dim, axis, mesh
+        y = x.to(dtype) if dtype is not None else x
+        return _scatter_axis(y, dim, axis, mesh, True).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather(g, ctx.dim, (ctx.axis,), ctx.mesh), None, None, None, \
+            None
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, axis: str, mesh,
+                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum over ``axis``' ranks
+    (reduced in ``dtype``, returned in ``x``'s); backward, the gradient
+    all-gathered along ``dim``."""
+    if not _live(mesh, axis):
+        return x
+    return _ReduceScatter.apply(x, dim, axis, mesh, dtype)

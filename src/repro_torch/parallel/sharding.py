@@ -19,8 +19,10 @@ as the ambient mesh (:func:`ambient_mesh`), which
 ``with mesh:``; off a mesh they are what they were on one process (1, and
 no-ops).  The tensors a rank holds are its blocks; the layers
 (``models/``) run Megatron's column- and row-parallel forms over the
-``model`` axis, and :func:`gather_weights_for_compute` is ZeRO-3's
-just-in-time all-gather over the data axes (``parallel/collectives.py``).
+``model`` axis, under sequence parallelism with the residual stream split
+along the sequence over it (:func:`sequence_parallel_on`), and
+:func:`gather_weights_for_compute` is ZeRO-3's just-in-time all-gather
+over the data axes (``parallel/collectives.py``).
 Any object with ``axis_names`` and a ``shape`` dict serves as a mesh for
 the pure functions here.
 
@@ -127,7 +129,6 @@ DEFAULT_RULES = AxisRules(
 
 # ROADMAP items of the layouts the sharded step refuses on a mesh with
 # more than one rank along their axis
-SP_ITEM = "ROADMAP A 18b (sequence parallelism, shard_kv_seq)"
 EP_ITEM = "ROADMAP A 18c (expert parallelism, the MoE families)"
 SSM_ITEM = "ROADMAP A 18d (ssm_inner: mamba, xLSTM, jamba)"
 WHISPER_ITEM = "ROADMAP A 18e (whisper)"
@@ -453,50 +454,61 @@ def batch_axes(shard_cfg: ShardConfig, mesh) -> Tuple[str, ...]:
         shard_cfg.resolve(mesh).mesh_axes_for("batch")) if a in names)
 
 
-def _over_one(mesh, axes) -> bool:
-    sizes = _mesh_shape(mesh)
-    return any(sizes.get(a, 1) > 1 for a in _as_axes(axes))
+def sequence_parallel_on(shard_cfg: ShardConfig, mesh,
+                         seq_len: int) -> bool:
+    """Whether the residual stream of a ``seq_len``-long sequence is split
+    along the sequence over the model axis on ``mesh``: exactly where the
+    reference's ``logical_to_spec`` gives ``("batch", "seq", "embed")``'s
+    ``seq`` the model axis for that length (``sequence_parallel`` on, a
+    model axis of more than one rank, and ``seq_len`` a multiple of it:
+    its divisibility guard releases the axis otherwise, and the step is
+    then the one without sequence parallelism).  False off a mesh."""
+    if mesh is None:
+        return False
+    spec = logical_to_spec(("batch", "seq"), shard_cfg.resolve(mesh), mesh,
+                           (None, seq_len))
+    return len(spec) > 1 and _as_axes(spec[1]) == ("model",)
 
 
-def unported_layout(shard_cfg: ShardConfig, mesh) -> Optional[str]:
-    """Why this port refuses the layout on ``mesh`` (its ROADMAP item
-    ends the text), or None: sequence parallelism (seq over model) on a
-    mesh with more than one model rank, ``shard_kv_seq`` (kv_seq over
-    data) with more than one data rank."""
-    if shard_cfg.sequence_parallel and _over_one(mesh, "model"):
-        return f"sequence_parallel on a mesh with model > 1 is not " \
-               f"implemented: {SP_ITEM}"
-    if shard_cfg.shard_kv_seq_for_decode and _over_one(mesh, "data"):
-        return f"shard_kv_seq on a mesh with data > 1 is not " \
-               f"implemented: {SP_ITEM}"
-    return None
+def seq_block(x, mesh, dim: int = 1):
+    """This rank's block of ``x`` along the sequence (dimension ``dim``)
+    over the model axis: a view, whose gradient is zero outside it."""
+    n, i = mesh.shape["model"], mesh.coords["model"]
+    k = x.shape[dim] // n
+    return x.narrow(dim, i * k, k)
 
 
-def check_layout(shard_cfg: ShardConfig, mesh) -> None:
-    """Refuse, with ``ValueError`` naming its ROADMAP item, a layout knob
-    this port does not implement on the mesh (:func:`unported_layout`)."""
-    why = unported_layout(shard_cfg, mesh)
-    if why is not None:
-        raise ValueError(why)
-
-
-def shard_activation(x, logical_axes, shard_cfg: ShardConfig):
+def shard_activation(x, logical_axes, shard_cfg: ShardConfig,
+                     seq_len: Optional[int] = None):
     """The reference's sharding constraint on an activation, by logical
-    axes.  A rank holds its own block of every activation by
-    construction (its slice of the batch; ``seq`` and ``embed`` whole), so
-    this returns ``x``; on a mesh it checks that the rules ask for no
-    other layout (``check_layout``: sequence parallelism is refused)."""
+    axes.  A rank holds its own slice of the batch by construction; where
+    :func:`sequence_parallel_on` for the global ``seq_len``, the result is
+    this rank's block of the sequence (``x`` itself when it is that block
+    already, else its :func:`seq_block`).  On a mesh it checks that the
+    rules ask for no other layout: an axis over the mesh other than the
+    batch over its axes and the sequence over the model axis raises
+    ``ValueError``."""
     mesh = ambient_mesh()
     if mesh is None:
         return x
-    check_layout(shard_cfg, mesh)
     batch = set(batch_axes(shard_cfg, mesh))
     rules = shard_cfg.resolve(mesh)
+    sp = seq_len is not None and sequence_parallel_on(shard_cfg, mesh,
+                                                      seq_len)
+    shape = [None] * len(logical_axes)
+    if seq_len is not None and "seq" in logical_axes:
+        shape[logical_axes.index("seq")] = seq_len
     for name, ax in zip(logical_axes, logical_to_spec(logical_axes, rules,
-                                                      mesh)):
-        if ax is not None and (name != "batch" or set(_as_axes(ax)) - batch):
-            raise ValueError(f"activation axis {name!r} over {ax} is not "
-                             f"implemented: {SP_ITEM}")
+                                                      mesh, shape)):
+        if ax is None or (name == "batch" and not set(_as_axes(ax)) - batch) \
+                or (name == "seq" and sp):
+            continue
+        raise ValueError(f"activation axis {name!r} over {ax} is not "
+                         f"implemented")
+    if sp:
+        dim = logical_axes.index("seq")
+        if x.shape[dim] == seq_len:
+            return seq_block(x, mesh, dim)
     return x
 
 

@@ -27,7 +27,13 @@ summed over the data ranks exactly once, in ``grad_allreduce_dtype``: by
 its ZeRO-3 gather's reduce-scatter where it is FSDP-sharded, by an
 all-reduce after the accumulation elsewhere; the loss each replica
 differentiates is scaled by 1 / (data-parallel size), so the sum is the
-mean over the global batch.  Off a mesh the data-parallel world is 1
+mean over the global batch.  Nothing here sums over the model axis: the
+forward's collectives make each leaf's gradient whole on its model ranks
+(Megatron's f and g; under sequence parallelism a weight that meets a
+rank's block of the sequence is used under ``common.replicated``, whose
+backward sums it), and the loss is the global mean on every model rank
+(the cross entropy runs on the gathered sequence), so no leaf and no
+metric is summed over it twice.  Off a mesh the data-parallel world is 1
 (``data_parallel_size``) and the step is the one-process one.
 """
 

@@ -231,20 +231,21 @@ def test_cpu_evaluator_runs_the_replica_share(monkeypatch):
 
 
 def test_a_refused_layout_is_a_failed_uncached_evaluation():
-    """A config whose layout the port refuses on the chip
-    (``sequence_parallel`` with model > 1) fails with the ``ValueError``
-    naming its ROADMAP item, before anything is built, and is not
-    cached; the evaluator's explicit chip share on a cell the layout does
-    not cover fails the same way."""
-    ev = CompiledEvaluator(get_smoke_config("yi-6b"), CELL, device="cpu")
+    """A config that fails before anything is built (yi-6b's prefill_32k:
+    one layer does not fit the card, ``DoesNotFit``; no layout knob of a
+    train cell is refused on the chip since sequence parallelism was
+    ported) is a failed evaluation, not cached; the evaluator's explicit
+    chip share on a cell the layout does not cover fails with the
+    ``ValueError`` naming its ROADMAP item, the same way."""
+    ev = CompiledEvaluator(get_config("yi-6b"),
+                           SHAPES_BY_NAME["prefill_32k"], device="cpu")
     svc = as_service(ev)
     try:
         (res,) = svc.gather(svc.submit([EvalRequest(
             {"sequence_parallel": True})]))
     finally:
         svc.close()
-    assert not res.ok and isinstance(res.exception, ValueError)
-    assert "ROADMAP A 18b" in res.error
+    assert not res.ok and isinstance(res.exception, dryrun.DoesNotFit)
     assert ev.calls == 0 and not ev._cache and not ev.records
     moe = CompiledEvaluator(get_smoke_config("qwen2-moe-a2.7b"), CELL,
                             device="cpu", share="chip")

@@ -37,6 +37,7 @@ from repro.parallel import sharding as jsh
 from repro.runconfig import RunConfig as JRunConfig
 from repro.train import train_loop as jtl
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.launch.mesh import make_virtual_mesh
 from repro_torch.models import attention, common, mlp, moe, ssm, transformer
 from repro_torch.models import whisper, xlstm
 from repro_torch.models.common import tree_flatten
@@ -286,8 +287,8 @@ def test_rank_blocks_match_named_sharding(reference_indices, i):
 def _refusals():
     dense, sp = "yi-6b", ShardConfig(sequence_parallel=True)
     kv = ShardConfig(shard_kv_seq_for_decode=True)
-    return [("sequence-parallel", dense, {"data": 1, "model": 2}, sp, "loss"),
-            ("shard-kv-seq", dense, {"data": 2, "model": 1}, kv, "loss"),
+    return [("sequence-parallel", dense, {"data": 1, "model": 2}, sp, "runs"),
+            ("shard-kv-seq", dense, {"data": 2, "model": 1}, kv, "runs"),
             ("moe", "qwen2-moe-a2.7b", {"data": 2, "model": 1}, None,
              "loss"),
             ("grok-moe", "grok-1-314b", {"data": 1, "model": 2}, None,
@@ -306,15 +307,28 @@ def _refusals():
 def test_unported_layouts_are_refused_on_a_mesh(what, arch, mesh, shard,
                                                 call):
     """Each raises ValueError naming its ROADMAP item before any
-    collective (the stand-in mesh has no process group)."""
+    collective (the stand-in mesh has no process group).  The layout
+    knobs ported since (``"runs"``: sequence parallelism, ``shard_kv_seq``
+    on a train step) take a train step on that mesh instead (its chip
+    (0, 0) as a virtual mesh, whose collectives act locally)."""
     cfg = get_smoke_config(arch)
     model = Model(cfg, device="cpu")
     rc = RunConfig(param_dtype="float32", activation_dtype="float32",
                    **({"shard": shard} if shard else {}))
-    params = model.init(0, dtype=torch.float32)
     B, S = 2, 8
     toks = torch.ones((B, S), dtype=torch.int32)
     batch = {"tokens": toks, "labels": toks}
+    if call == "runs":
+        vm = make_virtual_mesh(tuple(mesh.values()), device="cpu")
+        assert sh.sequence_parallel_on(rc.shard, vm, S) \
+            == shard.sequence_parallel
+        with vm:
+            state = ttl.init_local_state(model, 0, rc)
+            _, mets = ttl.make_train_step(model, rc)(state, batch)
+        assert torch.isfinite(mets["loss"]) and torch.isfinite(
+            mets["grad_norm"])
+        return
+    params = model.init(0, dtype=torch.float32)
     if cfg.is_encoder_decoder:
         batch["frames"] = torch.zeros((B, cfg.encoder_seq, cfg.d_model))
     token = set_ambient_mesh(StandIn(mesh))

@@ -6,10 +6,12 @@ the virtual backend of ``parallel/collectives.py``), on the CPU.
     ``torch_sharded_worker.count_cases``): one counted
     ``make_train_step`` step (``roofline.count_step``) of yi-6b's smoke
     config from ``init_local_state``, FSDP + TP, FSDP only and TP only,
-    microbatch 1 and 2, remat none and block.  FLOPs, collective bytes
-    by kind and every state leaf's shape and the state's bytes must be
-    equal, exactly: they depend on shapes only, and the virtual
-    collectives allocate the real results' shapes.
+    microbatch 1 and 2, remat none and block, and FSDP + TP under
+    sequence parallelism (flash attention: its wrapper's calls counted).
+    FLOPs, collective bytes by kind, every state leaf's shape, the
+    state's bytes and the flash calls (their q / k shapes) and launch
+    counters must be equal, exactly: they depend on shapes only, and the
+    virtual collectives allocate the real results' shapes.
 (b) A virtual 16 x 16 step at smoke width: the state is drawn block by
     block (no sharded leaf's global shape is ever allocated), every leaf
     is its ``Placement.local_shape``, and the step's loss is finite and
@@ -22,11 +24,13 @@ the virtual backend of ``parallel/collectives.py``), on the CPU.
 (d) Against the reference: ``repro.launch.dryrun.lower_cell`` on a 2 x 2
     auto-axis mesh of forced CPU devices, compiled and read by
     ``analyze_hlo`` (``torch_virtual_reference.py`` in a subprocess;
-    remat none, a 4 x 16 train cell).  The port's per-chip FLOPs are
-    held to the reference's per-device FLOPs within 2e-3 relative: the
-    reference takes the label's logit by a one-hot contraction (a dot of
-    2·B·S·V/M FLOPs over the chip's rows and vocab columns), the port by
-    a gather (no FLOPs), and the gap is exactly that dot.  Both
+    remat none, a 4 x 16 train cell; with and without sequence
+    parallelism).  The port's per-chip FLOPs are held to the reference's
+    per-device FLOPs within 2e-3 relative: the reference takes the
+    label's logit by a one-hot contraction (a dot of 2·B·S·V/M FLOPs
+    over the chip's rows and vocab columns, or its sequence block and
+    the whole vocab under sequence parallelism: the same count), the
+    port by a gather (no FLOPs), and the gap is exactly that dot.  Both
     ``coll_by_kind`` are printed; they differ (XLA all-gathers the FSDP
     weights again for the backward and per microbatch, and all-reduces
     the gradients where the port reduce-scatters them: ROADMAP C).
@@ -58,8 +62,8 @@ from repro_torch.models.config import (SHAPES_BY_NAME, ShapeCell,
                                        applicable_shapes)
 from repro_torch.models.model import Model
 from repro_torch.parallel import collectives
-from repro_torch.parallel.sharding import (EP_ITEM, SERVE_ITEM, SP_ITEM,
-                                           SSM_ITEM, WHISPER_ITEM)
+from repro_torch.parallel.sharding import (EP_ITEM, SERVE_ITEM, SSM_ITEM,
+                                           WHISPER_ITEM)
 from repro_torch.runconfig import runconfig_from_knobs
 from repro_torch.train import optimizer as topt
 from repro_torch.train import train_loop as ttl
@@ -74,6 +78,9 @@ CASES = {f"{lay}-mb{mb}-{remat}": dict(LAYOUTS[lay], microbatch=mb,
                                        remat_policy=remat,
                                        attention_impl="reference")
          for lay in LAYOUTS for mb in (1, 2) for remat in ("none", "block")}
+CASES.update({f"fsdp-tp-sp-mb{mb}-{remat}": dict(
+    microbatch=mb, remat_policy=remat, attention_impl="flash",
+    sequence_parallel=True) for mb, remat in ((1, "none"), (2, "block"))})
 SPAWN_TIMEOUT_S = 120
 REFERENCE_TIMEOUT_S = 240
 # the reference's cells: (name, arch, knobs) at a 4 x 16 train cell
@@ -83,7 +90,10 @@ REF_CASES = (("yi-fsdp-tp", "yi-6b", {"microbatch": 1}),
                                    "tensor_parallel": False}),
              ("yi-tp-whole", "yi-6b", {"microbatch": 0,
                                        "fsdp_shard_params": False}),
-             ("qwen15", "qwen1.5-4b", {"microbatch": 1}))
+             ("qwen15", "qwen1.5-4b", {"microbatch": 1}),
+             ("yi-sp", "yi-6b", {"microbatch": 1, "sequence_parallel": True}),
+             ("qwen15-sp", "qwen1.5-4b", {"microbatch": 1,
+                                          "sequence_parallel": True}))
 FLOPS_REL = 2e-3
 
 
@@ -136,6 +146,9 @@ def test_virtual_chip_counts_what_rank0_counts(gloo_rank0, case):
     assert real["coll_by_kind"] == want["coll_by_kind"]
     assert real["shapes"] == want["shapes"]
     assert real["bytes"] == want["bytes"]
+    assert real["flash_calls"] == want["flash_calls"]
+    assert real["launches"] == want["launches"]
+    assert bool(want["flash_calls"]) == ("-sp-" in case)
     live = {k for k, v in want["coll_by_kind"].items() if v}
     assert live == ({"all-reduce"} if "tp-" in case and "fsdp" not in case
                     else set(collectives.KINDS))
@@ -245,8 +258,8 @@ def _virtual_refusal(cfg, cell):
                 model.decode_step(params, toks[:2, :1], None, rc)
             raise AssertionError(f"{cell.mode} ran on a mesh")
     except ValueError as e:
-        items = [it for it in (SERVE_ITEM, WHISPER_ITEM, SP_ITEM, EP_ITEM,
-                               SSM_ITEM) if str(e).endswith(it)]
+        items = [it for it in (SERVE_ITEM, WHISPER_ITEM, EP_ITEM, SSM_ITEM)
+                 if str(e).endswith(it)]
         assert len(items) == 1, str(e)
         return items[0]
 
@@ -266,18 +279,23 @@ def test_layout_covers_agrees_with_the_refusals(arch):
                 dryrun.compile_cell(full, cell, device="cpu", share="chip")
 
 
-def test_a_refused_layout_knob_is_refused_on_the_chip(monkeypatch):
-    def built(*a, **k):
-        raise AssertionError("the cell was built")
-    monkeypatch.setattr(dryrun, "_measure", built)
-    cfg, cell = get_config("yi-6b"), SHAPES_BY_NAME["train_4k"]
-    for knobs in ({"sequence_parallel": True}, {"shard_kv_seq": True}):
-        with pytest.raises(ValueError, match="ROADMAP A 18b"):
-            dryrun.compile_cell(cfg, cell, knobs, device="cpu")
+def test_a_refused_layout_knob_is_refused_on_the_chip():
+    """The layout knobs the chip refused before sequence parallelism was
+    ported (``sequence_parallel``, ``shard_kv_seq``) are covered on a
+    train cell: ``layout_covers`` is None and ``compile_cell`` builds and
+    runs the chip's step (yi-6b at smoke width, its batch and sequence
+    cut), sequence-parallel where the knob asks for it."""
+    cfg, cell = get_smoke_config("yi-6b"), SHAPES_BY_NAME["train_4k"]
+    for knobs, sp in (({"sequence_parallel": True}, True),
+                      ({"shard_kv_seq": True}, False)):
         assert dryrun.layout_covers(
-            cfg, cell, dryrun.default_runconfig(cfg, cell, knobs)) \
-            == SP_ITEM
-    # the replica's share runs what the chip's refuses
+            cfg, cell, dryrun.default_runconfig(cfg, cell, knobs)) is None
+        rec = dryrun.compile_cell(cfg, cell, knobs, device="cpu",
+                                  n_layers=2, steps=1,
+                                  reduce={"batch": 2, "seq": 32})
+        assert rec["share"] == "chip" and rec["sequence_parallel"] == sp
+        assert rec["outputs_finite"] and rec["n_layers"] == 2
+    # the replica's share is there all the same
     assert dryrun.resolve_share(cfg, cell, "replica") == "replica"
     with pytest.raises(ValueError, match="share must be"):
         dryrun.resolve_share(cfg, cell, "pod")

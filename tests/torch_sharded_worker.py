@@ -18,12 +18,14 @@ its data rank's slice under ``launch.roofline.count_step``.  Rank 0
 writes its counts (FLOPs, collective bytes by kind, each state leaf's
 shape and bytes) and the step's loss to ``out_path`` (JSON)."""
 
+import dataclasses
 import json
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.launch.roofline import count_step
 from repro_torch.models.common import tree_flatten, tree_unflatten
 from repro_torch.models.model import Model, gather_tree, gather_tree_to_host
@@ -42,15 +44,31 @@ def state_counts(state) -> dict:
 
 def count_case(spec, batch):
     """(counts, loss) of one counted step of a case on the ambient mesh,
-    from the state ``init_local_state`` draws and this rank's ``batch``."""
+    from the state ``init_local_state`` draws and this rank's ``batch``.
+    The counts also hold the flash wrapper's calls and launch counters
+    (no launch on the CPU: a wrapper given CPU tensors runs its plain
+    version)."""
     model = Model(get_smoke_config(spec["arch"]), device="cpu")
     rc = runconfig_from_knobs(spec["knobs"])
     state = ttl.init_local_state(model, 0, rc)
     held = state_counts(state)
     step = ttl.make_train_step(model, rc)
-    counts, (_, mets) = count_step(lambda: step(state, batch))
+    calls, fn = [], flash_ops.flash_attention
+
+    def counted(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape)))
+        return fn(q, k, v, **kw)
+    flash_ops.reset_launch_counts()
+    flash_ops.flash_attention = counted
+    try:
+        counts, (_, mets) = count_step(lambda: step(state, batch))
+    finally:
+        flash_ops.flash_attention = fn
+    launches = {k: getattr(flash_ops, k) for k in (
+        "launches", "launches_wgmma", "launches_fma", "launches_bwd")}
     return {"flops": counts.flops, "coll_by_kind": counts.coll_by_kind,
-            **held}, float(mets["loss"])
+            "flash_calls": [list(map(list, c)) for c in calls],
+            "launches": launches, **held}, float(mets["loss"])
 
 
 def count_cases(mesh, spec_path, out_path):
@@ -74,9 +92,16 @@ def _np(x: torch.Tensor) -> np.ndarray:
     return x.detach().float().numpy()
 
 
+def case_config(spec):
+    """The case's smoke config, with the spec's ``cfg`` fields replaced
+    (a shape no smoke config has)."""
+    return dataclasses.replace(get_smoke_config(spec["arch"]),
+                               **spec.get("cfg", {}))
+
+
 def load_case(spec, device="cpu"):
     """(model, rc, global params, global batch) of one case."""
-    model = Model(get_smoke_config(spec["arch"]), device=device)
+    model = Model(case_config(spec), device=device)
     rc = runconfig_from_knobs(spec["knobs"])
     shapes, treedef = tree_flatten(model.param_shapes(torch.float32))
     with np.load(spec["data"]) as z:
