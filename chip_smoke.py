@@ -72,8 +72,9 @@ Phases (any failure exits non-zero before the result line):
    inter-chunk term, must land above every limit); timed beside the plain
    version and the FMA kernel, with its bound, and failing above 2.0 ms
    per call; ptxas's report of each of its passes is printed.
-9. serving path, xLSTM: ``Model(xlstm-1.3b, full width).prefill`` at B=2,
-   S=4096 with random bf16 weights: exactly 42 wgmma mLSTM launches and no
+9. serving path, xLSTM: ``Model(xlstm-1.3b, full width, 24 of 48
+   layers).prefill`` at B=2,
+   S=4096 with random bf16 weights: exactly 21 wgmma mLSTM launches and no
    FMA one per prefill (also under ``torch.profiler``, with the device ms
    of each of its four kernels) and none per ``decode_step``;
    the sLSTM time loops' share of the wall; 16 greedy ``decode_step``s;
@@ -160,8 +161,10 @@ Phases (any failure exits non-zero before the result line):
    ``autograd.Function``) over ``BWD_CASES``: yi-6b's layer causal bf16 at
    the train step's microbatch (1,4096,4096,32,4,128) and at B=2, the MoE
    and hybrid steps' layers (qwen2-moe's MHA (1,4096,4096,16,16,128) and
-   jamba's (1,4096,4096,64,8,128)) and yi-6b's on one chip of the 16 x 16
-   mesh (1,4096,4096,2,1,128), each timed as yi-6b's, GQA 8/1,
+   jamba's (1,4096,4096,64,8,128)), yi-6b's on one chip of the 16 x 16
+   mesh (1,4096,4096,2,1,128) and qwen2-moe's and grok-1's there
+   ((1,4096,4096,1,1,128); (1,4096,4096,3,1,128) soft-capped at 30,
+   beside SDPA's uncapped backward), each timed as yi-6b's, GQA 8/1,
    a window of 256, soft-cap 30, Sq != Sk, whisper's encoder and cross
    shapes (bf16 at D 64/128: ``flash_attention_bwd_wgmma.cu``, the tensor
    cores), and float32 at D 16/32/64/128 (``flash_attention_bwd.cu``, the
@@ -176,14 +179,14 @@ Phases (any failure exits non-zero before the result line):
    time, which must be recorded) beside its plain version and SDPA's
    backward (``enable_gqa``), with its bound, and must be within 3x of
    SDPA's backward at B=1; the FMA backward is timed once at B=1 too.
-   Then ``Model(yi-6b full width, 4 of 32 layers)``
+   Then ``Model(yi-6b full width, 2 of 32 layers)``
    trained with AdamW (float32 master weights) on ``SyntheticDataset``
    batches of 2 x 4096 made on the card, microbatch 1 (two accumulation
    steps), remat ``block``, flash: step 1's loss and gradients,
    accumulated over its microbatches as the step accumulates them,
-   against reference attention (1e-2, 2e-2 per leaf), exactly 16 wgmma forward
-   launches (4 layers x 2 microbatches x forward and recompute), no FMA
-   launch and 8 backward sets, all on the wgmma backward, in each of 4
+   against reference attention (1e-2, 2e-2 per leaf), exactly 8 wgmma forward
+   launches (2 layers x 2 microbatches x forward and recompute), no FMA
+   launch and 4 backward sets, all on the wgmma backward, in each of 4
    steps (counted from 0 around
    the steps), step time, tokens/s, peak memory, the profiled step's
    device shares (flash forward, flash backward, cuBLAS, other; they
@@ -251,9 +254,9 @@ Phases (any failure exits non-zero before the result line):
    kernel shares and idle share.
 14. the product cluster: ``CompiledEvaluator(yi-6b full width,
    train_4k, device="cuda", share="chip")`` runs each probe's train step
-   on the card at one chip's share of the 16 x 16 production mesh, at
-   the chip share's cell depth (32 of 32 layers; a cut would show in
-   ``reduced``): chip (0, 0)'s blocks of the state, data rank 0's 16 x
+   on the card at one chip's share of the 16 x 16 production mesh, at 2
+   of the chip share's cell depth of 32 layers (``reduced`` lists the
+   cut): chip (0, 0)'s blocks of the state, data rank 0's 16 x
    4096 tokens, 2 of the 32 q heads (the kv head they read gathered),
    1 / 16 of ff and vocab, its FSDP gathers, under a virtual mesh whose
    collectives act locally and are counted by kind: a counted warm-up
@@ -269,7 +272,7 @@ Phases (any failure exits non-zero before the result line):
    again with ``sequence_parallel=True`` (the stream between blocks the
    chip's 256-token block of the sequence: ``PRODUCT_SP``), each printed
    beside its SP-off twin; then the default once at one replica's
-   share (4 layers, the replica cell scored before the chip share) and
+   share (2 layers, the replica cell scored before the chip share) and
    one default probe each of ``prefill_32k`` (2 x 32768) and
    ``decode_32k`` (8 against a 32k cache), both at the replica's share
    (the layout does not serve).
@@ -295,7 +298,25 @@ Phases (any failure exits non-zero before the result line):
    1e-2 of the other's and 3e-2 of its twin's (``PRODUCT_SP_TWIN_REL``:
    on the virtual chip the two compute different functions), its
    gradient norm finite and its loss dropping;
-   the replica probe scores its measured step; the phase within 240 s.
+   the replica probe scores its measured step; the yi-6b part within
+   240 s.  Then the MoE families' train_4k cells at the chip's share
+   (expert parallelism, ``PRODUCT_MOE``): qwen2-moe-a2.7b at 4 of 24
+   layers (its 60 experts do not divide the model axis: each chip holds
+   88 of every expert's 1408 columns) with the space's default, flash,
+   ``moe_impl="dropping"`` (the capacity and slots of every data rank's
+   tokens) and ``expert_parallel=False`` (the same layout: its step-1
+   loss and bytes by kind equal the default's, bit for bit), and
+   grok-1-314b at 2 of 64 layers (2048 of 32768 expert columns, 3 q
+   heads over one gathered kv head, soft cap 30) with the default and
+   flash; first each cell's ``cell_depth`` at the chip share and the
+   flash forward at its chip layer (``CHIP_FLASH_MOE``) against its
+   plain version and SDPA.  Each probe prints its measured and scored
+   step, ``collective_s``, bytes by kind, peak, ``mfu``, roofline and
+   step-1 loss (its distance from the default's printed, not gated: a
+   random MoE in bf16 is chaotic).  Gates: every probe fits, runs the
+   chip share with its collectives counted and finite losses; the twin;
+   each flash probe's launches exact at the chip's heads (q [1, 4096, 1,
+   128] / [1, 4096, 3, 128], k [1, 4096, 1, 128]); within 200 s.
 15. the sharded train step: yi-6b at full width, 2 of 32 layers, on a
    2 x 2 (data, model) mesh of four processes (``launch.mesh.spawn``;
    NCCL when the host has a card for each rank, else gloo with the four
@@ -318,7 +339,18 @@ Phases (any failure exits non-zero before the result line):
    and the virtual chip's SP forward and backward must give rank 0's
    bytes by kind and launches exactly; the phase within 90 s.
    Prints each rank's step times, peak GiB, bytes by kind and the
-   backend.
+   backend.  Then qwen2-moe-a2.7b at full width, 2 of 24 layers, on the
+   same mesh in float32 (its 60 experts 30 a model rank; global batch 4
+   x 1024, one microbatch, remat none; ``mesh_moe_rank``): rank 0 takes
+   the one-process step's gradients first, recording its routing; every
+   rank takes step 1's gradients on its block of each global microbatch
+   with its tokens' rows of that routing replayed (``routing_replay``;
+   each rank prints how many of its tokens' own top-k differed), the
+   gradients gathered to rank 0's host.  Gates: loss within 1e-3 and
+   every gathered leaf within relative L2 2e-2 of one process, no
+   non-finite leaf, as many routing calls as the one-process step made,
+   2 FMA flash forwards and 2 FMA backward sets a rank (float32), none
+   wgmma; within 60 s of its own.
 
 Every device time read from ``torch.profiler`` in phases 2-13 comes
 from a session that recorded the window whole (``whole_profile``: the
@@ -422,6 +454,9 @@ MLSTM_MAX_MS = 2.0               # the wgmma kernel at the layer shape, chunk 25
 MLSTM_PASSES = ("mlstm_chunk_gates_kernel", "mlstm_chunk_chain_kernel",
                 "mlstm_chunk_state_kernel", "mlstm_chunk_out_kernel")
 XLSTM_PREFILL = (2, 4096)        # B, S of the bf16 serving prefill
+# its depth: 48 -> 24 (three periods of 7 mLSTM + 1 sLSTM; 48 until the
+# MoE cells of phases 14 and 15 came: the script's 1200 s)
+XLSTM_PREFILL_LAYERS = 24
 # float32 check: a prompt in several chunks against teacher-forced decode.
 # As initialised, the sLSTM recurrence amplifies float rounding (x10 every
 # ~4 tokens at this width: ``python -m repro_torch.launch.drift``), so that
@@ -1868,11 +1903,11 @@ def phase_xlstm(card: str):
     from repro_torch.models.model import Model
     from repro_torch.runconfig import RunConfig
 
-    cfg = get_config("xlstm-1.3b")
+    cfg = get_config("xlstm-1.3b").scaled(n_layers=XLSTM_PREFILL_LAYERS)
     n_mlstm = sum(sp.kind == MLSTM for sp in cfg.pattern) * cfg.n_groups
     n_slstm = sum(sp.kind == SLSTM for sp in cfg.pattern) * cfg.n_groups
     B, S = XLSTM_PREFILL
-    print(f"== phase 9: Model(xlstm-1.3b: {cfg.n_layers} layers = "
+    print(f"== phase 9: Model(xlstm-1.3b: {cfg.n_layers} of 48 layers = "
           f"{n_mlstm} mLSTM + {n_slstm} sLSTM, d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads, mlstm_expand {cfg.mlstm_expand}, vocab "
           f"{cfg.vocab_size}).prefill at B={B} S={S}; {DECODE_STEPS} "
@@ -3194,23 +3229,22 @@ def routing_replay(plan=None):
     from repro_torch.models import moe
     routing, log = moe._routing, []
 
-    def patched(params, x, cfg):
-        w, aux, topi, topv = routing(params, x, cfg)
+    def patched(params, x, cfg, data_axes=()):
+        w, aux, topi, topv = routing(params, x, cfg, data_axes)
         if plan is None:
             log.append(topi)
             return w, aux, topi, topv
         want = plan(len(log)).to(topi.device)
         log.append(int((topi.sort(-1).values != want.sort(-1).values)
                        .any(-1).sum()))
-        probs = torch.softmax(torch.matmul(
-            x.float(), params["router"]["w"].float()), dim=-1)
+        # the probabilities and the aux loss as moe._routing forms them
+        # (on a mesh: a split router's logits gathered, the fractions
+        # reduced over the data axes)
+        probs = moe._router_probs(params, x, cfg)
         topv = probs.gather(-1, want)
         topv = topv / topv.sum(dim=-1, keepdim=True)
         w = torch.zeros_like(probs).scatter(-1, want, topv)
-        # the aux loss of the replayed routing, as moe._routing forms it
-        aux = cfg.n_experts * torch.sum((w > 0).float().mean(dim=0)
-                                        * probs.mean(dim=0))
-        return w, aux, want, topv
+        return w, moe._aux_loss(w, probs, cfg, data_axes), want, topv
 
     moe._routing = patched
     try:
@@ -3763,6 +3797,11 @@ BWD_LAYER_CASES = {
     "jamba": (1, 4096, 4096, 64, 8, 128, True, None, None, "bfloat16"),
     # yi-6b's layer on one chip of the 16 x 16 mesh (phase 14's probes)
     "yi-6b-chip": (1, 4096, 4096, 2, 1, 128, True, None, None, "bfloat16"),
+    # qwen2-moe's and grok-1's (soft cap 30) on that chip (phase 14's MoE
+    # cells: CHIP_FLASH_MOE)
+    "qwen2-moe-chip": (1, 4096, 4096, 1, 1, 128, True, None, None,
+                       "bfloat16"),
+    "grok-1-chip": (1, 4096, 4096, 3, 1, 128, True, None, 30.0, "bfloat16"),
 }
 # B, Sq, Sk, H, Kh, D, causal, window, softcap, dtype: yi-6b's layer at
 # the train step's microbatch of 1 (the path's shape) first, then at
@@ -3792,8 +3831,9 @@ BWD_REL = {"float32": 1e-5, "bfloat16": 1e-2}
 BWD_REL_ROUNDED = 5e-3
 FLASH_BWD_LIBRARY_FACTOR = 3.0   # the wgmma backward within 3x of SDPA's
 TRAIN_ARCH = "yi-6b"
-TRAIN_LAYERS = 4                 # depth 32 -> 4 (8 until phase 15 came:
-                                 # the script's 1200 s); full width
+TRAIN_LAYERS = 2                 # depth 32 -> 2 (8 until phase 15 came,
+                                 # 4 until phase 14's MoE cells: the
+                                 # script's 1200 s); full width
 TRAIN_B, TRAIN_S = 2, 4096       # global batch, sequence
 TRAIN_MICRO = 1                  # two accumulation steps
 TRAIN_STEPS = 4
@@ -4068,7 +4108,8 @@ def train_bwd_timing(card, case, q, k, v, do, kw, fma=False,
           + f" on "
           f"{card}: kernel_ms={k_ms:.4f} ({k_ms1:.4f}, {k_ms2:.4f}) "
           f"device_ms={dev_ms:.4f} plain_ms={p_ms:.4f} library_ms="
-          f"{l_ms:.4f} ({l_ms1:.4f}, {l_ms2:.4f}; SDPA backward, {gqa}; "
+          f"{l_ms:.4f} ({l_ms1:.4f}, {l_ms2:.4f}; SDPA backward, {gqa}"
+          f"{', no soft cap' if kw['softcap'] else ''}; "
           f"its dq vs the kernel's rel_l2 {lib_rel:.3e}) bound_ms="
           f"{b_ms:.4f} ({b_by}; {flops / 1e9:.1f} GFLOP) achieved="
           f"{flops / k_ms / 1e9:.2f} TFLOP/s (bound share "
@@ -4184,7 +4225,7 @@ def train_shares(by_name: dict, named=FLASH_KINDS):
 
 
 def train_yi(card: str) -> dict:
-    """yi-6b at full width, 4 layers: the train step on the flash forward
+    """yi-6b at full width, 2 layers: the train step on the flash forward
     and backward kernels, against reference attention, launch counts,
     step time, memory and shares, checkpoint-resume bit-equal."""
     import shutil
@@ -5397,15 +5438,15 @@ def phase_train(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 PRODUCT_ARCH = "yi-6b"
-# the chip's probes' depth (the chip share's cell_depth is 32 of 32): 4,
+# the chip's probes' depth (the chip share's cell_depth is 32 of 32): 2,
 # the replica probe's.  tune()'s recommendation (microbatch 16, remat
 # none, reference attention) keeps every layer's activations and float32
 # scores of the chip's 16 rows, ~10.5 GiB a layer (the default, 1 row,
 # peaked at 23.2 GiB over 32 layers): it ran out of the card's memory
-# at 32 layers; at 4 every probe fits and the phase keeps to its budget.
-# `reduced` lists the cut.
-PRODUCT_CHIP_LAYERS = 4
-PRODUCT_LAYERS = 4               # the replica share's probes: depth 32 -> 4
+# at 32 layers; at 4 (until the MoE cells of phase 14 came: the script's
+# 1200 s) and 2 every probe fits.  `reduced` lists the cut.
+PRODUCT_CHIP_LAYERS = 2
+PRODUCT_LAYERS = 2               # the replica share's probes: depth 32 -> 2
 PRODUCT_STEPS = 2                # timed steps after the counted warm-up
 PRODUCT_LOSS_REL = 1e-2          # each probe's step-1 loss vs the default's
 # step 1's gradient norm vs the default's, for the probes whose gradient is
@@ -5450,6 +5491,29 @@ PRODUCT_SERVING = ("prefill_32k", "decode_32k")   # one default probe each
 # default's microbatch of 1: 32 / 16 q heads and the one kv head they read
 # (kv_dim 512 / 16 is a quarter head: the kv columns are gathered)
 CHIP_FLASH = (1, 4096, 4096, 2, 1, 128)
+
+
+# the MoE families' train_4k cells at one chip's share (expert
+# parallelism): (arch, depth, probes), each probe (name, knobs over the
+# space's default).  qwen2-moe's 60 experts and grok-1's 8 do not divide
+# the model axis of 16: the guard releases it to the experts' columns
+# (1408 / 16 = 88, 32768 / 16 = 2048), so ``expert_parallel`` off is the
+# same layout ("no-ep", held bit-equal to the default in its step-1 loss
+# and its bytes by kind)
+PRODUCT_MOE = (
+    ("qwen2-moe-a2.7b", 4, (("default", {}),
+                            ("flash", {"attention_impl": "flash"}),
+                            ("dropping", {"moe_impl": "dropping"}),
+                            ("no-ep", {"expert_parallel": False}))),
+    ("grok-1-314b", 2, (("default", {}),
+                        ("flash", {"attention_impl": "flash"}))))
+# their layers on chip (0, 0): B, Sq, Sk, H, Kh, D and the soft cap.
+# qwen2-moe: 16 / 16 MHA heads; grok-1: 48 / 16 q heads, and the chip's 3
+# read kv head 0 (8 kv heads of 128 columns, 1024 / 16 = 64: half a head,
+# gathered)
+CHIP_FLASH_MOE = {"qwen2-moe-a2.7b": ((1, 4096, 4096, 1, 1, 128), None),
+                  "grok-1-314b": ((1, 4096, 4096, 3, 1, 128), 30.0)}
+PRODUCT_MOE_BUDGET_S = 200.0
 
 
 def product_probe(ev, name: str, knobs: dict, base: dict) -> dict:
@@ -5510,46 +5574,49 @@ def product_probe(ev, name: str, knobs: dict, base: dict) -> dict:
 
 
 # the flash forward's profiled device ms per call in a process of its own:
-# argv = shape (JSON: B, Sq, Sk, H, Kh, D; causal bf16), the repo's root,
-# its src/
+# argv = shape (JSON: B, Sq, Sk, H, Kh, D[, soft cap]; causal bf16), the
+# repo's root, its src/
 FRESH_FWD = """
 import json, sys
 sys.path[:0] = sys.argv[2:4]
 import torch
 import chip_smoke
 from repro_torch.kernels.flash_attention import ops
-B, Sq, Sk, H, Kh, D = json.loads(sys.argv[1])
+B, Sq, Sk, H, Kh, D, *cap = json.loads(sys.argv[1])
 gen = torch.Generator(device="cuda").manual_seed(17)
 q, k, v = (torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
            for s in ((B, Sq, H, D), (B, Sk, Kh, D), (B, Sk, Kh, D)))
 print(json.dumps(chip_smoke.device_ms(
-    lambda: ops.flash_attention(q, k, v, causal=True), 20,
+    lambda: ops.flash_attention(q, k, v, causal=True,
+                                softcap=cap[0] if cap else None), 20,
     chip_smoke.FLASH_COUNTED, what="fresh forward")))
 """
 
 
-def chip_flash_forward(card: str) -> dict:
-    """The flash forward at the chip's layer (``CHIP_FLASH``): the kernel
-    against its plain version (P rounded to bf16, relative L2 1e-2), timed
-    with CUDA events in turns with SDPA (K/V repeated outside the timed
-    calls), its device time from a whole profiler session (here, or in a
-    fresh process: ``FRESH_FWD``), the plain version's time and the
-    bound."""
+def chip_flash_forward(card: str, shape=CHIP_FLASH, softcap=None,
+                       what: str = "the chip's layer") -> dict:
+    """The flash forward at a chip's layer (``CHIP_FLASH``, yi-6b's, by
+    default; ``softcap`` grok-1's tanh cap): the kernel against its plain
+    version (P rounded to bf16, relative L2 1e-2), timed with CUDA events
+    in turns with SDPA (K/V repeated outside the timed calls; SDPA has no
+    soft cap, so under one it times the uncapped function), its device
+    time from a whole profiler session (here, or in a fresh process:
+    ``FRESH_FWD``), the plain version's time and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
 
-    B, Sq, Sk, H, Kh, D = CHIP_FLASH
+    B, Sq, Sk, H, Kh, D = shape
     gen = torch.Generator(device="cuda").manual_seed(17)
     q, k, v = (torch.randn(s, generator=gen, device="cuda").to(
         torch.bfloat16) for s in ((B, Sq, H, D), (B, Sk, Kh, D),
                                   (B, Sk, Kh, D)))
 
     def kernel():
-        return ops.flash_attention(q, k, v, causal=True)
+        return ops.flash_attention(q, k, v, causal=True, softcap=softcap)
 
     def plain():
-        return ref.reference_attention(q, k, v, causal=True,
+        return ref.reference_attention(q, k, v, causal=True, softcap=softcap,
                                        p_dtype=torch.bfloat16)
     qt = q.transpose(1, 2)
     kt = k.repeat_interleave(H // Kh, dim=2).transpose(1, 2)
@@ -5558,7 +5625,7 @@ def chip_flash_forward(card: str) -> dict:
     def library():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     rel = rel_l2(kernel(), plain())
-    check(rel <= FLASH_REL_L2, f"the chip's flash layer {CHIP_FLASH}: "
+    check(rel <= FLASH_REL_L2, f"the flash layer {shape} ({what}): "
           f"kernel vs plain relative L2 {rel} > {FLASH_REL_L2}")
     l_ms1 = cuda_ms(library, reps=5, inner=10)
     k_ms1 = cuda_ms(kernel, reps=5, inner=10)
@@ -5566,22 +5633,135 @@ def chip_flash_forward(card: str) -> dict:
     l_ms2 = cuda_ms(library, reps=5, inner=10)
     k_ms, l_ms = min(k_ms1, k_ms2), min(l_ms1, l_ms2)
     p_ms = cuda_ms(plain, reps=3, inner=2)
+    fresh_args = list(shape) + ([softcap] if softcap else [])
     dev_ms = device_ms(kernel, calls=20, counted=FLASH_COUNTED,
-                       fresh=lambda: fresh_device_ms(FRESH_FWD,
-                                                     list(CHIP_FLASH)),
-                       what="the chip's flash forward")
+                       fresh=lambda: fresh_device_ms(FRESH_FWD, fresh_args),
+                       what=f"the flash forward at {what}")
     b_ms, b_by, flops = flash_bound(B, Sq, Sk, H, Kh, D, True, 2,
                                     BF16_FLOPS_PER_S)
-    print(f"  flash forward at the chip's layer {CHIP_FLASH} causal bf16 on "
+    print(f"  flash forward at {what} {shape} causal bf16"
+          + (f" soft cap {softcap}" if softcap else "") + f" on "
           f"{card}: kernel_ms={k_ms:.4f} ({k_ms1:.4f}, {k_ms2:.4f}) "
           f"device_ms={dev_ms:.4f} plain_ms={p_ms:.4f} library_ms="
           f"{l_ms:.4f} ({l_ms1:.4f}, "
-          f"{l_ms2:.4f}; SDPA) bound_ms={b_ms:.4f} ({b_by}; "
+          f"{l_ms2:.4f}; SDPA{', no soft cap' if softcap else ''}) "
+          f"bound_ms={b_ms:.4f} ({b_by}; "
           f"{flops / 1e9:.2f} GFLOP) kernel / library {k_ms / l_ms:.3f}; "
           f"kernel vs plain rel_l2 {rel:.3e}", flush=True)
     return {"ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
             "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "rel_l2": rel, "shape": list(CHIP_FLASH)}
+            "rel_l2": rel, "shape": list(shape), "softcap": softcap}
+
+
+def check_flash_probe(f: dict, H: int, Kh: int, D: int, tag: str) -> None:
+    """A flash probe's launches, counted from 0 around it: per step,
+    microbatches x layers wgmma forwards (twice where the remat policy
+    recomputes the group) and as many wgmma backward sets, over the
+    warm-up and the timed steps, all at the chip's heads (q [micro, S, H,
+    D], k [micro, S, Kh, D])."""
+    rec = f["record"]
+    micro = rec["runconfig"]["microbatch"] or rec["batch"]
+    n_micro = rec["batch"] // min(micro, rec["batch"])
+    again_fwd = 1 if rec["runconfig"]["remat_policy"] == "none" else 2
+    steps = 1 + PRODUCT_STEPS
+    want_fwd = steps * n_micro * rec["n_layers"] * again_fwd
+    want_bwd = steps * n_micro * rec["n_layers"]
+    got = f["launches"]
+    check(got["fwd"] == got["fwd_wgmma"] == want_fwd and got["fwd_fma"] == 0
+          and got["bwd"] == got["bwd_wgmma"] == want_bwd,
+          f"{tag}: flash launches {got}, want {want_fwd} wgmma forward "
+          f"and {want_bwd} wgmma backward sets")
+    want_shapes = [((micro, rec["seq_len"], H, D),
+                    (micro, rec["seq_len"], Kh, D))]
+    check(f["shapes"] == want_shapes, f"{tag}: the flash probe's q / k "
+          f"shapes {f['shapes']}, want {want_shapes} (the chip's heads)")
+
+
+def product_moe(card: str) -> dict:
+    """Phase 14's MoE cells: qwen2-moe's and grok-1's train_4k at one
+    chip's share of the 16 x 16 mesh (``PRODUCT_MOE``), each probe a
+    ``CompiledEvaluator`` call with flash counted from 0 around it; the
+    flash forward at each chip's layer first (``CHIP_FLASH_MOE``), and
+    each cell's ``cell_depth`` (``fit_depth`` at the chip share)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.costmodel import SINGLE_POD
+    from repro_torch.core.evaluators import CompiledEvaluator
+    from repro_torch.core.knobs import clean_space
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import SHAPES_BY_NAME
+
+    cell = SHAPES_BY_NAME["train_4k"]
+    t0 = time.perf_counter()
+    out = {}
+    for arch, layers, probes in PRODUCT_MOE:
+        cfg = get_config(arch)
+        check(dryrun.resolve_share(cfg, cell) == "chip", f"phase 14: "
+              f"{arch} train_4k should run at one chip's share")
+        depth = dryrun.cell_depth(cfg, cell)
+        print(f"  {arch} train_4k at one chip of 16 x 16: fit_depth at the "
+              f"chip share {depth} of {cfg.n_layers} layers; the probes "
+              f"run {layers}", flush=True)
+        shape, cap = CHIP_FLASH_MOE[arch]
+        layer = chip_flash_forward(card, shape, cap, f"{arch}'s chip layer")
+        space, _, _ = clean_space(cfg, cell, SINGLE_POD)
+        default = space.project(space.default_config())
+        ev = CompiledEvaluator(cfg, cell, device="cuda", n_layers=layers,
+                               steps=PRODUCT_STEPS, share="chip")
+        res = {}
+        for name, kn in probes:
+            res[name] = product_probe(ev, f"{arch} {name}",
+                                      space.project({**default, **kn}),
+                                      default)
+            torch.cuda.empty_cache()
+        d = res["default"]
+        for name, p in res.items():
+            check(p["feasible"], f"phase 14: {arch}'s {name} probe ran out "
+                  f"of the card's memory")
+            rec = p["record"]
+            check(rec["share"] == "chip" and rec["n_layers"] == layers
+                  and rec["roofline"]["collective_s"] > 0
+                  and all(math.isfinite(x) for x in rec["step_losses"])
+                  and math.isfinite(rec["step1_grad_norm"]),
+                  f"phase 14: {arch}'s {name} did not run one chip's "
+                  f"share with its collectives counted and finite losses "
+                  f"({rec['step_losses']}, {rec['step1_grad_norm']})")
+            b = d["record"]["step1_loss"]
+            p["loss_rel"] = abs(rec["step1_loss"] - b) / abs(b)
+            r = rec["roofline"]
+            print(f"  {arch} {name}: measured_step_s="
+                  f"{rec['measured_step_s']:.6f} scored_step_s="
+                  f"{p['step_s']:.6f} collective_s={r['collective_s']:.6f} "
+                  f"({r['collective_bytes_per_device'] / 1e9:.3f} GB: "
+                  f"{r['coll_by_kind']}) peak="
+                  f"{rec['memory']['max_memory_allocated_gb']:.2f} GiB mfu="
+                  f"{rec['mfu']:.4f} roofline step {r['step_s']:.6f} "
+                  f"({r['dominant']}); step-1 loss {rec['step1_loss']:.6f} "
+                  f"({p['loss_rel']:.3e} from the default's)", flush=True)
+        if "no-ep" in res:
+            t = res["no-ep"]["record"]
+            check(t["step1_loss"] == d["record"]["step1_loss"]
+                  and t["roofline"]["coll_by_kind"]
+                  == d["record"]["roofline"]["coll_by_kind"],
+                  f"phase 14: {arch} with expert_parallel off is not the "
+                  f"default's layout: loss {t['step1_loss']} vs "
+                  f"{d['record']['step1_loss']}, bytes "
+                  f"{t['roofline']['coll_by_kind']} vs "
+                  f"{d['record']['roofline']['coll_by_kind']}")
+        H, Kh, D = shape[3:]
+        check_flash_probe(res["flash"], H, Kh, D, f"phase 14 {arch}")
+        out[arch] = {"probes": res, "flash_layer": layer, "depth": depth,
+                     "layers": layers}
+    total = time.perf_counter() - t0
+    print(f"phase 14's MoE cells {total:.1f} s (budget "
+          f"{PRODUCT_MOE_BUDGET_S:.0f} s)", flush=True)
+    check(total <= PRODUCT_MOE_BUDGET_S, f"phase 14's MoE cells took "
+          f"{total:.1f} s")
+    return {"cells": out, "seconds": total,
+            "launches_fwd": sum(p["launches"]["fwd"] for c in out.values()
+                                for p in c["probes"].values()),
+            "launches_bwd": sum(p["launches"]["bwd"] for c in out.values()
+                                for p in c["probes"].values())}
 
 
 def phase_product(card: str, tuned: dict) -> dict:
@@ -5689,27 +5869,9 @@ def phase_product(card: str, tuned: dict) -> dict:
     print(f"  default again: {again:.6f} s, a cache hit (calls {ev.calls})",
           flush=True)
 
-    # flash's launches: per step, microbatches x layers forward (twice
-    # where the remat policy recomputes the group) and as many backward
-    # sets, over the warm-up and the timed steps, at the chip's heads
-    f = out["flash"]
-    rec = f["record"]
-    micro = rec["runconfig"]["microbatch"] or rec["batch"]
-    n_micro = rec["batch"] // min(micro, rec["batch"])
-    again_fwd = 1 if rec["runconfig"]["remat_policy"] == "none" else 2
-    steps = 1 + PRODUCT_STEPS
-    want_fwd = steps * n_micro * rec["n_layers"] * again_fwd
-    want_bwd = steps * n_micro * rec["n_layers"]
-    got = f["launches"]
-    check(got["fwd"] == got["fwd_wgmma"] == want_fwd and got["fwd_fma"] == 0
-          and got["bwd"] == got["bwd_wgmma"] == want_bwd,
-          f"phase 14: flash launches {got}, want {want_fwd} wgmma forward "
-          f"and {want_bwd} wgmma backward sets")
-    B, _, S, H, Kh, D = CHIP_FLASH
-    want_shapes = [((micro, rec["seq_len"], H, D),
-                    (micro, rec["seq_len"], Kh, D))]
-    check(f["shapes"] == want_shapes, f"phase 14: the flash probe's q / k "
-          f"shapes {f['shapes']}, want {want_shapes} (the chip's heads)")
+    # flash's launches at the chip's heads (yi-6b: 2 q heads over 1 kv)
+    _, _, _, H, Kh, D = CHIP_FLASH
+    check_flash_probe(out["flash"], H, Kh, D, "phase 14")
 
     # sequence parallelism: each SP probe beside its SP-off twin; the flash
     # probe's kernels run at the same shapes, so its launches are the twin's
@@ -5783,11 +5945,13 @@ def phase_product(card: str, tuned: dict) -> dict:
     bwd_total = sum(p["launches"]["bwd"] for p in out.values()) \
         + replica["launches"]["bwd"]
     total = time.perf_counter() - t0
-    print(f"phase 14 total {total:.1f} s (budget {PRODUCT_BUDGET_S:.0f} s)",
-          flush=True)
+    print(f"phase 14's yi-6b cells {total:.1f} s (budget "
+          f"{PRODUCT_BUDGET_S:.0f} s)", flush=True)
     check(total <= PRODUCT_BUDGET_S, f"phase 14 took {total:.1f} s")
+    torch.cuda.empty_cache()
+    moe = product_moe(card)
     return {"probes": out, "replica": replica, "serving": serving,
-            "flash_layer": flash_layer, "depth": depth,
+            "flash_layer": flash_layer, "depth": depth, "moe": moe,
             "launches_fwd": fwd_total, "launches_bwd": bwd_total,
             "launches_fwd_per_probe": {n: p["launches"]["fwd"]
                                        for n, p in out.items()},
@@ -5817,7 +5981,8 @@ MESH_TIMEOUT_S = 600.0           # the spawn's join
 
 def mesh_rank(mesh, out_dir: str) -> None:
     """One rank of phase 15 (spawned; runs under ``with mesh:``): this
-    rank's blocks of yi-6b's state, its data rank's rows, step 1's
+    rank's blocks of yi-6b's state, its data rank's rows (its block of
+    each global microbatch), step 1's
     gradients gathered (rank 0 also runs the one-process step's, off the
     mesh, and compares), then the counted steps.  Writes
     ``rank<r>.json`` under ``out_dir``."""
@@ -5851,6 +6016,8 @@ def mesh_rank(mesh, out_dir: str) -> None:
     data = SyntheticDataset(MESH_SEED, MESH_B, MESH_S, cfg.vocab_size,
                             data_index=mesh.coords["data"],
                             data_count=mesh.shape["data"],
+                            n_micro=ttl.micro_count(
+                                rc, MESH_B // mesh.shape["data"]),
                             device=mesh.device)
     batches = [next(data) for _ in range(MESH_STEPS)]
 
@@ -5943,6 +6110,208 @@ def mesh_rank(mesh, out_dir: str) -> None:
     Path(out_dir, f"rank{mesh.rank}.json").write_text(json.dumps(out))
 
 
+# phase 15's MoE step (expert parallelism): qwen2-moe at full width, its 60
+# experts split over the model axis (30 a rank), on the same 2 x 2 mesh
+# (~1.8 B parameters).  In float32: a random-weight MoE in bf16 is
+# chaotic (each MoE layer adds ~80 to the residual stream, and the norms'
+# backward cancels against it): in bf16 the sharded step's embedding
+# gradient was 7.3e-2 from one process with the routing replayed, every
+# other leaf within 7e-3 (on an NVIDIA H100 80GB HBM3, 700 W).
+# Flash then takes its float32 FMA route.  The expert weights' ZeRO-3
+# gathers go through host memory under gloo, once a microbatch and layer
+# (1 GB a layer in float32; 22.2 s of a 62.1 s phase at two microbatches
+# on that card): one microbatch a rank (the reference's global
+# microbatch is the whole batch, its routing statistics still reduced
+# over both data ranks; two microbatches of two data ranks are held on
+# the CPU, tests/test_torch_expert_parallel.py) and remat none (no
+# gathers again in the backward)
+MESH_MOE_ARCH = "qwen2-moe-a2.7b"
+MESH_MOE_LAYERS = 2              # depth 24 -> 2; full width
+MESH_MOE_B, MESH_MOE_S = 4, 1024  # global batch
+MESH_MOE_MICRO = 2               # per replica: one microbatch
+MESH_MOE_GRAD_REL = 2e-2         # per gathered leaf, the routing replayed
+MESH_MOE_BUDGET_S = 60.0
+
+
+def mesh_moe_runconfig():
+    """Phase 15's MoE RunConfig: the family default's layout in float32,
+    one microbatch a replica, remat none, flash."""
+    from repro_torch.runconfig import RunConfig
+    return RunConfig(microbatch=MESH_MOE_MICRO, remat_policy="none",
+                     attention_impl="flash", param_dtype="float32",
+                     activation_dtype="float32", kv_cache_dtype="float32")
+
+
+def mesh_moe_rank(mesh, out_dir: str) -> None:
+    """One rank of phase 15's MoE step (spawned; runs under ``with
+    mesh:``): rank 0 first takes the one-process step's gradients off the
+    mesh, recording its routing (``routing_replay``), and writes the
+    top-k indices of every ``moe._routing`` call; every rank then takes
+    step 1's gradients on its rows of the same global batch
+    (``train_loop.rank_batch``: its block of each global microbatch) with
+    its tokens' rows of that routing replayed, flash counted from 0
+    around it; the gradients are gathered and rank 0 compares.  Writes
+    ``moe-rank<r>.json`` under ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.common import tree_flatten_with_path
+    from repro_torch.models.model import (Model, gather_tree_to_host,
+                                          shard_tree)
+    from repro_torch.parallel.collectives import counting_collectives
+    from repro_torch.parallel.sharding import (reset_ambient_mesh,
+                                               set_ambient_mesh)
+    from repro_torch.train import train_loop as ttl
+    from repro_torch.train.data import batch_at
+
+    import gc
+    t_start = time.perf_counter()
+    cfg = get_config(MESH_MOE_ARCH).scaled(n_layers=MESH_MOE_LAYERS)
+    rc = mesh_moe_runconfig()
+    model = Model(cfg, device=mesh.device)
+    ops.load()
+    D = mesh.shape["data"]
+    out = {"rank": mesh.rank, "coords": mesh.coords, "times": {}}
+    params = model.init(MESH_SEED, dtype=torch.float32)
+    # the parameters' blocks alone: no optimizer state (four ranks share
+    # the card)
+    pls = ttl.param_placements(model, rc, mesh)
+    blocks = shard_tree(params, pls, mesh.rank)
+    full = batch_at(MESH_SEED, 0, global_batch=MESH_MOE_B,
+                    seq_len=MESH_MOE_S, vocab_size=cfg.vocab_size,
+                    device=mesh.device)
+    local = ttl.rank_batch(full, rc, mesh)
+    plan_path = Path(out_dir, "moe-routes.pt")
+    out["times"]["setup"] = time.perf_counter() - t_start
+    if mesh.rank == 0:
+        token = set_ambient_mesh(None)
+        try:
+            with routing_replay() as routes:
+                loss1, _, want = ttl.step_grads(model, params, full, rc,
+                                                mesh={"data": D})
+        finally:
+            reset_ambient_mesh(token)
+        torch.save([t.cpu() for t in routes], plan_path)
+        out["loss_one_process"] = float(loss1)
+        del routes
+    del params
+    gc.collect()        # the one-process step left reference cycles
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out["times"]["one_process"] = time.perf_counter() - t_start
+    routes = torch.load(plan_path)
+    # this data rank's tokens of each global microbatch's routing
+    n_micro = ttl.micro_count(rc, MESH_MOE_B // D)
+    rows = MESH_MOE_B // n_micro // D * MESH_MOE_S
+    lo = mesh.coords["data"] * rows
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with counting_collectives() as coll, routing_replay(
+            lambda i: routes[i][lo:lo + rows]) as flips:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, grads = ttl.step_grads(model, blocks, local, rc,
+                                        placements=pls)
+        torch.cuda.synchronize()
+    out.update(step_s=time.perf_counter() - t0, loss_step1=float(loss),
+               launches=flash_counts(ops), coll_by_kind=dict(coll),
+               routing_calls=len(flips), plan_calls=len(routes),
+               flips=list(flips), tokens_per_call=rows,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    out["times"]["sharded"] = time.perf_counter() - t_start
+    # on rank 0's host, one leaf at a time: four ranks share the card
+    torch.cuda.empty_cache()
+    grads = gather_tree_to_host(grads, pls, mesh)
+    out["times"]["gathered"] = time.perf_counter() - t_start
+    if mesh.rank == 0:
+        worst, worst_path, finite, rels = 0.0, "", True, {}
+        for (path, g), (_, w) in zip(tree_flatten_with_path(grads)[0],
+                                     tree_flatten_with_path(want)[0]):
+            g = g.to(w.device)
+            finite &= bool(torch.isfinite(g).all())
+            name = "/".join(map(str, path))
+            if name.endswith("k/b"):
+                continue        # zero in exact arithmetic (phase 13)
+            r = rels[name] = rel_l2(g, w)
+            if not r <= worst:
+                worst, worst_path = (r if math.isfinite(r) else math.inf,
+                                     name)
+        out.update(grad_rel_l2=worst, grad_worst_leaf=worst_path,
+                   grads_finite=finite, grad_rel_top=sorted(
+                       rels.items(), key=lambda kv: -kv[1])[:6])
+    out["times"]["compared"] = time.perf_counter() - t_start
+    Path(out_dir, f"moe-rank{mesh.rank}.json").write_text(json.dumps(out))
+
+
+def phase_mesh_moe(card: str, backend: str) -> dict:
+    """Phase 15's MoE step: qwen2-moe at full width on the 2 x 2 mesh
+    against one process, its routing replayed (``mesh_moe_rank``)."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    cfg = get_config(MESH_MOE_ARCH)
+    print(f"  {MESH_MOE_ARCH} full width, {MESH_MOE_LAYERS} layers, "
+          f"{cfg.n_experts} experts ({cfg.n_experts // MESH_SHAPE[1]} a "
+          f"model rank), mesh {MESH_SHAPE[0]}x{MESH_SHAPE[1]}, global batch "
+          f"{MESH_MOE_B}x{MESH_MOE_S}, float32, {backend}", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mesh-moe-", dir=ROOT) as tmp:
+        spawn(mesh_moe_rank, MESH_SHAPE, (tmp,), device="cuda",
+              backend=backend, timeout_s=MESH_TIMEOUT_S)
+        ranks = [json.loads(Path(tmp, f"moe-rank{r}.json").read_text())
+                 for r in range(world)]
+    wall = time.perf_counter() - t0
+    # remat none: one forward a microbatch and layer, float32: FMA
+    want = MESH_MOE_B // MESH_SHAPE[0] // MESH_MOE_MICRO * MESH_MOE_LAYERS
+    for r in ranks:
+        c = r["launches"]
+        print(f"  rank {r['rank']} {r['coords']}: step 1's gradients "
+              f"{r['step_s']:.3f} s (cumulative s: {r['times']}), peak "
+              f"{r['peak_gib']:.2f} GiB, loss "
+              f"{r['loss_step1']:.6f}, flash {c}, collective bytes "
+              f"{r['coll_by_kind']}; routing replayed over "
+              f"{r['routing_calls']} calls of {r['tokens_per_call']} tokens,"
+              f" own top-k differing at {sum(r['flips'])} ({r['flips']})",
+              flush=True)
+        check(r["routing_calls"] == r["plan_calls"] > 0,
+              f"phase 15 MoE rank {r['rank']}: {r['routing_calls']} "
+              f"routing calls, the one-process step made "
+              f"{r['plan_calls']}")
+        check(c["launches"] == c["launches_fma"] == want
+              and c["launches_wgmma"] == 0
+              and c["launches_bwd"] == c["launches_bwd_fma"] == want
+              and c["launches_bwd_wgmma"] == 0,
+              f"phase 15 MoE rank {r['rank']}: flash launches {c}, want "
+              f"{want} FMA forwards and {want} FMA backward sets "
+              f"(float32)")
+        check(math.isfinite(r["loss_step1"]),
+              f"phase 15 MoE rank {r['rank']}: loss {r['loss_step1']}")
+    r0 = ranks[0]
+    loss_rel = abs(r0["loss_step1"] - r0["loss_one_process"]) \
+        / abs(r0["loss_one_process"])
+    print(f"  {MESH_MOE_ARCH} step-1 loss sharded {r0['loss_step1']:.6f} "
+          f"one process {r0['loss_one_process']:.6f} (rel {loss_rel:.3e}, "
+          f"limit {MESH_LOSS_REL}); worst gathered gradient leaf rel_l2 "
+          f"{r0['grad_rel_l2']:.3e} at {r0['grad_worst_leaf']} (limit "
+          f"{MESH_MOE_GRAD_REL}; the largest {r0['grad_rel_top']}); wall "
+          f"{wall:.1f} s (budget "
+          f"{MESH_MOE_BUDGET_S:.0f} s) on {card}", flush=True)
+    check(loss_rel <= MESH_LOSS_REL, f"phase 15 MoE: step-1 loss rel "
+          f"{loss_rel}")
+    check(r0["grads_finite"], "phase 15 MoE: a non-finite gradient leaf")
+    check(r0["grad_rel_l2"] <= MESH_MOE_GRAD_REL, f"phase 15 MoE: gradient "
+          f"rel_l2 {r0['grad_rel_l2']} at {r0['grad_worst_leaf']}")
+    check(wall <= MESH_MOE_BUDGET_S, f"phase 15's MoE step took {wall:.1f} s")
+    return {"ranks": ranks, "wall_s": wall, "loss_rel": loss_rel,
+            "grad_rel_l2": r0["grad_rel_l2"],
+            "launches_fwd": sum(r["launches"]["launches"] for r in ranks),
+            "launches_bwd": sum(r["launches"]["launches_bwd"]
+                                for r in ranks)}
+
+
 def mesh_runconfig(sp: bool):
     """Phase 15's RunConfig: the family default's layout, with sequence
     parallelism where ``sp``."""
@@ -5984,6 +6353,8 @@ def mesh_virtual_chip() -> dict:
         state = ttl.init_local_state(model, MESH_SEED, rc)
         data = SyntheticDataset(MESH_SEED, MESH_B, MESH_S, cfg.vocab_size,
                                 data_index=0, data_count=MESH_SHAPE[0],
+                                n_micro=ttl.micro_count(
+                                    rc, MESH_B // MESH_SHAPE[0]),
                                 device="cuda")
         batches = [next(data) for _ in range(MESH_STEPS)]
         step = ttl.make_train_step(model, rc, donate=True)
@@ -6136,8 +6507,9 @@ def phase_mesh(card: str) -> dict:
           f"{r0['sp_coll_by_kind']} / {r0['sp_launches']}")
     wall = time.perf_counter() - t0
     check(wall <= MESH_BUDGET_S, f"phase 15 took {wall:.1f} s")
+    moe = phase_mesh_moe(card, backend)
     return {"backend": backend, "ranks": ranks, "wall_s": wall,
-            "virtual": virtual,
+            "virtual": virtual, "moe": moe,
             "loss_rel": loss_rel, "grad_rel_l2": r0["grad_rel_l2"],
             "sp_loss_rel": sp_loss_rel, "sp_grad_rel_l2": r0["sp_grad_rel_l2"],
             "launches_fwd": sum(r["launches"]["launches"]
@@ -6248,7 +6620,9 @@ def main() -> None:
                "train-qwen2-moe": train["qwen2-moe"]["launches_fwd"],
                "train-jamba": train["jamba"]["launches_fwd"],
                "product-yi-6b": product["launches_fwd"],
-               "train-yi-6b-mesh-2x2": sharded["launches_fwd"]}
+               "product-moe": product["moe"]["launches_fwd"],
+               "train-yi-6b-mesh-2x2": sharded["launches_fwd"],
+               "train-qwen2-moe-mesh-2x2": sharded["moe"]["launches_fwd"]}
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",
         "source": FLASH_SOURCE, "fma_source": FLASH_FMA_SOURCE,
@@ -6259,7 +6633,8 @@ def main() -> None:
                                               "whisper"))
         + sum(train[k]["launches_fwd"] for k in ("yi", "qwen2-moe",
                                                   "jamba"))
-        + product["launches_fwd"] + sharded["launches_fwd"],
+        + product["launches_fwd"] + product["moe"]["launches_fwd"]
+        + sharded["launches_fwd"] + sharded["moe"]["launches_fwd"],
         "launches_fma": serving["launches_fma"],
         f"launches_{serving['long_s'] // 1024}k": serving["launches_long"],
         "max_abs_err": flash["max_abs_err"], "rel_l2": flash["rel_l2"],
@@ -6279,6 +6654,8 @@ def main() -> None:
             "jamba": families["jamba"]["flash_device_ms"],
             "whisper": families["whisper"]["device_ms"]},
         "chip_layer": product["flash_layer"],
+        "chip_layers_moe": {a: c["flash_layer"] for a, c in
+                            product["moe"]["cells"].items()},
         "launches_phase14_per_probe": product["launches_fwd_per_probe"],
     })
     xl, mbwd = train["xlstm"], train["mlstm_bwd"]
@@ -6308,22 +6685,27 @@ def main() -> None:
     bwd, yi, wh = train["bwd"], train["yi"], train["whisper"]
     fam = {k: train[k] for k in ("qwen2-moe", "jamba")}
     fam_bwd = sum(f["launches_bwd"] for f in fam.values())
+    moe_bwd = product["moe"]["launches_bwd"] + sharded["moe"]["launches_bwd"]
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": FLASH_BWD_SOURCE, "fma_source": FLASH_BWD_FMA_SOURCE,
         "replaces": FLASH_REPLACES,
         "launches": yi["launches_bwd"] + fam_bwd + product["launches_bwd"]
-        + sharded["launches_bwd"],
+        + sharded["launches_bwd"] + moe_bwd,
         "launches_wgmma": yi["launches_bwd"] + wh["launches_bwd_wgmma"]
-        + fam_bwd + product["launches_bwd"] + sharded["launches_bwd"],
+        + fam_bwd + product["launches_bwd"] + sharded["launches_bwd"]
+        + moe_bwd,
         "launches_fma": wh["launches_bwd_fma"],
         "launches_by_path": {"train-yi-6b": yi["launches_bwd"],
                              "train-whisper": wh["launches_bwd"],
                              **{f"train-{k}": f["launches_bwd"]
                                 for k, f in fam.items()},
                              "product-yi-6b": product["launches_bwd"],
+                             "product-moe": product["moe"]["launches_bwd"],
                              "train-yi-6b-mesh-2x2":
-                             sharded["launches_bwd"]},
+                             sharded["launches_bwd"],
+                             "train-qwen2-moe-mesh-2x2":
+                             sharded["moe"]["launches_bwd"]},
         "layers": {k: {**bwd["layers"][k],
                        "step_device_ms": f["bwd_set_device_ms"],
                        "launches_per_step": f["per_step"]["bwd_wgmma"]}
@@ -6337,6 +6719,18 @@ def main() -> None:
         "step_device_ms": yi["bwd_set_device_ms"],
         "b2": bwd["b2"],
         "chip_layer": bwd["layers"]["yi-6b-chip"],
+        "chip_layers_moe": {k: bwd["layers"][k] for k in
+                            ("qwen2-moe-chip", "grok-1-chip")},
+        "moe_chip_probes": {a: {n: {k: p["record"][k] for k in (
+            "measured_step_s", "scored_step_s", "mfu", "step1_loss")}
+            | {"collective_s": p["record"]["roofline"]["collective_s"],
+               "coll_by_kind": p["record"]["roofline"]["coll_by_kind"],
+               "peak_gib": p["record"]["memory"]["max_memory_allocated_gb"],
+               "launches": p["launches"]}
+            for n, p in c["probes"].items()} | {"depth": c["depth"]}
+            for a, c in product["moe"]["cells"].items()},
+        "train_moe_mesh_2x2": {k: sharded["moe"][k] for k in (
+            "wall_s", "loss_rel", "grad_rel_l2")},
         "launches_phase14_per_probe": product["launches_bwd_per_probe"],
         "max_abs_err_cases": bwd["err"],
         "train_mesh_2x2": {

@@ -238,8 +238,8 @@ class CompiledEvaluator:
     cell one period of which does not fit the card raises
     ``launch.dryrun.DoesNotFit`` with the bytes it would need, before
     anything is allocated (also a failed evaluation, not cached), and so
-    does a cell the chip share does not cover (``share="chip"`` on a MoE
-    arch: ``ValueError`` naming the ROADMAP item).  ``records`` keeps each measured config's full
+    does a cell the chip share does not cover (``share="chip"`` on a
+    hybrid arch: ``ValueError`` naming the ROADMAP item).  ``records`` keeps each measured config's full
     ``compile_cell`` record by cache key.
     """
     model_cfg: ModelConfig

@@ -18,7 +18,7 @@ recommended config, at one of two shares of the production mesh
   record's ``collective_s`` prices those bytes at ``ici_bw``, and its
   ``scored_step_s`` is the reference's combine rule with the measured
   step in place of the compute and memory terms.  Only what the port's
-  layout implements runs this way: the dense family's (and the VLM's)
+  layout implements runs this way: the dense, VLM and MoE families'
   train cells (:func:`layout_covers`);
 * ``"replica"``: one data-parallel replica's share, every other cell:
   ``global_batch // data_parallel_size`` sequences, the replica's whole
@@ -197,6 +197,41 @@ def _chip_state(cfg: ModelConfig, rc: RunConfig, mesh, train: bool):
     return state, n, max(k for k, _ in params)
 
 
+# copies of a MoE layer's expert hidden activations that its forward keeps
+# for the backward: the gate and up products, the activation, its product
+# with the up projection and the routing-scaled copy the down projection
+# reads
+MOE_HIDDEN_COPIES = 5
+
+
+def _moe_layer_bytes(cfg: ModelConfig, rc: RunConfig, tokens: int,
+                     mesh) -> float:
+    """One MoE layer's expert activations on one chip of ``mesh``, for a
+    microbatch of ``tokens`` (the whole sequence: the experts read it
+    gathered under sequence parallelism): the routing's float32 [T, E]
+    (probabilities, weights and their gradients), and under ``dense``
+    ``MOE_HIDDEN_COPIES`` of the [T, E_loc·f_loc] hidden in the
+    activation dtype; under ``dropping`` the [E_loc, C + 1, d] buffer
+    (C the capacity of every data rank's tokens), that many copies of its
+    [E_loc, C, f_loc] hidden and its float32 [E_loc, C, d] output."""
+    from repro_torch.models.moe import EXPERT_AXES, _capacity, _expert_ff
+    E, d, f = cfg.n_experts, cfg.d_model, _expert_ff(cfg)
+
+    def share(dim, n):
+        rng = compute_range(EXPERT_AXES, (E, d, f), dim, rc.shard, mesh)
+        return n if rng is None else rng[1] - rng[0]
+    e_loc, f_loc = share(0, E), share(2, f)
+    act = _bytes_of(rc.activation_dtype)
+    n = 4 * tokens * E * 4
+    if rc.moe_impl == "dropping":
+        cap = _capacity(tokens * data_parallel_size(rc.shard, mesh.shape),
+                        cfg, rc)
+        return n + e_loc * ((cap + 1) * d * act
+                            + MOE_HIDDEN_COPIES * cap * f_loc * act
+                            + cap * d * 4)
+    return n + MOE_HIDDEN_COPIES * tokens * e_loc * f_loc * act
+
+
 def _tp_splits(cfg: ModelConfig, rc: RunConfig, mesh) -> Tuple[int, int]:
     """How many ways the model axis splits the heads and the vocab on
     ``mesh`` (1 where tensor parallelism is off or a dim does not divide,
@@ -230,7 +265,10 @@ def estimate_bytes(cfg: ModelConfig, rc: RunConfig, mode: str,
     divided where the model axis splits the heads and the vocab; under
     sequence parallelism (``sequence_parallel_on`` for ``seq``) the block
     inputs (the stream between blocks) are divided by the model axis
-    too."""
+    too; a MoE layer adds its experts' activations on the chip
+    (:func:`_moe_layer_bytes`): every MoE layer's under remat ``none``,
+    else the remat policy's fraction of them, and at least the one layer
+    the backward recomputes."""
     train = mode == "train"
     if mesh is None:
         n_params = cfg.param_count()
@@ -253,6 +291,10 @@ def estimate_bytes(cfg: ModelConfig, rc: RunConfig, mode: str,
             split = mesh.shape["model"] if sequence_parallel_on(
                 rc.shard, mesh, seq) else 1
             act = whole / split + (act - whole) / heads
+        if mesh is not None and cfg.has_moe:
+            n_moe = sum(s.mlp == "moe" for s in cfg.pattern) * cfg.n_groups
+            act += _moe_layer_bytes(cfg, rc, micro * seq, mesh) * max(
+                n_moe * REMAT_ACT_FRACTION[rc.remat_policy], 1.0)
         n += act
         n += micro * seq * cfg.vocab_size * 4 * 2 / vocab
     else:
@@ -336,8 +378,8 @@ def layout_covers(cfg: ModelConfig, cell: ShapeCell, rc: RunConfig, *,
                   multi_pod: bool = False) -> Optional[str]:
     """None when the port's layout runs this cell's step under ``rc`` on
     one chip of the production mesh, else the ROADMAP item it lacks: the
-    item the step raises there (serving under a mesh, whisper, expert
-    parallelism, ``ssm_inner``).  Every layout knob of a train cell is
+    item the step raises there (serving under a mesh, whisper,
+    ``ssm_inner``).  Every layout knob of a train cell is
     covered (``shard_kv_seq`` splits only a decode cache).  Decided from
     the config alone, before anything is built."""
     if cell.mode != "train":

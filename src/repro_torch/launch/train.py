@@ -14,9 +14,9 @@ host).  It integrates
 the runtime: RunConfig knobs (the layout knobs place the state on a
 mesh), the microbatched train step, the stateless data stream (made on
 the device; on a mesh each data rank draws its rows of the global
-batch), checkpoints with auto-resume (the reference's layout, either
-package resumes the other's, and a mesh's checkpoint resumes on any
-mesh or on one process: rank 0 builds the global state on its host one
+batch, its block of each global microbatch), checkpoints with
+auto-resume (the reference's layout, either package resumes the
+other's, and a mesh's checkpoint resumes on any mesh or on one process: rank 0 builds the global state on its host one
 leaf at a time and saves it, and each rank reads its own blocks, one
 leaf at a time), and the step-time watchdog feeding the elastic
 policy.  It prints the reference's ``step … loss … gnorm … lr …`` lines.  Weights
@@ -32,14 +32,15 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch.mesh import backend_for, make_host_mesh, spawn
 from repro_torch.launch.serve import parse_knobs
 from repro_torch.models.model import Model, gather_tree_to_host
-from repro_torch.parallel.sharding import batch_axes, data_parallel_size
+from repro_torch.parallel.sharding import (axis_index, batch_axes,
+                                           data_parallel_size)
 from repro_torch.runconfig import runconfig_from_knobs
 from repro_torch.train import elastic
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.data import SyntheticDataset
 from repro_torch.train.train_loop import (init_state, make_train_step,
-                                          shard_state, state_placements,
-                                          state_shapes)
+                                          micro_count, shard_state,
+                                          state_placements, state_shapes)
 
 
 def _parser():
@@ -115,13 +116,13 @@ def _train_rank(mesh, args):
         if rank0:
             cm.save(step, full, blocking=blocking)
 
-    d_index, shape = 0, mesh.shape
-    for a in batch_axes(rc.shard, mesh):
-        d_index = d_index * shape[a] + mesh.coords[a]
+    dp = data_parallel_size(rc.shard)
     data = SyntheticDataset(args.seed, args.global_batch, args.seq_len,
                             cfg.vocab_size, start_step=start,
-                            data_index=d_index,
-                            data_count=data_parallel_size(rc.shard),
+                            data_index=axis_index(
+                                mesh, batch_axes(rc.shard, mesh)),
+                            data_count=dp,
+                            n_micro=micro_count(rc, args.global_batch // dp),
                             device=model.device)
     step_fn = make_train_step(model, rc, lr_schedule=lambda s: args.lr,
                               donate=True)

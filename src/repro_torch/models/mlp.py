@@ -45,7 +45,7 @@ def axes(cfg: ModelConfig):
 
 
 def apply(params, x, cfg: ModelConfig, rc: RunConfig,
-          seq_parallel: bool = False):
+          seq_parallel: bool = False, d_ff=None):
     """The MLP; on a mesh whose model axis splits ff, the gate and up
     projections are column-parallel (their input under Megatron's f,
     ``column_input``) and the down projection row-parallel
@@ -53,10 +53,13 @@ def apply(params, x, cfg: ModelConfig, rc: RunConfig,
     sequence: the column projections read the gathered sequence and the
     down projection's sums are reduce-scattered back to the block; an MLP
     whose ff the model axis does not split runs on the block itself (it
-    is per token), its weights under ``common.replicated``."""
+    is per token), its weights under ``common.replicated``.  ``d_ff`` is
+    the hidden width when it is not ``cfg.d_ff`` (a MoE's shared
+    experts)."""
     act = activation(cfg.act)
     red = reduce_dtype(rc)
-    split = compute_range(("ff_in", "ff"), (cfg.d_model, cfg.d_ff), 1,
+    f = d_ff if d_ff is not None else cfg.d_ff
+    split = compute_range(("ff_in", "ff"), (cfg.d_model, f), 1,
                           rc.shard) is not None
     mesh = ambient_mesh()
     if seq_parallel and not split:

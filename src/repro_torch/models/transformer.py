@@ -16,10 +16,12 @@ weights are gathered over the data axes inside the remat group
 (``gather_weights_for_compute``, ZeRO-3), attention and the MLP run
 Megatron's column- and row-parallel forms over the model axis, the
 embedding is a vocab-parallel lookup and the cross entropy a
-vocab-parallel one; under sequence parallelism the stream between blocks
-is each model rank's block of the sequence (``backbone``, ``embed``,
-``unembed``).  Only the dense family is sharded: a MoE, mamba or
-xLSTM block on a mesh of more than one rank raises ``ValueError``.  Off a
+vocab-parallel one, a MoE block's experts split over the model axis
+(``models/moe.py``); under sequence parallelism the stream between
+blocks is each model rank's block of the sequence (``backbone``,
+``embed``, ``unembed``).  The dense and MoE families are sharded: a
+mamba or xLSTM block on a mesh of more than one rank raises
+``ValueError``.  Off a
 mesh every path is the one-process one.
 
 Every block kind of the reference is ported: ``ATTN`` (the flash kernel
@@ -56,7 +58,7 @@ from repro_torch.models.common import (MetaGenerator, dense_apply,
 from repro_torch.models.config import (ATTN, MAMBA, MLP_DENSE, MLP_MOE,
                                        MLSTM, SLSTM, LayerSpec, ModelConfig)
 from repro_torch.parallel import collectives
-from repro_torch.parallel.sharding import (EP_ITEM, SSM_ITEM, ambient_mesh,
+from repro_torch.parallel.sharding import (SSM_ITEM, ambient_mesh,
                                            compute_range,
                                            gather_weights_for_compute,
                                            sequence_parallel_on,
@@ -193,8 +195,8 @@ def _block_mlp(spec: LayerSpec, p, x, cfg: ModelConfig, rc: RunConfig,
         h = _norm(p["norm2"], x, cfg, sp)
         x = x + mlp.apply(p["mlp"], h, cfg, rc, seq_parallel=sp)
     elif spec.mlp == MLP_MOE:
-        h = norm_apply(p["norm2"], x, kind=cfg.norm, eps=cfg.norm_eps)
-        y, aux = moe.apply(p["moe"], h, cfg, rc)
+        h = _norm(p["norm2"], x, cfg, sp)
+        y, aux = moe.apply(p["moe"], h, cfg, rc, seq_parallel=sp)
         x = x + y
     return x, aux
 
@@ -251,7 +253,7 @@ def _remat_wrap(fn, rc: RunConfig):
 def check_mesh(cfg: ModelConfig, rc: RunConfig):
     """The ambient mesh, after refusing (``ValueError`` naming the ROADMAP
     item) what the sharded forward does not implement on a mesh of more
-    than one rank: MoE, mamba and xLSTM blocks."""
+    than one rank: mamba and xLSTM blocks."""
     mesh = ambient_mesh()
     if mesh is None or world_of(mesh) == 1:
         return mesh
@@ -265,12 +267,9 @@ def check_mesh(cfg: ModelConfig, rc: RunConfig):
 
 def unported_block(cfg: ModelConfig) -> Optional[Tuple[str, str]]:
     """(the block, its ROADMAP item) of the first block of the pattern
-    that the sharded forward does not implement (a MoE block: expert
-    parallelism; a mamba or xLSTM block: ``ssm_inner``), or None (the
-    dense family)."""
+    that the sharded forward does not implement (a mamba or xLSTM block:
+    ``ssm_inner``), or None (the dense and MoE families)."""
     for spec in cfg.pattern:
-        if spec.mlp == MLP_MOE:
-            return "a MoE block", EP_ITEM
         if spec.kind != ATTN:
             return f"a {spec.kind} block", SSM_ITEM
     return None

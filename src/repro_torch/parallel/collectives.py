@@ -25,6 +25,9 @@ Autograd-aware forms, Megatron's four operators among them:
 * :func:`reduce_scatter` — sequence parallelism's g: reduce-scatter
   forward, all-gather of the gradient backward (the row-parallel
   projections' partial sums made whole and split along the sequence);
+* :func:`psum` — all-reduce forward and backward: a sum over the ranks
+  that every rank's loss reads, where the train step averages the ranks'
+  gradients (the MoE routing statistics over the data axes);
 
 and, without autograd, :func:`all_reduce` (sum or max) for gradients,
 norms and the cross entropy's max, and :func:`gather_to_host`, a leaf
@@ -330,6 +333,28 @@ def gather_seq(x: torch.Tensor, mesh,
     each rank's use of the gathered sequence being a part of the work."""
     return all_gather(x, 1, ("model",), mesh, sum_axes=("model",),
                       grad_dtype=grad_dtype)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return all_reduce(x, axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.axes, ctx.mesh), None, None
+
+
+def psum(x: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes``, forward; backward, the
+    gradient summed over them too.  Each rank's loss reads the sum and the
+    step averages the ranks' gradients, so each rank's part of ``x`` gets
+    the sum of every rank's gradient of its loss: the whole gradient, once
+    the step's average divides it again."""
+    if not _live(mesh, axes):
+        return x
+    return _Psum.apply(x, _live(mesh, axes), mesh)
 
 
 class _ReduceScatter(torch.autograd.Function):

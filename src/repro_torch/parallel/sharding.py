@@ -129,7 +129,6 @@ DEFAULT_RULES = AxisRules(
 
 # ROADMAP items of the layouts the sharded step refuses on a mesh with
 # more than one rank along their axis
-EP_ITEM = "ROADMAP A 18c (expert parallelism, the MoE families)"
 SSM_ITEM = "ROADMAP A 18d (ssm_inner: mamba, xLSTM, jamba)"
 WHISPER_ITEM = "ROADMAP A 18e (whisper)"
 SERVE_ITEM = "ROADMAP A 18f (prefill and decode under a mesh)"
@@ -452,6 +451,15 @@ def batch_axes(shard_cfg: ShardConfig, mesh) -> Tuple[str, ...]:
     names = set(mesh.axis_names)
     return tuple(a for a in _as_axes(
         shard_cfg.resolve(mesh).mesh_axes_for("batch")) if a in names)
+
+
+def axis_index(mesh, axes) -> int:
+    """This rank's block index over ``axes`` (major first), as a
+    ``Placement`` numbers the blocks of a dimension split over them."""
+    i = 0
+    for a in axes:
+        i = i * mesh.shape[a] + mesh.coords[a]
+    return i
 
 
 def sequence_parallel_on(shard_cfg: ShardConfig, mesh,

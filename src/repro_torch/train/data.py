@@ -7,9 +7,12 @@ position is part of the checkpoint implicitly, as just the step number).
 Each host materializes only its slice of the global batch
 (``host_slice``), and on a process mesh each data rank only its rows of
 the host's batch (``data_index`` / ``data_count``; the same tokens the
-one-process stream has in those rows).  ``data_slice`` cuts a batch
-already in memory the same way (M-RoPE ``positions`` [3, B, S] on axis
-1).
+one-process stream has in those rows): a contiguous block, or with
+``n_micro`` microbatches its block of each in turn (the step's
+microbatch i is rows [i·B/n_micro, (i+1)·B/n_micro) of the batch, as the
+reference's ``_split_micro`` cuts the global batch, and each data rank
+computes on its block of it).  ``data_slice`` cuts a batch already in
+memory the same way (M-RoPE ``positions`` [3, B, S] on axis 1).
 
 Documents are drawn from a Zipf(1.1) unigram mixture with a BOS (token 0)
 every ``doc_len`` positions, as in the reference, and the draw is the
@@ -96,11 +99,12 @@ def categorical_rows(k: Tuple[int, int], logits: torch.Tensor,
 def batch_at(seed: int, step: int, *, global_batch: int, seq_len: int,
              vocab_size: int, doc_len: int = 512, host_index: int = 0,
              host_count: int = 1, data_index: int = 0, data_count: int = 1,
-             device: Union[str, torch.device] = "cuda"
+             n_micro: int = 1, device: Union[str, torch.device] = "cuda"
              ) -> Dict[str, torch.Tensor]:
     """Return {tokens, labels} int32 [B_host / data_count, S] for (seed,
-    step): data rank ``data_index``'s rows of the host's batch — pure,
-    made on ``device``."""
+    step): data rank ``data_index``'s rows of the host's batch (its block
+    of each of ``n_micro`` microbatches in turn) — pure, made on
+    ``device``."""
     if global_batch % host_count:
         raise ValueError(f"global_batch {global_batch} does not split over "
                          f"{host_count} hosts")
@@ -109,13 +113,19 @@ def batch_at(seed: int, step: int, *, global_batch: int, seq_len: int,
     if b_host % data_count:
         raise ValueError(f"a host batch of {b_host} does not split over "
                          f"{data_count} data ranks")
-    r0, r1 = host_slice(b_host, data_index, data_count)
+    if b_host % (n_micro * data_count):
+        raise ValueError(f"a host batch of {b_host} does not split into "
+                         f"{n_micro} microbatches over {data_count} data "
+                         f"ranks")
+    per = b_host // n_micro
+    r0, r1 = host_slice(per, data_index, data_count)
     k = fold_in(fold_in(key(seed), step), host_index)
     logits = _unigram_logits(vocab_size, dev)
     # one extra token so labels are a true shift
-    toks = categorical_rows(k, logits, (r1 - r0) * (seq_len + 1),
-                            first=r0 * (seq_len + 1)) \
-        .view(r1 - r0, seq_len + 1)
+    toks = torch.cat([categorical_rows(
+        k, logits, (r1 - r0) * (seq_len + 1),
+        first=(i * per + r0) * (seq_len + 1)) for i in range(n_micro)]) \
+        .view(n_micro * (r1 - r0), seq_len + 1)
     # doc boundaries: token 0 acts as BOS every doc_len positions
     pos = torch.arange(seq_len + 1, device=dev)
     toks = torch.where((pos % doc_len == 0)[None, :], 0, toks)
@@ -129,16 +139,22 @@ def host_slice(global_batch: int, host_index: int, host_count: int
     return host_index * per, (host_index + 1) * per
 
 
-def data_slice(batch: Dict[str, object], index: int, count: int
-               ) -> Dict[str, object]:
+def data_slice(batch: Dict[str, object], index: int, count: int,
+               n_micro: int = 1) -> Dict[str, object]:
     """Data rank ``index``'s rows of a batch of ``count`` ranks (every
     leaf [B, ...] on axis 0, M-RoPE ``positions`` [3, B, S] on axis 1, as
-    the reference's ``_split_micro`` splits them)."""
+    the reference's ``_split_micro`` splits them): its block of each of
+    the batch's ``n_micro`` microbatches in turn."""
     out = {}
     for key, x in batch.items():
         axis = 1 if key == "positions" else 0
-        lo, hi = host_slice(x.shape[axis], index, count)
-        out[key] = x[:, lo:hi] if axis else x[lo:hi]
+        shape = tuple(x.shape)
+        per = shape[axis] // n_micro
+        lo, hi = host_slice(per, index, count)
+        y = x.reshape(shape[:axis] + (n_micro, per) + shape[axis + 1:])
+        y = y[:, :, lo:hi] if axis else y[:, lo:hi]
+        out[key] = y.reshape(shape[:axis] + (n_micro * (hi - lo),)
+                             + shape[axis + 1:])
     return out
 
 
@@ -149,6 +165,7 @@ class SyntheticDataset:
                  vocab_size: int, start_step: int = 0,
                  host_index: int = 0, host_count: int = 1,
                  data_index: int = 0, data_count: int = 1,
+                 n_micro: int = 1,
                  device: Union[str, torch.device] = "cuda"):
         self.seed = seed
         self.global_batch = global_batch
@@ -159,6 +176,7 @@ class SyntheticDataset:
         self.host_count = host_count
         self.data_index = data_index
         self.data_count = data_count
+        self.n_micro = n_micro
         self.device = resolve_device(device)
 
     def __iter__(self):
@@ -169,6 +187,6 @@ class SyntheticDataset:
                      seq_len=self.seq_len, vocab_size=self.vocab_size,
                      host_index=self.host_index, host_count=self.host_count,
                      data_index=self.data_index, data_count=self.data_count,
-                     device=self.device)
+                     n_micro=self.n_micro, device=self.device)
         self.step += 1
         return b

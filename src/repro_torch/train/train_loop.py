@@ -20,9 +20,12 @@ Under an ambient process mesh (``launch.mesh.ProcessMesh``, ``with
 mesh:``) the step is the reference's sharded step: the state is this
 rank's blocks of ``shardings_for(state_axes, rc.shard.resolve(mesh))``
 (``state_placements``; ``shard_state`` from global parameters, or
-``init_local_state`` drawing the blocks alone), the batch is this data rank's
-slice of the global batch (``train.data.data_slice``), and the
-per-replica ``microbatch`` divides that slice.  Each leaf's gradient is
+``init_local_state`` drawing the blocks alone), the batch is this data
+rank's rows of the global batch (``rank_batch``: its block of each of the
+reference's global microbatches in turn, ``train.data.data_slice``), and
+the per-replica ``microbatch`` divides them: microbatch i of every data
+rank together is the reference's global microbatch i, whose MoE routing
+statistics (``models/moe.py``) are reduced over the data axes.  Each leaf's gradient is
 summed over the data ranks exactly once, in ``grad_allreduce_dtype``: by
 its ZeRO-3 gather's reduce-scatter where it is FSDP-sharded, by an
 all-reduce after the accumulation elsewhere; the loss each replica
@@ -46,10 +49,12 @@ import torch
 from repro_torch.models.common import tree_flatten, tree_unflatten
 from repro_torch.models.model import Model, shard_tree
 from repro_torch.parallel import collectives
-from repro_torch.parallel.sharding import (ambient_mesh, batch_axes,
-                                           data_parallel_size, shardings_for)
+from repro_torch.parallel.sharding import (ambient_mesh, axis_index,
+                                           batch_axes, data_parallel_size,
+                                           shardings_for)
 from repro_torch.runconfig import RunConfig
 from repro_torch.train import optimizer as opt
+from repro_torch.train.data import data_slice
 
 
 class TrainState(NamedTuple):
@@ -140,6 +145,28 @@ def _blocks_state(model: Model, rc: RunConfig, local, pls) -> TrainState:
     return state
 
 
+def micro_count(rc: RunConfig, per_replica: int) -> int:
+    """The microbatches a replica's ``per_replica`` rows split into under
+    ``rc.microbatch`` (per replica; 0: one)."""
+    micro = rc.microbatch if rc.microbatch > 0 else per_replica
+    return max(per_replica // min(micro, per_replica), 1)
+
+
+def rank_batch(batch: Dict[str, Any], rc: RunConfig, mesh=None):
+    """This rank's rows of the global ``batch`` on ``mesh`` (the ambient
+    one by default): its data rank's block of each of the step's global
+    microbatches in turn (``data.data_slice``), so that the sharded
+    step's microbatch i is the reference's global microbatch i."""
+    mesh = mesh if mesh is not None else ambient_mesh()
+    axes = batch_axes(rc.shard, mesh)
+    count = 1
+    for a in axes:
+        count *= mesh.shape[a]
+    b = batch["tokens"].shape[0]
+    return data_slice(batch, axis_index(mesh, axes), count,
+                      micro_count(rc, max(b // count, 1)))
+
+
 def _split_micro(batch: Dict[str, torch.Tensor], n_micro: int):
     """[B, ...] -> [n_micro, B/n_micro, ...] per batch leaf.
 
@@ -186,8 +213,8 @@ def step_grads(model: Model, params, batch: Dict[str, Any], rc: RunConfig, *,
 
     Off a process mesh ``batch`` is the global batch and ``mesh`` (axis
     name -> size) sets the data-parallel world the per-replica
-    ``microbatch`` divides.  On one, ``batch`` is this data rank's slice,
-    ``placements`` the parameters' Placements, and the gradients and the
+    ``microbatch`` divides.  On one, ``batch`` is this data rank's rows
+    (``rank_batch``), ``placements`` the parameters' Placements, and the gradients and the
     loss are the mean over the global batch (module docstring)."""
     pm = ambient_mesh()
     grad_dtype = torch.bfloat16 if rc.grad_allreduce_dtype == "bfloat16" \
@@ -197,9 +224,7 @@ def step_grads(model: Model, params, batch: Dict[str, Any], rc: RunConfig, *,
         dp, per_replica = 1, max(b // data_parallel_size(rc.shard, mesh), 1)
     else:
         dp, per_replica = data_parallel_size(rc.shard), b
-    micro = rc.microbatch if rc.microbatch > 0 else per_replica
-    n_micro = max(per_replica // min(micro, per_replica), 1)
-    n_micro = min(n_micro, b)            # b must split into n_micro
+    n_micro = min(micro_count(rc, per_replica), b)   # b must split
     scale = None if dp == 1 else 1.0 / dp
 
     if n_micro == 1 or b % n_micro != 0:

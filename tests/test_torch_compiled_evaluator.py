@@ -247,11 +247,11 @@ def test_a_refused_layout_is_a_failed_uncached_evaluation():
         svc.close()
     assert not res.ok and isinstance(res.exception, dryrun.DoesNotFit)
     assert ev.calls == 0 and not ev._cache and not ev.records
-    moe = CompiledEvaluator(get_smoke_config("qwen2-moe-a2.7b"), CELL,
-                            device="cpu", share="chip")
-    with pytest.raises(ValueError, match="ROADMAP A 18c"):
-        moe({})
-    assert moe.calls == 0 and not moe._cache
+    hybrid = CompiledEvaluator(get_smoke_config("jamba-1.5-large-398b"),
+                               CELL, device="cpu", share="chip")
+    with pytest.raises(ValueError, match="ROADMAP A 18d"):
+        hybrid({})
+    assert hybrid.calls == 0 and not hybrid._cache
 
 
 def test_cuda_device_raises_without_a_card():

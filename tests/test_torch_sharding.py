@@ -289,10 +289,10 @@ def _refusals():
     kv = ShardConfig(shard_kv_seq_for_decode=True)
     return [("sequence-parallel", dense, {"data": 1, "model": 2}, sp, "runs"),
             ("shard-kv-seq", dense, {"data": 2, "model": 1}, kv, "runs"),
-            ("moe", "qwen2-moe-a2.7b", {"data": 2, "model": 1}, None,
-             "loss"),
-            ("grok-moe", "grok-1-314b", {"data": 1, "model": 2}, None,
-             "loss"),
+            ("moe", "qwen2-moe-a2.7b", {"data": 2, "model": 1},
+             ShardConfig(), "runs"),
+            ("grok-moe", "grok-1-314b", {"data": 1, "model": 2},
+             ShardConfig(), "runs"),
             ("mamba", "jamba-1.5-large-398b", {"data": 2, "model": 1}, None,
              "loss"),
             ("xlstm", "xlstm-1.3b", {"data": 1, "model": 2}, None, "loss"),
@@ -309,8 +309,9 @@ def test_unported_layouts_are_refused_on_a_mesh(what, arch, mesh, shard,
     """Each raises ValueError naming its ROADMAP item before any
     collective (the stand-in mesh has no process group).  The layout
     knobs ported since (``"runs"``: sequence parallelism, ``shard_kv_seq``
-    on a train step) take a train step on that mesh instead (its chip
-    (0, 0) as a virtual mesh, whose collectives act locally)."""
+    on a train step) and the MoE families (expert parallelism) take a
+    train step on that mesh instead (its chip (0, 0) as a virtual mesh,
+    whose collectives act locally)."""
     cfg = get_smoke_config(arch)
     model = Model(cfg, device="cpu")
     rc = RunConfig(param_dtype="float32", activation_dtype="float32",

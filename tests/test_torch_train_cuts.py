@@ -97,7 +97,17 @@ def test_a_period_that_does_not_fit_is_refused(arch, shape):
         == dryrun.FIT_FRACTION * HBM
     assert f"{one / 1e9:.2f} GB" in str(e.value)
     with pytest.raises(dryrun.DoesNotFit):
-        dryrun.cell_depth(cfg, cell)
+        dryrun.cell_depth(cfg, cell, share="replica")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "grok-1-314b"])
+def test_moe_train_cells_fit_whole_at_the_chip_share(arch):
+    """Expert parallelism put the MoE train cells on one chip of the
+    16 x 16 mesh (their default share), where the whole model fits
+    (grok-1's one period does not fit one card whole: above)."""
+    cfg, cell = get_config(arch), SHAPES_BY_NAME["train_4k"]
+    assert dryrun.resolve_share(cfg, cell) == "chip"
+    assert dryrun.cell_depth(cfg, cell) == cfg.n_layers
 
 
 def test_yi_cells_keep_their_depths():

@@ -7,7 +7,11 @@ the virtual backend of ``parallel/collectives.py``), on the CPU.
     ``make_train_step`` step (``roofline.count_step``) of yi-6b's smoke
     config from ``init_local_state``, FSDP + TP, FSDP only and TP only,
     microbatch 1 and 2, remat none and block, and FSDP + TP under
-    sequence parallelism (flash attention: its wrapper's calls counted).
+    sequence parallelism (flash attention: its wrapper's calls counted);
+    the MoE families under expert parallelism: qwen2-moe's experts split
+    over the model axis (dense, dropping with two microbatches, dense
+    under sequence parallelism) and grok-1's expert columns
+    (``expert_parallel`` off).
     FLOPs, collective bytes by kind, every state leaf's shape, the
     state's bytes and the flash calls (their q / k shapes) and launch
     counters must be equal, exactly: they depend on shapes only, and the
@@ -25,7 +29,8 @@ the virtual backend of ``parallel/collectives.py``), on the CPU.
     auto-axis mesh of forced CPU devices, compiled and read by
     ``analyze_hlo`` (``torch_virtual_reference.py`` in a subprocess;
     remat none, a 4 x 16 train cell; with and without sequence
-    parallelism).  The port's per-chip FLOPs are held to the reference's
+    parallelism; the MoE families, dense and dropping, their experts or
+    their expert columns split over the model axis).  The port's per-chip FLOPs are held to the reference's
     per-device FLOPs within 2e-3 relative: the reference takes the
     label's logit by a one-hot contraction (a dot of 2·B·S·V/M FLOPs
     over the chip's rows and vocab columns, or its sequence block and
@@ -62,12 +67,11 @@ from repro_torch.models.config import (SHAPES_BY_NAME, ShapeCell,
                                        applicable_shapes)
 from repro_torch.models.model import Model
 from repro_torch.parallel import collectives
-from repro_torch.parallel.sharding import (EP_ITEM, SERVE_ITEM, SSM_ITEM,
+from repro_torch.parallel.sharding import (SERVE_ITEM, SSM_ITEM,
                                            WHISPER_ITEM)
 from repro_torch.runconfig import runconfig_from_knobs
 from repro_torch.train import optimizer as topt
 from repro_torch.train import train_loop as ttl
-from repro_torch.train.data import data_slice
 import torch_sharded_worker as worker
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -81,6 +85,23 @@ CASES = {f"{lay}-mb{mb}-{remat}": dict(LAYOUTS[lay], microbatch=mb,
 CASES.update({f"fsdp-tp-sp-mb{mb}-{remat}": dict(
     microbatch=mb, remat_policy=remat, attention_impl="flash",
     sequence_parallel=True) for mb, remat in ((1, "none"), (2, "block"))})
+# the MoE families (expert parallelism): case -> arch; the rest are yi-6b's
+MOE_ARCH = {"moe-qwen-dense-mb1-none": "qwen2-moe-a2.7b",
+            "moe-qwen-drop-mb2-block": "qwen2-moe-a2.7b",
+            "moe-qwen-dense-sp-mb1-none": "qwen2-moe-a2.7b",
+            "moe-grok-noep-mb1-block": "grok-1-314b"}
+CASES.update({
+    "moe-qwen-dense-mb1-none": dict(microbatch=1, remat_policy="none",
+                                    attention_impl="reference"),
+    "moe-qwen-drop-mb2-block": dict(microbatch=2, remat_policy="block",
+                                    attention_impl="reference",
+                                    moe_impl="dropping"),
+    "moe-qwen-dense-sp-mb1-none": dict(microbatch=1, remat_policy="none",
+                                       attention_impl="flash",
+                                       sequence_parallel=True),
+    "moe-grok-noep-mb1-block": dict(microbatch=1, remat_policy="block",
+                                    attention_impl="reference",
+                                    expert_parallel=False)})
 SPAWN_TIMEOUT_S = 120
 REFERENCE_TIMEOUT_S = 240
 # the reference's cells: (name, arch, knobs) at a 4 x 16 train cell
@@ -93,7 +114,16 @@ REF_CASES = (("yi-fsdp-tp", "yi-6b", {"microbatch": 1}),
              ("qwen15", "qwen1.5-4b", {"microbatch": 1}),
              ("yi-sp", "yi-6b", {"microbatch": 1, "sequence_parallel": True}),
              ("qwen15-sp", "qwen1.5-4b", {"microbatch": 1,
-                                          "sequence_parallel": True}))
+                                          "sequence_parallel": True}),
+             ("qwen-moe-dense", "qwen2-moe-a2.7b", {"microbatch": 1,
+                                                    "moe_impl": "dense"}),
+             ("qwen-moe-drop", "qwen2-moe-a2.7b", {"microbatch": 1,
+                                                   "moe_impl": "dropping"}),
+             ("qwen-moe-sp", "qwen2-moe-a2.7b", {"microbatch": 1,
+                                                 "sequence_parallel": True}),
+             ("grok-moe", "grok-1-314b", {"microbatch": 1}),
+             ("grok-moe-noep", "grok-1-314b", {"microbatch": 1,
+                                               "expert_parallel": False}))
 FLOPS_REL = 2e-3
 
 
@@ -118,13 +148,14 @@ def _batch(cfg, seed=1):
 @pytest.fixture(scope="module")
 def gloo_rank0(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("virtual")
-    cfg = get_smoke_config("yi-6b")
-    data = tmp / "batch.npz"
-    batch = _batch(cfg)
-    np.savez(data, **{f"batch_{k}": v for k, v in batch.items()})
-    specs = [{"name": name, "arch": "yi-6b", "knobs": knobs,
-              "data": str(data), "batch": sorted(batch)}
-             for name, knobs in CASES.items()]
+    specs = []
+    for name, knobs in CASES.items():
+        arch = MOE_ARCH.get(name, "yi-6b")
+        data = tmp / f"{arch}.npz"
+        batch = _batch(get_smoke_config(arch))
+        np.savez(data, **{f"batch_{k}": v for k, v in batch.items()})
+        specs.append({"name": name, "arch": arch, "knobs": knobs,
+                      "data": str(data), "batch": sorted(batch)})
     spec_path = tmp / "cases.json"
     spec_path.write_text(json.dumps(specs))
     out = tmp / "rank0.json"
@@ -139,8 +170,9 @@ def test_virtual_chip_counts_what_rank0_counts(gloo_rank0, case):
     spec = specs[case]
     with np.load(spec["data"]) as z:
         batch = {k: torch.from_numpy(z[f"batch_{k}"]) for k in spec["batch"]}
-    with make_virtual_mesh((2, 2), device="cpu"):
-        want, loss = worker.count_case(spec, data_slice(batch, 0, 2))
+    with make_virtual_mesh((2, 2), device="cpu") as mesh:
+        want, loss = worker.count_case(spec, ttl.rank_batch(
+            batch, runconfig_from_knobs(spec["knobs"]), mesh))
     real = got[case]
     assert real["flops"] == want["flops"] > 0
     assert real["coll_by_kind"] == want["coll_by_kind"]
@@ -150,7 +182,7 @@ def test_virtual_chip_counts_what_rank0_counts(gloo_rank0, case):
     assert real["launches"] == want["launches"]
     assert bool(want["flash_calls"]) == ("-sp-" in case)
     live = {k for k, v in want["coll_by_kind"].items() if v}
-    assert live == ({"all-reduce"} if "tp-" in case and "fsdp" not in case
+    assert live == ({"all-reduce"} if case.startswith("tp-")
                     else set(collectives.KINDS))
     assert np.isfinite(loss) and np.isfinite(real["loss"])
 
@@ -258,7 +290,7 @@ def _virtual_refusal(cfg, cell):
                 model.decode_step(params, toks[:2, :1], None, rc)
             raise AssertionError(f"{cell.mode} ran on a mesh")
     except ValueError as e:
-        items = [it for it in (SERVE_ITEM, WHISPER_ITEM, EP_ITEM, SSM_ITEM)
+        items = [it for it in (SERVE_ITEM, WHISPER_ITEM, SSM_ITEM)
                  if str(e).endswith(it)]
         assert len(items) == 1, str(e)
         return items[0]

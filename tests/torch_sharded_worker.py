@@ -4,8 +4,8 @@ imports no JAX).
 
 ``run_cases(mesh, spec_path, out_path)``: for every case of the spec,
 this rank's blocks of the case's float32 parameters
-(``train_loop.shard_state``), its data rank's slice of the global batch
-(``data.data_slice``), the accumulated gradients (``step_grads``) and one
+(``train_loop.shard_state``), its rows of the global batch
+(``train_loop.rank_batch``: its data rank's block of each microbatch), the accumulated gradients (``step_grads``) and one
 ``make_train_step`` step.  Rank 0 writes the metrics, the gathered
 gradients and the gathered new state to ``out_path`` (``.npz``, leaves in
 ``tree_flatten`` order), and whether the new state built on its host by
@@ -14,7 +14,7 @@ gradients and the gathered new state to ``out_path`` (``.npz``, leaves in
 ``count_cases(mesh, spec_path, out_path)`` (``test_torch_virtual_mesh.py``):
 for every case, this rank's state drawn block by block
 (``train_loop.init_local_state``) and one ``make_train_step`` step on
-its data rank's slice under ``launch.roofline.count_step``.  Rank 0
+its rows of the batch under ``launch.roofline.count_step``.  Rank 0
 writes its counts (FLOPs, collective bytes by kind, each state leaf's
 shape and bytes) and the step's loss to ``out_path`` (JSON)."""
 
@@ -32,7 +32,6 @@ from repro_torch.models.model import Model, gather_tree, gather_tree_to_host
 from repro_torch.runconfig import runconfig_from_knobs
 from repro_torch.train import optimizer as topt
 from repro_torch.train import train_loop as ttl
-from repro_torch.train.data import data_slice
 
 
 def state_counts(state) -> dict:
@@ -80,8 +79,8 @@ def count_cases(mesh, spec_path, out_path):
         with np.load(spec["data"]) as z:
             batch = {k: torch.from_numpy(z[f"batch_{k}"])
                      for k in spec["batch"]}
-        local = data_slice(batch, mesh.coords["data"], mesh.shape["data"])
-        counts, loss = count_case(spec, local)
+        rc = runconfig_from_knobs(spec["knobs"])
+        counts, loss = count_case(spec, ttl.rank_batch(batch, rc, mesh))
         out[spec["name"]] = {**counts, "loss": loss}
     if mesh.rank == 0:
         with open(out_path, "w") as f:
@@ -119,7 +118,7 @@ def run_cases(mesh, spec_path, out_path):
     for spec in cases:
         model, rc, params, batch = load_case(spec)
         state = ttl.shard_state(model, rc, params, mesh)
-        local = data_slice(batch, mesh.coords["data"], mesh.shape["data"])
+        local = ttl.rank_batch(batch, rc, mesh)
         pls = ttl.param_placements(model, rc)
         _, _, grads = ttl.step_grads(model, state.params, local, rc,
                                      placements=pls)
