@@ -116,7 +116,9 @@ Phases (any failure exits non-zero before the result line):
    and at the path's (the daemon's cross-Gram, yi-6b's bf16 prefill,
    xlstm-1.3b's bf16 mLSTM layer), budget 24, batch 2, repeats 5 at the
    path's shapes and, at the bench shapes (host-bound calls), 12 warm-up
-   calls and the best of 12; the tuned config
+   calls and the best of 12, each call's device time (CUDA events behind
+   a hold kernel, so that the host's dispatch is not timed); the tuned
+   config
    re-measured head to head (one call each in turns, best of 36) against
    the space's default, or against the default launch where the card refuses
    that default, held to 1.15x, each config's reading in the tuner's
@@ -216,13 +218,13 @@ Phases (any failure exits non-zero before the result line):
    device time, kernel by kernel) beside the plain version, with the
    bound.  Then
    ``Model(xlstm-1.3b full width, 8 of 48 layers: 7 mLSTM, 1 sLSTM)``
-   trained as yi-6b (AdamW, 2 x 4096 tokens, microbatch 1, remat
-   ``block``, chunk 256), the sLSTM's recurrent weights x0.1: exactly 28
-   wgmma forward launches (7 x 2 microbatches x forward and recompute),
-   no FMA one and 14 wgmma backward launches (no FMA one) in each of 2
-   steps; step 1's loss within 1e-2 of the same step's with the mLSTM's
-   plain version (``ref.mlstm_chunkwise`` through autograd on the card),
-   and each of its 14 backward launches on its own inputs within 1e-2 /
+   trained as yi-6b (AdamW, 1 x 4096 tokens: 2 until PR 31, microbatch
+   1, remat ``block``, chunk 256), the sLSTM's recurrent weights x0.1:
+   exactly 14 wgmma forward launches (7 x 1 microbatch x forward and
+   recompute), no FMA one and 7 wgmma backward launches (no FMA one) in
+   each of 2 steps; step 1's loss within 1e-2 of the same step's with the
+   mLSTM's plain version (``ref.mlstm_chunkwise`` through autograd on the
+   card), and each of its 7 backward launches on its own inputs within 1e-2 /
    5e-3 of the plain versions (the latter with both keywords); step 2's
    time, tokens/s, peak memory, a profiled microbatch's device shares
    (mLSTM forward, mLSTM backward, cuBLAS, other) with every mLSTM kernel
@@ -316,7 +318,31 @@ Phases (any failure exits non-zero before the result line):
    random MoE in bf16 is chaotic).  Gates: every probe fits, runs the
    chip share with its collectives counted and finite losses; the twin;
    each flash probe's launches exact at the chip's heads (q [1, 4096, 1,
-   128] / [1, 4096, 3, 128], k [1, 4096, 1, 128]); within 200 s.
+   128] / [1, 4096, 3, 128], k [1, 4096, 1, 128]); within 200 s.  Then
+   the SSM families' train_4k cells at the chip's share (``ssm_inner``
+   over the model axis, ``PRODUCT_SSM``), one 4096-token sequence a data
+   rank (``reduced``: batch 16 -> 1): xlstm-1.3b's one period (7 mLSTM,
+   1 sLSTM; the chip runs its mLSTM head whole, 256 of its 1024 channels
+   its own) with the space's default, 1 warm-up + 1 timed step; jamba at
+   pattern positions 0 and 1 (mamba with the dense MLP and with the MoE:
+   one of the 16 experts a chip) with the default, ``moe_impl=
+   "dropping"`` and ``expert_parallel=False`` (every expert's columns
+   split instead: another layout, its bytes by kind must differ); first
+   the mLSTM forward and backward at the chip's layer (1, 4096, 1, 1024)
+   against their plain versions (relative L2 1e-3 and 5e-3 of the
+   route's rounded versions), timed beside them, device time and bound
+   printed, and each cell's ``cell_depth`` at the chip share (recorded,
+   not run).  Each probe prints its measured and scored step,
+   ``collective_s``, bytes by kind, peak beside ``estimate_bytes``,
+   ``mfu``, step-1 loss and gradient norm.  Gates: every probe fits,
+   runs the chip share with its collectives counted, the regroup's
+   all-to-all among them; a finite step-1 loss, and for jamba finite
+   losses and gradient norm (xlstm-1.3b's sLSTM recurrence overflows its
+   gradient at its own initialisation, on one device as on the chip);
+   the mLSTM wrapper's launches counted from 0 around each probe exact:
+   (warm-up + timed steps) x microbatches x 7 wgmma forwards and as many
+   wgmma backwards, none FMA (none in jamba's); the chip holds one of
+   jamba's experts; within 150 s.
 15. the sharded train step: yi-6b at full width, 2 of 32 layers, on a
    2 x 2 (data, model) mesh of four processes (``launch.mesh.spawn``;
    NCCL when the host has a card for each rank, else gloo with the four
@@ -2584,14 +2610,16 @@ def phase_service(card: str):
 # bf16 mLSTM layer; then each tuned config re-measured head to head against
 # the space's default (or, where the card refuses that TPU-sized default,
 # the default launch), held to benchmarks/perf_multi_device.py's 1.15.
-# At the bench shapes a call is mostly host dispatch (~0.1-0.2 ms), and
-# the host's speed drifts by ~15 % over seconds: one config's readings in
-# one tuning run spread that wide (tools/autotune_bench_spread.py), the
-# tuner's best is the luckiest of them, and a config it picked read
-# 1.2675x the default launch head to head (PERF §7).  So at the
-# bench shapes tune_kernel times each config with AUTOTUNE_RECHECK warm-up
-# calls and the best of AUTOTUNE_RECHECK (the reference's own repeats /
-# warmup), and head_to_head takes turns call by call.
+# At the bench shapes a call is mostly host dispatch (~0.1-0.2 ms): its
+# wall time spread by a quarter between readings of one config in one
+# tuning run (tools/autotune_bench_spread.py), the tuner's best was the
+# luckiest of them, and a config it picked read 1.17-1.27x the default
+# launch head to head (PERF §7).  KernelEvaluator times a call's device
+# time instead (the stream held busy while the host queues the call:
+# kernels.autotune.HOLD_CYCLES).  At the bench shapes tune_kernel still
+# times each config with AUTOTUNE_RECHECK warm-up calls and the best of
+# AUTOTUNE_RECHECK (the reference's own repeats / warmup), and
+# head_to_head takes turns call by call.
 AUTOTUNE_BUDGET, AUTOTUNE_BATCH, AUTOTUNE_REPEATS = 24, 2, 5
 AUTOTUNE_RECHECK, AUTOTUNE_ROUNDS, AUTOTUNE_GATE = 12, 3, 1.15
 AUTOTUNE_RUNS = (
@@ -2788,7 +2816,9 @@ def head_to_head(kernel: str, shape: dict, configs: dict) -> dict:
     taking turns call by call (the order reversed every turn), best of
     AUTOTUNE_ROUNDS x AUTOTUNE_RECHECK calls each.  At a host-bound shape
     the host's speed drifts by ~15 % over seconds, so readings taken a
-    block apart compare two phases; turns call by call compare one."""
+    block apart compared two phases of the host; the device times
+    ``KernelEvaluator.time`` reads now are steadier, and turns call by
+    call still compare one phase of the card."""
     from repro_torch.kernels import autotune
     ev = autotune.KernelEvaluator(kernel, shape=shape, warmup=1)
     runs = {name: ev._build(cfg) for name, cfg in configs.items()}
@@ -3863,6 +3893,9 @@ MLSTM_BWD_REL = {"float32": 1e-5, "bfloat16": 1e-2}
 MLSTM_BWD_REL_ROUNDED = 5e-3     # against the wgmma route's rounded version
 XLSTM_TRAIN_LAYERS = 8           # one period of xLSTM[7:1]: 7 mLSTM, 1 sLSTM
 XLSTM_TRAIN_STEPS = 2           # step 1 pays first-use costs; step 2 is timed
+XLSTM_TRAIN_B = 1               # one sequence (2 until PR 31: its sLSTM loop
+                                # is ~13 s a sequence, and phase 14's SSM
+                                # cells came within the script's 1200 s)
 
 
 def flash_bwd_bound(B, Sq, Sk, H, Kh, D, causal, window, itemsize,
@@ -4841,15 +4874,16 @@ def train_xlstm(card: str) -> dict:
     state = ttl.init_state(model, TRAIN_SEED, rc, params=params)
     del params
     n_params = sum(t.numel() for t in tree_flatten(state.params)[0])
-    data = SyntheticDataset(TRAIN_SEED, TRAIN_B, TRAIN_S, cfg.vocab_size,
-                            device="cuda")
+    data = SyntheticDataset(TRAIN_SEED, XLSTM_TRAIN_B, TRAIN_S,
+                            cfg.vocab_size, device="cuda")
     batches = [next(data) for _ in range(XLSTM_TRAIN_STEPS)]
-    n_micro = TRAIN_B // TRAIN_MICRO
+    n_micro = XLSTM_TRAIN_B // TRAIN_MICRO
     print(f"  xlstm-1.3b full width, {cfg.n_layers} of 48 layers ({n_mlstm} "
           f"mLSTM, {cfg.n_layers - n_mlstm} sLSTM; sLSTM recurrent weights "
           f"x{XLSTM_WREC_SCALE}): {n_params / 1e9:.3f} B parameters (bf16, "
           f"AdamW with float32 master weights); {XLSTM_TRAIN_STEPS} batches "
-          f"of {TRAIN_B}x{TRAIN_S} tokens, microbatch {TRAIN_MICRO}, remat "
+          f"of {XLSTM_TRAIN_B}x{TRAIN_S} tokens, microbatch {TRAIN_MICRO}, "
+          f"remat "
           f"block, chunk {rc.mlstm_chunk}", flush=True)
     # the reference loss: step 1's batch through the plain mLSTM (forward)
     mbs = ttl._split_micro(batches[0], n_micro)
@@ -4988,9 +5022,10 @@ def train_xlstm(card: str) -> dict:
     shares = dict(prof["shares"])
     shares["idle"] = max(0.0, 1.0 - busy_s / step_s)
     shares["busy_s"] = busy_s
-    tokens = TRAIN_B * TRAIN_S
-    print(f"  xlstm-1.3b train step (B={TRAIN_B}, S={TRAIN_S}, microbatch "
-          f"{TRAIN_MICRO}, remat block, chunk {rc.mlstm_chunk}) on {card}: "
+    tokens = XLSTM_TRAIN_B * TRAIN_S
+    print(f"  xlstm-1.3b train step (B={XLSTM_TRAIN_B}, S={TRAIN_S}, "
+          f"microbatch {TRAIN_MICRO}, remat block, chunk {rc.mlstm_chunk}) "
+          f"on {card}: "
           f"step_s={step_s:.4f} (step {XLSTM_TRAIN_STEPS}; steps "
           + ", ".join(f"{t:.4f}" for t in times) + f"), tokens/s="
           f"{tokens / step_s:.1f}, peak memory {peak:.2f} GiB; device "
@@ -5764,6 +5799,261 @@ def product_moe(card: str) -> dict:
                                 for p in c["probes"].values())}
 
 
+# the SSM families' train_4k cells at one chip's share (``ssm_inner`` over
+# the model axis): (arch, pattern positions kept, timed steps, probes).
+# Each data rank runs one 4096-token sequence (``PRODUCT_SSM_REDUCE``,
+# listed in the record's ``reduced``): at the default's microbatch of 1 its
+# 16 would be 16 sLSTM loops of ~13 s a step.  xlstm-1.3b: one period (7
+# mLSTM, 1 sLSTM), the space's default only (no attention: no flash
+# probe); jamba: positions 0 and 1 (mamba with the dense MLP, mamba with
+# the MoE: 16 experts over the model axis of 16, one a chip) with the
+# default, the dropping MoE and ``expert_parallel`` off (every expert's
+# columns split instead: another layout, so expected to differ)
+PRODUCT_SSM = (
+    ("xlstm-1.3b", tuple(range(8)), 1, (("default", {}),)),
+    ("jamba-1.5-large-398b", (0, 1), PRODUCT_STEPS,
+     (("default", {}), ("dropping", {"moe_impl": "dropping"}),
+      ("no-ep", {"expert_parallel": False}))))
+PRODUCT_SSM_REDUCE = {"batch": 1}
+# xlstm-1.3b's sLSTM recurrence is chaotic at its own initialisation: its
+# gradient through the 4096-step loop overflows, on one device as on the
+# chip (ROADMAP C), so that cell gates its step-1 loss, not its gradient
+# norm or the losses after that update
+PRODUCT_SSM_OVERFLOWS = ("xlstm-1.3b",)
+# xlstm-1.3b's mLSTM layer on chip (0, 0): its 4 heads of 1024 over 16
+# ranks of 256 channels, so the chip runs its head whole (B S H P)
+CHIP_MLSTM = (1, 4096, 1, 1024)
+PRODUCT_SSM_BUDGET_S = 150.0
+
+# the mLSTM forward's profiled device ms per call in a process of its own:
+# argv = B, S, H, P, chunk (JSON; bf16), the repo's root, its src/
+FRESH_MLSTM_FWD = """
+import json, sys
+sys.path[:0] = sys.argv[2:4]
+import torch
+import chip_smoke
+from repro_torch.kernels.mlstm_chunk import ops
+B, S, H, P, chunk = json.loads(sys.argv[1])
+gen = torch.Generator(device="cuda").manual_seed(17)
+args, _ = chip_smoke.mlstm_bwd_inputs(B, S, H, P, torch.bfloat16, gen)
+print(json.dumps(chip_smoke.device_ms(
+    lambda: ops.mlstm_chunk(*args, chunk=chunk), 10,
+    [(n, lambda: ops.launches_wgmma, 1) for n in chip_smoke.MLSTM_PASSES],
+    what="fresh mLSTM forward")))
+"""
+
+
+def chip_mlstm_layer(card: str) -> dict:
+    """The mLSTM kernels at xlstm-1.3b's chip layer (``CHIP_MLSTM``, bf16,
+    chunk 256): one wgmma forward and one wgmma backward launch against
+    their plain versions with the route's roundings (relative L2
+    ``MLSTM_REL_L2`` and ``MLSTM_BWD_REL_ROUNDED``), each timed with CUDA
+    events beside its plain version, its device time from a whole
+    profiler session (or a fresh process: ``FRESH_MLSTM_FWD``,
+    ``FRESH_MLSTM_BWD``) and its bound."""
+    import torch
+    from repro_torch.kernels.mlstm_chunk import ops, ref
+
+    B, S, H, P = CHIP_MLSTM
+    chunk = MLSTM_CHUNKS[0]
+    check(ops.route(torch.bfloat16, P, chunk) == "wgmma",
+          f"the chip's mLSTM layer {CHIP_MLSTM} is not on the wgmma route")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    args, dh = mlstm_bwd_inputs(B, S, H, P, torch.bfloat16, gen)
+    before = (ops.launches_wgmma, ops.launches_fma, ops.launches_bwd_wgmma,
+              ops.launches_bwd_fma)
+    h = ops.mlstm_chunk(*args, chunk=chunk)
+    got = ops._backward_wgmma(*args, h, dh, chunk)
+    torch.cuda.synchronize()
+    after = (ops.launches_wgmma, ops.launches_fma, ops.launches_bwd_wgmma,
+             ops.launches_bwd_fma)
+    check(tuple(a - b for a, b in zip(after, before)) == (1, 0, 1, 0),
+          f"the chip's mLSTM layer: launches {before} -> {after}, want one "
+          f"wgmma forward and one wgmma backward")
+    want = ops.plain_version(*args, chunk)
+    rel_f = rel_l2(h, want)
+    err_f = float((h.float() - want.float()).abs().max())
+    grads = ref.mlstm_chunkwise_grads(
+        *args, h, dh, chunk, operand_dtype=torch.bfloat16,
+        grad_operand_dtype=torch.bfloat16)
+    rels_b = [rel_l2(g, w) for g, w in zip(got, grads)]
+    err_b = max(float((g.float() - w).abs().max())
+                for g, w in zip(got, grads))
+    for t in (h, *got):
+        check(bool(torch.isfinite(t.float()).all()),
+              "the chip's mLSTM layer: a non-finite output")
+    check(rel_f <= MLSTM_REL_L2, f"the chip's mLSTM forward {CHIP_MLSTM}: "
+          f"relative L2 {rel_f} > {MLSTM_REL_L2}")
+    check(max(rels_b) <= MLSTM_BWD_REL_ROUNDED, f"the chip's mLSTM backward "
+          f"{CHIP_MLSTM}: relative L2 {max(rels_b)} > "
+          f"{MLSTM_BWD_REL_ROUNDED}")
+    del want, grads
+
+    def fwd():
+        return ops.mlstm_chunk(*args, chunk=chunk)
+
+    def bwd():
+        return ops._backward_wgmma(*args, h, dh, chunk)
+    out = {}
+    for kind, kernel, plain, counted, script, bound in (
+            ("fwd", fwd, lambda: ops.plain_version(*args, chunk),
+             [(n, lambda: ops.launches_wgmma, 1) for n in MLSTM_PASSES],
+             FRESH_MLSTM_FWD, mlstm_bound),
+            ("bwd", bwd, lambda: ref.mlstm_chunkwise_grads(
+                *args, h, dh, chunk, operand_dtype=torch.bfloat16,
+                grad_operand_dtype=torch.bfloat16),
+             mlstm_bwd_counted("wgmma"), FRESH_MLSTM_BWD, mlstm_bwd_bound)):
+        k_ms = cuda_ms(kernel, reps=5, inner=4)
+        p_ms = cuda_ms(plain, reps=3, inner=1)
+        arg = [B, S, H, P, chunk] if kind == "fwd" \
+            else [B, S, H, P, chunk, "bfloat16", "wgmma"]
+        dev = device_ms(kernel, calls=10 if kind == "fwd" else 4,
+                        counted=counted, what=f"the chip's mLSTM {kind}",
+                        fresh=lambda a=arg, sc=script: fresh_device_ms(sc, a))
+        b_ms, b_by, flops = bound(B, S, H, P, chunk, 2, BF16_FLOPS_PER_S)
+        out[kind] = {"ms": k_ms, "device_ms": dev, "plain_ms": p_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     "shape": [B, S, H, P, chunk],
+                     "rel_l2": rel_f if kind == "fwd" else max(rels_b),
+                     "max_abs_err": err_f if kind == "fwd" else err_b}
+        print(f"  mLSTM {kind} at xlstm-1.3b's chip layer {CHIP_MLSTM} "
+              f"chunk {chunk} bf16 on {card}: kernel_ms={k_ms:.4f} "
+              f"device_ms={dev:.4f} plain_ms={p_ms:.4f} library_ms=None "
+              f"bound_ms={b_ms:.4f} ({b_by}; {flops / 1e9:.1f} GFLOP; "
+              f"device / bound {dev / b_ms:.2f}); kernel vs plain rel_l2 "
+              f"{out[kind]['rel_l2']:.3e}, max_abs_err "
+              f"{out[kind]['max_abs_err']:.3e}", flush=True)
+    del args, dh, h, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_probe(ev, name: str, knobs: dict, base: dict) -> dict:
+    """``product_probe`` with the mLSTM wrapper's launches counted from 0
+    around it too."""
+    from repro_torch.kernels.mlstm_chunk import ops
+
+    ops.reset_launch_counts()
+    p = product_probe(ev, name, knobs, base)
+    p["mlstm"] = {k: getattr(ops, f"launches{s}") for k, s in (
+        ("fwd", ""), ("fwd_wgmma", "_wgmma"), ("fwd_fma", "_fma"),
+        ("bwd", "_bwd"), ("bwd_wgmma", "_bwd_wgmma"),
+        ("bwd_fma", "_bwd_fma"))}
+    print(f"    mLSTM launches {p['mlstm']}", flush=True)
+    return p
+
+
+def product_ssm(card: str) -> dict:
+    """Phase 14's SSM cells: xlstm-1.3b's and jamba's train_4k at one
+    chip's share of the 16 x 16 mesh (``PRODUCT_SSM``), each probe a
+    ``CompiledEvaluator`` call with the mLSTM and flash wrappers' launches
+    counted from 0 around it; first the mLSTM kernels at the chip's layer
+    (``chip_mlstm_layer``), and each cell's ``cell_depth`` at the chip
+    share (recorded, not run)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.costmodel import SINGLE_POD
+    from repro_torch.core.evaluators import CompiledEvaluator
+    from repro_torch.core.knobs import clean_space
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import SHAPES_BY_NAME
+    from repro_torch.models.moe import EXPERT_AXES, _expert_ff
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.sharding import compute_range
+
+    cell = SHAPES_BY_NAME["train_4k"]
+    t0 = time.perf_counter()
+    layer = chip_mlstm_layer(card)
+    out = {}
+    for arch, keep, steps, probes in PRODUCT_SSM:
+        full = get_config(arch)
+        check(dryrun.resolve_share(full, cell) == "chip", f"phase 14: "
+              f"{arch} train_4k should run at one chip's share")
+        depth = dryrun.cell_depth(full, cell, reduce=PRODUCT_SSM_REDUCE)
+        cfg = full.scaled(n_layers=len(keep),
+                          pattern=tuple(full.pattern[i] for i in keep))
+        print(f"  {arch} train_4k at one chip of 16 x 16, one sequence a "
+              f"data rank: fit_depth at the chip share {depth} of "
+              f"{full.n_layers} layers (recorded, not run); the probes run "
+              f"pattern positions {list(keep)}, 1 warm-up + {steps} timed "
+              f"step(s)", flush=True)
+        space, _, _ = clean_space(full, cell, SINGLE_POD)
+        default = space.project(space.default_config())
+        ev = CompiledEvaluator(cfg, cell, device="cuda", n_layers=len(keep),
+                               steps=steps, share="chip",
+                               reduce=PRODUCT_SSM_REDUCE)
+        res = {}
+        for name, kn in probes:
+            res[name] = ssm_probe(ev, f"{arch} {name}",
+                                  space.project({**default, **kn}), default)
+            torch.cuda.empty_cache()
+        n_mlstm = sum(s.kind == "mlstm" for s in cfg.pattern)
+        for name, p in res.items():
+            check(p["feasible"], f"phase 14: {arch}'s {name} probe ran out "
+                  f"of the card's memory")
+            rec = p["record"]
+            r = rec["roofline"]
+            if arch in PRODUCT_SSM_OVERFLOWS:
+                finite, what = [rec["step1_loss"]], "step-1 loss"
+            else:
+                finite = rec["step_losses"] + [rec["step1_grad_norm"]]
+                what = "losses and gradient norm"
+            check(rec["share"] == "chip" and rec["n_layers"] == len(keep)
+                  and r["collective_s"] > 0
+                  and r["coll_by_kind"].get(collectives.ALL_TO_ALL, 0) > 0
+                  and all(math.isfinite(x) for x in finite),
+                  f"phase 14: {arch}'s {name} did not run one chip's share "
+                  f"with its collectives (the [x | z] regroup's all-to-all "
+                  f"among them) and finite {what} ({rec['step_losses']}, "
+                  f"{rec['step1_grad_norm']}, {r['coll_by_kind']})")
+            micro = rec["runconfig"]["microbatch"] or rec["batch"]
+            n_micro = rec["batch"] // min(micro, rec["batch"])
+            again = 1 if rec["runconfig"]["remat_policy"] == "none" else 2
+            want_fwd = (1 + steps) * n_micro * n_mlstm * again
+            want_bwd = (1 + steps) * n_micro * n_mlstm
+            m = p["mlstm"]
+            check(m["fwd"] == m["fwd_wgmma"] == want_fwd and m["fwd_fma"] == 0
+                  and m["bwd"] == m["bwd_wgmma"] == want_bwd
+                  and m["bwd_fma"] == 0, f"phase 14: {arch}'s {name}: "
+                  f"mLSTM launches {m}, want {want_fwd} wgmma forwards and "
+                  f"{want_bwd} wgmma backwards, no FMA")
+            print(f"  {arch} {name}: measured_step_s="
+                  f"{rec['measured_step_s']:.6f} scored_step_s="
+                  f"{p['step_s']:.6f} collective_s={r['collective_s']:.6f} "
+                  f"({r['collective_bytes_per_device'] / 1e9:.3f} GB: "
+                  f"{r['coll_by_kind']}) peak="
+                  f"{rec['memory']['max_memory_allocated_gb']:.2f} GiB "
+                  f"(estimate_bytes {rec['memory']['estimated_gb']:.2f}) "
+                  f"mfu={rec['mfu']:.4f}; step-1 loss "
+                  f"{rec['step1_loss']:.6f}, gradient norm "
+                  f"{rec['step1_grad_norm']}; reduced {rec['reduced']}",
+                  flush=True)
+        d = res["default"]["record"]
+        if "no-ep" in res:
+            rc = dryrun.default_runconfig(full, cell)
+            dims = (full.n_experts, full.d_model, _expert_ff(full))
+            chip = dryrun.production_chip()
+            check(compute_range(EXPERT_AXES, dims, 0, rc.shard, chip)
+                  == (0, 1), f"phase 14: {arch}'s chip does not hold one "
+                  f"expert")
+            t = res["no-ep"]["record"]
+            check(t["roofline"]["coll_by_kind"]
+                  != d["roofline"]["coll_by_kind"], f"phase 14: {arch} with "
+                  f"expert_parallel off moved the default's bytes "
+                  f"{d['roofline']['coll_by_kind']}: the layouts should "
+                  f"differ")
+        out[arch] = {"probes": res, "depth": depth, "keep": list(keep)}
+    total = time.perf_counter() - t0
+    print(f"phase 14's SSM cells {total:.1f} s (budget "
+          f"{PRODUCT_SSM_BUDGET_S:.0f} s)", flush=True)
+    check(total <= PRODUCT_SSM_BUDGET_S, f"phase 14's SSM cells took "
+          f"{total:.1f} s")
+    probes = [p for c in out.values() for p in c["probes"].values()]
+    return {"cells": out, "chip_layer": layer, "seconds": total,
+            "launches_fwd": sum(p["mlstm"]["fwd"] for p in probes),
+            "launches_bwd": sum(p["mlstm"]["bwd"] for p in probes)}
+
+
 def phase_product(card: str, tuned: dict) -> dict:
     """Phase 14: the config probes of yi-6b's train_4k at one chip's share
     of the 16 x 16 mesh (and the default once at the replica's share),
@@ -5950,8 +6240,11 @@ def phase_product(card: str, tuned: dict) -> dict:
     check(total <= PRODUCT_BUDGET_S, f"phase 14 took {total:.1f} s")
     torch.cuda.empty_cache()
     moe = product_moe(card)
+    torch.cuda.empty_cache()
+    ssm = product_ssm(card)
     return {"probes": out, "replica": replica, "serving": serving,
             "flash_layer": flash_layer, "depth": depth, "moe": moe,
+            "ssm": ssm,
             "launches_fwd": fwd_total, "launches_bwd": bwd_total,
             "launches_fwd_per_probe": {n: p["launches"]["fwd"]
                                        for n, p in out.items()},
@@ -6659,14 +6952,29 @@ def main() -> None:
         "launches_phase14_per_probe": product["launches_fwd_per_probe"],
     })
     xl, mbwd = train["xlstm"], train["mlstm_bwd"]
+    ssm = product["ssm"]
+    ssm_probes = {a: {n: {k: p["record"][k] for k in (
+        "measured_step_s", "scored_step_s", "mfu", "step1_loss", "reduced")}
+        | {"collective_s": p["record"]["roofline"]["collective_s"],
+           "coll_by_kind": p["record"]["roofline"]["coll_by_kind"],
+           "peak_gib": p["record"]["memory"]["max_memory_allocated_gb"],
+           "estimated_gib": p["record"]["memory"]["estimated_gb"],
+           "mlstm_launches": p["mlstm"]}
+        for n, p in c["probes"].items()} | {"depth": c["depth"],
+                                             "positions": c["keep"]}
+        for a, c in ssm["cells"].items()}
     kernels.append({
         "name": "mlstm_chunk_fwd", "route": "cuda",
         "source": MLSTM_SOURCE, "fma_source": MLSTM_FMA_SOURCE,
         "replaces": MLSTM_REPLACES,
-        "launches": xlstm["launches"] + xl["launches_fwd"],
+        "launches": xlstm["launches"] + xl["launches_fwd"]
+        + ssm["launches_fwd"],
         "launches_by_path": {"xlstm-1.3b": xlstm["launches"],
-                             "train-xlstm-1.3b": xl["launches_fwd"]},
-        "launches_wgmma": xlstm["launches_wgmma"] + xl["launches_fwd"],
+                             "train-xlstm-1.3b": xl["launches_fwd"],
+                             "product-xlstm-1.3b": ssm["launches_fwd"]},
+        "launches_wgmma": xlstm["launches_wgmma"] + xl["launches_fwd"]
+        + ssm["launches_fwd"],
+        "chip_layer": ssm["chip_layer"]["fwd"],
         "launches_fma": xlstm["launches_fma"],
         "max_abs_err": mlstm["max_abs_err"], "rel_l2": mlstm["rel_l2"],
         "ms": mlstm["ms"], "plain_ms": mlstm["plain_ms"],
@@ -6756,10 +7064,13 @@ def main() -> None:
         "name": "mlstm_chunk_bwd", "route": "cuda",
         "source": MLSTM_BWD_SOURCE, "fma_source": MLSTM_BWD_FMA_SOURCE,
         "replaces": MLSTM_REPLACES,
-        "launches": xl["launches_bwd"],
-        "launches_wgmma": xl["launches_bwd_wgmma"],
+        "launches": xl["launches_bwd"] + ssm["launches_bwd"],
+        "launches_wgmma": xl["launches_bwd_wgmma"] + ssm["launches_bwd"],
         "launches_fma": xl["launches_bwd_fma"],
-        "launches_by_path": {"train-xlstm-1.3b": xl["launches_bwd"]},
+        "launches_by_path": {"train-xlstm-1.3b": xl["launches_bwd"],
+                             "product-xlstm-1.3b": ssm["launches_bwd"]},
+        "chip_layer": ssm["chip_layer"]["bwd"],
+        "ssm_chip_probes": ssm_probes,
         "launches_per_step": xl["per_step"],
         "max_abs_err": mbwd["max_abs_err"], "rel_l2": mbwd["rel_l2"],
         "ms": mbwd["ms"], "plain_ms": mbwd["plain_ms"],

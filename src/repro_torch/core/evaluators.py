@@ -238,8 +238,10 @@ class CompiledEvaluator:
     cell one period of which does not fit the card raises
     ``launch.dryrun.DoesNotFit`` with the bytes it would need, before
     anything is allocated (also a failed evaluation, not cached), and so
-    does a cell the chip share does not cover (``share="chip"`` on a
-    hybrid arch: ``ValueError`` naming the ROADMAP item).  ``records`` keeps each measured config's full
+    does a cell the chip share does not cover (``share="chip"`` on
+    whisper's: ``ValueError`` naming the ROADMAP item).  ``reduce`` cuts
+    the share's batch or sequence (``compile_cell``'s, listed in the
+    record's ``reduced``).  ``records`` keeps each measured config's full
     ``compile_cell`` record by cache key.
     """
     model_cfg: ModelConfig
@@ -253,6 +255,8 @@ class CompiledEvaluator:
     steps: int = 2                     # timed steps after the warm-up
     share: Optional[str] = None        # "chip", "replica" or None
                                        # (dryrun.resolve_share)
+    reduce: Optional[Dict[str, int]] = None   # cuts of the share's batch
+                                       # or sequence (dryrun.replica_shape)
     calls: int = 0
     history: list = field(default_factory=list)
     records: Dict[str, dict] = field(default_factory=dict)
@@ -276,7 +280,9 @@ class CompiledEvaluator:
         rec = compile_cell(self.model_cfg, self.cell, knobs,
                            multi_pod=self.multi_pod, device=self.device,
                            n_layers=self.n_layers, steps=self.steps,
-                           share=self.share)
+                           share=self.share,
+                           **({"reduce": self.reduce} if self.reduce
+                              else {}))
         with self._lock:
             self.records[self._key(knobs)] = rec
         return rec["scored_step_s"]

@@ -10,8 +10,9 @@ This module closes the loop on the card:
   ``num_warps``/``pipeline``), built from each ops module's
   ``autotune_space()``: the reference's spaces, knob for knob;
 * :class:`KernelEvaluator`: an ``EvaluationService`` backend
-  (``service_kind="pool"``) that times a kernel config with CUDA events
-  on the current stream, best of repeats after warmup (``perf_counter``
+  (``service_kind="pool"``) that times a kernel config's device time
+  with CUDA events on the current stream, the stream held busy while the
+  host queues the call, best of repeats after warmup (``perf_counter``
   on the CPU, where the plain versions run).  A config that fails
   validation, or one the card's kernel has no instantiation of (the ops
   wrapper raises ``ValueError`` naming its set), raises, which the
@@ -40,6 +41,11 @@ from repro_torch.core.space import Config, Space
 from repro_torch.core.strategy import BOStrategy
 
 SCREEN_FIDELITY = "screen"
+# GPU cycles of the hold kernel queued before each timed call (~2 ms at the
+# H100's 1.98 GHz): longer than the host takes to queue one call (~0.15 ms
+# at the mLSTM bench, with spikes), so that the events bracket the call's
+# kernels on the device and none of the host's dispatch
+HOLD_CYCLES = 4_000_000
 
 
 @dataclass(frozen=True)
@@ -112,8 +118,14 @@ class KernelEvaluator:
     every ``ask`` of its strategy.
 
     On CUDA inputs each repeat is one call between two CUDA events on the
-    current stream (after a synchronize, so nothing queued before it is
-    timed); on CPU inputs ``perf_counter`` around one call.  A config off
+    current stream, queued behind a hold kernel (``torch.cuda._sleep`` of
+    ``HOLD_CYCLES``) after a synchronize: the host has queued the whole
+    call before the device reaches the first event, so the reading is the
+    call's device time, not the host's dispatch (at a host-bound shape
+    the host's time spreads by a quarter between readings of one config,
+    and the best of them was the luckiest).  The reference times a
+    jitted call's wall clock (ROADMAP C).  On CPU inputs ``perf_counter``
+    around one call.  A config off
     the space (validation failure) or one the card's kernel refuses
     raises; the service layer converts that into a failed EvalResult,
     which ``run_async`` records as infeasible and prices past the worst
@@ -165,6 +177,7 @@ class KernelEvaluator:
                     for _ in range(max(reps, 1)):
                         start = torch.cuda.Event(enable_timing=True)
                         end = torch.cuda.Event(enable_timing=True)
+                        torch.cuda._sleep(HOLD_CYCLES)
                         start.record()
                         run()
                         end.record()

@@ -18,8 +18,8 @@ recommended config, at one of two shares of the production mesh
   record's ``collective_s`` prices those bytes at ``ici_bw``, and its
   ``scored_step_s`` is the reference's combine rule with the measured
   step in place of the compute and memory terms.  Only what the port's
-  layout implements runs this way: the dense, VLM and MoE families'
-  train cells (:func:`layout_covers`);
+  layout implements runs this way: every train cell but whisper's
+  (:func:`layout_covers`);
 * ``"replica"``: one data-parallel replica's share, every other cell:
   ``global_batch // data_parallel_size`` sequences, the replica's whole
   model work on the card, no collective (``scored_step_s`` is the
@@ -87,7 +87,6 @@ from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import (VirtualMesh, make_production_mesh,
                                      make_virtual_mesh)
 from repro_torch.launch.serve import parse_knobs
-from repro_torch.models import transformer
 from repro_torch.models.common import tree_flatten
 from repro_torch.models.config import (SHAPES_BY_NAME, ModelConfig,
                                        ShapeCell, applicable_shapes)
@@ -235,10 +234,15 @@ def _moe_layer_bytes(cfg: ModelConfig, rc: RunConfig, tokens: int,
 def _tp_splits(cfg: ModelConfig, rc: RunConfig, mesh) -> Tuple[int, int]:
     """How many ways the model axis splits the heads and the vocab on
     ``mesh`` (1 where tensor parallelism is off or a dim does not divide,
-    as ``logical_to_spec``'s guard replicates it)."""
+    as ``logical_to_spec``'s guard replicates it).  Where the pattern has
+    an mLSTM block the heads split at most ``n_heads`` ways: a head the
+    axis cuts is whole (its q, k, v and h) on every rank of its group
+    (``models/xlstm.py``)."""
     m = mesh.shape.get("model", 1) if rc.shard.tensor_parallel else 1
-    return (m if cfg.q_dim % m == 0 else 1,
-            m if cfg.vocab_size % m == 0 else 1)
+    heads = m if cfg.q_dim % m == 0 else 1
+    if any(s.kind == "mlstm" for s in cfg.pattern):
+        heads = min(heads, cfg.n_heads)
+    return heads, m if cfg.vocab_size % m == 0 else 1
 
 
 def estimate_bytes(cfg: ModelConfig, rc: RunConfig, mode: str,
@@ -262,7 +266,9 @@ def estimate_bytes(cfg: ModelConfig, rc: RunConfig, mode: str,
     With ``mesh`` (a virtual mesh: one chip's share) the state is the
     chip's blocks exactly (:func:`_chip_state`), and the activations
     beyond one whole block input a layer, the scores and the logits are
-    divided where the model axis splits the heads and the vocab; under
+    divided where the model axis splits the heads (an SSM block's inner
+    width: :func:`_tp_splits`; an sLSTM block's are whole) and the vocab;
+    under
     sequence parallelism (``sequence_parallel_on`` for ``seq``) the block
     inputs (the stream between blocks) are divided by the model axis
     too; a MoE layer adds its experts' activations on the chip
@@ -290,7 +296,11 @@ def estimate_bytes(cfg: ModelConfig, rc: RunConfig, mode: str,
             # but for sequence parallelism's: the rank's block of it
             split = mesh.shape["model"] if sequence_parallel_on(
                 rc.shard, mesh, seq) else 1
-            act = whole / split + (act - whole) / heads
+            # an sLSTM block runs whole on every model rank
+            n_whole = sum(s.kind == "slstm" for s in cfg.pattern) \
+                * cfg.n_groups
+            kept = (act - whole) * n_whole / cfg.n_layers
+            act = whole / split + kept + (act - whole - kept) / heads
         if mesh is not None and cfg.has_moe:
             n_moe = sum(s.mlp == "moe" for s in cfg.pattern) * cfg.n_groups
             act += _moe_layer_bytes(cfg, rc, micro * seq, mesh) * max(
@@ -378,16 +388,15 @@ def layout_covers(cfg: ModelConfig, cell: ShapeCell, rc: RunConfig, *,
                   multi_pod: bool = False) -> Optional[str]:
     """None when the port's layout runs this cell's step under ``rc`` on
     one chip of the production mesh, else the ROADMAP item it lacks: the
-    item the step raises there (serving under a mesh, whisper,
-    ``ssm_inner``).  Every layout knob of a train cell is
-    covered (``shard_kv_seq`` splits only a decode cache).  Decided from
-    the config alone, before anything is built."""
+    item the step raises there (serving under a mesh, whisper).  Every
+    block kind and every layout knob of a train cell is covered
+    (``shard_kv_seq`` splits only a decode cache).  Decided from the
+    config alone, before anything is built."""
     if cell.mode != "train":
         return SERVE_ITEM
     if cfg.is_encoder_decoder:
         return WHISPER_ITEM
-    bad = transformer.unported_block(cfg)
-    return None if bad is None else bad[1]
+    return None
 
 
 def resolve_share(cfg: ModelConfig, cell: ShapeCell,

@@ -253,6 +253,84 @@ def replicated(tree, mesh):
                                                   torch.float32), tree)
 
 
+def row_parallel_psum(p, x):
+    """A row-parallel ``dense_apply`` whose whole result every model rank
+    reads only in part (its own heads of a projection into heads, or of
+    the SSM's gates; the shared B and C of the SSD): the float32 partial
+    products summed over the model axis in both directions
+    (``collectives.psum``), so that each rank's partial product gets the
+    gradient of every rank's part, where Megatron's g passes only this
+    rank's.  The bias (replicated) is added after the sum under
+    :func:`replicated`: each rank's gradient of it is its own part's.
+    Operands of two types are promoted as ``dense_apply`` promotes them,
+    and the result is in ``x``'s dtype, as ``dense_apply``'s."""
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.sharding import ambient_mesh
+    mesh = ambient_mesh()
+    w, dtype = p["w"], x.dtype
+    if w.dtype != x.dtype:
+        wide = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(wide), w.to(wide)
+    y = collectives.psum(_matmul_to(x, w, torch.float32), "model", mesh)
+    if "b" in p:
+        y = y + replicated(p["b"], mesh).float()
+    return y.to(dtype)
+
+
+def inner_split(d: int, di: int, rc):
+    """(mesh, lo, hi): this rank's channels [lo, hi) of an SSM block's
+    inner width ``di`` where the model axis splits ``ssm_inner`` (the
+    reference's rules and guard, on the widths the tags meet: ``di`` and
+    the ``[x | z]`` projection's ``2·di``), else None.  A split of
+    ``2·di`` that ``di`` does not share raises ``ValueError``."""
+    from repro_torch.parallel.sharding import ambient_mesh, compute_range
+    mesh = ambient_mesh()
+    if mesh is None:
+        return None
+    rng = compute_range(("ssm_inner",), (di,), 0, rc.shard, mesh)
+    wide = compute_range(("ssm_in", "ssm_inner"), (d, 2 * di), 1, rc.shard,
+                         mesh)
+    if (rng is None) != (wide is None):
+        raise ValueError(f"ssm_inner of width {di} and {2 * di} split "
+                         f"differently over the model axis "
+                         f"({mesh.shape['model']} ranks) is not implemented")
+    return None if rng is None else (mesh, rng[0], rng[1])
+
+
+def regroup_halves(xz, mesh):
+    """(x, z): this rank's channels of both halves of a column-parallel
+    ``[x | z]`` projection (``[d, 2·di]``, its output tagged
+    ``ssm_inner``) from its storage block of the columns.  A contiguous
+    block of ``2·di`` over M ranks gives rank r units 2r and 2r + 1 of
+    width c = di / M (x's on the lower half of the ranks, z's on the
+    upper), where the rank's channels need unit r (x) and unit M + r
+    (z): one all-to-all over the model axis moves each unit to its rank
+    (``collectives.all_to_all``), and its backward moves the gradients
+    back."""
+    from repro_torch.parallel import collectives
+    m = mesh.shape["model"]
+    route = [(u % m) * 2 + u // m for u in range(2 * m)]
+    xz = collectives.all_to_all(xz, xz.dim() - 1, "model", mesh, route)
+    return torch.chunk(xz, 2, dim=-1)
+
+
+def replicated_block(fn, x, mesh, seq_parallel: bool):
+    """``fn(x)`` where every model rank computes the whole block from the
+    same input with whole weights (no model-axis split): the one-process
+    code, whose gradients are then whole on every rank and summed over
+    the model axis nowhere.  Under sequence parallelism (``x`` this rank's
+    block of the sequence) the sequence is all-gathered first, without a
+    sum in its backward (every rank's input gradient is already whole),
+    and the result is this rank's block (``collectives.split``: its
+    backward gathers the blocks' gradients, so the whole computation gets
+    the whole gradient on every rank)."""
+    if not seq_parallel:
+        return fn(x)
+    from repro_torch.parallel import collectives
+    x = collectives.all_gather(x, 1, ("model",), mesh)
+    return collectives.split(fn(x), 1, "model", mesh)
+
+
 def reduce_dtype(rc) -> torch.dtype:
     return torch.bfloat16 if getattr(rc, "tp_reduce_dtype", "float32") \
         == "bfloat16" else torch.float32
@@ -288,6 +366,20 @@ def norm_apply(p, x, *, kind: str = "rmsnorm", eps: float = 1e-5):
         var = torch.var(xf, dim=-1, keepdim=True, correction=0)
         y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"].float()
         y = y + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def rms_norm_split(p, x, width: int, mesh, eps: float = 1e-5):
+    """``norm_apply``'s RMS norm of a width split over the model axis:
+    ``x`` and ``p["scale"]`` are this rank's channels of ``width``.  The
+    sum of squares is summed over the model axis in both directions
+    (``collectives.psum``: every rank's statistic reads every rank's
+    channels) and divided by the whole width."""
+    from repro_torch.parallel import collectives
+    xf = x.float()
+    ss = collectives.psum(torch.sum(xf * xf, dim=-1, keepdim=True), "model",
+                          mesh)
+    y = xf * torch.rsqrt(ss / width + eps) * p["scale"].float()
     return y.to(x.dtype)
 
 

@@ -1,7 +1,8 @@
 """Mamba block in the chunked state-space-dual form (from
 ``repro.models.ssm``; ``axes`` and ``state_axes`` give the reference's
-logical axes, and the sharded train step refuses the block on a mesh of
-more than one rank: its ``ssm_inner`` split is not ported).  Autograd differentiates it for training.
+logical axes).  Autograd differentiates it for training.  On a process
+mesh the train step runs it on each rank's block of ``ssm_inner``
+(``_apply_tp``).
 
 Mamba-2 / SSD (arXiv:2405.21060): per-head scalar decay, intra-chunk
 attention-like products under a decay mask, and an inter-chunk carried
@@ -24,9 +25,14 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (dense_apply, dense_axes, dense_init,
-                                       norm_apply, norm_init, trunc_normal)
+from repro_torch.models.common import (column_input, dense_apply,
+                                       dense_axes, dense_init, inner_split,
+                                       norm_apply, norm_init,
+                                       regroup_halves, replicated,
+                                       replicated_block, rms_norm_split,
+                                       row_parallel_psum, trunc_normal)
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.sharding import ambient_mesh
 from repro_torch.runconfig import RunConfig
 
 HEAD_P = 64          # per-head channel width (mamba-2 default)
@@ -138,25 +144,26 @@ def _conv_act(params, x):
                   .float()).to(x.dtype)
 
 
-def apply(params, u, cfg: ModelConfig, rc: RunConfig):
-    """Full-sequence chunked SSD.  u [B,S,d] -> [B,S,d].  Raises
-    ``ValueError`` where the chunk does not divide S (the reference
-    asserts)."""
-    B, S, _ = u.shape
+def _chunk(rc: RunConfig, S: int) -> int:
     c = min(rc.ssm_chunk, S)
     if S % c:
         raise ValueError(f"ssm_chunk {rc.ssm_chunk} must divide the "
                          f"sequence length {S} (padded by the caller)")
-    x, z, di, nh, N, P = _project(params, u, cfg)
-    xc = _conv_act(params, x)
-    Bm, Cm = torch.split(dense_apply(params["bc_proj"], xc), N, dim=-1)
-    dt, log_decay = _gates(params, xc, nh)
+    return c
 
-    xh = xc.reshape(B, S, nh, P)
+
+def _ssd(xh, dt, log_decay, Bm, Cm, d_skip, c: int):
+    """The chunked SSD over heads: xh [B,S,H,P] (the conv'd input's head
+    view), dt and log_decay [B,S,H], Bm and Cm [B,S,N], d_skip [H].
+    Returns y [B,S,H,P] float32, the D skip added.  The channels of a head
+    are independent (only its dt and decay couple them), so any block of
+    a head's channels is computed here as a head of its own."""
+    B, S, nh, P = xh.shape
+    N = Bm.shape[-1]
     xin = xh * dt[..., None].to(xh.dtype)          # dt-scaled input
     mask = torch.tril(torch.ones((c, c), dtype=torch.bool,
-                                 device=u.device))
-    s = torch.zeros((B, nh, N, P), dtype=torch.float32, device=u.device)
+                                 device=xh.device))
+    s = torch.zeros((B, nh, N, P), dtype=torch.float32, device=xh.device)
     ys = []
     for c0 in range(0, S, c):
         xin_i = xin[:, c0:c0 + c].float()                          # [B,c,H,P]
@@ -184,8 +191,98 @@ def apply(params, u, cfg: ModelConfig, rc: RunConfig):
             "bjn,bjhp->bhnp", B_i, xin_i * w[..., None])
         ys.append(y_intra + y_inter)
     y = torch.cat(ys, dim=1)                                       # [B,S,H,P]
-    y = y + xh.float() * params["d_skip"].float()[None, None, :, None]
+    return y + xh.float() * d_skip.float()[None, None, :, None]
+
+
+def apply(params, u, cfg: ModelConfig, rc: RunConfig,
+          seq_parallel: bool = False):
+    """Full-sequence chunked SSD.  u [B,S,d] -> [B,S,d].  Raises
+    ``ValueError`` where the chunk does not divide S (the reference
+    asserts).
+
+    On a mesh whose model axis splits ``ssm_inner`` the block runs on
+    this rank's channels (:func:`_apply_tp`); elsewhere every model rank
+    runs it whole (``common.replicated_block``).  With ``seq_parallel``
+    ``u`` is this rank's block of the sequence and so is the result."""
+    tp = inner_split(cfg.d_model, cfg.d_inner, rc)
+    if tp is not None:
+        return _apply_tp(params, u, cfg, rc, tp, seq_parallel)
+    return replicated_block(lambda t: _apply(params, t, cfg, rc), u,
+                            ambient_mesh(), seq_parallel)
+
+
+def _apply(params, u, cfg: ModelConfig, rc: RunConfig):
+    """``apply`` on one process (or whole on every model rank)."""
+    B, S, _ = u.shape
+    c = _chunk(rc, S)
+    x, z, di, nh, N, P = _project(params, u, cfg)
+    xc = _conv_act(params, x)
+    Bm, Cm = torch.split(dense_apply(params["bc_proj"], xc), N, dim=-1)
+    dt, log_decay = _gates(params, xc, nh)
+    y = _ssd(xc.reshape(B, S, nh, P), dt, log_decay, Bm, Cm,
+             params["d_skip"], c)
     return _post(params, y.to(u.dtype).reshape(B, S, di), z, cfg)
+
+
+def _head_view(lo: int, hi: int, P: int) -> Tuple[int, int, int]:
+    """(first head, heads, channels a head) of channels [lo, hi) of heads
+    of width P: the whole heads they hold, or, where the model axis cuts
+    a head, the one head they lie in, its block of channels taken as a
+    head of ``hi - lo`` channels.  Raises ``ValueError`` for a block that
+    is neither."""
+    c = hi - lo
+    if lo % P == 0 and c % P == 0:
+        return lo // P, c // P, P
+    if P % c == 0 and lo // P == (hi - 1) // P:
+        return lo // P, 1, c
+    raise ValueError(f"channels [{lo}, {hi}) are neither whole heads of "
+                     f"{P} nor one head's block")
+
+
+def _apply_tp(params, u, cfg: ModelConfig, rc: RunConfig, tp,
+              seq_parallel: bool):
+    """``apply`` with ``ssm_inner`` split over the model axis: this rank
+    holds channels [lo, hi) of the inner width (the conv, the out norm's
+    scale, ``bc_proj``'s and ``dt_proj``'s rows, ``out_proj``'s rows) and
+    its storage block of ``in_proj``'s ``[x | z]`` columns.
+
+    ``in_proj`` is column-parallel on the block input under Megatron's f
+    (the gathered sequence under ``seq_parallel``), and its output is
+    regrouped to the rank's x and z channels (``common.regroup_halves``).
+    The conv is local to the channels.  ``bc_proj`` and ``dt_proj`` are
+    row-parallel and every rank reads its part of their whole result (B
+    and C whole, dt at its heads): ``common.row_parallel_psum``.  The SSD
+    runs on the rank's heads, or on its channels of a cut head
+    (:func:`_head_view`), with its heads of the replicated ``a_log`` and
+    ``d_skip`` (under ``common.replicated``: each rank's gradient is its
+    heads').  The out norm sums its squares over the model axis
+    (``common.rms_norm_split``) and ``out_proj`` is row-parallel, its sums
+    reduce-scattered along the sequence under ``seq_parallel``."""
+    mesh, lo, hi = tp
+    di, nh, N = dims(cfg)
+    P = di // nh
+    h0, H, Pl = _head_view(lo, hi, P)
+    col = column_input(u, torch.float32, mesh, seq_parallel)
+    x, z = regroup_halves(dense_apply(params["in_proj"], col()), mesh)
+    B, S, _ = x.shape
+    c = _chunk(rc, S)
+    xc = _conv_act(params, x)
+    Bm, Cm = torch.split(row_parallel_psum(params["bc_proj"], xc), N,
+                         dim=-1)
+    heads = slice(h0, h0 + H)
+    dt = F.softplus(row_parallel_psum(params["dt_proj"], xc)[..., heads]
+                    .float())
+    rep = replicated({"a_log": params["a_log"],
+                      "d_skip": params["d_skip"]}, mesh)
+    log_decay = dt * -torch.exp(rep["a_log"][heads].float())[None, None, :]
+    y = _ssd(xc.reshape(B, S, H, Pl), dt, log_decay, Bm, Cm,
+             rep["d_skip"][heads], c)
+    y = y.to(u.dtype).reshape(B, S, hi - lo)
+    y = rms_norm_split(params["out_norm"],
+                       y * F.silu(z.float()).to(y.dtype), di, mesh,
+                       eps=cfg.norm_eps)
+    return dense_apply(params["out_proj"], y, row_parallel=True,
+                       seq_parallel=seq_parallel)
 
 
 def ssd_reference(params, u, cfg: ModelConfig):

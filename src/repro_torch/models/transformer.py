@@ -17,12 +17,12 @@ weights are gathered over the data axes inside the remat group
 Megatron's column- and row-parallel forms over the model axis, the
 embedding is a vocab-parallel lookup and the cross entropy a
 vocab-parallel one, a MoE block's experts split over the model axis
-(``models/moe.py``); under sequence parallelism the stream between
-blocks is each model rank's block of the sequence (``backbone``,
-``embed``, ``unembed``).  The dense and MoE families are sharded: a
-mamba or xLSTM block on a mesh of more than one rank raises
-``ValueError``.  Off a
-mesh every path is the one-process one.
+(``models/moe.py``), a mamba or mLSTM block's inner width
+(``ssm_inner``) over it (``models/ssm.py``, ``models/xlstm.py``), and
+an sLSTM block runs whole on every model rank; under sequence
+parallelism the stream between blocks is each model rank's block of
+the sequence (``backbone``, ``embed``, ``unembed``).  Off a mesh every
+path is the one-process one.
 
 Every block kind of the reference is ported: ``ATTN`` (the flash kernel
 under ``attention_impl="flash"``), ``MAMBA`` (the chunked SSD of
@@ -58,11 +58,10 @@ from repro_torch.models.common import (MetaGenerator, dense_apply,
 from repro_torch.models.config import (ATTN, MAMBA, MLP_DENSE, MLP_MOE,
                                        MLSTM, SLSTM, LayerSpec, ModelConfig)
 from repro_torch.parallel import collectives
-from repro_torch.parallel.sharding import (SSM_ITEM, ambient_mesh,
-                                           compute_range,
+from repro_torch.parallel.sharding import (ambient_mesh, compute_range,
                                            gather_weights_for_compute,
                                            sequence_parallel_on,
-                                           shard_activation, world_of)
+                                           shard_activation)
 from repro_torch.runconfig import RunConfig
 
 # ---------------------------------------------------------------------------
@@ -170,10 +169,10 @@ def _mixer(spec: LayerSpec, p, h, positions, cfg: ModelConfig,
                                causal=True, window=spec.sliding_window,
                                seq_parallel=sp)
     if spec.kind == MAMBA:
-        return ssm.apply(p["mamba"], h, cfg, rc)
+        return ssm.apply(p["mamba"], h, cfg, rc, seq_parallel=sp)
     if spec.kind == MLSTM:
-        return xlstm.mlstm_apply(p["mlstm"], h, cfg, rc)
-    return xlstm.slstm_apply(p["slstm"], h, cfg, rc)
+        return xlstm.mlstm_apply(p["mlstm"], h, cfg, rc, seq_parallel=sp)
+    return xlstm.slstm_apply(p["slstm"], h, cfg, rc, seq_parallel=sp)
 
 
 def _norm(p, x, cfg: ModelConfig, sp: bool):
@@ -250,31 +249,6 @@ def _remat_wrap(fn, rc: RunConfig):
     return wrapped
 
 
-def check_mesh(cfg: ModelConfig, rc: RunConfig):
-    """The ambient mesh, after refusing (``ValueError`` naming the ROADMAP
-    item) what the sharded forward does not implement on a mesh of more
-    than one rank: mamba and xLSTM blocks."""
-    mesh = ambient_mesh()
-    if mesh is None or world_of(mesh) == 1:
-        return mesh
-    bad = unported_block(cfg)
-    if bad is not None:
-        raise ValueError(f"{cfg.name}: {bad[0]} on a mesh of "
-                         f"{world_of(mesh)} ranks is not implemented: "
-                         f"{bad[1]}")
-    return mesh
-
-
-def unported_block(cfg: ModelConfig) -> Optional[Tuple[str, str]]:
-    """(the block, its ROADMAP item) of the first block of the pattern
-    that the sharded forward does not implement (a mamba or xLSTM block:
-    ``ssm_inner``), or None (the dense and MoE families)."""
-    for spec in cfg.pattern:
-        if spec.kind != ATTN:
-            return f"a {spec.kind} block", SSM_ITEM
-    return None
-
-
 def _grad_dtype(rc: RunConfig) -> torch.dtype:
     return torch.bfloat16 if rc.grad_allreduce_dtype == "bfloat16" \
         else torch.float32
@@ -292,7 +266,7 @@ def backbone(params, x, positions, cfg: ModelConfig, rc: RunConfig):
     input) stays that block; the positions are whole."""
     act_dtype = torch.bfloat16 if rc.activation_dtype == "bfloat16" \
         else torch.float32
-    mesh = check_mesh(cfg, rc)
+    mesh = ambient_mesh()
     S = positions.shape[-1]
     sp = sequence_parallel_on(rc.shard, mesh, S)
     if mesh is not None:
@@ -403,7 +377,7 @@ def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
     B, S = tokens.shape
     if positions is None:
         positions = _default_positions(B, S, tokens.device)
-    mesh = check_mesh(cfg, rc)
+    mesh = ambient_mesh()
     sp = sequence_parallel_on(rc.shard, mesh, S)
     if mesh is not None:
         top = {k: v for k, v in params.items() if k != "layers"}

@@ -1,9 +1,12 @@
 """xLSTM blocks: mLSTM (matrix memory) and sLSTM (scalar memory), from
 ``repro.models.xlstm`` (the ``*_axes`` functions give the reference's
-logical axes; the sharded train step refuses the family on a mesh of
-more than one rank: its ``ssm_inner`` split is not ported).  Autograd differentiates it: on the card the mLSTM
+logical axes).  Autograd differentiates it: on the card the mLSTM
 sequence pass through its backward kernel (``ops.mlstm_chunk``'s
-``autograd.Function``), on CPU tensors through the plain version.
+``autograd.Function``), on CPU tensors through the plain version.  On a
+process mesh the train step runs the mLSTM on each rank's block of
+``ssm_inner`` (``_mlstm_qkvg_tp``) and the sLSTM's recurrence whole on
+every model rank, as the reference's layout resolves it
+(``slstm_apply``).
 
 arXiv:2405.04517.  The 1.3B config interleaves 7 mLSTM : 1 sLSTM.
 
@@ -38,10 +41,15 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
 from repro_torch.kernels.mlstm_chunk.ref import mlstm_sequential
-from repro_torch.models.common import (activation, dense_apply, dense_axes,
-                                       dense_init, norm_apply, norm_init,
+from repro_torch.models.common import (_matmul_to, activation, column_input,
+                                       dense_apply, dense_axes, dense_init,
+                                       inner_split, norm_apply, norm_init,
+                                       regroup_halves, replicated_block,
+                                       rms_norm_split, row_parallel_psum,
                                        trunc_normal)
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import collectives
+from repro_torch.parallel.sharding import ambient_mesh, compute_range
 from repro_torch.runconfig import RunConfig
 
 NEG_INF = -1e30
@@ -146,14 +154,100 @@ def mlstm_chunked(params, u, qkvg, cfg: ModelConfig, rc: RunConfig):
     return _mlstm_out(params, h, z, u, cfg)
 
 
-def mlstm_apply(params, u, cfg: ModelConfig, rc: RunConfig):
+def mlstm_apply(params, u, cfg: ModelConfig, rc: RunConfig,
+                seq_parallel: bool = False):
     """Chunkwise-parallel stabilised mLSTM.  u [B,S,d] -> [B,S,d].
 
     The chunk recurrence runs in ``ops.mlstm_chunk`` on every device: the
     CUDA kernel on a CUDA tensor, ``ref.mlstm_chunkwise`` (the reference's
     jnp scan body) on a CPU tensor.  The chunk is ``min(rc.mlstm_chunk,
-    S)`` and must divide S, as in the reference."""
-    return mlstm_chunked(params, u, _mlstm_qkvg(params, u, cfg), cfg, rc)
+    S)`` and must divide S, as in the reference.  On a mesh whose model
+    axis splits ``ssm_inner`` the block runs on this rank's channels
+    (:func:`_mlstm_apply_tp`); elsewhere every model rank runs it whole
+    (``common.replicated_block``).  With ``seq_parallel`` ``u`` is this
+    rank's block of the sequence and so is the result."""
+    di = mlstm_dims(cfg)[0]
+    tp = inner_split(cfg.d_model, di, rc)
+    if tp is not None:
+        return _mlstm_apply_tp(params, u, cfg, rc, tp, seq_parallel)
+    return replicated_block(
+        lambda t: mlstm_chunked(params, t, _mlstm_qkvg(params, t, cfg), cfg,
+                                rc), u, ambient_mesh(), seq_parallel)
+
+
+def _head_columns(y, lo: int, hi: int, P: int, mesh):
+    """The columns of this rank's heads from its float32 partial product
+    ``y`` [B, S, di] of a row-parallel projection into heads: the sum over
+    the model axis reduce-scattered to the rank's columns [lo, hi) (its
+    backward all-gathers the gradient: every rank's partial product gets
+    the whole); where the model axis cuts a head, those columns are
+    all-gathered over the model axis again and the head's whole columns
+    taken (the gather moves every rank's columns, of which the head needs
+    its group's: ROADMAP C)."""
+    y = collectives.reduce_scatter(y, 2, "model", mesh)
+    if lo % P or (hi - lo) % P:
+        h = lo // P
+        y = collectives.all_gather(y, 2, ("model",), mesh,
+                                   sum_axes=("model",))
+        y = y[..., h * P:(h + 1) * P]
+    return y
+
+
+def _mlstm_qkvg_tp(params, u, cfg: ModelConfig, tp, seq_parallel: bool):
+    """``_mlstm_qkvg`` on this rank's channels [lo, hi) of ``ssm_inner``:
+    q, k, v [B,S,H,P] and the gates [B,S,H] at the heads its channels
+    touch (a cut head whole), and z at its channels.
+
+    ``up`` is column-parallel on the block input under Megatron's f (the
+    gathered sequence under ``seq_parallel``), its ``[x | z]`` output
+    regrouped to the rank's channels (``common.regroup_halves``).  q, k
+    and v are tagged ``("ssm_inner", "ssm_inner")``, which the reference's
+    guard resolves to ``(model, None)``: the rank holds their rows
+    ``[lo, hi)``, so each is row-parallel, its sum reduced to the rank's
+    heads (:func:`_head_columns`).  ``igate`` and ``fgate`` (float32) are
+    row-parallel into every head, of which each rank reads its own
+    (``common.row_parallel_psum``)."""
+    mesh, lo, hi = tp
+    di, nh, P = mlstm_dims(cfg)
+    col = column_input(u, torch.float32, mesh, seq_parallel)
+    x, z = regroup_halves(dense_apply(params["up"], col()), mesh)
+    B, S, _ = x.shape
+    h0, h1 = lo // P, -(-hi // P)
+
+    def heads(name):
+        y = _head_columns(_matmul_to(x, params[name]["w"], torch.float32),
+                          lo, hi, P, mesh)
+        return y.to(x.dtype).contiguous().reshape(B, S, h1 - h0, P)
+    q = heads("q")
+    k = heads("k") / math.sqrt(P)
+    v = heads("v")
+    logi = row_parallel_psum(params["igate"], x)[..., h0:h1].float()
+    logf = -F.softplus(-row_parallel_psum(params["fgate"], x)[..., h0:h1]
+                       .float())
+    return q, k, v, logi, logf, z
+
+
+def _mlstm_apply_tp(params, u, cfg: ModelConfig, rc: RunConfig, tp,
+                    seq_parallel: bool):
+    """``mlstm_apply`` with ``ssm_inner`` split over the model axis
+    (:func:`_mlstm_qkvg_tp`): the kernel runs on the rank's heads (a cut
+    head whole, on every rank of its group: ROADMAP C), the rank keeps its
+    channels of h, the out norm sums its squares over the model axis
+    (``common.rms_norm_split``) and ``down`` is row-parallel, its sums
+    reduce-scattered along the sequence under ``seq_parallel``."""
+    mesh, lo, hi = tp
+    di, nh, P = mlstm_dims(cfg)
+    q, k, v, logi, logf, z = _mlstm_qkvg_tp(params, u, cfg, tp,
+                                            seq_parallel)
+    B, S = q.shape[:2]
+    h = mlstm_ops.mlstm_chunk(q, k, v, logi, logf, chunk=rc.mlstm_chunk)
+    base = (lo // P) * P
+    h = h.reshape(B, S, -1)[..., lo - base:hi - base].to(z.dtype)
+    h = rms_norm_split(params["out_norm"],
+                       h * F.silu(z.float()).to(z.dtype), di, mesh,
+                       eps=cfg.norm_eps)
+    return dense_apply(params["down"], h, row_parallel=True,
+                       seq_parallel=seq_parallel)
 
 
 def mlstm_reference(params, u, cfg: ModelConfig):
@@ -300,17 +394,39 @@ def slstm_scan(params, u, cfg: ModelConfig):
     return torch.stack(hs, dim=1), state
 
 
-def _slstm_out(params, h, cfg: ModelConfig):
-    """rmsnorm, then the gelu FFN (proj factor 4/3)."""
+def _slstm_out(params, h, cfg: ModelConfig, rc: RunConfig = None):
+    """rmsnorm, then the gelu FFN (proj factor 4/3).  On a mesh whose
+    model axis splits the FFN's width (``ff``, ``rc``'s rules) ``ffn_up``
+    is column-parallel under Megatron's f and ``ffn_down`` row-parallel;
+    ``h`` is whole on every model rank."""
     h = norm_apply(params["out_norm"], h, kind="rmsnorm", eps=cfg.norm_eps)
+    split = rc is not None and compute_range(
+        ("ff_in", "ff"), (cfg.d_model, int(cfg.slstm_proj * cfg.d_model)), 1,
+        rc.shard) is not None
+    if split:
+        h = collectives.copy_to(h, "model", ambient_mesh(), torch.float32)
     return dense_apply(params["ffn_down"], activation("gelu")(
-        dense_apply(params["ffn_up"], h).float()).to(h.dtype))
+        dense_apply(params["ffn_up"], h).float()).to(h.dtype),
+        row_parallel=split)
 
 
-def slstm_apply(params, u, cfg: ModelConfig, rc: RunConfig):
-    """Sequence sLSTM via a time loop.  u [B,S,d] -> [B,S,d]."""
-    hs, _ = slstm_scan(params, u, cfg)
-    return _slstm_out(params, hs.to(u.dtype), cfg)
+def slstm_apply(params, u, cfg: ModelConfig, rc: RunConfig,
+                seq_parallel: bool = False):
+    """Sequence sLSTM via a time loop.  u [B,S,d] -> [B,S,d].
+
+    On a mesh the block runs whole on every model rank, as the reference's
+    layout resolves it: ``w_in`` is split over the data axes only (FSDP,
+    gathered before the block), ``w_rec``, ``bias`` and ``out_norm`` are
+    replicated, so every rank computes the whole recurrence from the same
+    input and its gradients are whole, summed over the model axis
+    nowhere (``common.replicated_block``, which under ``seq_parallel``
+    gathers the sequence and keeps this rank's block of the result).
+    Where the model axis splits the FFN's ``ff``, the FFN is Megatron's
+    column and row pair inside that whole computation."""
+    def whole(t):
+        hs, _ = slstm_scan(params, t, cfg)
+        return _slstm_out(params, hs.to(t.dtype), cfg, rc)
+    return replicated_block(whole, u, ambient_mesh(), seq_parallel)
 
 
 def slstm_decode_step(params, u, state: SlstmState, cfg: ModelConfig,

@@ -27,7 +27,15 @@ Autograd-aware forms, Megatron's four operators among them:
   projections' partial sums made whole and split along the sequence);
 * :func:`psum` — all-reduce forward and backward: a sum over the ranks
   that every rank's loss reads, where the train step averages the ranks'
-  gradients (the MoE routing statistics over the data axes);
+  gradients (the MoE routing statistics over the data axes), or a sum of
+  partial products of which every rank reads its own part (a
+  row-parallel projection into the SSM blocks' heads);
+* :func:`all_to_all` — chunks moved between the ranks of an axis by a
+  fixed route, backward the gradient moved back (the ``[x | z]`` halves
+  of a column-parallel projection regrouped to each rank's channels);
+* :func:`split` — Megatron's scatter: this rank's block forward, the
+  gradient all-gathered backward (a computation every rank of the axis
+  runs whole, whose result each rank keeps a block of);
 
 and, without autograd, :func:`all_reduce` (sum or max) for gradients,
 norms and the cross entropy's max, and :func:`gather_to_host`, a leaf
@@ -41,22 +49,25 @@ through pinned host memory (copied out, reduced, copied back), on this
 one code path chosen by the mesh's backend.  No error is caught and
 retried another way.
 
-On a virtual mesh (``launch.mesh.VirtualMesh``: one chip of a mesh, alone
-in its process) each of the three primitives returns what it would if
-every rank of the axis held this chip's operand: an all-gather tiles the
-operand ``n`` times along its dimension, a reduce-scatter returns ``n``
-times this chip's block, an all-reduce ``n`` times the operand (a sum) or
-the operand (a max).  The result is deterministic and finite (``n`` is a
-power of two on the production meshes, so the scaling is exact in bf16)
-and has the real result's shape, dtype and allocation, but its values
-are not the mesh's function: what a step run this way shows is its
-shapes, bytes, FLOPs and kernel launches, those of the chip it stands
-for.  :func:`gather_to_host` (a checkpoint's save) raises there.
+On a virtual mesh (``launch.mesh.VirtualMesh``: one chip of a mesh,
+alone in its process) each of the four primitives returns what it would
+if every rank of the axis held this chip's operand: an all-gather tiles
+the operand ``n`` times along its dimension, a reduce-scatter returns
+``n`` times this chip's block, an all-reduce ``n`` times the operand (a
+sum) or the operand (a max), an all-to-all in each slot this chip's own
+chunk of the index the slot's source chunk has on its rank.  The result
+is deterministic and finite (``n`` is a power of two on the production
+meshes, so the scaling is exact in bf16) and has the real result's
+shape, dtype and allocation, but its values are not the mesh's function:
+what a step run this way shows is its shapes, bytes, FLOPs and kernel
+launches, those of the chip it stands for.  :func:`gather_to_host` (a
+checkpoint's save) raises there.
 
 :func:`counting_collectives` tallies each primitive's result-shape bytes
-by kind (``"all-reduce"``, ``"all-gather"``, ``"reduce-scatter"``: the
-reference's names and its per-device proxy, ``repro.launch.roofline``'s
-``COLLECTIVES``), in the dtype actually reduced, on every backend.
+by kind (``"all-reduce"``, ``"all-gather"``, ``"reduce-scatter"``, and
+``"all-to-all"`` once one is issued: the reference's names and its
+per-device proxy, ``repro.launch.roofline``'s ``COLLECTIVES``), in the
+dtype actually reduced, on every backend.
 """
 
 from __future__ import annotations
@@ -73,14 +84,18 @@ import torch.distributed as dist
 # the backward and a remat group's recompute on a thread of its own.
 _bytes: Optional[Dict[str, int]] = None
 _bytes_lock = threading.Lock()
+# the kinds every tally starts with; an all-to-all (only the SSM blocks'
+# regroup issues one) enters a tally when it is issued
 KINDS = ("all-reduce", "all-gather", "reduce-scatter")
+ALL_TO_ALL = "all-to-all"
 
 
 @contextlib.contextmanager
 def counting_collectives():
     """Tally the result-shape bytes of every collective issued inside the
     block, on any thread and any backend, into the yielded dict (kind ->
-    bytes, ``KINDS``); one tally at a time."""
+    bytes: ``KINDS``, and ``ALL_TO_ALL`` once one is issued); one tally at
+    a time."""
     global _bytes
     tally = dict.fromkeys(KINDS, 0)
     with _bytes_lock:
@@ -98,7 +113,8 @@ def _count(kind: str, out: torch.Tensor) -> torch.Tensor:
     if _bytes is not None:
         with _bytes_lock:
             if _bytes is not None:
-                _bytes[kind] += out.numel() * out.element_size()
+                _bytes[kind] = _bytes.get(kind, 0) \
+                    + out.numel() * out.element_size()
     return out
 
 
@@ -187,6 +203,52 @@ def _scatter_axis(x: torch.Tensor, dim: int, axis: str, mesh,
     if staged:
         out = out.to(x.device)
     return _count("reduce-scatter", out).movedim(0, dim)
+
+
+def _inverse(route: Tuple[int, ...]) -> Tuple[int, ...]:
+    inv = [0] * len(route)
+    for g, t in enumerate(route):
+        inv[t] = g
+    return tuple(inv)
+
+
+def _all_to_all_axis(x: torch.Tensor, dim: int, axis: str, mesh,
+                     route: Tuple[int, ...]) -> torch.Tensor:
+    """``x``'s chunks along ``dim`` moved over ``axis`` by ``route``
+    (:func:`all_to_all`)."""
+    n, me = mesh.shape[axis], mesh.coords[axis]
+    k = len(route) // n
+    inv = _inverse(route)
+    x0 = x.movedim(dim, 0)
+    w = x0.shape[0] // k
+
+    def chunk(t, j):
+        return t[j * w:(j + 1) * w]
+    if _virtual(mesh):
+        out = torch.cat([chunk(x0, inv[me * k + p] % k) for p in range(k)])
+        return _count(ALL_TO_ALL, out).movedim(0, dim)
+    # my chunks in the order of their slots; my slots in the order they
+    # arrive (by source rank, then by slot: each source sends in slot order)
+    send = sorted(range(k), key=lambda j: route[me * k + j])
+    arrive = sorted(range(k), key=lambda p: (inv[me * k + p] // k, p))
+    in_splits = [w * sum(route[me * k + j] // k == r for j in range(k))
+                 for r in range(n)]
+    out_splits = [w * sum(inv[me * k + p] // k == r for p in range(k))
+                  for r in range(n)]
+    staged = _staged(mesh, x)
+    src = torch.cat([chunk(x0, j) for j in send])
+    if staged:
+        src = _host(src)
+    buf = _empty_like_host(tuple(x0.shape), x0, staged)
+    dist.all_to_all_single(buf, src, out_splits, in_splits,
+                           group=mesh.group(axis))
+    if staged:
+        buf = buf.to(x.device)
+    slots = [None] * k
+    for i, p in enumerate(arrive):
+        slots[p] = chunk(buf, i)
+    out = torch.cat(slots)
+    return _count(ALL_TO_ALL, out).movedim(0, dim)
 
 
 # ---------------------------------------------------------------------------
@@ -378,3 +440,55 @@ def reduce_scatter(x: torch.Tensor, dim: int, axis: str, mesh,
     if not _live(mesh, axis):
         return x
     return _ReduceScatter.apply(x, dim, axis, mesh, dtype)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis, mesh, route):
+        ctx.dim, ctx.axis, ctx.mesh, ctx.route = dim, axis, mesh, route
+        return _all_to_all_axis(x, dim, axis, mesh, route)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all_axis(g, ctx.dim, ctx.axis, ctx.mesh,
+                                _inverse(ctx.route)), None, None, None, None
+
+
+def all_to_all(x: torch.Tensor, dim: int, axis: str, mesh,
+               route: Sequence[int]) -> torch.Tensor:
+    """Chunks of ``x`` along ``dim`` moved between the ranks of ``axis``:
+    every rank's ``dim`` holds k = len(route) / n equal chunks, chunk j of
+    rank s is global chunk s·k + j, and global chunk g lands in global
+    slot ``route[g]`` (slot t is chunk t mod k of rank t // k).  One
+    all-to-all (its result bytes counted as ``"all-to-all"``); backward,
+    the gradient moved back by the inverse route.  ``route`` is a
+    permutation of range(n·k)."""
+    if not _live(mesh, axis):
+        return x
+    route = tuple(int(t) for t in route)
+    if sorted(route) != list(range(len(route))) \
+            or len(route) % mesh.shape[axis]:
+        raise ValueError(f"route {route} is not a permutation of whole "
+                         f"chunks over {mesh.shape[axis]} ranks")
+    return _AllToAll.apply(x, dim, axis, mesh, route)
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis, mesh):
+        ctx.dim, ctx.axis, ctx.mesh = dim, axis, mesh
+        return _scatter_axis(x, dim, axis, mesh, False).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather(g, ctx.dim, (ctx.axis,), ctx.mesh), None, None, None
+
+
+def split(x: torch.Tensor, dim: int, axis: str, mesh) -> torch.Tensor:
+    """Megatron's scatter over ``axis``: this rank's block of ``x`` along
+    ``dim`` forward; backward, the blocks' gradients all-gathered, so that
+    a computation every rank of the axis ran whole (from the same inputs)
+    gets the whole gradient on every rank."""
+    if not _live(mesh, axis):
+        return x
+    return _Split.apply(x, dim, axis, mesh)

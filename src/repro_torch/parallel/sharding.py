@@ -129,7 +129,6 @@ DEFAULT_RULES = AxisRules(
 
 # ROADMAP items of the layouts the sharded step refuses on a mesh with
 # more than one rank along their axis
-SSM_ITEM = "ROADMAP A 18d (ssm_inner: mamba, xLSTM, jamba)"
 WHISPER_ITEM = "ROADMAP A 18e (whisper)"
 SERVE_ITEM = "ROADMAP A 18f (prefill and decode under a mesh)"
 

@@ -293,9 +293,10 @@ def _refusals():
              ShardConfig(), "runs"),
             ("grok-moe", "grok-1-314b", {"data": 1, "model": 2},
              ShardConfig(), "runs"),
-            ("mamba", "jamba-1.5-large-398b", {"data": 2, "model": 1}, None,
-             "loss"),
-            ("xlstm", "xlstm-1.3b", {"data": 1, "model": 2}, None, "loss"),
+            ("mamba", "jamba-1.5-large-398b", {"data": 2, "model": 1},
+             ShardConfig(), "runs"),
+            ("xlstm", "xlstm-1.3b", {"data": 1, "model": 2}, ShardConfig(),
+             "runs"),
             ("whisper", "whisper-tiny", {"data": 2, "model": 1}, None,
              "loss"),
             ("prefill", dense, {"data": 2, "model": 1}, None, "prefill"),
@@ -309,9 +310,9 @@ def test_unported_layouts_are_refused_on_a_mesh(what, arch, mesh, shard,
     """Each raises ValueError naming its ROADMAP item before any
     collective (the stand-in mesh has no process group).  The layout
     knobs ported since (``"runs"``: sequence parallelism, ``shard_kv_seq``
-    on a train step) and the MoE families (expert parallelism) take a
-    train step on that mesh instead (its chip (0, 0) as a virtual mesh,
-    whose collectives act locally)."""
+    on a train step), the MoE families (expert parallelism) and the SSM
+    families (``ssm_inner``) take a train step on that mesh instead (its
+    chip (0, 0) as a virtual mesh, whose collectives act locally)."""
     cfg = get_smoke_config(arch)
     model = Model(cfg, device="cpu")
     rc = RunConfig(param_dtype="float32", activation_dtype="float32",

@@ -7,9 +7,11 @@ width against the reference's jitted step.
 
 ``fit_depth`` raises ``DoesNotFit`` (with the one-period estimate and the
 room it was held to) when not even one layer period fits the card: jamba's
-period is ~376 GB under its family default at train_4k.  ``cell_depth``
-and ``compile_cell`` / ``CompiledEvaluator`` pass it on before anything
-is allocated: a failed evaluation, as a config that does not compile is in
+period is ~376 GB under its family default at train_4k's replica share
+(since ``ssm_inner`` was ported its default share is one chip's, where
+all 72 layers fit).  ``cell_depth`` and ``compile_cell`` /
+``CompiledEvaluator`` at that share pass it on before anything is
+allocated: a failed evaluation, as a config that does not compile is in
 the reference.  yi-6b's cells keep their depths (train_4k 7, decode_32k
 32).
 
@@ -131,14 +133,14 @@ def test_compile_cell_refuses_before_building(monkeypatch):
     _nothing_allocated(monkeypatch)
     with pytest.raises(dryrun.DoesNotFit) as e:
         dryrun.compile_cell(get_config(JAMBA), SHAPES_BY_NAME["train_4k"],
-                            device="cpu")
+                            device="cpu", share="replica")
     assert e.value.need_bytes > e.value.room_bytes
 
 
 def test_compiled_evaluator_reports_a_failed_evaluation(monkeypatch):
     _nothing_allocated(monkeypatch)
     ev = CompiledEvaluator(get_config(JAMBA), SHAPES_BY_NAME["train_4k"],
-                           device="cpu")
+                           device="cpu", share="replica")
     svc = as_service(ev)
     try:
         (res,) = svc.gather(svc.submit([EvalRequest({})]))

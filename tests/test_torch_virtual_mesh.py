@@ -11,7 +11,9 @@ the virtual backend of ``parallel/collectives.py``), on the CPU.
     the MoE families under expert parallelism: qwen2-moe's experts split
     over the model axis (dense, dropping with two microbatches, dense
     under sequence parallelism) and grok-1's expert columns
-    (``expert_parallel`` off).
+    (``expert_parallel`` off); the SSM families with ``ssm_inner`` over
+    the model axis: xlstm-1.3b and jamba, with and without sequence
+    parallelism (the mLSTM wrapper's calls counted).
     FLOPs, collective bytes by kind, every state leaf's shape, the
     state's bytes and the flash calls (their q / k shapes) and launch
     counters must be equal, exactly: they depend on shapes only, and the
@@ -30,8 +32,10 @@ the virtual backend of ``parallel/collectives.py``), on the CPU.
     ``analyze_hlo`` (``torch_virtual_reference.py`` in a subprocess;
     remat none, a 4 x 16 train cell; with and without sequence
     parallelism; the MoE families, dense and dropping, their experts or
-    their expert columns split over the model axis).  The port's per-chip FLOPs are held to the reference's
-    per-device FLOPs within 2e-3 relative: the reference takes the
+    their expert columns split over the model axis; xlstm-1.3b and
+    jamba).  The port's per-chip FLOPs are held to the reference's
+    per-device FLOPs within 2e-3 relative (the SSM families' by a pinned
+    gap beyond it, ``REF_GAP``): the reference takes the
     label's logit by a one-hot contraction (a dot of 2·B·S·V/M FLOPs
     over the chip's rows and vocab columns, or its sequence block and
     the whole vocab under sequence parallelism: the same count), the
@@ -67,8 +71,7 @@ from repro_torch.models.config import (SHAPES_BY_NAME, ShapeCell,
                                        applicable_shapes)
 from repro_torch.models.model import Model
 from repro_torch.parallel import collectives
-from repro_torch.parallel.sharding import (SERVE_ITEM, SSM_ITEM,
-                                           WHISPER_ITEM)
+from repro_torch.parallel.sharding import SERVE_ITEM, WHISPER_ITEM
 from repro_torch.runconfig import runconfig_from_knobs
 from repro_torch.train import optimizer as topt
 from repro_torch.train import train_loop as ttl
@@ -85,7 +88,8 @@ CASES = {f"{lay}-mb{mb}-{remat}": dict(LAYOUTS[lay], microbatch=mb,
 CASES.update({f"fsdp-tp-sp-mb{mb}-{remat}": dict(
     microbatch=mb, remat_policy=remat, attention_impl="flash",
     sequence_parallel=True) for mb, remat in ((1, "none"), (2, "block"))})
-# the MoE families (expert parallelism): case -> arch; the rest are yi-6b's
+# case -> arch for the MoE families (expert parallelism) and, below, the
+# SSM families (ssm_inner); the rest are yi-6b's
 MOE_ARCH = {"moe-qwen-dense-mb1-none": "qwen2-moe-a2.7b",
             "moe-qwen-drop-mb2-block": "qwen2-moe-a2.7b",
             "moe-qwen-dense-sp-mb1-none": "qwen2-moe-a2.7b",
@@ -102,6 +106,20 @@ CASES.update({
     "moe-grok-noep-mb1-block": dict(microbatch=1, remat_policy="block",
                                     attention_impl="reference",
                                     expert_parallel=False)})
+# the SSM families (ssm_inner over the model axis)
+MOE_ARCH.update({"ssm-xlstm-mb1-none": "xlstm-1.3b",
+                 "ssm-xlstm-sp-mb2-block": "xlstm-1.3b",
+                 "ssm-jamba-mb2-block": "jamba-1.5-large-398b",
+                 "ssm-jamba-sp-mb1-none": "jamba-1.5-large-398b"})
+CASES.update({
+    "ssm-xlstm-mb1-none": dict(microbatch=1, remat_policy="none"),
+    "ssm-xlstm-sp-mb2-block": dict(microbatch=2, remat_policy="block",
+                                   sequence_parallel=True),
+    "ssm-jamba-mb2-block": dict(microbatch=2, remat_policy="block",
+                                attention_impl="reference"),
+    "ssm-jamba-sp-mb1-none": dict(microbatch=1, remat_policy="none",
+                                  attention_impl="flash",
+                                  sequence_parallel=True)})
 SPAWN_TIMEOUT_S = 120
 REFERENCE_TIMEOUT_S = 240
 # the reference's cells: (name, arch, knobs) at a 4 x 16 train cell
@@ -123,8 +141,21 @@ REF_CASES = (("yi-fsdp-tp", "yi-6b", {"microbatch": 1}),
                                                  "sequence_parallel": True}),
              ("grok-moe", "grok-1-314b", {"microbatch": 1}),
              ("grok-moe-noep", "grok-1-314b", {"microbatch": 1,
-                                               "expert_parallel": False}))
+                                               "expert_parallel": False}),
+             ("xlstm", "xlstm-1.3b", {"microbatch": 1}),
+             ("jamba", "jamba-1.5-large-398b", {"microbatch": 1}))
 FLOPS_REL = 2e-3
+# FLOPs the reference's compiled HLO counts beyond the port's, less the
+# one-hot dot, where the two differ by design (ROADMAP C): its chunk
+# scans carry the gradient into their initial state (mamba: one
+# 2·b·c·N·H·P product a layer and microbatch, 7 layers x 2 microbatches x
+# 16,384; the mLSTM: 253,952 a layer, of which 2·b·c·H·P² = 262,144 is
+# that product and -8,192 two [c, P] products the port counts and XLA
+# does not), and XLA rewrites the sLSTM's per-step recurrent-weight
+# gradient, a product over the microbatch's one row, as an elementwise
+# product that counts no FLOPs (-262,144, with +16,384 for the gradient
+# into the initial state): 7 x 253,952 - 245,760 for the xLSTM
+REF_GAP = {"xlstm": 1531904, "jamba": 229376}
 
 
 @pytest.fixture(autouse=True)
@@ -180,10 +211,15 @@ def test_virtual_chip_counts_what_rank0_counts(gloo_rank0, case):
     assert real["bytes"] == want["bytes"]
     assert real["flash_calls"] == want["flash_calls"]
     assert real["launches"] == want["launches"]
-    assert bool(want["flash_calls"]) == ("-sp-" in case)
+    assert real["mlstm_calls"] == want["mlstm_calls"]
+    assert bool(want["flash_calls"]) == ("-sp-" in case
+                                         and "xlstm" not in case)
+    assert bool(want["mlstm_calls"]) == ("xlstm" in case)
     live = {k for k, v in want["coll_by_kind"].items() if v}
-    assert live == ({"all-reduce"} if case.startswith("tp-")
-                    else set(collectives.KINDS))
+    kinds = set(collectives.KINDS)
+    if case.startswith("ssm-"):         # the [x | z] regroup
+        kinds.add(collectives.ALL_TO_ALL)
+    assert live == ({"all-reduce"} if case.startswith("tp-") else kinds)
     assert np.isfinite(loss) and np.isfinite(real["loss"])
 
 
@@ -290,7 +326,7 @@ def _virtual_refusal(cfg, cell):
                 model.decode_step(params, toks[:2, :1], None, rc)
             raise AssertionError(f"{cell.mode} ran on a mesh")
     except ValueError as e:
-        items = [it for it in (SERVE_ITEM, WHISPER_ITEM, SSM_ITEM)
+        items = [it for it in (SERVE_ITEM, WHISPER_ITEM)
                  if str(e).endswith(it)]
         assert len(items) == 1, str(e)
         return items[0]
@@ -373,8 +409,9 @@ def test_chip_flops_meet_the_reference(reference_counts, name, arch, knobs):
           f"{ref['coll_by_kind']}")
     vocab = cfg.vocab_size // (2 if rc.shard.tensor_parallel else 1)
     one_hot = 2 * low.batch * seq * vocab
-    assert ref["flops"] - counts.flops == one_hot
-    assert abs(counts.flops - ref["flops"]) <= FLOPS_REL * ref["flops"]
+    assert ref["flops"] - counts.flops == one_hot + REF_GAP.get(name, 0)
+    if name not in REF_GAP:
+        assert abs(counts.flops - ref["flops"]) <= FLOPS_REL * ref["flops"]
     assert np.isfinite(float(loss))
 
 

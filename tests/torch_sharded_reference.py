@@ -6,17 +6,19 @@
 ``XLA_FLAGS`` must be set before JAX is imported, so the tests that hold
 the port's sharded step against the reference's start this script as a
 subprocess (``test_torch_sharded_step.py``).  ``SPEC.json`` lists the
-runs: each names an architecture's smoke config, RunConfig knobs, a
-(data, model) mesh, and the ``.npz`` holding its float32 parameters and
-its global batch.  Each run places the state as the reference's launcher
-does (``shardings_for(state_axes, rc.shard.resolve(mesh))``) on
-``jax.sharding.Mesh(devices.reshape(D, M), ("data", "model"))``: the
-auto-axis mesh (``jax.make_mesh``'s explicit axes refuse the embedding
-gather) and takes one jitted ``make_train_step`` step under ``with
-mesh:``.  ``OUT.npz`` holds, per run, the metrics and every leaf of the
-new state (``jax.tree`` order).
+runs: each names an architecture's smoke config (with the run's ``cfg``
+fields replaced, and cut to the pattern positions ``keep``, when it
+names them), RunConfig knobs, a (data, model) mesh, and the ``.npz``
+holding its float32 parameters and its global batch.  Each run places
+the state as the reference's launcher does (``shardings_for(state_axes,
+rc.shard.resolve(mesh))``) on ``jax.sharding.Mesh(devices.reshape(D, M),
+("data", "model"))``: the auto-axis mesh (``jax.make_mesh``'s explicit
+axes refuse the embedding gather) and takes one jitted
+``make_train_step`` step under ``with mesh:``.  ``OUT.npz`` holds, per
+run, the metrics and every leaf of the new state (``jax.tree`` order).
 """
 
+import dataclasses
 import json
 import sys
 
@@ -37,7 +39,13 @@ def run(spec, data):
     D, M = spec["mesh"]
     mesh = Mesh(np.array(jax.devices()[:D * M]).reshape(D, M),
                 ("data", "model"))
-    jm = Model(get_smoke_config(spec["arch"]))
+    cfg = dataclasses.replace(get_smoke_config(spec["arch"]),
+                              **spec.get("cfg", {}))
+    keep = spec.get("keep")
+    if keep:                 # a depth cut: the pattern positions kept
+        cfg = cfg.scaled(n_layers=len(keep),
+                         pattern=tuple(cfg.pattern[i] for i in keep))
+    jm = Model(cfg)
     rc = runconfig_from_knobs(spec["knobs"])
     params = jax.tree.unflatten(
         jax.tree.structure(jax.eval_shape(

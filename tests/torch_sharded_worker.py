@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
 from repro_torch.launch.roofline import count_step
 from repro_torch.models.common import tree_flatten, tree_unflatten
 from repro_torch.models.model import Model, gather_tree, gather_tree_to_host
@@ -45,28 +46,36 @@ def count_case(spec, batch):
     """(counts, loss) of one counted step of a case on the ambient mesh,
     from the state ``init_local_state`` draws and this rank's ``batch``.
     The counts also hold the flash wrapper's calls and launch counters
-    (no launch on the CPU: a wrapper given CPU tensors runs its plain
-    version)."""
+    and the mLSTM wrapper's calls (its q's shape: no launch on the CPU, a
+    wrapper given CPU tensors runs its plain version)."""
     model = Model(get_smoke_config(spec["arch"]), device="cpu")
     rc = runconfig_from_knobs(spec["knobs"])
     state = ttl.init_local_state(model, 0, rc)
     held = state_counts(state)
     step = ttl.make_train_step(model, rc)
     calls, fn = [], flash_ops.flash_attention
+    m_calls, m_fn = [], mlstm_ops.mlstm_chunk
 
     def counted(q, k, v, **kw):
         calls.append((tuple(q.shape), tuple(k.shape)))
         return fn(q, k, v, **kw)
+
+    def m_counted(q, k, v, *args, **kw):
+        m_calls.append(tuple(q.shape))
+        return m_fn(q, k, v, *args, **kw)
     flash_ops.reset_launch_counts()
     flash_ops.flash_attention = counted
+    mlstm_ops.mlstm_chunk = m_counted
     try:
         counts, (_, mets) = count_step(lambda: step(state, batch))
     finally:
         flash_ops.flash_attention = fn
+        mlstm_ops.mlstm_chunk = m_fn
     launches = {k: getattr(flash_ops, k) for k in (
         "launches", "launches_wgmma", "launches_fma", "launches_bwd")}
     return {"flops": counts.flops, "coll_by_kind": counts.coll_by_kind,
             "flash_calls": [list(map(list, c)) for c in calls],
+            "mlstm_calls": [list(c) for c in m_calls],
             "launches": launches, **held}, float(mets["loss"])
 
 
@@ -93,9 +102,16 @@ def _np(x: torch.Tensor) -> np.ndarray:
 
 def case_config(spec):
     """The case's smoke config, with the spec's ``cfg`` fields replaced
-    (a shape no smoke config has)."""
-    return dataclasses.replace(get_smoke_config(spec["arch"]),
-                               **spec.get("cfg", {}))
+    (a shape no smoke config has), cut to the pattern positions ``keep``
+    when the spec names them (one group each, as
+    ``test_torch_train._cut`` cuts it)."""
+    cfg = dataclasses.replace(get_smoke_config(spec["arch"]),
+                              **spec.get("cfg", {}))
+    keep = spec.get("keep")
+    if keep:
+        cfg = cfg.scaled(n_layers=len(keep),
+                         pattern=tuple(cfg.pattern[i] for i in keep))
+    return cfg
 
 
 def load_case(spec, device="cpu"):
