@@ -274,10 +274,7 @@ Phases (any failure exits non-zero before the result line):
    again with ``sequence_parallel=True`` (the stream between blocks the
    chip's 256-token block of the sequence: ``PRODUCT_SP``), each printed
    beside its SP-off twin; then the default once at one replica's
-   share (2 layers, the replica cell scored before the chip share) and
-   one default probe each of ``prefill_32k`` (2 x 32768) and
-   ``decode_32k`` (8 against a 32k cache), both at the replica's share
-   (the layout does not serve).
+   share (2 layers, the replica cell scored before the chip share).
    Each prints its depth, ``reduced``, the measured step,
    ``collective_s``, the bytes by kind, ``scored_step_s``, peak memory,
    ``mfu`` and its step-1 loss, or that it ran out of the card's memory;
@@ -301,7 +298,7 @@ Phases (any failure exits non-zero before the result line):
    on the virtual chip the two compute different functions), its
    gradient norm finite and its loss dropping;
    the replica probe scores its measured step; the yi-6b part within
-   240 s.  Then the MoE families' train_4k cells at the chip's share
+   240 s.
    (expert parallelism, ``PRODUCT_MOE``): qwen2-moe-a2.7b at 4 of 24
    layers (its 60 experts do not divide the model axis: each chip holds
    88 of every expert's 1408 columns) with the space's default, flash,
@@ -342,7 +339,26 @@ Phases (any failure exits non-zero before the result line):
    the mLSTM wrapper's launches counted from 0 around each probe exact:
    (warm-up + timed steps) x microbatches x 7 wgmma forwards and as many
    wgmma backwards, none FMA (none in jamba's); the chip holds one of
-   jamba's experts; within 150 s.
+   jamba's experts; within 150 s.  Then the serving cells at one chip's
+   share (prefill and decode under the mesh, ``PRODUCT_SERVE``): first
+   the flash forward at yi-6b's prefill_32k chip layer (2 x 32768, 2 q
+   heads over 1 kv head; its plain version one sequence and head at a
+   time, relative L2 1e-2, beside SDPA) and the mLSTM forward at
+   xlstm-1.3b's prefill chip layer (2, 4096, 1, 1024) against its plain
+   version; then yi-6b prefill_32k at 2 layers (the family default:
+   chunked attention; and under flash), decode_32k at 2 layers (beside
+   its replica reading), qwen2-moe prefill_32k at 2 layers, xlstm-1.3b's
+   prefill at one period and 4096 tokens (``reduced``; 1 warm-up + 1
+   timed step) and jamba's long_500k decode at pattern positions 0-4
+   (its attention layer last; ``shard_kv_seq``, the cell's default,
+   splits the cache's sequence over the data axis: the combine's
+   all-reduces are in its bytes).  Each prints its depth, ``reduced``,
+   step, ``collective_s``, bytes by kind, peak and ``mfu``.  Gates: every
+   probe fits, runs the chip share with its collectives counted and
+   finite logits; the flash probe launches exactly (1 + 2) x 2 = 6 wgmma
+   forwards at q [2, 32768, 2, 128] / k [2, 32768, 1, 128] and no FMA,
+   the xLSTM probe exactly 7 wgmma mLSTM forwards a step and no FMA, no
+   other probe flash; the probes within 120 s.
 15. the sharded train step: yi-6b at full width, 2 of 32 layers, on a
    2 x 2 (data, model) mesh of four processes (``launch.mesh.spawn``;
    NCCL when the host has a card for each rank, else gloo with the four
@@ -376,7 +392,14 @@ Phases (any failure exits non-zero before the result line):
    every gathered leaf within relative L2 2e-2 of one process, no
    non-finite leaf, as many routing calls as the one-process step made,
    2 FMA flash forwards and 2 FMA backward sets a rank (float32), none
-   wgmma; within 60 s of its own.
+   wgmma; within 60 s of its own.  Then sharded serving on the same mesh
+   (``mesh_serve_rank``): yi-6b at 2 layers, flash, bf16, each rank's
+   blocks of the weights and its rows of 4 prompts of 2048, the prefill
+   and 4 decode steps.  Gates: exactly 2 wgmma flash forwards a rank at
+   q [2, 2048, 16, 128] / k [2, 2048, 2, 128], none FMA; each rank's
+   logits its 2 rows over the whole vocab, finite; rank 0's last-token
+   and decode logits within relative L2 2e-2 of the one-process run
+   (bf16); within 60 s of its own.
 
 Every device time read from ``torch.profiler`` in phases 2-13 comes
 from a session that recorded the window whole (``whole_profile``: the
@@ -5521,7 +5544,6 @@ PRODUCT_SP = (("flash-sp", "flash"), ("recommended-sp", "recommended"))
 PRODUCT_SP_TWIN_REL = 3e-2
 PRODUCT_MUST_FIT = {name for name, _ in PRODUCT_KNOBS} | {
     "recommended", "expert"} | {name for name, _ in PRODUCT_SP}
-PRODUCT_SERVING = ("prefill_32k", "decode_32k")   # one default probe each
 # yi-6b's attention layer on one chip of the 16 x 16 mesh at the space
 # default's microbatch of 1: 32 / 16 q heads and the one kv head they read
 # (kv_dim 512 / 16 is a quarter head: the kv columns are gathered)
@@ -5629,10 +5651,13 @@ print(json.dumps(chip_smoke.device_ms(
 
 
 def chip_flash_forward(card: str, shape=CHIP_FLASH, softcap=None,
-                       what: str = "the chip's layer") -> dict:
+                       what: str = "the chip's layer",
+                       per_head: bool = False) -> dict:
     """The flash forward at a chip's layer (``CHIP_FLASH``, yi-6b's, by
     default; ``softcap`` grok-1's tanh cap): the kernel against its plain
-    version (P rounded to bf16, relative L2 1e-2), timed with CUDA events
+    version (P rounded to bf16, relative L2 1e-2; with ``per_head`` one
+    sequence and q head at a time, as phase 5 holds the prefill_32k shape:
+    its float32 scores are 4.3 GB a head at 32k), timed with CUDA events
     in turns with SDPA (K/V repeated outside the timed calls; SDPA has no
     soft cap, so under one it times the uncapped function), its device
     time from a whole profiler session (here, or in a fresh process:
@@ -5651,8 +5676,16 @@ def chip_flash_forward(card: str, shape=CHIP_FLASH, softcap=None,
         return ops.flash_attention(q, k, v, causal=True, softcap=softcap)
 
     def plain():
-        return ref.reference_attention(q, k, v, causal=True, softcap=softcap,
-                                       p_dtype=torch.bfloat16)
+        if not per_head:
+            return ref.reference_attention(q, k, v, causal=True,
+                                           softcap=softcap,
+                                           p_dtype=torch.bfloat16)
+        rep = H // Kh
+        return torch.cat([torch.cat([ref.reference_attention(
+            q[b:b + 1, :, h:h + 1], k[b:b + 1, :, h // rep:h // rep + 1],
+            v[b:b + 1, :, h // rep:h // rep + 1], causal=True,
+            softcap=softcap, p_dtype=torch.bfloat16) for h in range(H)],
+            dim=2) for b in range(B)])
     qt = q.transpose(1, 2)
     kt = k.repeat_interleave(H // Kh, dim=2).transpose(1, 2)
     vt = v.repeat_interleave(H // Kh, dim=2).transpose(1, 2)
@@ -5843,21 +5876,23 @@ print(json.dumps(chip_smoke.device_ms(
 """
 
 
-def chip_mlstm_layer(card: str) -> dict:
-    """The mLSTM kernels at xlstm-1.3b's chip layer (``CHIP_MLSTM``, bf16,
-    chunk 256): one wgmma forward and one wgmma backward launch against
-    their plain versions with the route's roundings (relative L2
-    ``MLSTM_REL_L2`` and ``MLSTM_BWD_REL_ROUNDED``), each timed with CUDA
-    events beside its plain version, its device time from a whole
-    profiler session (or a fresh process: ``FRESH_MLSTM_FWD``,
+def chip_mlstm_layer(card: str, shape=CHIP_MLSTM,
+                     kinds=("fwd", "bwd"), what: str = "chip layer") -> dict:
+    """The mLSTM kernels at xlstm-1.3b's chip layer (``shape``,
+    ``CHIP_MLSTM`` by default, bf16, chunk 256): one wgmma forward and one
+    wgmma backward launch against their plain versions with the route's
+    roundings (relative L2 ``MLSTM_REL_L2`` and
+    ``MLSTM_BWD_REL_ROUNDED``), each of ``kinds`` timed with CUDA events
+    beside its plain version, its device time from a whole profiler
+    session (or a fresh process: ``FRESH_MLSTM_FWD``,
     ``FRESH_MLSTM_BWD``) and its bound."""
     import torch
     from repro_torch.kernels.mlstm_chunk import ops, ref
 
-    B, S, H, P = CHIP_MLSTM
+    B, S, H, P = shape
     chunk = MLSTM_CHUNKS[0]
     check(ops.route(torch.bfloat16, P, chunk) == "wgmma",
-          f"the chip's mLSTM layer {CHIP_MLSTM} is not on the wgmma route")
+          f"the {what} of the mLSTM {shape} is not on the wgmma route")
     gen = torch.Generator(device="cuda").manual_seed(17)
     args, dh = mlstm_bwd_inputs(B, S, H, P, torch.bfloat16, gen)
     before = (ops.launches_wgmma, ops.launches_fma, ops.launches_bwd_wgmma,
@@ -5882,10 +5917,10 @@ def chip_mlstm_layer(card: str) -> dict:
     for t in (h, *got):
         check(bool(torch.isfinite(t.float()).all()),
               "the chip's mLSTM layer: a non-finite output")
-    check(rel_f <= MLSTM_REL_L2, f"the chip's mLSTM forward {CHIP_MLSTM}: "
+    check(rel_f <= MLSTM_REL_L2, f"the mLSTM forward at the {what} {shape}: "
           f"relative L2 {rel_f} > {MLSTM_REL_L2}")
-    check(max(rels_b) <= MLSTM_BWD_REL_ROUNDED, f"the chip's mLSTM backward "
-          f"{CHIP_MLSTM}: relative L2 {max(rels_b)} > "
+    check(max(rels_b) <= MLSTM_BWD_REL_ROUNDED, f"the mLSTM backward at the "
+          f"{what} {shape}: relative L2 {max(rels_b)} > "
           f"{MLSTM_BWD_REL_ROUNDED}")
     del want, grads
 
@@ -5903,12 +5938,15 @@ def chip_mlstm_layer(card: str) -> dict:
                 *args, h, dh, chunk, operand_dtype=torch.bfloat16,
                 grad_operand_dtype=torch.bfloat16),
              mlstm_bwd_counted("wgmma"), FRESH_MLSTM_BWD, mlstm_bwd_bound)):
+        if kind not in kinds:
+            continue
         k_ms = cuda_ms(kernel, reps=5, inner=4)
         p_ms = cuda_ms(plain, reps=3, inner=1)
         arg = [B, S, H, P, chunk] if kind == "fwd" \
             else [B, S, H, P, chunk, "bfloat16", "wgmma"]
         dev = device_ms(kernel, calls=10 if kind == "fwd" else 4,
-                        counted=counted, what=f"the chip's mLSTM {kind}",
+                        counted=counted, what=f"the mLSTM {kind} at the "
+                        f"{what} {shape}",
                         fresh=lambda a=arg, sc=script: fresh_device_ms(sc, a))
         b_ms, b_by, flops = bound(B, S, H, P, chunk, 2, BF16_FLOPS_PER_S)
         out[kind] = {"ms": k_ms, "device_ms": dev, "plain_ms": p_ms,
@@ -5916,7 +5954,7 @@ def chip_mlstm_layer(card: str) -> dict:
                      "shape": [B, S, H, P, chunk],
                      "rel_l2": rel_f if kind == "fwd" else max(rels_b),
                      "max_abs_err": err_f if kind == "fwd" else err_b}
-        print(f"  mLSTM {kind} at xlstm-1.3b's chip layer {CHIP_MLSTM} "
+        print(f"  mLSTM {kind} at xlstm-1.3b's {what} {shape} "
               f"chunk {chunk} bf16 on {card}: kernel_ms={k_ms:.4f} "
               f"device_ms={dev:.4f} plain_ms={p_ms:.4f} library_ms=None "
               f"bound_ms={b_ms:.4f} ({b_by}; {flops / 1e9:.1f} GFLOP; "
@@ -6054,12 +6092,145 @@ def product_ssm(card: str) -> dict:
             "launches_bwd": sum(p["mlstm"]["bwd"] for p in probes)}
 
 
+# the serving cells at one chip's share of the 16 x 16 mesh (prefill and
+# decode under the mesh): (name, arch, shape, pattern positions kept (None:
+# the first PRODUCT_CHIP_LAYERS layers), reduce, timed steps, knobs over
+# the family default).  xlstm-1.3b: one period at 4096 tokens (its sLSTM
+# loop is ~8 s a 4096-token prefill, and prefill_32k's 32768 would be
+# ~65 s a step), 1 timed step; jamba's long_500k decode at pattern
+# positions 0-4, whose last is its attention layer: one token against
+# the chip's 32768 of the 524288 cached positions (``shard_kv_seq``, the
+# cell's default, splits the cache's sequence over the 16 data ranks:
+# the batch of 1 does not divide them)
+PRODUCT_SERVE = (
+    ("yi-6b prefill_32k", "yi-6b", "prefill_32k", None, None,
+     PRODUCT_STEPS, {}),
+    ("yi-6b prefill_32k flash", "yi-6b", "prefill_32k", None, None,
+     PRODUCT_STEPS, {"attention_impl": "flash"}),
+    ("yi-6b decode_32k", "yi-6b", "decode_32k", None, None, PRODUCT_STEPS,
+     {}),
+    ("qwen2-moe prefill_32k", "qwen2-moe-a2.7b", "prefill_32k", None, None,
+     PRODUCT_STEPS, {}),
+    ("xlstm-1.3b prefill", "xlstm-1.3b", "prefill_32k", tuple(range(8)),
+     {"seq": 4096}, 1, {}),
+    ("jamba long_500k", "jamba-1.5-large-398b", "long_500k",
+     (0, 1, 2, 3, 4), None, PRODUCT_STEPS, {}),
+)
+# yi-6b's prefill_32k layer on chip (0, 0): its data rank's 2 sequences of
+# 32768, 2 q heads over the one kv head they read
+CHIP_FLASH_32K = (2, 32768, 32768, 2, 1, 128)
+# xlstm-1.3b's prefill layer on chip (0, 0): 2 sequences, its cut head whole
+CHIP_MLSTM_PREFILL = (2, 4096, 1, 1024)
+PRODUCT_SERVE_BUDGET_S = 120.0       # the probes, not the kernel checks
+
+
+def product_serving(card: str) -> dict:
+    """Phase 14's serving cells at one chip's share of the 16 x 16 mesh
+    (``PRODUCT_SERVE``), each probe a ``CompiledEvaluator`` call with the
+    flash and mLSTM wrappers' launches counted from 0 around it; first
+    the flash forward at yi-6b's prefill_32k chip layer
+    (``CHIP_FLASH_32K``) and the mLSTM forward at xlstm-1.3b's prefill
+    chip layer (``CHIP_MLSTM_PREFILL``) against their plain versions,
+    timed beside them (and SDPA); decode_32k once more at one replica's
+    share, its reading before the chip share."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.evaluators import CompiledEvaluator
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import SHAPES_BY_NAME
+
+    print(f"  the serving cells at one chip's share of the 16 x 16 mesh "
+          f"(prefill and decode under the mesh)", flush=True)
+    t_k = time.perf_counter()
+    flash32k = chip_flash_forward(card, CHIP_FLASH_32K, per_head=True,
+                                  what="yi-6b's prefill_32k chip layer")
+    torch.cuda.empty_cache()
+    mlstm = chip_mlstm_layer(card, CHIP_MLSTM_PREFILL, kinds=("fwd",),
+                             what="prefill chip layer")["fwd"]
+    torch.cuda.empty_cache()
+    kernels_s = time.perf_counter() - t_k
+    t0 = time.perf_counter()
+    out = {}
+    for name, arch, shape, keep, reduce, steps, knobs in PRODUCT_SERVE:
+        full, cell = get_config(arch), SHAPES_BY_NAME[shape]
+        check(dryrun.resolve_share(full, cell) == "chip", f"phase 14: "
+              f"{arch} {shape} should run at one chip's share")
+        if keep is None:
+            cfg, depth = full, PRODUCT_CHIP_LAYERS
+        else:
+            cfg = full.scaled(n_layers=len(keep),
+                              pattern=tuple(full.pattern[i] for i in keep))
+            depth = len(keep)
+        ev = CompiledEvaluator(cfg, cell, device="cuda", n_layers=depth,
+                               steps=steps, share="chip", reduce=reduce)
+        p = ssm_probe(ev, name, knobs, {})
+        check(p["feasible"], f"phase 14: {name} ran out of the card's "
+              f"memory")
+        rec = p["record"]
+        check(rec["share"] == "chip" and rec["outputs_finite"]
+              and rec["roofline"]["collective_s"] > 0, f"phase 14: {name} "
+              f"did not run one chip's share with its collectives counted "
+              f"and finite logits")
+        p["steps"] = steps
+        out[name] = p
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    # yi-6b's prefill under flash: one wgmma forward a layer and step at
+    # the chip's heads
+    f = out["yi-6b prefill_32k flash"]
+    want = (1 + PRODUCT_STEPS) * PRODUCT_CHIP_LAYERS
+    B, S, _, H, Kh, D = CHIP_FLASH_32K
+    check(f["launches"]["fwd"] == f["launches"]["fwd_wgmma"] == want
+          and f["launches"]["fwd_fma"] == 0, f"phase 14: the prefill_32k "
+          f"flash probe's launches {f['launches']}, want {want} wgmma "
+          f"forwards and no FMA")
+    check(f["shapes"] == [((B, S, H, D), (B, S, Kh, D))], f"phase 14: the "
+          f"prefill_32k flash probe's q / k shapes {f['shapes']}, want the "
+          f"chip's {[((B, S, H, D), (B, S, Kh, D))]}")
+    x = out["xlstm-1.3b prefill"]
+    want = (1 + x["steps"]) * 7
+    m = x["mlstm"]
+    check(m["fwd"] == m["fwd_wgmma"] == want and m["fwd_fma"] == 0,
+          f"phase 14: the xLSTM prefill's mLSTM launches {m}, want {want} "
+          f"wgmma forwards (7 a step) and no FMA")
+    for name, p in out.items():
+        if name != "yi-6b prefill_32k flash":
+            check(p["launches"]["fwd"] == 0, f"phase 14: {name} launched "
+                  f"flash ({p['launches']}) without attention_impl=flash")
+    rev = CompiledEvaluator(get_config("yi-6b"), SHAPES_BY_NAME["decode_32k"],
+                            device="cuda", n_layers=PRODUCT_CHIP_LAYERS,
+                            steps=PRODUCT_STEPS, share="replica")
+    replica = product_probe(rev, "yi-6b decode_32k (replica share)", {}, {})
+    check(replica["feasible"] and replica["record"]["outputs_finite"],
+          "phase 14: decode_32k at the replica's share did not run")
+    d, r = out["yi-6b decode_32k"]["record"], replica["record"]
+    print(f"  yi-6b decode_32k, {PRODUCT_CHIP_LAYERS} layers: one chip's "
+          f"share (8 rows, 2 q heads, the 4 kv heads' cache whole) "
+          f"measured_step_s={d['measured_step_s']:.6f} scored_step_s="
+          f"{d['scored_step_s']:.6f} peak "
+          f"{d['memory']['max_memory_allocated_gb']:.2f} GiB; one "
+          f"replica's (8 rows, every head) measured_step_s="
+          f"{r['measured_step_s']:.6f} peak "
+          f"{r['memory']['max_memory_allocated_gb']:.2f} GiB", flush=True)
+    print(f"phase 14's serving cells {wall:.1f} s (budget "
+          f"{PRODUCT_SERVE_BUDGET_S:.0f} s; the kernel checks before them "
+          f"{kernels_s:.1f} s)", flush=True)
+    check(wall <= PRODUCT_SERVE_BUDGET_S, f"phase 14's serving cells took "
+          f"{wall:.1f} s")
+    return {"probes": out, "replica": replica, "flash_layer": flash32k,
+            "mlstm_layer": mlstm, "seconds": wall,
+            "launches_fwd": sum(p["launches"]["fwd"] for p in out.values())
+            + replica["launches"]["fwd"],
+            "mlstm_launches": m["fwd"]}
+
+
 def phase_product(card: str, tuned: dict) -> dict:
     """Phase 14: the config probes of yi-6b's train_4k at one chip's share
     of the 16 x 16 mesh (and the default once at the replica's share),
-    and the serving cells' defaults at the replica's, run on the card by
-    ``CompiledEvaluator``; the measured speedups beside the analytic ones
-    of phase 3."""
+    run on the card by ``CompiledEvaluator``, the measured speedups beside
+    the analytic ones of phase 3; then the MoE, SSM and serving cells at
+    the chip's share (``product_moe``, ``product_ssm``,
+    ``product_serving``)."""
     import gc
 
     import torch
@@ -6207,8 +6378,7 @@ def phase_product(card: str, tuned: dict) -> dict:
           f"analytic (tune, batch 8) {a_best:.4f}x; default/expert measured "
           f"{m_expert:.4f}x, analytic {a_expert:.4f}x", flush=True)
 
-    # the replica's share once, as it was scored before the chip share,
-    # and the serving cells (the layout does not cover them: ROADMAP A 18f)
+    # the replica's share once, as it was scored before the chip share
     rev = CompiledEvaluator(cfg, cell, device="cuda", n_layers=PRODUCT_LAYERS,
                             steps=PRODUCT_STEPS, share="replica")
     replica = product_probe(rev, "default (replica share)", default, default)
@@ -6217,21 +6387,8 @@ def phase_product(card: str, tuned: dict) -> dict:
         replica["record"]["measured_step_s"], "phase 14: the replica "
         "share's default did not run, or scored more than its measured step")
     torch.cuda.empty_cache()
-    serving = {}
-    for shape in PRODUCT_SERVING:
-        scell = SHAPES_BY_NAME[shape]
-        check(dryrun.resolve_share(cfg, scell) == "replica",
-              f"phase 14: {shape} should run at the replica's share")
-        sev = CompiledEvaluator(cfg, scell, device="cuda",
-                                n_layers=PRODUCT_LAYERS, steps=PRODUCT_STEPS)
-        serving[shape] = product_probe(sev, f"{shape} default", {}, {})
-        if serving[shape]["feasible"]:
-            check(serving[shape]["record"]["outputs_finite"],
-                  f"phase 14: {shape}'s logits are not finite")
-        torch.cuda.empty_cache()
     fwd_total = sum(p["launches"]["fwd"] for p in out.values()) \
-        + replica["launches"]["fwd"] \
-        + sum(p["launches"]["fwd"] for p in serving.values())
+        + replica["launches"]["fwd"]
     bwd_total = sum(p["launches"]["bwd"] for p in out.values()) \
         + replica["launches"]["bwd"]
     total = time.perf_counter() - t0
@@ -6242,6 +6399,8 @@ def phase_product(card: str, tuned: dict) -> dict:
     moe = product_moe(card)
     torch.cuda.empty_cache()
     ssm = product_ssm(card)
+    torch.cuda.empty_cache()
+    serving = product_serving(card)
     return {"probes": out, "replica": replica, "serving": serving,
             "flash_layer": flash_layer, "depth": depth, "moe": moe,
             "ssm": ssm,
@@ -6605,6 +6764,169 @@ def phase_mesh_moe(card: str, backend: str) -> dict:
                                 for r in ranks)}
 
 
+# phase 15's sharded serving: yi-6b at the train step's width and depth,
+# flash, bf16, the global batch's 4 prompts of 2048 and 4 decode steps
+MESH_DECODE = 4
+MESH_SERVE_REL = 2e-2            # rank 0's logits vs one process (bf16)
+MESH_SERVE_BUDGET_S = 60.0
+
+
+def mesh_serve_rank(mesh, out_dir: str) -> None:
+    """One rank of phase 15's sharded serving (spawned; under ``with
+    mesh:``): its blocks of yi-6b's weights, its rows of the global
+    prompts, ``Model.prefill`` and ``MESH_DECODE`` ``decode_step`` s with
+    flash's launches and the collectives' bytes counted from 0 around
+    them; rank 0 then runs the one-process prefill and decode off the
+    mesh and compares its rows.  Writes ``serve<r>.json`` under
+    ``out_dir``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model, shard_tree
+    from repro_torch.parallel.collectives import counting_collectives
+    from repro_torch.parallel.sharding import (reset_ambient_mesh,
+                                               set_ambient_mesh)
+    from repro_torch.runconfig import RunConfig
+    from repro_torch.train import train_loop as ttl
+
+    cfg = get_config(MESH_ARCH).scaled(n_layers=MESH_LAYERS)
+    rc = RunConfig(attention_impl="flash")
+    model = Model(cfg, device=mesh.device)
+    ops.load()
+    params = model.init(MESH_SEED)
+    local = shard_tree(params, ttl.param_placements(model, rc, mesh),
+                       mesh.rank)
+    if mesh.rank != 0:
+        del params
+    gen = torch.Generator(device=mesh.device).manual_seed(MESH_SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (MESH_B, MESH_S + MESH_DECODE),
+                           generator=gen, device=mesh.device,
+                           dtype=torch.int32)
+    rows = transformer.serve_rows(MESH_B, rc, mesh)
+    mine, s_max = tokens[rows], MESH_S + MESH_DECODE
+    shapes, first, fn = set(), [], ops.flash_attention
+
+    def recording(q, k, v, **kw):
+        shapes.add((tuple(q.shape), tuple(k.shape), str(q.dtype)))
+        if not first:
+            first.append((q.clone(), k.clone(), v.clone(), kw))
+        return fn(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ops.flash_attention = recording
+    try:
+        with torch.no_grad(), counting_collectives() as coll:
+            t0 = time.perf_counter()
+            logits, state = model.prefill(local, {"tokens": mine[:, :MESH_S]},
+                                          s_max, rc, batch=MESH_B)
+            got = [logits]
+            for t in range(MESH_DECODE):
+                logits, state = model.decode_step(
+                    local, mine[:, MESH_S + t:MESH_S + t + 1], state, rc)
+                got.append(logits)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        ops.flash_attention = fn
+    out = {"rank": mesh.rank, "coords": mesh.coords, "rows": [rows.start,
+                                                              rows.stop],
+           "launches": flash_counts(ops), "shapes": sorted(map(list, shapes)),
+           "coll_by_kind": dict(coll), "serve_s": wall,
+           "finite": all(bool(torch.isfinite(x).all()) for x in got),
+           "logits_shape": list(got[0].shape)}
+    # the kernel at this rank's shape against its plain version, on the
+    # q, k, v the prefill's first layer gave it (after the counts were read)
+    q, k, v, kw = first[0]
+    kern = fn(q, k, v, **kw)
+    plain = ref.reference_attention(q, k, v, p_dtype=torch.bfloat16, **kw)
+    out["flash_rel_l2"] = rel_l2(kern, plain)
+    out["flash_max_abs_err"] = float((kern.float() - plain.float()).abs()
+                                     .max())
+    out["flash_kw"] = {a: b for a, b in kw.items() if b is not None}
+    del q, k, v, kern, plain, first[:]
+    if mesh.rank == 0:
+        token = set_ambient_mesh(None)
+        try:
+            with torch.no_grad():
+                logits, state = model.prefill(
+                    params, {"tokens": tokens[:, :MESH_S]}, s_max, rc)
+                want = [logits]
+                for t in range(MESH_DECODE):
+                    logits, state = model.decode_step(
+                        params, tokens[:, MESH_S + t:MESH_S + t + 1], state,
+                        rc)
+                    want.append(logits)
+        finally:
+            reset_ambient_mesh(token)
+        out["logits_rel_l2"] = [rel_l2(g, w[rows]) for g, w in zip(got, want)]
+    Path(out_dir, f"serve{mesh.rank}.json").write_text(json.dumps(out))
+
+
+def phase_mesh_serve(card: str, backend: str) -> dict:
+    """Phase 15's sharded serving: yi-6b's prefill and decode on the
+    2 x 2 mesh (``mesh_serve_rank``) against one process."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    print(f"  sharded serving: {MESH_ARCH} full width, {MESH_LAYERS} layers, "
+          f"flash, bf16, {MESH_B} prompts of {MESH_S} and {MESH_DECODE} "
+          f"decode steps on the {MESH_SHAPE[0]}x{MESH_SHAPE[1]} mesh "
+          f"({backend})", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="serve-", dir=ROOT) as tmp:
+        spawn(mesh_serve_rank, MESH_SHAPE, (tmp,), device="cuda",
+              backend=backend, timeout_s=MESH_TIMEOUT_S)
+        ranks = [json.loads(Path(tmp, f"serve{r}.json").read_text())
+                 for r in range(world)]
+    wall = time.perf_counter() - t0
+    cfg = get_config(MESH_ARCH)
+    D, M = MESH_SHAPE
+    hq, hkv = cfg.n_heads // M, cfg.n_kv_heads // M
+    want_shape = [[MESH_B // D, MESH_S, hq, cfg.resolved_head_dim],
+                  [MESH_B // D, MESH_S, hkv, cfg.resolved_head_dim],
+                  "torch.bfloat16"]
+    for r in ranks:
+        c = r["launches"]
+        print(f"  rank {r['rank']} {r['coords']} rows {r['rows']}: prefill + "
+              f"{MESH_DECODE} decode steps {r['serve_s']:.3f} s; flash fwd "
+              f"{c['launches_wgmma']} wgmma + {c['launches_fma']} FMA at "
+              f"{r['shapes']} {r['flash_kw']}, kernel vs plain rel_l2 "
+              f"{r['flash_rel_l2']:.3e} max_abs_err "
+              f"{r['flash_max_abs_err']:.3e} (limit {FLASH_REL_L2}); logits "
+              f"{r['logits_shape']}; collective bytes "
+              f"{r['coll_by_kind']}", flush=True)
+        check(r["flash_rel_l2"] <= FLASH_REL_L2, f"phase 15 serving rank "
+              f"{r['rank']}: the flash forward at {r['shapes']} vs its "
+              f"plain version relative L2 {r['flash_rel_l2']} > "
+              f"{FLASH_REL_L2}")
+        check(c["launches"] == c["launches_wgmma"] == MESH_LAYERS
+              and c["launches_fma"] == 0, f"phase 15 serving rank "
+              f"{r['rank']}: flash forwards {c}, want {MESH_LAYERS} wgmma "
+              f"(one a layer of the prefill) and no FMA")
+        check(r["shapes"] == [want_shape], f"phase 15 serving rank "
+              f"{r['rank']}: flash shapes {r['shapes']}, want {want_shape}")
+        check(r["finite"] and r["logits_shape"] == [MESH_B // D, 1,
+                                                    cfg.vocab_size],
+              f"phase 15 serving rank {r['rank']}: logits "
+              f"{r['logits_shape']} finite {r['finite']}")
+    rels = ranks[0]["logits_rel_l2"]
+    print(f"  rank 0's last-token logits and {MESH_DECODE} decode steps' vs "
+          f"one process: relative L2 {[f'{x:.3e}' for x in rels]} (limit "
+          f"{MESH_SERVE_REL}); {wall:.1f} s (budget "
+          f"{MESH_SERVE_BUDGET_S:.0f} s) on {card}", flush=True)
+    check(max(rels) <= MESH_SERVE_REL, f"phase 15 serving: logits relative "
+          f"L2 {rels} above {MESH_SERVE_REL}")
+    check(wall <= MESH_SERVE_BUDGET_S, f"phase 15's sharded serving took "
+          f"{wall:.1f} s")
+    return {"ranks": ranks, "wall_s": wall, "logits_rel_l2": rels,
+            "flash_rel_l2": max(r["flash_rel_l2"] for r in ranks),
+            "flash_max_abs_err": max(r["flash_max_abs_err"] for r in ranks),
+            "launches_fwd": sum(r["launches"]["launches"] for r in ranks)}
+
+
 def mesh_runconfig(sp: bool):
     """Phase 15's RunConfig: the family default's layout, with sequence
     parallelism where ``sp``."""
@@ -6801,8 +7123,9 @@ def phase_mesh(card: str) -> dict:
     wall = time.perf_counter() - t0
     check(wall <= MESH_BUDGET_S, f"phase 15 took {wall:.1f} s")
     moe = phase_mesh_moe(card, backend)
+    serve = phase_mesh_serve(card, backend)
     return {"backend": backend, "ranks": ranks, "wall_s": wall,
-            "virtual": virtual, "moe": moe,
+            "virtual": virtual, "moe": moe, "serve": serve,
             "loss_rel": loss_rel, "grad_rel_l2": r0["grad_rel_l2"],
             "sp_loss_rel": sp_loss_rel, "sp_grad_rel_l2": r0["sp_grad_rel_l2"],
             "launches_fwd": sum(r["launches"]["launches"]
@@ -6915,7 +7238,9 @@ def main() -> None:
                "product-yi-6b": product["launches_fwd"],
                "product-moe": product["moe"]["launches_fwd"],
                "train-yi-6b-mesh-2x2": sharded["launches_fwd"],
-               "train-qwen2-moe-mesh-2x2": sharded["moe"]["launches_fwd"]}
+               "train-qwen2-moe-mesh-2x2": sharded["moe"]["launches_fwd"],
+               "product-serving": product["serving"]["launches_fwd"],
+               "serve-yi-6b-mesh-2x2": sharded["serve"]["launches_fwd"]}
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",
         "source": FLASH_SOURCE, "fma_source": FLASH_FMA_SOURCE,
@@ -6927,8 +7252,10 @@ def main() -> None:
         + sum(train[k]["launches_fwd"] for k in ("yi", "qwen2-moe",
                                                   "jamba"))
         + product["launches_fwd"] + product["moe"]["launches_fwd"]
-        + sharded["launches_fwd"] + sharded["moe"]["launches_fwd"],
-        "launches_fma": serving["launches_fma"],
+        + sharded["launches_fwd"] + product["serving"]["launches_fwd"]
+        + sharded["serve"]["launches_fwd"],
+        "launches_fma": serving["launches_fma"]
+        + sharded["moe"]["launches_fwd"],
         f"launches_{serving['long_s'] // 1024}k": serving["launches_long"],
         "max_abs_err": flash["max_abs_err"], "rel_l2": flash["rel_l2"],
         "max_abs_err_32k": flash["max_abs_err_32k"],
@@ -6949,7 +7276,18 @@ def main() -> None:
         "chip_layer": product["flash_layer"],
         "chip_layers_moe": {a: c["flash_layer"] for a, c in
                             product["moe"]["cells"].items()},
+        "chip_layer_prefill_32k": product["serving"]["flash_layer"],
         "launches_phase14_per_probe": product["launches_fwd_per_probe"],
+        "serving_chip_probes": {n: {k: p["record"][k] for k in (
+            "measured_step_s", "scored_step_s", "mfu", "n_layers",
+            "reduced", "batch", "seq_len")}
+            | {"collective_s": p["record"]["roofline"]["collective_s"],
+               "coll_by_kind": p["record"]["roofline"]["coll_by_kind"],
+               "peak_gib": p["record"]["memory"]["max_memory_allocated_gb"],
+               "flash": p["launches"], "mlstm": p["mlstm"]}
+            for n, p in product["serving"]["probes"].items()},
+        "serve_mesh_2x2": {k: sharded["serve"][k] for k in (
+            "wall_s", "logits_rel_l2", "flash_rel_l2", "flash_max_abs_err")},
     })
     xl, mbwd = train["xlstm"], train["mlstm_bwd"]
     ssm = product["ssm"]
@@ -6968,13 +7306,16 @@ def main() -> None:
         "source": MLSTM_SOURCE, "fma_source": MLSTM_FMA_SOURCE,
         "replaces": MLSTM_REPLACES,
         "launches": xlstm["launches"] + xl["launches_fwd"]
-        + ssm["launches_fwd"],
+        + ssm["launches_fwd"] + product["serving"]["mlstm_launches"],
         "launches_by_path": {"xlstm-1.3b": xlstm["launches"],
                              "train-xlstm-1.3b": xl["launches_fwd"],
-                             "product-xlstm-1.3b": ssm["launches_fwd"]},
+                             "product-xlstm-1.3b": ssm["launches_fwd"],
+                             "product-xlstm-1.3b-prefill":
+                             product["serving"]["mlstm_launches"]},
         "launches_wgmma": xlstm["launches_wgmma"] + xl["launches_fwd"]
-        + ssm["launches_fwd"],
+        + ssm["launches_fwd"] + product["serving"]["mlstm_launches"],
         "chip_layer": ssm["chip_layer"]["fwd"],
+        "chip_layer_prefill": product["serving"]["mlstm_layer"],
         "launches_fma": xlstm["launches_fma"],
         "max_abs_err": mlstm["max_abs_err"], "rel_l2": mlstm["rel_l2"],
         "ms": mlstm["ms"], "plain_ms": mlstm["plain_ms"],

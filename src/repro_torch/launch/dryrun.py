@@ -18,9 +18,12 @@ recommended config, at one of two shares of the production mesh
   record's ``collective_s`` prices those bytes at ``ici_bw``, and its
   ``scored_step_s`` is the reference's combine rule with the measured
   step in place of the compute and memory terms.  Only what the port's
-  layout implements runs this way: every train cell but whisper's
-  (:func:`layout_covers`);
-* ``"replica"``: one data-parallel replica's share, every other cell:
+  layout implements runs this way: every train, prefill and decode cell
+  of the decoder-only families (:func:`layout_covers`; a serving cell's
+  chip holds its blocks of the decode state,
+  ``models.model.init_local_decode_state``);
+* ``"replica"``: one data-parallel replica's share, every other cell
+  (whisper's) and wherever the caller asks for it:
   ``global_batch // data_parallel_size`` sequences, the replica's whole
   model work on the card, no collective (``scored_step_s`` is the
   measured step).
@@ -90,14 +93,15 @@ from repro_torch.launch.serve import parse_knobs
 from repro_torch.models.common import tree_flatten
 from repro_torch.models.config import (SHAPES_BY_NAME, ModelConfig,
                                        ShapeCell, applicable_shapes)
-from repro_torch.models.model import Model
-from repro_torch.parallel.sharding import (SERVE_ITEM, WHISPER_ITEM,
-                                           compute_range, data_parallel_size,
+from repro_torch.models import attention, transformer, xlstm
+from repro_torch.models.model import Model, init_local_decode_state
+from repro_torch.parallel.sharding import (WHISPER_ITEM, compute_range,
+                                           data_parallel_size,
                                            sequence_parallel_on)
 from repro_torch.runconfig import RunConfig, runconfig_from_knobs
 from repro_torch.train.train_loop import (init_local_state, init_state,
-                                          make_train_step, state_placements,
-                                          state_shapes)
+                                          make_train_step, param_placements,
+                                          state_placements, state_shapes)
 
 ARTIFACTS = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun"
 # the share of the card estimate_bytes may take when fit_depth picks the
@@ -245,26 +249,89 @@ def _tp_splits(cfg: ModelConfig, rc: RunConfig, mesh) -> Tuple[int, int]:
     return heads, m if cfg.vocab_size % m == 0 else 1
 
 
+# a serving layer's copies of its [B, S, d] stream, counted as if all
+# were live at once (an upper bound): the stream, the norm's output, a
+# row-parallel projection's cast result and the residual sum in the
+# activation dtype; the norm's upcast and normalised product, the
+# projection's partial sums and their sum over the model axis in float32
+SERVE_STREAM_COPIES = {"activation": 4, "float32": 4}
+
+
+# float32 copies of a layer's recurrent state a decode step holds beside
+# the state: mamba's decayed state, its input's outer product and their sum
+# (an mLSTM step's outer product and its gated copy are two)
+DECODE_STATE_COPIES = 3
+# bytes a parameter's element takes while it is drawn beside the state:
+# the float32 draw and its scaled float32 copy (``trunc_normal_std``), the
+# cast leaf itself being state; a serving cell's peak can be its build
+INIT_TEMPORARIES = 8
+
+
+def _recurrent_state_bytes(cfg: ModelConfig, batch: int) -> int:
+    """Bytes of the largest per-layer recurrent state of ``batch`` rows
+    (mamba's ``s``, an mLSTM's ``c``; whole over the model axis in the
+    reference's layout), 0 where the pattern has none."""
+    di, nh, P = xlstm.mlstm_dims(cfg)
+    per_row = {"mamba": cfg.d_inner * cfg.ssm_state_dim, "mlstm": nh * P * P}
+    return max((batch * per_row.get(s.kind, 0) * 4 for s in cfg.pattern),
+               default=0)
+
+
+def _serve_layer_bytes(cfg: ModelConfig, rc: RunConfig, tokens: int,
+                       heads: int, split: int) -> float:
+    """One serving layer's live temporaries at its peak for ``tokens``
+    rows times positions: ``SERVE_STREAM_COPIES`` of the stream (divided
+    by ``split``, the model axis under sequence parallelism) and the
+    widest per-token block a layer of the pattern forms, at the chip's
+    share of the heads (``heads``; an sLSTM block is whole): attention's
+    q and its output at the chip's heads and k and v at every kv head (a
+    cache whole over the model axis), an MLP's gate, up and their
+    product, a mamba block's x, z, conv'd x and float32 output, an mLSTM
+    block's x, z, q, k, v and h, an sLSTM block's four float32 gates."""
+    act = _bytes_of(rc.activation_dtype)
+    d = cfg.d_model
+    stream = tokens * d * (SERVE_STREAM_COPIES["activation"] * act
+                           + SERVE_STREAM_COPIES["float32"] * 4) / split
+    widths = {"attn": 2 * cfg.q_dim / heads + 2 * cfg.kv_dim,
+              "mamba": 5 * cfg.d_inner / heads,
+              "mlstm": 6 * int(cfg.mlstm_expand * d) / heads,
+              "slstm": 4 * d * 4 / act}
+    widest = max(max(widths[s.kind], 3 * cfg.d_ff / heads
+                     if s.mlp == "dense" else 0) for s in cfg.pattern)
+    return stream + tokens * widest * act
+
+
 def estimate_bytes(cfg: ModelConfig, rc: RunConfig, mode: str,
-                   batch: int, seq: int, mesh=None) -> float:
+                   batch: int, seq: int, mesh=None,
+                   global_batch: Optional[int] = None) -> float:
     """An estimate of the step's peak bytes on the card, for choosing the
     depth: the state (:func:`_state_bytes_per_param`); in training the
     cost model's live activations of a microbatch under ``rc``'s remat
     policy and its float32 logits with their gradient; in serving the KV
-    cache and the logits; and one layer's attention temporaries: unless
-    attention is flash, its float32 scores (training keeps every chunk's
-    for the layer's backward, scores, probabilities and their gradient;
-    prefill four copies of one chunk's: the scores, the masked scores,
-    their difference from the row maxima and its exponential), and in
-    decode the cache's keys and values widened to the query heads in
-    bf16 and float32.  A train step's update can peak above its backward
-    (a wide MoE's expert leaves): there the state and the optimizer's
-    float32 temporaries of the largest leaf (``UPDATE_TEMPORARIES``), or,
-    with microbatches, the accumulated gradients' divided float32 copy;
-    the larger of the two phases is returned.
+    cache, the logits and one layer's live temporaries
+    (:func:`_serve_layer_bytes`); and one layer's attention temporaries:
+    unless attention is flash, its float32 scores (training keeps every
+    chunk's for the layer's backward, scores, probabilities and their
+    gradient; prefill four copies of one chunk's: the scores, the masked
+    scores, their difference from the row maxima and its exponential),
+    and in decode the keys and values of the kv heads the chip's q heads
+    read, in float32 (and dequantized from an int8-sim cache), and three
+    float32 copies of the scores, and a recurrent layer's state update
+    (``DECODE_STATE_COPIES``).  A train step's update can peak above its
+    backward (a wide MoE's expert leaves): there the state and the
+    optimizer's float32 temporaries of the largest leaf
+    (``UPDATE_TEMPORARIES``), or, with microbatches, the accumulated
+    gradients' divided float32 copy; a serving cell's build can peak
+    above its step: the state and the largest leaf's draw
+    (``INIT_TEMPORARIES``).  The larger of the two phases is returned.
 
     With ``mesh`` (a virtual mesh: one chip's share) the state is the
-    chip's blocks exactly (:func:`_chip_state`), and the activations
+    chip's blocks exactly (:func:`_chip_state`; in serving, of the decode
+    state of ``global_batch`` rows too, whose caches are whole over the
+    model axis where the kv heads do not divide it:
+    :func:`_chip_decode_state_bytes`; ``batch`` is then the chip's rows
+    and its logits the last token's, its vocab columns and the gathered
+    whole vocab), and the activations
     beyond one whole block input a layer, the scores and the logits are
     divided where the model axis splits the heads (an SSM block's inner
     width: :func:`_tp_splits`; an sLSTM block's are whole) and the vocab;
@@ -274,7 +341,7 @@ def estimate_bytes(cfg: ModelConfig, rc: RunConfig, mode: str,
     too; a MoE layer adds its experts' activations on the chip
     (:func:`_moe_layer_bytes`): every MoE layer's under remat ``none``,
     else the remat policy's fraction of them, and at least the one layer
-    the backward recomputes."""
+    the backward recomputes (one layer in serving)."""
     train = mode == "train"
     if mesh is None:
         n_params = cfg.param_count()
@@ -308,23 +375,74 @@ def estimate_bytes(cfg: ModelConfig, rc: RunConfig, mode: str,
         n += act
         n += micro * seq * cfg.vocab_size * 4 * 2 / vocab
     else:
-        n += (2 * batch * seq * cfg.kv_dim * _bytes_of(rc.kv_cache_dtype)
-              * cfg.attn_layer_count)
-        n += batch * (1 if mode == "decode" else seq) * cfg.vocab_size * 4
+        tokens = batch * (1 if mode == "decode" else seq)
+        split = mesh.shape["model"] if mesh is not None and mode != "decode" \
+            and sequence_parallel_on(rc.shard, mesh, seq) else 1
+        n += _serve_layer_bytes(cfg, rc, tokens, heads, split)
+        if mesh is None:
+            n += (2 * batch * seq * cfg.kv_dim
+                  * _bytes_of(rc.kv_cache_dtype) * cfg.attn_layer_count)
+            n += tokens * cfg.vocab_size * 4
+        else:
+            glob = global_batch or batch * data_parallel_size(rc.shard,
+                                                              mesh.shape)
+            n += _chip_decode_state_bytes(cfg, rc, mesh, glob, seq)
+            n += batch * cfg.vocab_size * 4 * (1 + 1 / vocab)
+            if cfg.has_moe:
+                n += _moe_layer_bytes(cfg, rc, tokens, mesh)
     if cfg.has_attention:
         if mode == "decode":
-            n += batch * seq * cfg.q_dim * 12
+            rows = seq if mesh is None else _cache_rows(cfg, rc, mesh, glob,
+                                                        seq)
+            q_heads = -(-cfg.n_heads // heads)
+            kv_read = min(-(-q_heads * cfg.n_kv_heads // cfg.n_heads),
+                          cfg.n_kv_heads)
+            wide = 4 + (2 if rc.kv_cache_dtype == "int8" else 0)
+            n += batch * rows * (2 * kv_read * cfg.resolved_head_dim * wide
+                                 + 3 * q_heads * 4)
         elif rc.attention_impl != "flash":
             keys = seq if train or rc.attention_impl == "reference" \
                 else min(seq, rc.chunk_size_k)
             n += ((3 if train else 4) * micro * -(-cfg.n_heads // heads)
                   * seq * keys * 4)
     if not train:
-        return n
+        if mode == "decode":
+            n += DECODE_STATE_COPIES * _recurrent_state_bytes(cfg, batch)
+        return max(n, state + INIT_TEMPORARIES * largest)
     divided = 4 * n_params if batch // micro > 1 else 0
     update = state + max(divided, UPDATE_TEMPORARIES[rc.optimizer] * 4
                          * largest)
     return max(n, update)
+
+
+def _cache_rows(cfg: ModelConfig, rc: RunConfig, mesh, batch: int,
+                seq: int) -> int:
+    """The sequence rows of one chip's block of a cache of ``batch`` rows
+    and ``seq`` positions (``attention.cache_block``)."""
+    block = attention.cache_block(cfg, rc, mesh, batch, seq)
+    return block.seq.stop - block.seq.start
+
+
+def _chip_decode_state_bytes(cfg: ModelConfig, rc: RunConfig, mesh,
+                             batch: int, seq: int) -> int:
+    """Bytes of one chip's blocks of the decode state of ``batch`` rows
+    and ``seq`` positions (``decode_state_placements``' local shapes)."""
+    shapes = transformer.init_decode_state(batch, seq, cfg, rc,
+                                           device="meta")
+    pls = transformer.decode_state_placements(batch, seq, cfg, rc, mesh)
+    return sum(math.prod(pl.local_shape(tuple(sh.shape))) * sh.element_size()
+               for sh, pl in zip(tree_flatten(shapes)[0],
+                                 tree_flatten(pls)[0]))
+
+
+def mesh_batch(cell: ShapeCell, rc: RunConfig, mesh: Dict[str, int],
+               rows: int) -> int:
+    """The global batch of which one chip serves ``rows`` rows: ``rows``
+    times the data-parallel size where the cell's batch divides it (the
+    guard splits it over the data axes), else ``rows`` (every data rank
+    serves the whole batch: long_500k's B = 1)."""
+    dp = data_parallel_size(rc.shard, mesh)
+    return rows * dp if cell.global_batch % dp == 0 else rows
 
 
 class DoesNotFit(RuntimeError):
@@ -345,7 +463,7 @@ class DoesNotFit(RuntimeError):
 
 def fit_depth(cfg: ModelConfig, rc: RunConfig, hbm_bytes: float, *,
               mode: str = "train", batch: int = 1, seq: int = 1,
-              mesh=None) -> int:
+              mesh=None, global_batch: Optional[int] = None) -> int:
     """The deepest whole number of layer periods (at most the config's)
     whose :func:`estimate_bytes` under ``rc`` (at one chip's share of
     ``mesh`` when given) fits in ``FIT_FRACTION`` of ``hbm_bytes``;
@@ -354,7 +472,7 @@ def fit_depth(cfg: ModelConfig, rc: RunConfig, hbm_bytes: float, *,
     period, room = len(cfg.pattern), FIT_FRACTION * hbm_bytes
     for groups in range(cfg.n_groups, 0, -1):
         need = estimate_bytes(cfg.scaled(n_layers=groups * period), rc,
-                              mode, batch, seq, mesh)
+                              mode, batch, seq, mesh, global_batch)
         if need <= room:
             return groups * period
     raise DoesNotFit(cfg, mode, batch, seq, need, room)
@@ -388,12 +506,11 @@ def layout_covers(cfg: ModelConfig, cell: ShapeCell, rc: RunConfig, *,
                   multi_pod: bool = False) -> Optional[str]:
     """None when the port's layout runs this cell's step under ``rc`` on
     one chip of the production mesh, else the ROADMAP item it lacks: the
-    item the step raises there (serving under a mesh, whisper).  Every
-    block kind and every layout knob of a train cell is covered
-    (``shard_kv_seq`` splits only a decode cache).  Decided from the
-    config alone, before anything is built."""
-    if cell.mode != "train":
-        return SERVE_ITEM
+    item the step raises there (whisper's, in every mode).  Every block
+    kind and every layout knob of a decoder-only family's train, prefill
+    and decode cells is covered (``shard_kv_seq`` splits a decode cache's
+    sequence over the data axis where its batch does not divide it).
+    Decided from the config alone, before anything is built."""
     if cfg.is_encoder_decoder:
         return WHISPER_ITEM
     return None
@@ -436,10 +553,11 @@ def cell_depth(cfg: ModelConfig, cell: ShapeCell, *,
     not fit."""
     rc = default_runconfig(cfg, cell)
     chip = resolve_share(cfg, cell, share, multi_pod=multi_pod) == "chip"
-    B, S, _ = replica_shape(cell, rc, make_production_mesh(
-        multi_pod=multi_pod), reduce)
+    prod = make_production_mesh(multi_pod=multi_pod)
+    B, S, _ = replica_shape(cell, rc, prod, reduce)
     return fit_depth(cfg, rc, hbm_bytes, mode=cell.mode, batch=B, seq=S,
-                     mesh=production_chip(multi_pod) if chip else None)
+                     mesh=production_chip(multi_pod) if chip else None,
+                     global_batch=mesh_batch(cell, rc, prod, B))
 
 
 @dataclasses.dataclass
@@ -455,6 +573,8 @@ class Lowered:
     batch_bytes: int
     reduced: List[str]
     grad_norms: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    # tokens of one step of the whole mesh (a chip's share), else None
+    mesh_tokens: Optional[int] = None
 
 
 def _nbytes(*trees) -> int:
@@ -469,13 +589,11 @@ def lower_cell(cfg: ModelConfig, cell: ShapeCell, rc: RunConfig,
     weights (and optimizer state) from ``SEED``, and the share's batch
     (``reduce`` may cut its ``"batch"`` and ``"seq"``) as seeded random
     tokens.  ``mesh`` is the production mesh's axis sizes (a replica's
-    share) or a virtual mesh (one chip's share of a train cell: its
-    blocks of the state, drawn alone, and every step run under it)."""
+    share) or a virtual mesh (one chip's share: its blocks of the
+    weights and of the optimizer or decode state, drawn alone, its rows
+    of the batch, and every step run under it)."""
     dev = resolve_device(device)
     chip = isinstance(mesh, VirtualMesh)
-    if chip and cell.mode != "train":
-        raise ValueError(f"{cell.name} on one chip is not implemented: "
-                         f"{SERVE_ITEM}")
     reduced = []
     if n_layers != cfg.n_layers:
         reduced.append(f"n_layers {cfg.n_layers} -> {n_layers}")
@@ -501,11 +619,13 @@ def lower_cell(cfg: ModelConfig, cell: ShapeCell, rc: RunConfig,
         inputs["frames"] = torch.randn(
             (B, cfg.encoder_seq, cfg.d_model), generator=gen, device=dev,
             dtype=torch.bfloat16)
+    on_mesh = mesh if chip else contextlib.nullcontext()
+    # the global batch whose share the chip's B rows are
+    B_g = mesh_batch(cell, rc, mesh.shape, B) if chip else B
 
     if cell.mode == "train":
         inputs["labels"] = toks[:, 1:]
         step_fn = make_train_step(model, rc, donate=True)
-        on_mesh = mesh if chip else contextlib.nullcontext()
         box = [init_local_state(model, SEED, rc, mesh) if chip
                else init_state(model, SEED, rc)]
         state_bytes = _nbytes(box[0])
@@ -517,28 +637,36 @@ def lower_cell(cfg: ModelConfig, cell: ShapeCell, rc: RunConfig,
             norms.append(metrics["grad_norm"])
             return metrics["loss"]
         return Lowered(step, cfg, B, S, B * S, state_bytes,
-                       _nbytes(inputs), reduced, norms)
+                       _nbytes(inputs), reduced, norms,
+                       mesh_tokens=B_g * S if chip else None)
 
-    params = model.init(SEED)
+    params = model.init_blocks(SEED, param_placements(model, rc, mesh),
+                               mesh.rank) if chip else model.init(SEED)
     if cell.mode == "prefill":
         @torch.no_grad()
         def step():
-            return model.prefill(params, inputs, S, rc)[0]
+            with on_mesh:
+                return model.prefill(params, inputs, S, rc, batch=B_g)[0]
         return Lowered(step, cfg, B, S, B * S, _nbytes(params),
-                       _nbytes(inputs), reduced)
+                       _nbytes(inputs), reduced,
+                       mesh_tokens=B_g * S if chip else None)
 
     # decode: one token against an S-long cache (S - 1 tokens already in)
     if cfg.is_encoder_decoder:
         state = model.init_decode_state(inputs, B, S, rc, params)
+    elif chip:
+        state = init_local_decode_state(model, B_g, S, rc, mesh)
     else:
         state = model.init_decode_state(B, S, rc)
     state = state._replace(pos=torch.full_like(state.pos, S - 1))
 
     @torch.no_grad()
     def step():
-        return model.decode_step(params, toks, state, rc)[0]
+        with on_mesh:
+            return model.decode_step(params, toks, state, rc)[0]
     return Lowered(step, cfg, B, S, B, _nbytes(params, state),
-                   _nbytes(toks), reduced)
+                   _nbytes(toks), reduced,
+                   mesh_tokens=B_g if chip else None)
 
 
 @functools.lru_cache(maxsize=None)
@@ -601,9 +729,8 @@ def compile_cell(cfg: ModelConfig, cell: ShapeCell,
     else one replica's); return the record.
 
     Under the chip share a config whose layout the port does not
-    implement there (``layout_covers``: a train cell's family, the
-    serving cells) raises ``ValueError`` naming the ROADMAP item, before
-    anything is built.  With no ``n_layers``, a cell one period of which does not fit
+    implement there (``layout_covers``: whisper's) raises ``ValueError``
+    naming the ROADMAP item, before anything is built.  With no ``n_layers``, a cell one period of which does not fit
     the card raises :class:`DoesNotFit` (with the bytes it would need)
     before anything is allocated.  A step that runs out of the card's
     memory raises ``torch.cuda.OutOfMemoryError`` (its state is dropped,
@@ -652,7 +779,7 @@ def compile_cell(cfg: ModelConfig, cell: ShapeCell,
     # the chips the step's work is spread over, and the tokens of one
     # step of the whole mesh (the reference's 6ND)
     chips = (512 if multi_pod else 256) if chip else 1
-    tokens = low.tokens * (data_parallel_size(rc.shard, prod) if chip else 1)
+    tokens = low.mesh_tokens if chip else low.tokens
     mflops = rl.model_flops(low.cfg.active_param_count(), tokens, train)
     cuda = dev.type == "cuda"
     fast, slow = sorted((measured, report.collective_s))
@@ -663,9 +790,10 @@ def compile_cell(cfg: ModelConfig, cell: ShapeCell,
         "chip": mesh.coords if chip else None,
         "share": share,
         # whether the chip's stream was split along the sequence (the
-        # knob, and the sequence a multiple of the model axis)
-        "sequence_parallel": chip and sequence_parallel_on(
-            rc.shard, mesh, low.seq_len),
+        # knob, and the sequence a multiple of the model axis; a decode
+        # step's one token never is)
+        "sequence_parallel": chip and cell.mode != "decode"
+        and sequence_parallel_on(rc.shard, mesh, low.seq_len),
         "mode": cell.mode,
         "compile_s": m["compile_s"],
         "memory": {
@@ -675,7 +803,8 @@ def compile_cell(cfg: ModelConfig, cell: ShapeCell,
                 m["peak"] / 2**30 if m["peak"] is not None else None,
             "estimated_gb": estimate_bytes(
                 low.cfg, rc, cell.mode, low.batch, low.seq_len,
-                mesh if chip else None) / 2**30,
+                mesh if chip else None,
+                mesh_batch(cell, rc, prod, low.batch)) / 2**30,
         },
         "roofline": {
             "flops_per_device": report.flops,

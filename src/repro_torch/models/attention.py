@@ -26,7 +26,7 @@ encoder memory, no cache update), ``use_rope=False`` and the query
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,8 +36,9 @@ from repro_torch.models.common import dense_apply, dense_axes, dense_init
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rotary import apply_rope
 from repro_torch.parallel import collectives
-from repro_torch.parallel.sharding import (WHISPER_ITEM, ambient_mesh,
-                                           compute_range, seq_block)
+from repro_torch.parallel.sharding import (WHISPER_ITEM, Placement,
+                                           ambient_mesh, compute_range,
+                                           logical_to_spec, seq_block)
 from repro_torch.runconfig import RunConfig
 
 NEG_INF = -1e30
@@ -370,16 +371,78 @@ def _apply_tp(params, x, positions, cfg: ModelConfig, rc: RunConfig, tp, *,
 
 
 def project_kv(params, x, positions, cfg: ModelConfig, *,
-               use_rope: bool = True):
+               use_rope: bool = True, rc: Optional[RunConfig] = None,
+               heads: Optional[slice] = None, seq_parallel: bool = False):
     """Project (and rotate) K/V for the cache fill / cross-attention
-    memory."""
-    B, S, _ = x.shape
-    hd = cfg.resolved_head_dim
-    k = dense_apply(params["k"], x).reshape(B, S, cfg.n_kv_heads, hd)
-    v = dense_apply(params["v"], x).reshape(B, S, cfg.n_kv_heads, hd)
+    memory: [B, S, Kh, D].
+
+    On a mesh, with ``heads`` (a cache block's kv heads) and ``rc``, the
+    result is those kv heads over the whole sequence, from this rank's
+    blocks of the weights (:func:`_kv_block`); under ``seq_parallel``
+    ``x`` is this rank's block of the sequence, gathered first."""
+    if heads is not None:
+        mesh = ambient_mesh()
+        if seq_parallel:
+            x = collectives.all_gather(x, 1, ("model",), mesh)
+        tp = _tensor_parallel(cfg, rc)
+        k, v = (_kv_block(params[n], x, tp, heads, cfg) for n in ("k", "v"))
+    else:
+        B, S, _ = x.shape
+        hd = cfg.resolved_head_dim
+        k = dense_apply(params["k"], x).reshape(B, S, cfg.n_kv_heads, hd)
+        v = dense_apply(params["v"], x).reshape(B, S, cfg.n_kv_heads, hd)
     if use_rope:
         k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     return k, v
+
+
+def _kv_block(p, x, tp, heads: slice, cfg: ModelConfig):
+    """K or V [B, S, heads, D] at kv heads ``heads`` of the whole input
+    ``x``, from this rank's block of the weight.  Storage and the cache
+    differ where the reference's guard splits ``kv_dim`` over the model
+    axis but not the kv heads (yi-6b: 4 kv heads, 512 columns over 16
+    ranks): the rank's columns are then a cut head, and the cache, whole
+    over the model axis, needs every head, so the columns are
+    all-gathered over the model axis."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    cols = None if tp is None else tp[2]
+    y = dense_apply(p, x)
+    base = 0
+    if cols is not None:
+        base = cols[0]
+        if not (cols[0] <= heads.start * hd and heads.stop * hd <= cols[1]):
+            y = collectives.all_gather(y, 2, ("model",), tp[0])
+            base = 0
+    y = y[..., heads.start * hd - base:heads.stop * hd - base]
+    return y.contiguous().reshape(B, S, heads.stop - heads.start, hd)
+
+
+class CacheBlock(NamedTuple):
+    """This rank's block of a layer's KV cache on a mesh (its
+    ``Placement``, the reference's ``cache_axes`` under its guard): the
+    sequence rows and the kv heads it holds, and the mesh axes the
+    sequence is split over (``shard_kv_seq`` where the batch does not
+    divide: long_500k's B = 1).  Its batch rows are the rank's serving
+    rows (``transformer.serve_rows``)."""
+    seq: slice
+    heads: slice
+    seq_axes: Tuple[str, ...]
+
+
+def cache_block(cfg: ModelConfig, rc: RunConfig, mesh, batch: int,
+                s_max: int) -> CacheBlock:
+    """The :class:`CacheBlock` of this rank of ``mesh`` in a cache of the
+    global ``batch`` rows and ``s_max`` positions."""
+    ax = cache_axes(rc)[0]
+    dims = {"batch": batch, "kv_seq": s_max, "kv_heads": cfg.n_kv_heads,
+            "head_dim": cfg.resolved_head_dim}
+    shape = tuple(dims[a] for a in ax)
+    pl = Placement.of(mesh, logical_to_spec(ax, rc.shard.resolve(mesh),
+                                            mesh, shape))
+    idx = dict(zip(ax, pl.index(shape, mesh.rank)))
+    return CacheBlock(idx["kv_seq"], idx["kv_heads"],
+                      pl.dim_axes(ax.index("kv_seq")))
 
 
 # ---------------------------------------------------------------------------
@@ -389,60 +452,128 @@ def project_kv(params, x, positions, cfg: ModelConfig, *,
 def decode_apply(params, x, cache_k, cache_v, pos, cfg: ModelConfig,
                  rc: RunConfig, *, window: Optional[int] = None,
                  cross: bool = False, cross_len: Optional[int] = None,
-                 use_rope: bool = True):
+                 use_rope: bool = True, block: Optional[CacheBlock] = None):
     """One-token decode.
 
-    x        [B, 1, d_model]
+    x        [B, 1, d_model] (on a mesh, this rank's rows)
     cache_k/v: layout per rc.kv_layout —
                bshd: [B, S_max, Kh, D]; bhsd: [B, Kh, S_max, D]
     pos      int scalar OR [B] vector — tokens already in each cache row
              (continuous batching runs every slot at its own position).
     cross    : cross-attention (the cache holds the encoder memory, of
                which the first ``cross_len`` rows are visible; no update).
+    block    : on a mesh, the caches' :class:`CacheBlock` (this rank's
+               blocks of them); None: the whole caches.
     Returns (out [B,1,d_model], cache_k, cache_v); the caches are updated
     in place.
+
+    The rank's q heads (all of them off tensor parallelism; a cut head
+    gathered whole, as in training) and the new token's k / v at the
+    cache block's kv heads (``_kv_block``: a few KB gathered over the
+    model axis where the cache is whole over it but the k / v columns
+    are cut) are rotated at each row's position and the token is written
+    into the block that holds that position (under ``shard_kv_seq`` one
+    data rank's).  The q heads attend over only the kv heads they read,
+    none widened (:func:`_per_kv_head`).  With the sequence split over
+    ``block.seq_axes`` each rank scores its rows of the cache, and the
+    flash-decode combine makes the softmax whole: one MAX all-reduce of
+    the row maxima, then one sum all-reduce of the numerator and the
+    denominator, each rank's exponentials taken against the global
+    maximum (so the probabilities that meet the values are not
+    normalised, as the one-block softmax's are, before a bf16 or int8
+    cache rounds them).  The rank's output columns enter the
+    row-parallel o projection.
     """
+    mesh = ambient_mesh()
     B = x.shape[0]
     hd = cfg.resolved_head_dim
+    red = common.reduce_dtype(rc)
+    tp = _tensor_parallel(cfg, rc)
+    if block is None:
+        block = CacheBlock(slice(0, _cache_rows(cache_k, rc)),
+                           slice(0, cfg.n_kv_heads), ())
     pos = torch.as_tensor(pos, device=x.device)
     pos_vec = pos.reshape(-1).expand(B) if pos.dim() <= 1 else pos
-    q = dense_apply(params["q"], x).reshape(B, 1, cfg.n_heads, hd)
     positions = pos_vec[:, None]
-    if use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-    if not cross:
-        k_new = dense_apply(params["k"], x).reshape(B, 1, cfg.n_kv_heads, hd)
-        v_new = dense_apply(params["v"], x).reshape(B, 1, cfg.n_kv_heads, hd)
-        if use_rope:
-            k_new = apply_rope(k_new, positions, cfg.rope_theta,
-                               cfg.mrope_sections)
-        _cache_insert(cache_k, k_new, pos_vec, rc)
-        _cache_insert(cache_v, v_new, pos_vec, rc)
-        kv_len = pos_vec + 1                              # [B]
-    else:
-        kv_len = torch.full((B,), int(cross_len), device=x.device)
 
-    k = _cache_read(cache_k, rc)           # [B, S_max, Kh, D] bf16/f32
-    v = _cache_read(cache_v, rc)
-    S_max = k.shape[1]
+    def rope(t):
+        return apply_rope(t, positions, cfg.rope_theta,
+                          cfg.mrope_sections) if use_rope else t
+    q = dense_apply(params["q"], x)
+    c0, c1 = (0, cfg.q_dim) if tp is None else tp[1]
+    h_lo, h_hi = c0 // hd, -(-c1 // hd)
+    if c0 % hd or c1 % hd:                      # a cut head, gathered whole
+        q = collectives.all_gather(q, 2, ("model",), mesh)[
+            ..., h_lo * hd:h_hi * hd]
+    q = rope(q.reshape(B, 1, h_hi - h_lo, hd))
+    S_c = block.seq.stop - block.seq.start
+    n_seq = 1                   # the ranks the cache's sequence spans
+    for a in block.seq_axes:
+        n_seq *= mesh.shape[a]
+    if cross:
+        kv_len = torch.full((B,), int(cross_len), device=x.device)
+    else:
+        k_new = rope(_kv_block(params["k"], x, tp, block.heads, cfg))
+        v_new = _kv_block(params["v"], x, tp, block.heads, cfg)
+        at = torch.clamp(pos_vec, 0, S_c * n_seq - 1) - block.seq.start
+        _cache_insert(cache_k, k_new, at, rc)
+        _cache_insert(cache_v, v_new, at, rc)
+        kv_len = pos_vec + 1
 
     rep = cfg.n_heads // cfg.n_kv_heads
-    kr = torch.repeat_interleave(k, rep, dim=2)
-    vr = torch.repeat_interleave(v, rep, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) \
-        / math.sqrt(hd)
+    kv_lo, kv_hi = h_lo // rep, (h_hi - 1) // rep + 1
+    heads = slice(kv_lo - block.heads.start, kv_hi - block.heads.start)
+    k = _cache_read(cache_k, rc, heads)       # [B, S_c, Kn, D] bf16/f32
+    v = _cache_read(cache_v, rc, heads)
+    s = _per_kv_head(q[:, 0].float(), k.float(), h_lo, rep, kv_lo, True) \
+        / math.sqrt(hd)                                   # [B, Hl, S_c]
     s = common.softcap(s, cfg.logit_softcap)
-    kidx = torch.arange(S_max, device=x.device)
-    m = kidx[None, :] < kv_len[:, None]                   # [B, S_max]
+    kidx = block.seq.start + torch.arange(S_c, device=x.device)
+    m = kidx[None, :] < kv_len[:, None]                   # [B, S_c]
     if window is not None and not cross:
         m &= kidx[None, :] > (kv_len[:, None] - 1 - window)
-    s = s.masked_fill(~m[:, None, None, :], NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p.to(vr.dtype).float(),
-                       vr.float())
-    out = out.to(x.dtype).reshape(B, 1, cfg.q_dim)
-    out = dense_apply(params["o"], out, preferred=common.reduce_dtype(rc))
-    return out, cache_k, cache_v
+    s = s.masked_fill(~m[:, None, :], NEG_INF)
+    if n_seq > 1:
+        top = collectives.all_reduce(s.amax(dim=-1), block.seq_axes, mesh,
+                                     op="max")
+        e = torch.exp(s - top[..., None])
+        num = _per_kv_head(e.to(v.dtype).float(), v.float(), h_lo, rep,
+                           kv_lo, False)                  # [B, Hl, D]
+        both = collectives.all_reduce(
+            torch.cat([num, e.sum(dim=-1, keepdim=True)], dim=-1),
+            block.seq_axes, mesh)
+        out = both[..., :hd] / both[..., hd:]
+    else:
+        p = torch.softmax(s, dim=-1)
+        out = _per_kv_head(p.to(v.dtype).float(), v.float(), h_lo, rep,
+                           kv_lo, False)
+    out = out.to(x.dtype).reshape(B, 1, (h_hi - h_lo) * hd)
+    out = out[..., c0 - h_lo * hd:c1 - h_lo * hd]
+    return dense_apply(params["o"], out, preferred=red,
+                       row_parallel=tp is not None), cache_k, cache_v
+
+
+def _per_kv_head(a, kv, h_lo: int, rep: int, kv_lo: int, scores: bool):
+    """The local q heads [h_lo, h_lo + Hl) against the kv heads they read,
+    ``kv`` [B, S, Kn, D] (from kv head ``kv_lo``): with ``scores``, ``a``
+    is q [B, Hl, D] and the result the scores [B, Hl, S]; else ``a`` is the
+    probabilities [B, Hl, S] and the result [B, Hl, D].  Where every kv
+    head serves the same number of local q heads one product reads them
+    all (a view of ``a``, no copy of ``kv``); else one product a kv
+    head."""
+    B, Hl = a.shape[:2]
+    Kn = kv.shape[2]
+    runs = [(j, max((kv_lo + j) * rep, h_lo) - h_lo,
+             min((kv_lo + j + 1) * rep, h_lo + Hl) - h_lo)
+            for j in range(Kn)]
+    r = Hl // Kn
+    if all(lo == j * r and hi - lo == r for j, lo, hi in runs):
+        eq = "bjrd,bkjd->bjrk" if scores else "bjrk,bkjd->bjrd"
+        return torch.einsum(eq, a.reshape(B, Kn, r, -1), kv) \
+            .reshape(B, Hl, -1)
+    eq = "bhd,bkd->bhk" if scores else "bhk,bkd->bhd"
+    return torch.cat([torch.einsum(eq, a[:, lo:hi], kv[:, :, j])
+                      for j, lo, hi in runs], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -476,32 +607,45 @@ def _dequantize(x):
 
 
 def _cache_insert(cache, new, pos, rc: RunConfig):
-    """Write new [B,1,Kh,D] at per-row position pos [B], in place.
-
-    A position past the end is clamped to the last row, as the
-    reference's ``dynamic_update_slice`` clamps its start index (idle
-    engine slots keep advancing until they are recycled)."""
+    """Write new [B,1,Kh,D] at per-row position pos [B] of this cache
+    block, in place.  A row whose position lies outside the block (a
+    block of a cache split along the sequence) writes nothing: its row
+    keeps what it held (no host synchronisation decides which rows
+    write).  The caller clamps a position past the whole cache's end to
+    its last row, as the reference's ``dynamic_update_slice`` clamps its
+    start index (idle engine slots keep advancing until they are
+    recycled)."""
     if cache.dtype == torch.int8:
         new = _quantize(new)
     else:
         new = new.to(cache.dtype)
     B = cache.shape[0]
-    seq_axis = 2 if rc.kv_layout == "bhsd" else 1
     rows = torch.arange(B, device=cache.device)
-    at = torch.clamp(pos.to(cache.device).reshape(-1).expand(B),
-                     0, cache.shape[seq_axis] - 1)
+    pos = pos.to(cache.device).reshape(-1).expand(B)
+    at = torch.clamp(pos, 0, _cache_rows(cache, rc) - 1)
+    inside = (pos >= 0) & (pos < _cache_rows(cache, rc))
+    old = cache[rows, :, at] if rc.kv_layout == "bhsd" else cache[rows, at]
+    new = torch.where(inside[:, None, None], new[:, 0], old)  # [B, Kh, D]
     if rc.kv_layout == "bhsd":
-        cache[rows, :, at] = new[:, 0]          # [B, Kh, D]
+        cache[rows, :, at] = new
     else:
-        cache[rows, at] = new[:, 0]
+        cache[rows, at] = new
     return cache
 
 
-def _cache_read(cache, rc: RunConfig):
-    """Return cache as [B, S_max, Kh, D] in a compute dtype."""
+def _cache_rows(cache, rc: RunConfig) -> int:
+    """The sequence rows a cache (or a block of one) holds."""
+    return cache.shape[2 if rc.kv_layout == "bhsd" else 1]
+
+
+def _cache_read(cache, rc: RunConfig, heads: slice = slice(None)):
+    """Return cache as [B, S_max, Kh, D] in a compute dtype, only its kv
+    heads ``heads`` (sliced before an int8-sim cache is dequantized)."""
     x = cache
     if rc.kv_layout == "bhsd":
-        x = x.transpose(1, 2)
+        x = x[:, heads].transpose(1, 2)
+    else:
+        x = x[:, :, heads]
     if x.dtype == torch.int8:
         x = _dequantize(x)
     return x

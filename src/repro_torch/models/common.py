@@ -411,8 +411,18 @@ def stack_axes(axes_tree):
     return map_axes(lambda ax: (None,) + tuple(ax), axes_tree)
 
 
+class Static:
+    """A tree node that holds no leaf: its value rides in the treedef
+    (``tree_flatten``) and ``tree_map`` passes it through, as JAX keeps a
+    node's static data (a mesh decode state's global shape,
+    ``transformer.ServeShape``)."""
+
+
 def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor of a nested dict/list/tuple tree."""
+    """Apply ``fn`` to every tensor of a nested dict/list/tuple tree (a
+    :class:`Static` node comes back as it is)."""
+    if isinstance(tree, Static):
+        return tree
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):   # NamedTuple
@@ -435,6 +445,8 @@ def tree_flatten_with_path(tree):
     def walk(t, path):
         if t is None:
             return None
+        if isinstance(t, Static):
+            return (Static, t)
         if isinstance(t, dict):
             return (dict, tuple((k, walk(t[k], path + (k,)))
                                 for k in sorted(t)))
@@ -454,7 +466,8 @@ def tree_flatten_with_path(tree):
 def tree_flatten(tree):
     """(leaves, treedef) in ``jax.tree.flatten``'s order: dict keys
     sorted, list / tuple / NamedTuple entries in order, ``None`` an empty
-    node; anything else is a leaf.  ``tree_unflatten(treedef, leaves)``
+    node, a :class:`Static` a node whose value the treedef keeps;
+    anything else is a leaf.  ``tree_unflatten(treedef, leaves)``
     rebuilds the tree."""
     pairs, treedef = tree_flatten_with_path(tree)
     return [leaf for _, leaf in pairs], treedef
@@ -474,6 +487,8 @@ def tree_unflatten(treedef, leaves):
         if d is _LEAF:
             return next(it)
         kind, children = d
+        if kind is Static:
+            return children
         if kind is dict:
             return {k: build(c) for k, c in children}
         if kind in (list, tuple):

@@ -28,9 +28,15 @@ global leaves (a chip of a model no card holds whole); ``shard_tree`` and
 one-process state) to a rank's blocks of its ``Placement`` s and back,
 and ``gather_tree_to_host`` builds the global tree on rank 0's host
 alone (a checkpoint's save).
-Under an ambient process mesh of more than one rank ``loss`` is the
-sharded forward of the dense family (``models/transformer.py``);
-``prefill`` and ``decode_step`` raise ``ValueError``.
+Under an ambient mesh (a process mesh, or a virtual one: one chip's
+share) ``loss``, ``prefill`` and ``decode_step`` of a decoder stack are
+the reference's functions computed across the ranks
+(``models/transformer.py``): the parameters are this rank's blocks, the
+inputs its rows, the decode state its blocks of a global one
+(:func:`decode_state_placements`, drawn by
+:func:`init_local_decode_state` or left by ``prefill``) and the logits its
+rows over the whole vocab.  Whisper raises ``ValueError`` there
+(``WHISPER_ITEM``).
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ from repro_torch.models.common import (InitRecorder, MetaGenerator,
                                        trunc_normal_std)
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import collectives
-from repro_torch.parallel.sharding import SERVE_ITEM, ambient_mesh, world_of
+from repro_torch.parallel.sharding import WHISPER_ITEM, ambient_mesh, world_of
 from repro_torch.runconfig import RunConfig
 
 
@@ -146,8 +152,11 @@ class Model:
     # ---- serving ----------------------------------------------------------
 
     def prefill(self, params, inputs: Dict[str, object], s_max: int,
-                rc: RunConfig):
-        _refuse_mesh("prefill")
+                rc: RunConfig, *, batch=None):
+        """(last-token logits [B,1,V], decode state at pos = S).  On a mesh
+        ``inputs`` are this rank's rows of a global batch of ``batch``
+        rows (``transformer.prefill``)."""
+        self._refuse_mesh("prefill")
         tokens = self._on_device(inputs["tokens"])
         if self._ed:
             # encode + teacher-forced full-sequence decoder pass, caches
@@ -155,7 +164,8 @@ class Model:
             return whisper.prefill(params, tokens,
                                    self._on_device(inputs["frames"]), s_max,
                                    self.cfg, rc)
-        return transformer.prefill(params, tokens, s_max, self.cfg, rc)
+        return transformer.prefill(params, tokens, s_max, self.cfg, rc,
+                                   batch=batch)
 
     def init_decode_state(self, *args, params=None):
         """Decode state of ``batch`` slots for ``s_max`` tokens.  The
@@ -185,17 +195,43 @@ class Model:
         return transformer.decode_state_axes(self.cfg, rc)
 
     def decode_step(self, params, token, state, rc: RunConfig):
-        _refuse_mesh("decode_step")
+        self._refuse_mesh("decode_step")
         mod = whisper if self._ed else transformer
         return mod.decode_step(params, self._on_device(token), state,
                                self.cfg, rc)
 
+    def _refuse_mesh(self, what: str) -> None:
+        mesh = ambient_mesh()
+        if self._ed and mesh is not None and world_of(mesh) > 1:
+            raise ValueError(f"whisper's {what} on a mesh of "
+                             f"{world_of(mesh)} ranks is not implemented: "
+                             f"{WHISPER_ITEM}")
 
-def _refuse_mesh(what: str) -> None:
-    mesh = ambient_mesh()
-    if mesh is not None and world_of(mesh) > 1:
-        raise ValueError(f"{what} on a mesh of {world_of(mesh)} ranks is not "
-                         f"implemented: {SERVE_ITEM}")
+
+def decode_state_placements(model: Model, batch: int, s_max: int,
+                            rc: RunConfig, mesh=None):
+    """Each leaf's ``Placement`` in the decode state of ``batch`` rows and
+    ``s_max`` positions on ``mesh`` (the ambient one by default): the
+    reference's ``shardings_for(decode_state_axes)``
+    (``transformer.decode_state_placements``)."""
+    mesh = mesh if mesh is not None else ambient_mesh()
+    return transformer.decode_state_placements(batch, s_max, model.cfg, rc,
+                                               mesh)
+
+
+def init_local_decode_state(model: Model, batch: int, s_max: int,
+                            rc: RunConfig, mesh=None):
+    """This rank's blocks of the empty decode state of ``batch`` rows and
+    ``s_max`` positions on ``mesh`` (the ambient one by default), each
+    leaf made at its ``Placement.local_shape`` on ``model.device``: no
+    global cache is built (``transformer.init_local_decode_state``), the
+    counterpart of ``train_loop.init_local_state``."""
+    mesh = mesh if mesh is not None else ambient_mesh()
+    if model.cfg.is_encoder_decoder:
+        raise ValueError(f"whisper's decode state on a mesh is not "
+                         f"implemented: {WHISPER_ITEM}")
+    return transformer.init_local_decode_state(batch, s_max, model.cfg, rc,
+                                               mesh, device=model.device)
 
 
 def shard_tree(tree, placements, rank: int):

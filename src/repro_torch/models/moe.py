@@ -219,10 +219,15 @@ def _dense(ep, xt, weights, act_name: str, rc: RunConfig, combine=None):
 
 
 def apply(params, x, cfg: ModelConfig, rc: RunConfig,
-          seq_parallel: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+          seq_parallel: bool = False,
+          data_axes=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (y [B, S, d], aux_loss · router_aux_coef).  With
     ``seq_parallel`` ``x`` is this rank's block of the sequence and so is
-    ``y``; the routing and the experts read the whole sequence."""
+    ``y``; the routing and the experts read the whole sequence.
+    ``data_axes`` are the mesh axes whose ranks hold other tokens of the
+    routing's batch (None: the batch's axes of more than one rank; ``()``
+    where every data rank holds the same rows, as a serving batch that
+    does not divide them)."""
     mesh = ambient_mesh()
     B, _, d = x.shape
     E, f = cfg.n_experts, _expert_ff(cfg)
@@ -236,8 +241,9 @@ def apply(params, x, cfg: ModelConfig, rc: RunConfig,
         raise ValueError(f"{cfg.name}: sequence parallelism with neither "
                          f"the experts ({E}) nor their columns ({f}) split "
                          f"over the model axis is not implemented")
-    data_axes = () if mesh is None else tuple(
-        a for a in batch_axes(rc.shard, mesh) if mesh.shape[a] > 1)
+    if data_axes is None:
+        data_axes = () if mesh is None else tuple(
+            a for a in batch_axes(rc.shard, mesh) if mesh.shape[a] > 1)
     col = column_input(x, red, mesh, seq_parallel) if split \
         else (lambda: x)
     # the routing reads every token: a split router's product is

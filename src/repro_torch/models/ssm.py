@@ -32,6 +32,7 @@ from repro_torch.models.common import (column_input, dense_apply,
                                        replicated_block, rms_norm_split,
                                        row_parallel_psum, trunc_normal)
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import collectives
 from repro_torch.parallel.sharding import ambient_mesh
 from repro_torch.runconfig import RunConfig
 
@@ -195,7 +196,7 @@ def _ssd(xh, dt, log_decay, Bm, Cm, d_skip, c: int):
 
 
 def apply(params, u, cfg: ModelConfig, rc: RunConfig,
-          seq_parallel: bool = False):
+          seq_parallel: bool = False, gathered=None):
     """Full-sequence chunked SSD.  u [B,S,d] -> [B,S,d].  Raises
     ``ValueError`` where the chunk does not divide S (the reference
     asserts).
@@ -203,10 +204,16 @@ def apply(params, u, cfg: ModelConfig, rc: RunConfig,
     On a mesh whose model axis splits ``ssm_inner`` the block runs on
     this rank's channels (:func:`_apply_tp`); elsewhere every model rank
     runs it whole (``common.replicated_block``).  With ``seq_parallel``
-    ``u`` is this rank's block of the sequence and so is the result."""
+    ``u`` is this rank's block of the sequence and so is the result;
+    ``gathered`` is then the whole sequence where the caller has already
+    all-gathered it (a prefill, which reads it for the final state too;
+    no gradient reaches ``u`` through it)."""
     tp = inner_split(cfg.d_model, cfg.d_inner, rc)
     if tp is not None:
-        return _apply_tp(params, u, cfg, rc, tp, seq_parallel)
+        return _apply_tp(params, u, cfg, rc, tp, seq_parallel, gathered)
+    if gathered is not None:
+        return collectives.split(_apply(params, gathered, cfg, rc), 1,
+                                 "model", ambient_mesh())
     return replicated_block(lambda t: _apply(params, t, cfg, rc), u,
                             ambient_mesh(), seq_parallel)
 
@@ -240,7 +247,7 @@ def _head_view(lo: int, hi: int, P: int) -> Tuple[int, int, int]:
 
 
 def _apply_tp(params, u, cfg: ModelConfig, rc: RunConfig, tp,
-              seq_parallel: bool):
+              seq_parallel: bool, gathered=None):
     """``apply`` with ``ssm_inner`` split over the model axis: this rank
     holds channels [lo, hi) of the inner width (the conv, the out norm's
     scale, ``bc_proj``'s and ``dt_proj``'s rows, ``out_proj``'s rows) and
@@ -262,7 +269,8 @@ def _apply_tp(params, u, cfg: ModelConfig, rc: RunConfig, tp,
     di, nh, N = dims(cfg)
     P = di // nh
     h0, H, Pl = _head_view(lo, hi, P)
-    col = column_input(u, torch.float32, mesh, seq_parallel)
+    col = column_input(u, torch.float32, mesh, seq_parallel) \
+        if gathered is None else (lambda: gathered)
     x, z = regroup_halves(dense_apply(params["in_proj"], col()), mesh)
     B, S, _ = x.shape
     c = _chunk(rc, S)
@@ -310,7 +318,13 @@ def ssd_reference(params, u, cfg: ModelConfig):
 def decode_step(params, u, state: SsmState, cfg: ModelConfig,
                 rc: RunConfig):
     """One-token decode.  u [B,1,d] -> (y [B,1,d], state); the state is
-    updated in place and returned."""
+    updated in place and returned.  On a mesh whose model axis splits
+    ``ssm_inner`` the conv tail is this rank's channels and the SSD state
+    whole (:func:`_decode_tp`); elsewhere every rank steps the whole
+    block."""
+    tp = inner_split(cfg.d_model, cfg.d_inner, rc)
+    if tp is not None:
+        return _decode_tp(params, u, state, cfg, tp)
     B = u.shape[0]
     x, z, di, nh, N, P = _project(params, u, cfg)
     # conv over (tail ++ current)
@@ -322,12 +336,92 @@ def decode_step(params, u, state: SsmState, cfg: ModelConfig,
 
     Bm, Cm = torch.split(dense_apply(params["bc_proj"], xc)[:, 0], N, dim=-1)
     dt, log_decay = _gates(params, xc, nh)                         # [B,1,H]
+    y = _state_step(params, state, xc, Bm, Cm, dt, log_decay, nh, P)
+    return _post(params, y.to(u.dtype).reshape(B, 1, di), z, cfg), state
+
+
+def _state_step(params, state: SsmState, xc, Bm, Cm, dt, log_decay,
+                nh: int, P: int):
+    """The SSD state's one-token update (in place) from the whole conv'd
+    input ``xc`` [B,1,di], B and C [B,N], dt and the log decay [B,1,H];
+    returns y [B,H,P] float32 with the D skip."""
+    B = xc.shape[0]
     a = torch.exp(log_decay[:, 0])                                 # [B,H]
     xh = xc.reshape(B, nh, P).float() * dt[:, 0, :, None]
     s = state.s * a[:, :, None, None] + torch.einsum(
         "bn,bhp->bhnp", Bm.float(), xh)
     state.s.copy_(s)
     y = torch.einsum("bn,bhnp->bhp", Cm.float(), s)
-    y = y + xc.reshape(B, nh, P).float() \
+    return y + xc.reshape(B, nh, P).float() \
         * params["d_skip"].float()[None, :, None]
-    return _post(params, y.to(u.dtype).reshape(B, 1, di), z, cfg), state
+
+
+def _decode_tp(params, u, state: SsmState, cfg: ModelConfig, tp):
+    """``decode_step`` with ``ssm_inner`` split over the model axis: the
+    rank's ``[x | z]`` channels (``common.regroup_halves``) and its conv
+    tail; B, C and dt whole (``common.row_parallel_psum``).  The SSD
+    state is whole on every rank, as the reference keeps it (its ``s``
+    has no model axis), and every rank updates it whole from the conv'd
+    input gathered over the model axis (B x d_inner in the activation
+    dtype: the state itself is never gathered); the rank keeps its
+    channels of y, whose out norm sums its squares over the model axis,
+    into the row-parallel ``out_proj``."""
+    mesh, lo, hi = tp
+    di, nh, N = dims(cfg)
+    P = di // nh
+    B = u.shape[0]
+    x, z = regroup_halves(dense_apply(params["in_proj"], u), mesh)
+    window = torch.cat([state.conv.to(x.dtype), x], dim=1)
+    xc = torch.einsum("bwd,wd->bd", window.float(),
+                      params["conv_w"].float()) + params["conv_b"].float()
+    xc = F.silu(xc).to(x.dtype)[:, None, :]                       # [B,1,c]
+    state.conv.copy_(window[:, 1:, :])
+    Bm, Cm = torch.split(row_parallel_psum(params["bc_proj"], xc)[:, 0], N,
+                         dim=-1)
+    dt = F.softplus(row_parallel_psum(params["dt_proj"], xc).float())
+    log_decay = dt * -torch.exp(params["a_log"].float())[None, None, :]
+    xw = collectives.all_gather(xc, 2, ("model",), mesh)          # [B,1,di]
+    y = _state_step(params, state, xw, Bm, Cm, dt, log_decay, nh, P)
+    y = y.reshape(B, 1, di)[..., lo:hi].to(u.dtype)
+    y = rms_norm_split(params["out_norm"],
+                       y * F.silu(z.float()).to(y.dtype), di, mesh,
+                       eps=cfg.norm_eps)
+    return dense_apply(params["out_proj"], y, row_parallel=True), state
+
+
+def final_state(params, u, cfg: ModelConfig, rc: RunConfig) -> SsmState:
+    """(s, conv tail) after the whole prompt ``u`` [B,S,d]: the carried
+    state from one product over S, the last W-1 inputs of the conv in
+    bf16.
+
+    On a mesh whose model axis splits ``ssm_inner`` each rank forms the
+    state of its channels (a cut head's block of channels is a head of
+    its own to the product, as in :func:`_ssd`) and the state, whole over
+    the model axis in the reference's layout, is all-gathered (B x H x N
+    x P float32 a layer), not its inputs (the projected sequence, ~1000
+    times larger at jamba's prefill_32k); the conv tail stays the rank's
+    channels."""
+    mesh = ambient_mesh()
+    tp = inner_split(cfg.d_model, cfg.d_inner, rc)
+    di, nh, N = dims(cfg)
+    P = di // nh
+    if tp is None:
+        x, lo, proj = _project(params, u, cfg)[0], 0, dense_apply
+    else:
+        x = regroup_halves(dense_apply(params["in_proj"], u), mesh)[0]
+        lo, proj = tp[1], row_parallel_psum
+    B, S, c = x.shape
+    xc = _conv_act(params, x)
+    Bm = torch.split(proj(params["bc_proj"], xc), N, dim=-1)[0]
+    dt = F.softplus(proj(params["dt_proj"], xc).float())          # [B,S,H]
+    log_decay = dt * -torch.exp(params["a_log"].float())[None, None, :]
+    cum = torch.cumsum(log_decay, dim=1)                          # [B,S,H]
+    w = torch.exp(cum[:, -1:, :] - cum)                           # [B,S,H]
+    head = (lo + torch.arange(c, device=x.device)) // P          # [c]
+    xh = xc.float() * dt[..., head] * w[..., head]                # [B,S,c]
+    s = torch.einsum("bsn,bsc->bnc", Bm.float(), xh)
+    if tp is not None:
+        s = collectives.all_gather(s, 2, ("model",), mesh)
+    s = s.reshape(B, N, nh, P).transpose(1, 2)
+    conv_tail = x[:, S - (cfg.ssm_conv_width - 1):, :].to(torch.bfloat16)
+    return SsmState(s=s, conv=conv_tail)

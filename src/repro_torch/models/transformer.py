@@ -45,23 +45,28 @@ Exposes:
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.models import attention, mlp, moe, ssm, xlstm
-from repro_torch.models.common import (MetaGenerator, dense_apply,
+from repro_torch.models.common import (MetaGenerator, Static, dense_apply,
                                        norm_apply, norm_axes, norm_init,
                                        reduce_dtype, replicated, stack_axes,
-                                       trunc_normal, tree_map)
+                                       tree_flatten_with_path, tree_map,
+                                       tree_unflatten, trunc_normal)
 from repro_torch.models.config import (ATTN, MAMBA, MLP_DENSE, MLP_MOE,
                                        MLSTM, SLSTM, LayerSpec, ModelConfig)
 from repro_torch.parallel import collectives
-from repro_torch.parallel.sharding import (ambient_mesh, compute_range,
+from repro_torch.parallel.sharding import (Placement, ambient_mesh,
+                                           compute_range,
+                                           data_parallel_size,
                                            gather_weights_for_compute,
+                                           logical_to_spec,
                                            sequence_parallel_on,
-                                           shard_activation)
+                                           shard_activation, shardings_for)
 from repro_torch.runconfig import RunConfig
 
 # ---------------------------------------------------------------------------
@@ -186,16 +191,19 @@ def _norm(p, x, cfg: ModelConfig, sp: bool):
 
 
 def _block_mlp(spec: LayerSpec, p, x, cfg: ModelConfig, rc: RunConfig,
-               sp: bool = False):
+               sp: bool = False, moe_axes=None):
     """The block's MLP half (pre-norm residual).  Returns (x, aux): the
-    MoE auxiliary loss, 0.0 for a dense MLP or none."""
+    MoE auxiliary loss, 0.0 for a dense MLP or none.  ``moe_axes`` are
+    the data axes whose ranks hold other tokens (``moe.apply``'s
+    ``data_axes``; None: the batch's axes)."""
     aux = 0.0
     if spec.mlp == MLP_DENSE:
         h = _norm(p["norm2"], x, cfg, sp)
         x = x + mlp.apply(p["mlp"], h, cfg, rc, seq_parallel=sp)
     elif spec.mlp == MLP_MOE:
         h = _norm(p["norm2"], x, cfg, sp)
-        y, aux = moe.apply(p["moe"], h, cfg, rc, seq_parallel=sp)
+        y, aux = moe.apply(p["moe"], h, cfg, rc, seq_parallel=sp,
+                           data_axes=moe_axes)
         x = x + y
     return x, aux
 
@@ -266,22 +274,14 @@ def backbone(params, x, positions, cfg: ModelConfig, rc: RunConfig):
     input) stays that block; the positions are whole."""
     act_dtype = torch.bfloat16 if rc.activation_dtype == "bfloat16" \
         else torch.float32
-    mesh = ambient_mesh()
     S = positions.shape[-1]
-    sp = sequence_parallel_on(rc.shard, mesh, S)
-    if mesh is not None:
-        pattern_axes = [_pos_axes(spec, cfg) for spec in cfg.pattern]
-        pattern_shapes = [_group(s, 0) for s in param_shapes(cfg)["layers"]]
+    sp = sequence_parallel_on(rc.shard, ambient_mesh(), S)
 
     def group_body(x, aux, g: int):
         x = shard_activation(x, ("batch", "seq", "embed"), rc.shard, S)
         for p_i, spec in enumerate(cfg.pattern):
-            p = _group(params["layers"][p_i], g)
-            if mesh is not None:
-                # ZeRO-3: stream this position's weights in
-                p = gather_weights_for_compute(
-                    p, pattern_axes[p_i], rc.shard, pattern_shapes[p_i],
-                    _grad_dtype(rc))
+            # ZeRO-3: stream this position's weights in
+            p = _layer_weights(params, p_i, g, cfg, rc)
             x, a = _block_forward(spec, p, x, positions, cfg, rc, sp)
             aux = aux + a
         return x.to(act_dtype), aux
@@ -371,21 +371,40 @@ def _default_positions(B: int, S: int, device):
         .expand(B, S)
 
 
+def _gather_top(params, cfg: ModelConfig, rc: RunConfig):
+    """``params`` with the embedding, the head and the final norm
+    gathered for compute on a mesh (ZeRO-3; the layers are gathered one
+    position at a time where they run); ``params`` off a mesh."""
+    if ambient_mesh() is None:
+        return params
+    top = {k: v for k, v in params.items() if k != "layers"}
+    top_axes = {k: v for k, v in axes(cfg).items() if k != "layers"}
+    top_shapes = {k: v for k, v in param_shapes(cfg).items()
+                  if k != "layers"}
+    return {**params, **gather_weights_for_compute(
+        top, top_axes, rc.shard, top_shapes, _grad_dtype(rc))}
+
+
+def _layer_weights(params, p_i: int, g: int, cfg: ModelConfig,
+                   rc: RunConfig):
+    """Group ``g``'s weights of pattern position ``p_i``, gathered for
+    compute on a mesh (``gather_weights_for_compute``)."""
+    p = _group(params["layers"][p_i], g)
+    if ambient_mesh() is None:
+        return p
+    return gather_weights_for_compute(
+        p, _pos_axes(cfg.pattern[p_i], cfg), rc.shard,
+        _group(param_shapes(cfg)["layers"][p_i], 0), _grad_dtype(rc))
+
+
 def forward(params, tokens, cfg: ModelConfig, rc: RunConfig,
             positions: Optional[torch.Tensor] = None):
     """tokens [B,S] int -> (logits [B,S,V] f32, MoE aux loss)."""
     B, S = tokens.shape
     if positions is None:
         positions = _default_positions(B, S, tokens.device)
-    mesh = ambient_mesh()
-    sp = sequence_parallel_on(rc.shard, mesh, S)
-    if mesh is not None:
-        top = {k: v for k, v in params.items() if k != "layers"}
-        top_axes = {k: v for k, v in axes(cfg).items() if k != "layers"}
-        top_shapes = {k: v for k, v in param_shapes(cfg).items()
-                      if k != "layers"}
-        params = {**params, **gather_weights_for_compute(
-            top, top_axes, rc.shard, top_shapes, _grad_dtype(rc))}
+    sp = sequence_parallel_on(rc.shard, ambient_mesh(), S)
+    params = _gather_top(params, cfg, rc)
     x = embed(params, tokens, cfg, rc, sp)
     x = shard_activation(x, ("batch", "seq", "embed"), rc.shard, S)
     x, aux = backbone(params, x, positions, cfg, rc)
@@ -440,6 +459,16 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 # decode state
 # ---------------------------------------------------------------------------
 
+@dataclass(frozen=True)
+class ServeShape(Static):
+    """The global batch and cache length whose blocks a decode state on a
+    mesh holds: a rank's leaves are blocks, and which rows, positions and
+    heads they are follows from the global shape through the placements
+    (the reference's arrays carry it; a block cannot say it)."""
+    batch: int
+    s_max: int
+
+
 class DecodeState(NamedTuple):
     """Per-pattern-position stacked caches / states + current length."""
     slots: Tuple[Any, ...]      # one entry per pattern position, every
@@ -447,6 +476,15 @@ class DecodeState(NamedTuple):
                                 # (layout per rc), an SsmState, an
                                 # MlstmState or an SlstmState
     pos: torch.Tensor           # [B] int32: tokens consumed per slot
+
+
+class MeshDecodeState(NamedTuple):
+    """A rank's blocks of a ``DecodeState`` on a mesh: the same leaves,
+    and the global shape they are blocks of (a ``Static`` node, no
+    leaf)."""
+    slots: Tuple[Any, ...]
+    pos: torch.Tensor
+    global_shape: ServeShape
 
 
 def _pos_state(spec: LayerSpec, batch: int, s_max: int, cfg: ModelConfig,
@@ -491,44 +529,143 @@ def init_decode_state(batch: int, s_max: int, cfg: ModelConfig,
                                        device=device))
 
 
+def decode_state_placements(batch: int, s_max: int, cfg: ModelConfig,
+                            rc: RunConfig, mesh) -> DecodeState:
+    """Each leaf's ``Placement`` in a decode state of ``batch`` rows and
+    ``s_max`` positions on ``mesh``: the reference's ``shardings_for(
+    decode_state_axes)`` under its guard (a dim that does not divide its
+    mesh axes is whole and releases them: ``kv_seq`` takes ``data`` under
+    ``shard_kv_seq`` only where ``batch`` did not)."""
+    shapes = init_decode_state(batch, s_max, cfg, rc, device="meta")
+    return shardings_for(shapes, decode_state_axes(cfg, rc),
+                         rc.shard.resolve(mesh), mesh)
+
+
+def init_local_decode_state(batch: int, s_max: int, cfg: ModelConfig,
+                            rc: RunConfig, mesh, *,
+                            device) -> MeshDecodeState:
+    """This rank's blocks of the empty decode state of ``batch`` rows and
+    ``s_max`` positions on ``mesh``, each leaf made at its
+    ``Placement.local_shape`` (no global leaf is built): zeros, the
+    xLSTM stabilisers ``m`` at ``xlstm.NEG_INF``, as
+    :func:`init_decode_state` fills them."""
+    shapes = init_decode_state(batch, s_max, cfg, rc, device="meta")
+    pairs, treedef = tree_flatten_with_path(shapes)
+    pls = tree_flatten_with_path(decode_state_placements(
+        batch, s_max, cfg, rc, mesh))[0]
+    out = [torch.full(pl.local_shape(tuple(sh.shape)),
+                      xlstm.NEG_INF if path[-1] == "m" else 0,
+                      dtype=sh.dtype, device=device)
+           for (path, sh), (_, pl) in zip(pairs, pls)]
+    return MeshDecodeState(*tree_unflatten(treedef, out),
+                           ServeShape(batch, s_max))
+
+
+def serve_rows(batch: int, rc: RunConfig, mesh) -> slice:
+    """The rows of a global ``batch`` a rank of ``mesh`` serves: its data
+    block where the batch divides the batch's mesh axes, else every row
+    (the guard: long_500k's B = 1 is whole on every data rank)."""
+    spec = logical_to_spec(("batch",), rc.shard.resolve(mesh), mesh,
+                           (batch,))
+    return Placement.of(mesh, spec).index((batch,), mesh.rank)[0]
+
+
+class _Serving(NamedTuple):
+    """Where a rank's serving blocks lie on the ambient mesh: its attention
+    caches' ``CacheBlock`` and the data axes whose ranks hold other rows
+    (``moe.apply``'s ``data_axes``: none where the batch is whole on
+    every data rank)."""
+    block: Optional[attention.CacheBlock]
+    moe_axes: Optional[Tuple[str, ...]]
+
+
+def _serving(shape: ServeShape, rows: int, cfg: ModelConfig,
+             rc: RunConfig) -> _Serving:
+    """The ambient mesh's ``_Serving`` for a state of global ``shape``
+    whose rank holds ``rows`` rows (checked); off a mesh, none."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return _Serving(None, None)
+    if shape is None:
+        raise ValueError("a decode state on a mesh holds blocks of a global "
+                         "shape: make it with init_local_decode_state or "
+                         "prefill on the mesh")
+    want = serve_rows(shape.batch, rc, mesh)
+    if want.stop - want.start != rows:
+        raise ValueError(f"{rows} rows on rank {mesh.rank}; a global batch "
+                         f"of {shape.batch} gives it rows [{want.start}, "
+                         f"{want.stop})")
+    split = want.stop - want.start < shape.batch
+    return _Serving(attention.cache_block(cfg, rc, mesh, shape.batch,
+                                          shape.s_max),
+                    None if split else ())
+
+
+def _serve_logits(params, x, cfg: ModelConfig, rc: RunConfig):
+    """float32 logits [B, 1, V] of the last hidden states ``x``, over the
+    whole vocab (the reference's ``unembed`` without a run config: a
+    float32 product): with the vocab split over the model axis, the
+    rank's columns all-gathered over it, so a caller's argmax is one
+    process's."""
+    y = unembed(params, x, cfg)
+    if _vocab_range(cfg, rc) is not None:
+        y = collectives.all_gather(y, y.dim() - 1, ("model",),
+                                   ambient_mesh())
+    return y
+
+
 # ---------------------------------------------------------------------------
 # decode step (and prefill)
 # ---------------------------------------------------------------------------
 
 def _block_decode(spec: LayerSpec, p, x, slot, pos, cfg: ModelConfig,
-                  rc: RunConfig):
+                  rc: RunConfig, serving: _Serving):
     """One block of one token; ``slot`` (this group's views of the
     position's cache or state) is updated in place."""
     h = norm_apply(p["norm1"], x, kind=cfg.norm, eps=cfg.norm_eps)
     if spec.kind == ATTN:
         h, _, _ = attention.decode_apply(p["attn"], h, *slot, pos, cfg, rc,
-                                         window=spec.sliding_window)
+                                         window=spec.sliding_window,
+                                         block=serving.block)
     elif spec.kind == MAMBA:
         h, _ = ssm.decode_step(p["mamba"], h, slot, cfg, rc)
     elif spec.kind == MLSTM:
         h, _ = xlstm.mlstm_decode_step(p["mlstm"], h, slot, cfg, rc)
     else:
         h, _ = xlstm.slstm_decode_step(p["slstm"], h, slot, cfg, rc)
-    return _block_mlp(spec, p, x + h, cfg, rc)[0]
+    return _block_mlp(spec, p, x + h, cfg, rc, moe_axes=serving.moe_axes)[0]
 
 
 def decode_step(params, token, state: DecodeState, cfg: ModelConfig,
                 rc: RunConfig):
     """token [B,1] int -> (logits [B,1,V], new state).  The caches and
     recurrent states are updated in place; the new state shares them and
-    has ``pos + 1``."""
-    x = embed(params, token, cfg)
+    has ``pos + 1``.
+
+    Under an ambient mesh ``params`` are this rank's blocks, ``state`` a
+    ``MeshDecodeState`` (from ``init_local_decode_state`` or ``prefill``
+    on the mesh: its blocks of a state of ``state.global_shape``) and
+    ``token``
+    its rows (``serve_rows``); each layer's weights are gathered for
+    compute where FSDP stores them split, the blocks run their
+    tensor-parallel decode forms, and the logits are the rank's rows over
+    the whole vocab (``_serve_logits``)."""
     pos = state.pos
+    serving = _serving(getattr(state, "global_shape", None), token.shape[0],
+                       cfg, rc)
+    params = _gather_top(params, cfg, rc)
+    x = embed(params, token, cfg, rc)
     for g in range(cfg.n_groups):
         for p_i, spec in enumerate(cfg.pattern):
-            x = _block_decode(spec, _group(params["layers"][p_i], g), x,
-                              _group(state.slots[p_i], g), pos, cfg, rc)
+            x = _block_decode(spec, _layer_weights(params, p_i, g, cfg, rc),
+                              x, _group(state.slots[p_i], g), pos, cfg, rc,
+                              serving)
     x = norm_apply(params["final_norm"], x, kind=cfg.norm, eps=cfg.norm_eps)
-    logits = unembed(params, x, cfg)
-    return logits, DecodeState(slots=state.slots, pos=pos + 1)
+    return _serve_logits(params, x, cfg, rc), state._replace(pos=pos + 1)
 
 
-def prefill(params, tokens, s_max: int, cfg: ModelConfig, rc: RunConfig):
+def prefill(params, tokens, s_max: int, cfg: ModelConfig, rc: RunConfig,
+            batch: Optional[int] = None):
     """Run the prompt through the stack, filling caches and states.
 
     Returns (last-token logits [B,1,V], DecodeState at pos=S).
@@ -539,83 +676,95 @@ def prefill(params, tokens, s_max: int, cfg: ModelConfig, rc: RunConfig):
     state comes from one product over S; an sLSTM layer's time loop
     leaves its final state.  The states are written into the slots in
     place; the MoE aux loss is dropped.
+
+    Under an ambient mesh ``tokens`` are this rank's rows of a global
+    batch of ``batch`` rows (default: the rows times the data-parallel
+    size, as a train step's batch; ``serve_rows`` decides, and the rows
+    given are checked against it), ``params`` its blocks; the state
+    comes back as its blocks (``init_local_decode_state``) and the logits
+    as its rows over the whole vocab.  Each layer runs its train-path
+    form (FSDP's gathers, the column- and row-parallel projections, the
+    vocab-parallel embedding, sequence parallelism where the knob and
+    the length ask for it); the cache block is filled with the kv heads
+    it holds (``attention.project_kv``), and a recurrent layer's final
+    state is its reference layout's block (``ssm.final_state``,
+    ``xlstm.mlstm_prefill``, ``xlstm.slstm_prefill``).
     """
     B, S = tokens.shape
     dev = tokens.device
+    mesh = ambient_mesh()
+    if mesh is None:
+        state = init_decode_state(B, s_max, cfg, rc, device=dev)
+    else:
+        batch = batch if batch is not None \
+            else B * data_parallel_size(rc.shard)
+        state = init_local_decode_state(batch, s_max, cfg, rc, mesh,
+                                        device=dev)
+    serving = _serving(getattr(state, "global_shape", None), B, cfg, rc)
     positions = _default_positions(B, S, dev)
-    x = embed(params, tokens, cfg)
-    state = init_decode_state(B, s_max, cfg, rc, device=dev)
+    sp = sequence_parallel_on(rc.shard, mesh, S)
+    params = _gather_top(params, cfg, rc)
+    x = embed(params, tokens, cfg, rc, sp)
     for g in range(cfg.n_groups):
+        x = shard_activation(x, ("batch", "seq", "embed"), rc.shard, S)
         for p_i, spec in enumerate(cfg.pattern):
-            p = _group(params["layers"][p_i], g)
+            p = _layer_weights(params, p_i, g, cfg, rc)
             slot = _group(state.slots[p_i], g)
-            h = norm_apply(p["norm1"], x, kind=cfg.norm, eps=cfg.norm_eps)
+            h = _norm(p["norm1"], x, cfg, sp)
             if spec.kind == ATTN:
-                k, v = attention.project_kv(p["attn"], h, positions, cfg)
+                heads = None if serving.block is None else serving.block.heads
+                k, v = attention.project_kv(p["attn"], h, positions, cfg,
+                                            rc=rc, heads=heads,
+                                            seq_parallel=sp)
+                if serving.block is not None:
+                    k, v = (t[:, serving.block.seq] for t in (k, v))
                 attention.fill_cache(slot[0], k, rc)
                 attention.fill_cache(slot[1], v, rc)
                 y = attention.apply(p["attn"], h, positions, cfg, rc,
-                                    causal=True, window=spec.sliding_window)
+                                    causal=True, window=spec.sliding_window,
+                                    seq_parallel=sp)
             else:
-                prefill_fn = {MAMBA: _ssm_prefill, MLSTM: _mlstm_prefill,
-                              SLSTM: _slstm_prefill}[spec.kind]
-                y, final = prefill_fn(p[spec.kind], h, cfg, rc)
+                # the whole sequence, where the rank holds a block of it
+                hw = collectives.all_gather(h, 1, ("model",), mesh) \
+                    if sp and spec.kind != MLSTM else h
+                if spec.kind == MAMBA:
+                    y = ssm.apply(p["mamba"], h, cfg, rc, seq_parallel=sp,
+                                  gathered=hw if sp else None)
+                    final = _ssm_final_state(p["mamba"], hw, cfg, rc)
+                elif spec.kind == MLSTM:
+                    y, final = xlstm.mlstm_prefill(p["mlstm"], h, cfg, rc, sp)
+                else:
+                    y, final = _slstm_prefill(p["slstm"], hw, cfg, rc)
+                    if sp:
+                        y = collectives.split(y, 1, "model", mesh)
                 for dst, src in zip(slot, final):
                     dst.copy_(src)
-            x, _ = _block_mlp(spec, p, x + y, cfg, rc)
-    x = norm_apply(params["final_norm"], x, kind=cfg.norm, eps=cfg.norm_eps)
-    logits = unembed(params, x[:, -1:], cfg)
-    return logits, DecodeState(
-        slots=state.slots,
+            x, _ = _block_mlp(spec, p, x + y, cfg, rc, sp, serving.moe_axes)
+    x = _norm(params["final_norm"], x, cfg, sp)[:, -1:]
+    if sp:              # the last model rank's block holds the last token
+        x = collectives.all_gather(x, 1, ("model",), mesh)[:, -1:]
+    logits = _serve_logits(params, x, cfg, rc)
+    return logits, state._replace(
         pos=torch.full((B,), S, dtype=torch.int32, device=dev))
 
 
-def _ssm_prefill(p, h, cfg: ModelConfig, rc: RunConfig):
-    """The chunked SSD sequence pass and its final state."""
-    return ssm.apply(p, h, cfg, rc), _ssm_final_state(p, h, cfg, rc)
-
-
 def _ssm_final_state(p, h, cfg: ModelConfig, rc: RunConfig) -> ssm.SsmState:
-    """(s, conv tail) after the whole prompt: the carried state from one
-    product over S, the last W-1 inputs of the conv in bf16."""
-    B, S, _ = h.shape
-    x, z, di, nh, N, P = ssm._project(p, h, cfg)
-    xc = ssm._conv_act(p, x)
-    Bm = torch.split(dense_apply(p["bc_proj"], xc), N, dim=-1)[0]
-    dt, log_decay = ssm._gates(p, xc, nh)
-    xh = xc.reshape(B, S, nh, P).float() * dt[..., None]
-    cum = torch.cumsum(log_decay, dim=1)                    # [B,S,H]
-    w = torch.exp(cum[:, -1:, :] - cum)                     # [B,S,H]
-    s = torch.einsum("bsn,bshp->bhnp", Bm.float(), xh * w[..., None])
-    conv_tail = x[:, S - (cfg.ssm_conv_width - 1):, :].to(torch.bfloat16)
-    return ssm.SsmState(s=s, conv=conv_tail)
-
-
-def _mlstm_prefill(p, h, cfg: ModelConfig, rc: RunConfig):
-    """The mLSTM sequence pass and its final state.  The projections are
-    computed once and shared; the reference computes the same
-    deterministic values twice."""
-    qkvg = xlstm._mlstm_qkvg(p, h, cfg)
-    y = xlstm.mlstm_chunked(p, h, qkvg, cfg, rc)
-    return y, _mlstm_final_state(p, h, cfg, qkvg)
+    """A mamba layer's state after the whole prompt ``h``
+    (``ssm.final_state``)."""
+    return ssm.final_state(p, h, cfg, rc)
 
 
 def _mlstm_final_state(p, h, cfg: ModelConfig, qkvg=None) -> xlstm.MlstmState:
-    """(C, n, m) after the whole prompt, from one product over S."""
-    q, k, v, logi, logf, z = qkvg if qkvg is not None \
-        else xlstm._mlstm_qkvg(p, h, cfg)
-    kf, vf = k.float(), v.float()
-    cum = torch.cumsum(logf, dim=1)                         # [B,S,H]
-    total = cum[:, -1, :]                                   # [B,H]
-    scores = total[:, None, :] - cum + logi                 # [B,S,H]
-    m = scores.amax(dim=1)                                  # [B,H]
-    wk = torch.exp(scores - m[:, None, :])
-    c = torch.einsum("bshp,bshr->bhpr", kf * wk[..., None], vf)
-    n = torch.einsum("bshp,bsh->bhp", kf, wk)
-    return xlstm.MlstmState(c=c, n=n, m=m)
+    """(C, n, m) after the whole prompt, from one product over S
+    (``xlstm.mlstm_final_state``; ``qkvg`` the projections when the
+    caller has them)."""
+    return xlstm.mlstm_final_state(
+        qkvg if qkvg is not None else xlstm._mlstm_qkvg(p, h, cfg))
 
 
 def _slstm_prefill(p, h, cfg: ModelConfig, rc: RunConfig):
-    """The sLSTM time loop; returns its output and final state."""
+    """The sLSTM time loop over the whole prompt ``h``; returns its output
+    and final state.  On a mesh every model rank runs it whole, as in
+    training (``xlstm.slstm_apply``)."""
     hs, final = xlstm.slstm_scan(p, h, cfg)
-    return xlstm._slstm_out(p, hs.to(h.dtype), cfg), final
+    return xlstm._slstm_out(p, hs.to(h.dtype), cfg, rc), final

@@ -228,17 +228,19 @@ def _mlstm_qkvg_tp(params, u, cfg: ModelConfig, tp, seq_parallel: bool):
 
 
 def _mlstm_apply_tp(params, u, cfg: ModelConfig, rc: RunConfig, tp,
-                    seq_parallel: bool):
+                    seq_parallel: bool, qkvg=None):
     """``mlstm_apply`` with ``ssm_inner`` split over the model axis
     (:func:`_mlstm_qkvg_tp`): the kernel runs on the rank's heads (a cut
     head whole, on every rank of its group: ROADMAP C), the rank keeps its
     channels of h, the out norm sums its squares over the model axis
     (``common.rms_norm_split``) and ``down`` is row-parallel, its sums
-    reduce-scattered along the sequence under ``seq_parallel``."""
+    reduce-scattered along the sequence under ``seq_parallel``.  ``qkvg``
+    is :func:`_mlstm_qkvg_tp`'s result when the caller has it (prefill
+    shares it with the final state)."""
     mesh, lo, hi = tp
     di, nh, P = mlstm_dims(cfg)
-    q, k, v, logi, logf, z = _mlstm_qkvg_tp(params, u, cfg, tp,
-                                            seq_parallel)
+    q, k, v, logi, logf, z = qkvg if qkvg is not None else _mlstm_qkvg_tp(
+        params, u, cfg, tp, seq_parallel)
     B, S = q.shape[:2]
     h = mlstm_ops.mlstm_chunk(q, k, v, logi, logf, chunk=rc.mlstm_chunk)
     base = (lo // P) * P
@@ -260,10 +262,22 @@ def mlstm_reference(params, u, cfg: ModelConfig):
 def mlstm_decode_step(params, u, state: MlstmState, cfg: ModelConfig,
                       rc: RunConfig):
     """One-token mLSTM decode.  u [B,1,d].  ``state`` is updated in place
-    and returned."""
+    and returned.  On a mesh whose model axis splits ``ssm_inner`` the
+    projections are the rank's and the state whole
+    (:func:`_mlstm_decode_tp`)."""
     B = u.shape[0]
     di, nh, P = mlstm_dims(cfg)
+    tp = inner_split(cfg.d_model, di, rc)
+    if tp is not None:
+        return _mlstm_decode_tp(params, u, state, cfg, tp)
     q, k, v, logi, logf, z = _mlstm_qkvg(params, u, cfg)
+    h = _mlstm_state_step(state, q, k, v, logi, logf)
+    return _mlstm_out(params, h.reshape(B, 1, nh, P), z, u, cfg), state
+
+
+def _mlstm_state_step(state: MlstmState, q, k, v, logi, logf):
+    """The (C, n, m) update of one token (in place) at every head:
+    q, k, v [B,1,H,P], the gates [B,1,H]; returns h [B,H,P] float32."""
     qf, kf, vf = (t[:, 0].float() for t in (q, k, v))
     lf_t, li_t = logf[:, 0], logi[:, 0]
     m_new = torch.maximum(lf_t + state.m, li_t)
@@ -276,8 +290,83 @@ def mlstm_decode_step(params, u, state: MlstmState, cfg: ModelConfig,
     num = torch.einsum("bhp,bhpr->bhr", qf, c)
     den = torch.maximum(torch.abs(torch.einsum("bhp,bhp->bh", n, qf)),
                         torch.exp(-m_new))
-    h = (num / den[..., None]).reshape(B, 1, nh, P)
-    return _mlstm_out(params, h, z, u, cfg), state
+    return num / den[..., None]
+
+
+def _mlstm_decode_tp(params, u, state: MlstmState, cfg: ModelConfig, tp):
+    """``mlstm_decode_step`` with ``ssm_inner`` split over the model
+    axis.  The state (C, n, m) has no model axis in the reference's
+    layout: every rank updates it whole, from the token's q, k and v at
+    every head and the gates, each the row-parallel float32 sum whole on
+    every rank (``common.row_parallel_psum``: B x d_inner each); the rank
+    keeps its channels of h into the split out norm and the row-parallel
+    ``down``."""
+    mesh, lo, hi = tp
+    di, nh, P = mlstm_dims(cfg)
+    B = u.shape[0]
+    x, z = regroup_halves(dense_apply(params["up"], u), mesh)
+
+    def every_head(name):
+        return row_parallel_psum(params[name], x).reshape(B, 1, nh, P)
+    q = every_head("q")
+    k = every_head("k") / math.sqrt(P)
+    v = every_head("v")
+    logi = row_parallel_psum(params["igate"], x).float()
+    logf = -F.softplus(-row_parallel_psum(params["fgate"], x).float())
+    h = _mlstm_state_step(state, q, k, v, logi, logf)
+    h = h.reshape(B, 1, di)[..., lo:hi].to(z.dtype)
+    h = rms_norm_split(params["out_norm"],
+                       h * F.silu(z.float()).to(z.dtype), di, mesh,
+                       eps=cfg.norm_eps)
+    return dense_apply(params["down"], h, row_parallel=True), state
+
+
+def mlstm_final_state(qkvg) -> MlstmState:
+    """(C, n, m) after the whole prompt, from one product over S, at the
+    heads of the projected inputs ``qkvg`` (``_mlstm_qkvg``'s, or a
+    rank's ``_mlstm_qkvg_tp``'s)."""
+    q, k, v, logi, logf, z = qkvg
+    kf, vf = k.float(), v.float()
+    cum = torch.cumsum(logf, dim=1)                         # [B,S,H]
+    total = cum[:, -1, :]                                   # [B,H]
+    scores = total[:, None, :] - cum + logi                 # [B,S,H]
+    m = scores.amax(dim=1)                                  # [B,H]
+    wk = torch.exp(scores - m[:, None, :])
+    c = torch.einsum("bshp,bshr->bhpr", kf * wk[..., None], vf)
+    n = torch.einsum("bshp,bsh->bhp", kf, wk)
+    return MlstmState(c=c, n=n, m=m)
+
+
+def mlstm_prefill(params, u, cfg: ModelConfig, rc: RunConfig,
+                  seq_parallel: bool = False):
+    """The mLSTM sequence pass and its final state (the projections
+    computed once and shared; the reference computes the same
+    deterministic values twice).  On a mesh whose model axis splits
+    ``ssm_inner`` the rank's heads' state (a cut head's whole, on every
+    rank of its group) is all-gathered over the model axis into the
+    whole state of the reference's layout (its heads a rank, or one of
+    each group's copies of a cut head); elsewhere every rank runs the
+    block whole."""
+    di, nh, P = mlstm_dims(cfg)
+    tp = inner_split(cfg.d_model, di, rc)
+    mesh = ambient_mesh()
+    if tp is None:
+        def whole(t):
+            qkvg = _mlstm_qkvg(params, t, cfg)
+            return mlstm_chunked(params, t, qkvg, cfg, rc), \
+                mlstm_final_state(qkvg)
+        if not seq_parallel:
+            return whole(u)
+        y, st = whole(collectives.all_gather(u, 1, ("model",), mesh))
+        return collectives.split(y, 1, "model", mesh), st
+    qkvg = _mlstm_qkvg_tp(params, u, cfg, tp, seq_parallel)
+    y = _mlstm_apply_tp(params, u, cfg, rc, tp, seq_parallel, qkvg)
+    st = mlstm_final_state(qkvg)
+    _, lo, hi = tp
+    stride = max(P // (hi - lo), 1)          # ranks a cut head spans
+    st = MlstmState(*(collectives.all_gather(t, 1, ("model",), mesh)
+                      [:, ::stride] for t in st))
+    return y, st
 
 
 # ---------------------------------------------------------------------------
@@ -437,4 +526,6 @@ def slstm_decode_step(params, u, state: SlstmState, cfg: ModelConfig,
     new = _slstm_cell(params, x_gates, state, cfg)
     for dst, src in zip(state, new):
         dst.copy_(src)
-    return _slstm_out(params, state.h[:, None, :].to(u.dtype), cfg), state
+    return _slstm_out(params, state.h[:, None, :].to(u.dtype), cfg,
+                      rc), state
+

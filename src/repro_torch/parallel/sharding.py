@@ -127,10 +127,9 @@ DEFAULT_RULES = AxisRules(
     )
 )
 
-# ROADMAP items of the layouts the sharded step refuses on a mesh with
-# more than one rank along their axis
+# the ROADMAP item of the layout the sharded steps refuse on a mesh with
+# more than one rank
 WHISPER_ITEM = "ROADMAP A 18e (whisper)"
-SERVE_ITEM = "ROADMAP A 18f (prefill and decode under a mesh)"
 
 
 @dataclass(frozen=True)

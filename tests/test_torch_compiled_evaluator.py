@@ -231,14 +231,16 @@ def test_cpu_evaluator_runs_the_replica_share(monkeypatch):
 
 
 def test_a_refused_layout_is_a_failed_uncached_evaluation():
-    """A config that fails before anything is built (yi-6b's prefill_32k:
-    one layer does not fit the card, ``DoesNotFit``; no layout knob of a
-    train cell is refused on the chip since sequence parallelism was
-    ported) is a failed evaluation, not cached; the evaluator's explicit
-    chip share on a cell the layout does not cover fails with the
-    ``ValueError`` naming its ROADMAP item, the same way."""
+    """A config that fails before anything is built (yi-6b's prefill_32k
+    at one replica's share: one layer does not fit the card,
+    ``DoesNotFit``; at its default share, one chip's since prefill runs
+    under the mesh, it fits) is a failed evaluation, not cached; the
+    evaluator's explicit chip share on a cell the layout does not cover
+    fails with the ``ValueError`` naming its ROADMAP item, the same
+    way."""
     ev = CompiledEvaluator(get_config("yi-6b"),
-                           SHAPES_BY_NAME["prefill_32k"], device="cpu")
+                           SHAPES_BY_NAME["prefill_32k"], device="cpu",
+                           share="replica")
     svc = as_service(ev)
     try:
         (res,) = svc.gather(svc.submit([EvalRequest(

@@ -344,6 +344,42 @@ def test_chip_estimate_counts_the_chips_blocks():
                             seq=4096, mesh=mesh) == cfg.n_layers
 
 
+def test_serving_estimate_counts_the_build_the_stream_and_the_reads(
+        monkeypatch):
+    """A serving cell's estimate at one chip's share is at least its build
+    (the largest leaf drawn in float32 beside the state: jamba's
+    long_500k chip peaks there), a prefill's counts the layer's stream
+    copies, and decode's reads only the kv heads the chip's q heads
+    read (yi-6b's 2 q heads read 1 of the cache's 4)."""
+    mesh = dryrun.production_chip()
+    jamba, long = get_config("jamba-1.5-large-398b"), SHAPES_BY_NAME[
+        "long_500k"]
+    rc = dryrun.default_runconfig(jamba, long)
+    state, _, largest = dryrun._chip_state(jamba, rc, mesh, False)
+    est = dryrun.estimate_bytes(jamba, rc, "decode", 1, long.seq_len, mesh,
+                                1)
+    assert est == state + dryrun.INIT_TEMPORARIES * largest
+    yi = get_config("yi-6b").scaled(n_layers=1)
+    cell = SHAPES_BY_NAME["prefill_32k"]
+    rc = dryrun.default_runconfig(yi, cell, {"attention_impl": "flash"})
+    B, S = 2, cell.seq_len
+    est = dryrun.estimate_bytes(yi, rc, "prefill", B, S, mesh, 32)
+    monkeypatch.setattr(dryrun, "SERVE_STREAM_COPIES",
+                        {"activation": 0, "float32": 0})
+    assert est - dryrun.estimate_bytes(yi, rc, "prefill", B, S, mesh, 32) \
+        == B * S * yi.d_model * (4 * 2 + 4 * 4)
+    monkeypatch.undo()
+    cell = SHAPES_BY_NAME["decode_32k"]
+    rc = dryrun.default_runconfig(yi, cell)
+    bf16, int8 = (dryrun.estimate_bytes(yi, r, "decode", 8, cell.seq_len,
+                                        mesh, 128)
+                  for r in (rc, rc.replace(kv_cache_dtype="int8")))
+    cache = 2 * 8 * cell.seq_len * yi.kv_dim           # whole over model
+    # an int8 cache holds a byte an element, and decode dequantizes the
+    # one kv head it reads to bf16 (2 x 8 x S x 128 x 2 bytes)
+    assert bf16 - int8 == cache - 2 * 8 * cell.seq_len * 128 * 2
+
+
 def test_compile_cell_cuts_depth_and_records_it():
     cfg = get_smoke_config("yi-6b").scaled(n_layers=4)
     rec = dryrun.compile_cell(cfg, SHAPES_BY_NAME["prefill_32k"],

@@ -15,7 +15,9 @@ its score is the measured step combined with them.  With no depth given,
 the family default of yi-6b's train_4k replica share (16 x 4096 tokens)
 runs at ``dryrun.cell_depth``'s depth within the card's memory and
 within the estimate that chose it, and the chip's share at full depth
-within 0.9 of the card.
+within 0.9 of the card.  So do serving cells at the chip's share
+(``SERVE_CELLS``), each at the depth ``cell_depth`` chose from the
+estimate: the peak and the estimate are printed side by side.
 """
 
 import pytest
@@ -116,5 +118,43 @@ def test_chip_share_cell_depth_fits_the_card(cuda):
     assert rec["n_layers"] == dryrun.cell_depth(cfg, cell) == cfg.n_layers
     assert rec["batch"] == 16 and rec["seq_len"] == 4096
     assert rec["memory"]["max_memory_allocated_gb"] * 2**30 \
+        <= dryrun.FIT_FRACTION * 80e9
+    assert rec["outputs_finite"]
+
+
+# serving cells at one chip's share, each run at the depth the estimate
+# chose: dense prefill (chunked and flash), GQA decode over a cache whole
+# over the model axis, MoE prefill, mLSTM decode, and the hybrid's long
+# decode with the cache's sequence over the data axis
+SERVE_CELLS = [("yi-6b", "prefill_32k", None),
+               ("yi-6b", "prefill_32k", {"attention_impl": "flash"}),
+               ("yi-6b", "decode_32k", None),
+               ("mistral-nemo-12b", "decode_32k", None),
+               ("qwen2-moe-a2.7b", "prefill_32k", None),
+               ("xlstm-1.3b", "decode_32k", None),
+               ("jamba-1.5-large-398b", "long_500k", None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,shape,knobs", SERVE_CELLS,
+                         ids=[f"{a}-{s}" + ("-flash" if k else "")
+                              for a, s, k in SERVE_CELLS])
+def test_serving_chip_share_depth_fits_within_its_estimate(cuda, arch,
+                                                          shape, knobs):
+    cfg, cell = get_config(arch), SHAPES_BY_NAME[shape]
+    # what the card holds before the cell (cuBLAS's workspace, once a
+    # product ran) is not the cell's
+    before = torch.cuda.memory_allocated(cuda) / 2**30
+    rec = dryrun.compile_cell(cfg, cell, knobs, device=cuda, steps=1)
+    mem = rec["memory"]
+    print(f"{arch} {shape} {knobs or ''}: {rec['n_layers']} of "
+          f"{cfg.n_layers} layers, peak {mem['max_memory_allocated_gb']:.6f}"
+          f" GiB ({before:.6f} of it before the cell), estimated "
+          f"{mem['estimated_gb']:.6f} GiB, step "
+          f"{rec['measured_step_s']:.6f} s on {rec['card']}")
+    assert rec["share"] == "chip" and rec["reduced"] == []
+    assert rec["n_layers"] == dryrun.cell_depth(cfg, cell)
+    assert mem["max_memory_allocated_gb"] - before <= mem["estimated_gb"]
+    assert mem["max_memory_allocated_gb"] * 2**30 \
         <= dryrun.FIT_FRACTION * 80e9
     assert rec["outputs_finite"]

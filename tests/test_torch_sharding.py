@@ -41,7 +41,7 @@ from repro_torch.launch.mesh import make_virtual_mesh
 from repro_torch.models import attention, common, mlp, moe, ssm, transformer
 from repro_torch.models import whisper, xlstm
 from repro_torch.models.common import tree_flatten
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, init_local_decode_state
 from repro_torch.parallel import sharding as sh
 from repro_torch.parallel.sharding import (ShardConfig, flatten_axes,
                                            set_ambient_mesh,
@@ -312,7 +312,10 @@ def test_unported_layouts_are_refused_on_a_mesh(what, arch, mesh, shard,
     knobs ported since (``"runs"``: sequence parallelism, ``shard_kv_seq``
     on a train step), the MoE families (expert parallelism) and the SSM
     families (``ssm_inner``) take a train step on that mesh instead (its
-    chip (0, 0) as a virtual mesh, whose collectives act locally)."""
+    chip (0, 0) as a virtual mesh, whose collectives act locally), and
+    prefill and decode serve there (the chip's blocks of the weights and
+    of the decode state, its rows of the batch: finite logits over the
+    whole vocab)."""
     cfg = get_smoke_config(arch)
     model = Model(cfg, device="cpu")
     rc = RunConfig(param_dtype="float32", activation_dtype="float32",
@@ -329,6 +332,22 @@ def test_unported_layouts_are_refused_on_a_mesh(what, arch, mesh, shard,
             _, mets = ttl.make_train_step(model, rc)(state, batch)
         assert torch.isfinite(mets["loss"]) and torch.isfinite(
             mets["grad_norm"])
+        return
+    if call in ("prefill", "decode"):
+        vm = make_virtual_mesh(tuple(mesh.values()), device="cpu")
+        glob = B * vm.shape["data"]
+        with vm:
+            params = model.init_blocks(0, ttl.param_placements(model, rc),
+                                       vm.rank, dtype=torch.float32)
+            if call == "prefill":
+                logits, _ = model.prefill(params, {"tokens": toks}, 16, rc,
+                                          batch=glob)
+            else:
+                state = init_local_decode_state(model, glob, 16, rc)
+                logits, _ = model.decode_step(params, toks[:, :1], state,
+                                              rc)
+        assert logits.shape == (B, 1, cfg.vocab_size)
+        assert torch.isfinite(logits).all()
         return
     params = model.init(0, dtype=torch.float32)
     if cfg.is_encoder_decoder:

@@ -69,8 +69,7 @@ from repro_torch.models.config import SHAPES_BY_NAME
 from repro_torch.models.model import Model
 from repro_torch.models.moe import EXPERT_AXES, _expert_ff
 from repro_torch.parallel import collectives
-from repro_torch.parallel.sharding import (SERVE_ITEM, WHISPER_ITEM,
-                                           compute_range)
+from repro_torch.parallel.sharding import WHISPER_ITEM, compute_range
 from repro_torch.runconfig import runconfig_from_knobs
 from repro_torch.train import optimizer as topt
 from repro_torch.train import train_loop as ttl
@@ -302,17 +301,21 @@ def test_ssm_step_matches_reference(runs, case, mesh):
 
 def test_ssm_train_cells_run_at_the_chip_share():
     """xlstm-1.3b's and jamba's train cells are covered on the chip (no
-    ROADMAP item), serving and whisper still are not, and at full width
-    the chip holds one of jamba's 16 experts (``experts`` over the model
-    axis of 16, the path of expert parallelism)."""
+    ROADMAP item), their serving cells too (prefill and decode under the
+    mesh), whisper's still are not, and at full width the chip holds one
+    of jamba's 16 experts (``experts`` over the model axis of 16, the path
+    of expert parallelism)."""
     cell = SHAPES_BY_NAME["train_4k"]
     for arch in (X, J):
         cfg = get_config(arch)
         rc = dryrun.default_runconfig(cfg, cell)
         assert dryrun.layout_covers(cfg, cell, rc) is None
         assert dryrun.resolve_share(cfg, cell) == "chip"
-        assert dryrun.layout_covers(cfg, SHAPES_BY_NAME["prefill_32k"],
-                                    rc) == SERVE_ITEM
+        for shape in ("prefill_32k", "long_500k"):
+            serve = SHAPES_BY_NAME[shape]
+            assert dryrun.layout_covers(cfg, serve, dryrun.default_runconfig(
+                cfg, serve)) is None
+            assert dryrun.resolve_share(cfg, serve) == "chip"
     whisper = get_config("whisper-tiny")
     assert dryrun.layout_covers(whisper, cell, dryrun.default_runconfig(
         whisper, cell)) == WHISPER_ITEM

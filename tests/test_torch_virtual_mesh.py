@@ -18,6 +18,16 @@ the virtual backend of ``parallel/collectives.py``), on the CPU.
     state's bytes and the flash calls (their q / k shapes) and launch
     counters must be equal, exactly: they depend on shapes only, and the
     virtual collectives allocate the real results' shapes.
+(a') The same for serving: one counted ``Model.prefill`` or
+    ``decode_step`` of each decoder-only family's smoke config on the
+    virtual 2 x 2 chip against gloo rank 0
+    (``torch_sharded_worker.serve_count_cases``; the weights from
+    ``init_blocks``, the decode state from ``init_local_decode_state``):
+    flash prefill with and without sequence parallelism, decode with FSDP
+    on and off and under ``shard_kv_seq`` at B = 1 (the flash-decode
+    combine), the MoE families, the xLSTM's prefill (its mLSTM calls
+    counted) and decode, jamba's prefill and long decode: the same exact
+    equalities, and the logits' shape.
 (b) A virtual 16 x 16 step at smoke width: the state is drawn block by
     block (no sharded leaf's global shape is ever allocated), every leaf
     is its ``Placement.local_shape``, and the step's loss is finite and
@@ -25,7 +35,8 @@ the virtual backend of ``parallel/collectives.py``), on the CPU.
 (c) For every architecture and applicable shape (smoke configs, family
     default), ``dryrun.layout_covers`` names exactly the ROADMAP item
     that a virtual 2 x 2 step (train, prefill or decode) raises, and
-    None where it runs; ``compile_cell(share="chip")`` refuses the others
+    None where it runs (every decoder-only family's cells: their logits
+    finite); ``compile_cell(share="chip")`` refuses the others (whisper's)
     with that item before anything is built.
 (d) Against the reference: ``repro.launch.dryrun.lower_cell`` on a 2 x 2
     auto-axis mesh of forced CPU devices, compiled and read by
@@ -43,6 +54,20 @@ the virtual backend of ``parallel/collectives.py``), on the CPU.
     ``coll_by_kind`` are printed; they differ (XLA all-gathers the FSDP
     weights again for the backward and per microbatch, and all-reduces
     the gradients where the port reduce-scatters them: ROADMAP C).
+(d') The serving cells against the reference's ``lower_cell`` HLO the
+    same way (``REF_SERVE_CASES``, a 4 x 16 cell, 1 x 16 for B = 1).
+    Decode meets the reference's FLOPs exactly where nothing is
+    recurrent; every other gap is pinned (``REF_SERVE_GAP``) and is
+    design, each term counted from the two programs' products: a
+    prefill's cache fill projects k and v again (XLA computes the
+    identical dot once); a mamba layer's final state projects ``in_proj``
+    again and the chunked SSD's last carried-state product, dead in the
+    sequence pass, is computed; the reference's mLSTM final state
+    projects k, v and the gates again and forms both heads on every
+    device, where the port shares the projections and forms its head's
+    state and gathers it; in decode the port updates a recurrent state
+    whole on every model rank (the reference's layout keeps it whole),
+    where XLA splits the update's per-head products over the model axis.
 (e) ``report_from_counts`` with collectives equals ``analyze_hlo`` on a
     synthetic HLO that holds each collective kind.
 (f) The three primitives' virtual rules and the byte counter.
@@ -71,7 +96,9 @@ from repro_torch.models.config import (SHAPES_BY_NAME, ShapeCell,
                                        applicable_shapes)
 from repro_torch.models.model import Model
 from repro_torch.parallel import collectives
-from repro_torch.parallel.sharding import SERVE_ITEM, WHISPER_ITEM
+from repro_torch.models import transformer
+from repro_torch.models.model import init_local_decode_state
+from repro_torch.parallel.sharding import WHISPER_ITEM
 from repro_torch.runconfig import runconfig_from_knobs
 from repro_torch.train import optimizer as topt
 from repro_torch.train import train_loop as ttl
@@ -223,6 +250,67 @@ def test_virtual_chip_counts_what_rank0_counts(gloo_rank0, case):
     assert np.isfinite(loss) and np.isfinite(real["loss"])
 
 
+# the serving cases: name -> (arch, mode, knobs, global batch)
+SERVE_CASES = {
+    "serve-yi-prefill-flash": ("yi-6b", "prefill",
+                               {"attention_impl": "flash"}, B),
+    "serve-yi-prefill-sp": ("yi-6b", "prefill",
+                            {"attention_impl": "flash",
+                             "sequence_parallel": True}, B),
+    "serve-yi-decode": ("yi-6b", "decode", {"fsdp_shard_params": False}, B),
+    "serve-yi-decode-fsdp": ("yi-6b", "decode", {}, B),
+    "serve-yi-decode-kvseq-b1": ("yi-6b", "decode", {"shard_kv_seq": True},
+                                 1),
+    "serve-qwen-moe-prefill": ("qwen2-moe-a2.7b", "prefill", {}, B),
+    "serve-grok-decode": ("grok-1-314b", "decode", {}, B),
+    "serve-xlstm-prefill": ("xlstm-1.3b", "prefill", {}, B),
+    "serve-xlstm-decode": ("xlstm-1.3b", "decode", {}, B),
+    "serve-jamba-prefill": ("jamba-1.5-large-398b", "prefill", {}, B),
+    "serve-jamba-decode-kvseq-b1": ("jamba-1.5-large-398b", "decode",
+                                    {"shard_kv_seq": True}, 1),
+}
+
+
+@pytest.fixture(scope="module")
+def gloo_rank0_serving(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("virtual-serve")
+    specs = []
+    for name, (arch, mode, knobs, batch) in SERVE_CASES.items():
+        data = tmp / f"{name}.npz"
+        np.savez(data, batch_tokens=_batch(get_smoke_config(arch))
+                 ["tokens"][:batch])
+        specs.append({"name": name, "arch": arch, "mode": mode,
+                      "knobs": knobs, "global_batch": batch, "s_max": S,
+                      "data": str(data)})
+    spec_path = tmp / "cases.json"
+    spec_path.write_text(json.dumps(specs))
+    out = tmp / "rank0.json"
+    spawn(worker.serve_count_cases, (2, 2), (str(spec_path), str(out)),
+          device="cpu", timeout_s=SPAWN_TIMEOUT_S)
+    return {s["name"]: s for s in specs}, json.loads(out.read_text())
+
+
+@pytest.mark.parametrize("case", list(SERVE_CASES))
+def test_virtual_chip_serves_what_rank0_serves(gloo_rank0_serving, case):
+    specs, got = gloo_rank0_serving
+    with make_virtual_mesh((2, 2), device="cpu") as mesh:
+        want, _ = worker.serve_count_case(specs[case], mesh)
+    real = got[case]
+    assert real["flops"] == want["flops"] > 0
+    for k in ("coll_by_kind", "shapes", "bytes", "flash_calls",
+              "mlstm_calls", "logits_shape"):
+        assert real[k] == want[k], k
+    arch, mode, knobs, batch = SERVE_CASES[case]
+    rows = batch // 2 if batch % 2 == 0 else batch
+    assert want["logits_shape"] == [rows, 1,
+                                    get_smoke_config(arch).vocab_size]
+    assert bool(want["flash_calls"]) == (knobs.get("attention_impl")
+                                         == "flash")
+    assert bool(want["mlstm_calls"]) == (arch == "xlstm-1.3b"
+                                         and mode == "prefill")
+    assert real["finite"]
+
+
 # ---------------------------------------------------------------------------
 # (b) the production mesh's chip at smoke width
 # ---------------------------------------------------------------------------
@@ -299,7 +387,9 @@ def test_init_blocks_keeps_the_global_scale():
 
 def _virtual_refusal(cfg, cell):
     """The ROADMAP item a virtual 2 x 2 step of the cell raises, or None
-    when it runs (its loss, or its logits, finite)."""
+    when it runs (its loss, or its logits, finite): a serving cell's
+    prefill of its rows, or one decode step against an empty state of
+    the cell's blocks."""
     rc = dryrun.default_runconfig(cfg, cell)
     model = Model(cfg, device="cpu")
     toks = torch.from_numpy(_batch(cfg)["tokens"])
@@ -315,21 +405,28 @@ def _virtual_refusal(cfg, cell):
                 _, mets = ttl.make_train_step(model, rc)(state, batch)
                 assert np.isfinite(float(mets["loss"]))
                 return None
-            params = model.init(0)
-            inputs = {"tokens": toks[:2]}
+            rows = toks[transformer.serve_rows(B, rc, mesh)]
+            inputs = {"tokens": rows}
+            params = None
             if cfg.is_encoder_decoder:
                 inputs["frames"] = torch.zeros(
                     (2, cfg.encoder_seq, cfg.d_model), dtype=torch.bfloat16)
-            if cell.mode == "prefill":
-                model.prefill(params, inputs, S, rc)
             else:
-                model.decode_step(params, toks[:2, :1], None, rc)
-            raise AssertionError(f"{cell.mode} ran on a mesh")
+                params = model.init_blocks(
+                    0, ttl.param_placements(model, rc, mesh), mesh.rank)
+            if cell.mode == "prefill":
+                logits, _ = model.prefill(params, inputs, S, rc, batch=B)
+            else:
+                state = None if cfg.is_encoder_decoder else \
+                    init_local_decode_state(model, B, S, rc, mesh)
+                logits, _ = model.decode_step(params, rows[:, :1], state,
+                                              rc)
+            assert torch.isfinite(logits).all()
+            assert logits.shape == (rows.shape[0], 1, cfg.vocab_size)
+            return None
     except ValueError as e:
-        items = [it for it in (SERVE_ITEM, WHISPER_ITEM)
-                 if str(e).endswith(it)]
-        assert len(items) == 1, str(e)
-        return items[0]
+        assert str(e).endswith(WHISPER_ITEM), str(e)
+        return WHISPER_ITEM
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -413,6 +510,86 @@ def test_chip_flops_meet_the_reference(reference_counts, name, arch, knobs):
     if name not in REF_GAP:
         assert abs(counts.flops - ref["flops"]) <= FLOPS_REL * ref["flops"]
     assert np.isfinite(float(loss))
+
+
+# the serving cells against the reference's compiled HLO: (name, arch,
+# mode, knobs, global batch) at a cell of REF_CELL's sequence length
+REF_SERVE_CASES = (
+    ("yi-prefill", "yi-6b", "prefill", {}, 4),
+    ("yi-prefill-flash-sp", "yi-6b", "prefill",
+     {"attention_impl": "flash", "sequence_parallel": True}, 4),
+    ("yi-decode", "yi-6b", "decode", {}, 4),
+    ("yi-decode-kvseq-b1", "yi-6b", "decode", {"shard_kv_seq": True}, 1),
+    ("qwen-moe-prefill", "qwen2-moe-a2.7b", "prefill", {}, 4),
+    ("qwen-moe-decode", "qwen2-moe-a2.7b", "decode", {}, 4),
+    ("grok-decode", "grok-1-314b", "decode", {}, 4),
+    ("xlstm-prefill", "xlstm-1.3b", "prefill", {}, 4),
+    ("xlstm-decode", "xlstm-1.3b", "decode", {}, 4),
+    ("jamba-prefill", "jamba-1.5-large-398b", "prefill", {}, 4),
+    ("jamba-decode", "jamba-1.5-large-398b", "decode", {}, 4),
+)
+# reference minus port FLOPs by design (module docstring (d')), at the
+# smoke configs' widths, 2 rows of 16 tokens a chip (B = 4 over data 2):
+# an attention layer's cache fill projects k and v again, 2 x 2·B·S·d x
+# kv_dim / 2 = 131,072 (yi-6b, 2 layers) or 262,144 (qwen2-moe's 4 kv
+# heads, 2 layers) a layer; a mamba layer's final state projects in_proj
+# again (2·B·S·d x 2·d_inner / 2 = 524,288) and the SSD's last carried
+# state (2·B·S·N x d_inner / 2 = 32,768) is dead in the sequence pass:
+# 557,056 a layer, 7 layers, with jamba's attention layer's 131,072; the
+# reference's mLSTM final state projects k and v (2 x 524,288) and the
+# gates (16,384) again and forms the other head's C and n (262,144 +
+# 4,096), less the chunkwise's dead last carried state (262,144) and an
+# n product (4,096) of the port's: +1,064,960 a layer, 7 layers; in
+# decode the port updates the whole recurrent state on each model rank,
+# XLA half of its per-head products: the mLSTM's other head's C q and
+# n q, 2·B·P·(P + 1) = 16,640 a layer (7), mamba's C s, 2·B·N·d_inner / 2
+# = 2,048 a layer (7)
+REF_SERVE_GAP = {"yi-prefill": -262144, "yi-prefill-flash-sp": -262144,
+                 "qwen-moe-prefill": -524288,
+                 "xlstm-prefill": 7 * 1064960, "xlstm-decode": -7 * 16640,
+                 "jamba-prefill": -7 * 557056 - 131072,
+                 "jamba-decode": -7 * 2048}
+
+
+@pytest.fixture(scope="module")
+def reference_serve_counts(tmp_path_factory):
+    spec = tmp_path_factory.mktemp("reference-serve") / "runs.json"
+    seq, _ = REF_CELL
+    spec.write_text(json.dumps([
+        {"name": name, "arch": arch, "knobs": knobs, "seq": seq,
+         "batch": batch, "mode": mode}
+        for name, arch, mode, knobs, batch in REF_SERVE_CASES]))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "tests" / "torch_virtual_reference.py"),
+         str(spec)], capture_output=True, text=True, env=env,
+        timeout=REFERENCE_TIMEOUT_S, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name,arch,mode,knobs,batch", REF_SERVE_CASES,
+                         ids=[c[0] for c in REF_SERVE_CASES])
+def test_chip_serving_flops_meet_the_reference(reference_serve_counts, name,
+                                               arch, mode, knobs, batch):
+    cfg = get_smoke_config(arch)
+    seq, _ = REF_CELL
+    cell = ShapeCell("tiny", seq_len=seq, global_batch=batch, mode=mode)
+    rc = dryrun.default_runconfig(cfg, cell, knobs)
+    mesh = make_virtual_mesh((2, 2), device="cpu")
+    low = dryrun.lower_cell(cfg, cell, rc, mesh, device="cpu",
+                            n_layers=cfg.n_layers)
+    counts, logits = roofline.count_step(low.step)
+    ref = reference_serve_counts[name]
+    print(f"{name}: port coll_by_kind {counts.coll_by_kind}, reference "
+          f"{ref['coll_by_kind']}")
+    gap = REF_SERVE_GAP.get(name, 0)
+    assert ref["flops"] - counts.flops == gap
+    if not gap:
+        assert abs(counts.flops - ref["flops"]) <= FLOPS_REL * ref["flops"]
+    assert torch.isfinite(logits).all()
 
 
 # ---------------------------------------------------------------------------

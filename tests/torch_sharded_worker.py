@@ -16,7 +16,23 @@ for every case, this rank's state drawn block by block
 (``train_loop.init_local_state``) and one ``make_train_step`` step on
 its rows of the batch under ``launch.roofline.count_step``.  Rank 0
 writes its counts (FLOPs, collective bytes by kind, each state leaf's
-shape and bytes) and the step's loss to ``out_path`` (JSON)."""
+shape and bytes) and the step's loss to ``out_path`` (JSON).
+
+``serve_cases(mesh, spec_path, out_path)``
+(``test_torch_serve_parallel.py``): for every case, this rank's blocks of
+the case's float32 parameters, ``Model.prefill`` of its rows of the
+global prompt (``transformer.serve_rows``), then ``n_decode``
+``Model.decode_step`` s on its rows of the following tokens.  Rank 0
+writes the logits (gathered over the data axes where the batch is split)
+and the decode state gathered after the prefill and after the last step
+(``.npz``, leaves in ``tree_flatten`` order).
+
+``serve_count_cases(mesh, spec_path, out_path)``
+(``test_torch_virtual_mesh.py``): for every serving case, the rank's
+parameters drawn block by block (``Model.init_blocks``) and one counted
+prefill, or one counted decode step against a state from
+``init_local_decode_state`` at ``pos = s_max - 1``; rank 0 writes the
+counts as ``count_cases`` does."""
 
 import dataclasses
 import json
@@ -29,7 +45,12 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
 from repro_torch.launch.roofline import count_step
 from repro_torch.models.common import tree_flatten, tree_unflatten
-from repro_torch.models.model import Model, gather_tree, gather_tree_to_host
+from repro_torch.models import transformer
+from repro_torch.models.model import (Model, decode_state_placements,
+                                      gather_tree, gather_tree_to_host,
+                                      init_local_decode_state, shard_tree)
+from repro_torch.parallel import collectives
+from repro_torch.parallel.sharding import batch_axes
 from repro_torch.runconfig import runconfig_from_knobs
 from repro_torch.train import optimizer as topt
 from repro_torch.train import train_loop as ttl
@@ -97,7 +118,8 @@ def count_cases(mesh, spec_path, out_path):
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
-    return x.detach().float().numpy()
+    """A float32 copy (a leaf updated in place later keeps this value)."""
+    return x.detach().float().numpy().copy()
 
 
 def case_config(spec):
@@ -160,3 +182,107 @@ def run_cases(mesh, spec_path, out_path):
             out[f"{name}/state_{i}"] = _np(x)
     if mesh.rank == 0:
         np.savez(out_path, **out)
+
+
+def _gather_rows(x, rc, mesh, batch):
+    """The global batch's rows of ``x`` (this rank's rows, dimension 0)
+    where the batch is split over the data axes; ``x`` where every data
+    rank holds every row."""
+    rows = transformer.serve_rows(batch, rc, mesh)
+    if rows.stop - rows.start == batch:
+        return x
+    return collectives.gather(x, 0, batch_axes(rc.shard, mesh), mesh)
+
+
+def serve_cases(mesh, spec_path, out_path):
+    torch.set_num_threads(1)
+    with open(spec_path) as f:
+        cases = json.load(f)
+    out = {}
+    for spec in cases:
+        model, rc, params, batch = load_case(spec)
+        name, B = spec["name"], spec["global_batch"]
+        local = shard_tree(params, ttl.param_placements(model, rc, mesh),
+                           mesh.rank)
+        tokens = batch["tokens"][transformer.serve_rows(B, rc, mesh)]
+        S, n = spec["prompt"], spec["decode"]
+        pls = decode_state_placements(model, B, spec["s_max"], rc, mesh)
+        with torch.no_grad():
+            logits, state = model.prefill(local, {"tokens": tokens[:, :S]},
+                                          spec["s_max"], rc, batch=B)
+            out[f"{name}/logits_0"] = _np(_gather_rows(logits, rc, mesh, B))
+            for i, x in enumerate(tree_flatten(gather_tree(state, pls))[0]):
+                out[f"{name}/prefill_{i}"] = _np(x)
+            for t in range(n):
+                logits, state = model.decode_step(
+                    local, tokens[:, S + t:S + t + 1], state, rc)
+                out[f"{name}/logits_{t + 1}"] = _np(
+                    _gather_rows(logits, rc, mesh, B))
+            for i, x in enumerate(tree_flatten(gather_tree(state, pls))[0]):
+                out[f"{name}/decode_{i}"] = _np(x)
+    if mesh.rank == 0:
+        np.savez(out_path, **out)
+
+
+def serve_count_case(spec, mesh):
+    """(counts, logits) of one counted serving step of a case on ``mesh``
+    (the ambient one): the rank's parameter blocks drawn by
+    ``init_blocks``, its rows of the prompt (prefill) or of one token
+    against an empty state at ``pos = s_max - 1`` (decode); the flash and
+    mLSTM wrappers' calls counted as ``count_case`` counts them."""
+    model = Model(case_config(spec), device="cpu")
+    rc = runconfig_from_knobs(spec["knobs"])
+    B, S = spec["global_batch"], spec["s_max"]
+    params = model.init_blocks(0, ttl.param_placements(model, rc, mesh),
+                               mesh.rank, dtype=torch.float32)
+    rows = transformer.serve_rows(B, rc, mesh)
+    with np.load(spec["data"]) as z:
+        tokens = torch.from_numpy(z["batch_tokens"])[rows]
+    if spec["mode"] == "prefill":
+        def step():
+            return model.prefill(params, {"tokens": tokens[:, :S]}, S, rc,
+                                 batch=B)
+        held = state_counts(params)
+    else:
+        state = init_local_decode_state(model, B, S, rc, mesh)
+        state = state._replace(pos=torch.full_like(state.pos, S - 1))
+        held = state_counts((params, state))
+
+        def step():
+            return model.decode_step(params, tokens[:, :1], state, rc)
+    calls, fn = [], flash_ops.flash_attention
+    m_calls, m_fn = [], mlstm_ops.mlstm_chunk
+
+    def counted(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape)))
+        return fn(q, k, v, **kw)
+
+    def m_counted(q, k, v, *args, **kw):
+        m_calls.append(tuple(q.shape))
+        return m_fn(q, k, v, *args, **kw)
+    flash_ops.flash_attention = counted
+    mlstm_ops.mlstm_chunk = m_counted
+    try:
+        with torch.no_grad():
+            counts, (logits, _) = count_step(step)
+    finally:
+        flash_ops.flash_attention = fn
+        mlstm_ops.mlstm_chunk = m_fn
+    return {"flops": counts.flops, "coll_by_kind": counts.coll_by_kind,
+            "flash_calls": [list(map(list, c)) for c in calls],
+            "mlstm_calls": [list(c) for c in m_calls],
+            "logits_shape": list(logits.shape), **held}, logits
+
+
+def serve_count_cases(mesh, spec_path, out_path):
+    torch.set_num_threads(1)
+    with open(spec_path) as f:
+        cases = json.load(f)
+    out = {}
+    for spec in cases:
+        counts, logits = serve_count_case(spec, mesh)
+        out[spec["name"]] = {**counts,
+                             "finite": bool(torch.isfinite(logits).all())}
+    if mesh.rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(out, f)

@@ -1,13 +1,14 @@
-"""The reference's per-device counts of a train cell on a 2 x 2 mesh, run
-in a process of its own.
+"""The reference's per-device counts of a cell on a 2 x 2 mesh, run in a
+process of its own.
 
     python tests/torch_virtual_reference.py SPEC.json
 
 ``repro.launch.dryrun`` forces 512 host devices when it is imported (its
 first lines set ``XLA_FLAGS``), so ``test_torch_virtual_mesh.py`` starts
 this script as a subprocess.  ``SPEC.json`` lists the runs: each names an
-architecture's smoke config, RunConfig knobs and a train cell's sequence
-length and global batch.  Each run lowers and compiles the cell with the
+architecture's smoke config (cut to the pattern positions ``keep`` when
+it names them), RunConfig knobs and a cell's sequence length, global
+batch and mode (``"train"`` by default; ``"prefill"`` or ``"decode"``).  Each run lowers and compiles the cell with the
 reference's own ``lower_cell`` on ``jax.sharding.Mesh(devices[:4]
 .reshape(2, 2), ("data", "model"))`` (the auto-axis mesh: explicit axes
 refuse the embedding gather) and reads the compiled HLO with
@@ -36,8 +37,12 @@ def main(spec_path):
     out = {}
     for r in runs:
         cfg = get_smoke_config(r["arch"])
+        keep = r.get("keep")
+        if keep:             # a depth cut: the pattern positions kept
+            cfg = cfg.scaled(n_layers=len(keep),
+                             pattern=tuple(cfg.pattern[i] for i in keep))
         cell = ShapeCell("tiny", seq_len=r["seq"], global_batch=r["batch"],
-                         mode="train")
+                         mode=r.get("mode", "train"))
         rc = dryrun.default_runconfig(cfg, cell, r["knobs"])
         with mesh:
             fn, args = dryrun.lower_cell(cfg, cell, rc, mesh)
